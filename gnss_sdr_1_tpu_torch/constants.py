@@ -1,0 +1,75 @@
+"""Per-signal GNSS constants (GPS L1 C/A).
+
+Reference parity: src/core/system_parameters/GPS_L1_CA.h,
+gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICD
+(IS-GPS-200).  Other signals and constellations are not carried by this
+package yet: `SIGNALS` holds GPS L1 C/A only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# --- physical constants (MATH_CONSTANTS.h / GPS_L1_CA.h) ---
+SPEED_OF_LIGHT_M_S = 299_792_458.0
+GPS_GM = 3.986005e14           # WGS-84 Earth gravitational constant [m^3/s^2]
+GPS_OMEGA_EARTH_DOT = 7.2921151467e-5  # WGS-84 Earth rotation rate [rad/s]
+GPS_F_RELATIVISTIC = -4.442807633e-10  # s/sqrt(m), clock relativistic term
+GPS_PI = 3.1415926535898       # ICD value of pi used in ephemeris math
+
+# Start offset added to RX time when forming pseudoranges
+# (ref: GPS_L1_CA.h:75 GPS_STARTOFFSET_MS = 60.0, used by
+#  hybrid_observables_gs.cc:483 compute_pranges).
+GNSS_STARTOFFSET_MS = 60.0
+
+# --- carrier frequencies (gnss_frequencies.h) ---
+FREQ_L1 = 1575.42e6
+
+
+@dataclasses.dataclass(frozen=True)
+class SignalSpec:
+    """Static description of one GNSS signal component.
+
+    Mirrors the per-signal constant headers of the reference
+    (e.g. GPS_L1_CA.h: code rate 1.023e6, 1023 chips, 1 ms period).
+    """
+
+    system: str              # 'GPS'
+    name: str                # e.g. 'L1CA'
+    signal_id: str           # 2-char config id used by reference confs: '1C'
+    carrier_freq_hz: float
+    code_rate_chips_s: float
+    code_length_chips: int
+    code_period_s: float
+    # Data/pilot structure
+    symbol_rate_sps: float   # navigation symbol rate (after any FEC)
+    bit_rate_bps: float      # navigation data bit rate
+    secondary_code_length: int = 0
+    has_pilot: bool = False
+
+    @property
+    def code_period_ms(self) -> float:
+        return self.code_period_s * 1e3
+
+    @property
+    def chips_per_symbol(self) -> float:
+        return self.code_rate_chips_s / self.symbol_rate_sps
+
+
+GPS_L1_CA = SignalSpec(
+    system="GPS", name="L1CA", signal_id="1C",
+    carrier_freq_hz=FREQ_L1,
+    code_rate_chips_s=1.023e6, code_length_chips=1023, code_period_s=1e-3,
+    symbol_rate_sps=50.0, bit_rate_bps=50.0,
+)
+
+# Registry keyed by the reference's 2-char signal ids
+SIGNALS: dict[str, SignalSpec] = {GPS_L1_CA.signal_id: GPS_L1_CA}
+
+
+# --- GPS LNAV framing (GPS_L1_CA.h / IS-GPS-200) ---
+GPS_CA_PREAMBLE_BITS = (1, 0, 0, 0, 1, 0, 1, 1)   # 8-bit TLM preamble
+GPS_WORD_BITS = 30
+GPS_SUBFRAME_BITS = 300
+GPS_SUBFRAME_MS = 6000
+GPS_WEEK_SECONDS = 604_800

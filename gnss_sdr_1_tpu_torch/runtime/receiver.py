@@ -1,0 +1,751 @@
+"""Segment-synchronous GPS L1 C/A receiver pipeline.
+
+Reference parity: ControlThread::run (control_thread.cc:239) +
+GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
+search list, acquisition -> channel assignment, tracking supervision with
+satellite recycling, telemetry/observables/PVT fan-in.  The data plane runs
+on the card (batched PCPS on torch.fft, the chunked tracking engine with
+its CUDA chain kernel); the lifecycle FSM stays on the host between
+capture segments.
+
+This package carries GPS L1 C/A ('1C') with PCPS acquisition and the
+DLL/PLL engine.  Streaming, checkpoint/resume, monitors, assistance, the
+KF engine and FDMA are not ported yet: ReceiverConfig refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..acquire import AcqConfig, PcpsAcquisition
+from ..codes import tracking_replica
+from ..constants import SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec
+from ..observables import (CarrierSmoother, ChannelEpochHistory,
+                           compute_observables)
+from ..pvt.solver import PvtSolution, solve_pvt
+from ..telemetry.decoder import LnavDecoder
+from ..track import TrackConfig, TrackingEngine
+
+log = logging.getLogger("gnss_sdr_1_tpu_torch.receiver")
+
+
+@dataclasses.dataclass
+class ReceiverConfig:
+    fs_hz: float = 4_000_000.0
+    signal_id: str = "1C"
+    n_channels: int = 8
+    prn_search: tuple[int, ...] = tuple(range(1, 33))
+    # acquisition
+    doppler_max_hz: float = 5000.0
+    doppler_step_hz: float = 250.0
+    acq_threshold: float = 2.0
+    acq_use_cfar: bool = False
+    acq_dwells: int = 2
+    acq_two_steps: bool = True
+    acq_bit_transition: bool = False
+    acq_tong: bool = False
+    acq_strategy: str = "pcps"
+    track_engine: str = "dll_pll"
+    doppler_step2_hz: float = 40.0
+    num_doppler_bins_step2: int = 10
+    # tracking
+    pll_bw_hz: float = 25.0
+    dll_bw_hz: float = 2.0
+    pll_bw_narrow_hz: float = 12.0
+    dll_bw_narrow_hz: float = 0.75
+    # states 3/4: coherent extension once telemetry reports bit sync
+    # (dll_pll_veml_tracking.cc:1774-1900); 0 disables the switch
+    extend_correlation_symbols: int = 20
+    enable_fll_pull_in: bool = False
+    pull_in_time_s: float = 0.3
+    early_late_space_chips: float = 0.5
+    very_early_late_space_chips: float = 0.6
+    # epochs per chunk of the tracking engine (one chain launch each)
+    chunk_epochs: int = 16
+    # per-channel satellite pinning (ChannelN.satellite=PRN,
+    # gnss_flowgraph.cc:1076-1090); empty = dynamic
+    channel_satellites: tuple = ()
+    fdma_k: tuple = ()
+    # pipeline
+    block_ms: int = 40
+    obs_interval_ms: int = 20
+    # PVT.output_rate_ms: solve at this rate while observables keep forming
+    # at obs_interval_ms; 0 -> solve at every observables tick
+    pvt_output_rate_ms: int = 0
+    reacq_interval_blocks: int = 25
+    iono_model: str = "broadcast"    # 'off' | 'broadcast' (Klobuchar)
+    trop_model: str = "off"          # 'off' | 'saastamoinen'
+    elevation_mask_deg: float = 5.0
+    pvt_weighted: bool = True
+    # Hatch carrier-smoothing window in observable epochs (0 disables)
+    carrier_smoothing_epochs: int = 25
+    raim: bool = True
+    raim_sigma_m: float = 2.5
+    positioning_mode: str = "Single"
+    enable_monitor: bool = False
+    enable_pvt_monitor: bool = False
+    # telemetry watchdog: release a channel after this many symbols without
+    # a decoded TOW (gps_l1_ca_telemetry_decoder_gs.cc:364); 0 disables
+    watchdog_symbols: int = 45000
+    # symbol-grid capture reduction once every active channel is bit-synced
+    # ('auto'); 'off' keeps the decimated per-epoch outputs
+    symbol_readback: str = "auto"
+
+    def __post_init__(self) -> None:
+        refused = {
+            "signal_id": (self.signal_id, "1C"),
+            "acq_strategy": (self.acq_strategy, "pcps"),
+            "track_engine": (self.track_engine, "dll_pll"),
+            "positioning_mode": (self.positioning_mode, "Single"),
+        }
+        for name, (got, only) in refused.items():
+            if got != only:
+                raise NotImplementedError(
+                    f"{name}={got!r} is not ported yet (only {only!r})")
+        for name in ("acq_tong", "fdma_k", "enable_monitor",
+                     "enable_pvt_monitor"):
+            if getattr(self, name):
+                raise NotImplementedError(f"{name} is not ported yet")
+
+    @property
+    def spec(self) -> SignalSpec:
+        return SIGNALS[self.signal_id]
+
+
+class Receiver:
+    """Single-constellation single-band receiver (GPS L1 C/A).
+
+    `device`: None runs the data plane on the card (and raises without
+    one); the CPU only when asked for (`device="cpu"`)."""
+
+    def __init__(self, cfg: ReceiverConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        spec = cfg.spec
+        fs = cfg.fs_hz
+        self.samples_per_code = int(round(fs * spec.code_period_s))
+        replicas = {p: tracking_replica(cfg.signal_id, p)
+                    for p in cfg.prn_search}
+        self._codes = {p: r[0] for p, r in replicas.items()}
+        virtual_rate, spc_code = next(iter(replicas.values()))[1:]
+        acq_cfg = AcqConfig(
+            fs_hz=fs,
+            samples_per_code=self.samples_per_code,
+            samples_per_chip=max(1, int(round(fs / spec.code_rate_chips_s))),
+            doppler_max_hz=cfg.doppler_max_hz,
+            doppler_step_hz=cfg.doppler_step_hz,
+            max_dwells=cfg.acq_dwells,
+            bit_transition_flag=cfg.acq_bit_transition,
+            use_cfar=cfg.acq_use_cfar,
+            threshold=cfg.acq_threshold,
+            make_two_steps=cfg.acq_two_steps,
+            doppler_step2_hz=cfg.doppler_step2_hz,
+            num_doppler_bins_step2=cfg.num_doppler_bins_step2,
+        )
+        self.acq = PcpsAcquisition(
+            acq_cfg, self._codes,
+            fs_code_rate=(virtual_rate, spec.code_length_chips * spc_code),
+            device=self.device)
+        # bit period in epochs — the coherent-extension alignment grid
+        self._sec_period = 20
+        self.trk = TrackingEngine(
+            TrackConfig(
+                fs_hz=fs,
+                code_length_chips=spec.code_length_chips,
+                chip_rate_chips_s=spec.code_rate_chips_s,
+                carrier_freq_hz=spec.carrier_freq_hz,
+                n_channels=cfg.n_channels,
+                code_samples_per_chip=spc_code,
+                pll_bw_hz=cfg.pll_bw_hz,
+                dll_bw_hz=cfg.dll_bw_hz,
+                pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
+                dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
+                extend_correlation_symbols=max(1, min(
+                    cfg.extend_correlation_symbols, self._sec_period)),
+                enable_fll_pull_in=cfg.enable_fll_pull_in,
+                pull_in_time_s=cfg.pull_in_time_s,
+                early_late_space_chips=cfg.early_late_space_chips,
+                very_early_late_space_chips=cfg.very_early_late_space_chips,
+                chunk_epochs=cfg.chunk_epochs,
+            ),
+            np.stack([self._codes[p] for p in self.acq.prns]),
+            device=self.device,
+        )
+        self._slot_of_prn = {p: i for i, p in enumerate(self.acq.prns)}
+
+        self.state = self.trk.init_state()
+        self.channel_prn: list[int | None] = [None] * cfg.n_channels
+        # host shadow of state.mode (host-written only; see _maybe_extend)
+        self._mode_host = np.zeros(cfg.n_channels, dtype=np.int32)
+        # consecutive acquisitions that assigned nothing while channels
+        # were idle (caps the pull-in segment gating when channels
+        # outnumber visible satellites); any channel release resets it
+        self._empty_acq_streak = 0
+        self.decoders: dict[int, LnavDecoder] = {}
+        self.histories: dict[int, ChannelEpochHistory] = {}
+        self.sym_count: dict[int, int] = {}
+        self.last_rem: dict[int, float] = {}
+        self.last_frac: dict[int, float] = {}
+        self.carrier_phase_acc: dict[int, float] = {}
+        self.last_carr_rem: dict[int, float] = {}
+        self._ledger_prev_start: dict[int, float] = {}
+        self.rx_tow_s: float | None = None
+        self.rx_tow_sample: int | None = None
+        self.solutions: list[PvtSolution] = []
+        self.obs_epochs: list[tuple[float, dict]] = []
+        self._pos = 0          # sample index of the next segment start
+        self._blocks_done = 0
+        self._next_obs_sample = None
+        self._no_tow_syms: dict[int, int] = {}
+        self.watchdog_trips = 0
+        self._acq_info: dict[int, tuple] = {}
+        self._samples_dev = None
+        self._ingest_scale = None
+        # symbol-readback carry: prn -> [sum_of_means, pending_epochs,
+        # phase_in_symbol, start_of_first_pending] (see _harvest_symbols)
+        self._sym_carry: dict[int, list] = {}
+        self._smoother = None
+        if cfg.carrier_smoothing_epochs > 0:
+            self._smoother = CarrierSmoother(
+                window=cfg.carrier_smoothing_epochs,
+                wavelength_m=SPEED_OF_LIGHT_M_S / spec.carrier_freq_hz)
+
+    # ---------------- channel lifecycle ----------------
+
+    def _acquire_and_assign(self, samples_abs_offset: int,
+                            samples: np.ndarray) -> None:
+        """Run acquisition on idle PRNs, assign positives to idle channels
+        (gnss_flowgraph.cc apply_action satellite recycling analogue)."""
+        idle_channels = [c for c, p in enumerate(self.channel_prn)
+                         if p is None]
+        if not idle_channels:
+            return
+        assigned: list[tuple[int, int]] = []
+        res = self.acq.acquire(samples, samplestamp=samples_abs_offset)
+        tracked = {p for p in self.channel_prn if p is not None}
+        pins = self.cfg.channel_satellites
+        order = np.argsort(-res.test_stat)
+        dops = np.array(res.doppler_hz, dtype=np.float64)
+        for k in order:
+            prn = self.acq.prns[k]
+            if not res.positive[k] or prn in tracked:
+                continue
+            if not idle_channels:
+                break
+            # pinned channels only accept their satellite, and get it
+            # preferentially (ChannelN.satellite, gnss_flowgraph.cc:1076)
+            ch = next((c for c in idle_channels
+                       if c < len(pins) and pins[c] == prn), None)
+            if ch is None:
+                ch = next((c for c in idle_channels
+                           if c >= len(pins) or pins[c] is None), None)
+            if ch is None:
+                continue
+            idle_channels.remove(ch)
+            self.channel_prn[ch] = prn
+            self.state = self.trk.activate_channel(
+                self.state, ch, self._slot_of_prn[prn],
+                float(res.delay_samples[k]), float(dops[k]),
+                samples_abs_offset, self._pos)
+            self.decoders[prn] = LnavDecoder(prn)
+            self._mode_host[ch] = 0
+            self.histories[prn] = ChannelEpochHistory()
+            self.sym_count[prn] = 0
+            assigned.append((ch, prn))
+            self.carrier_phase_acc.pop(prn, None)
+            self.last_carr_rem.pop(prn, None)
+            self._ledger_prev_start.pop(prn, None)
+            self._no_tow_syms[prn] = 0
+            self._acq_info[prn] = (float(res.delay_samples[k]),
+                                   float(dops[k]), int(res.samplestamp))
+            log.info("ch %d <- PRN %d (delay %.1f, doppler %.0f, stat %.1f)",
+                     ch, prn, res.delay_samples[k], dops[k],
+                     res.test_stat[k])
+        if assigned:
+            self._empty_acq_streak = 0
+            # fractional code phase at each new channel's first epoch start
+            # (sub-sample pseudorange resolution) — one readback per batch
+            rems = self.state.rem_code_phase_samples.cpu().numpy()
+            for ch, prn in assigned:
+                self.last_rem[prn] = float(rems[ch])
+                self.last_frac[prn] = self.last_rem[prn]
+        else:
+            self._empty_acq_streak += 1
+
+    def _release(self, ch: int, prn: int, why: str) -> None:
+        log.info("ch %d PRN %d %s — releasing", ch, prn, why)
+        self.channel_prn[ch] = None
+        self._empty_acq_streak = 0
+
+    def _watchdog(self, ch: int, prn: int, dec, n_new: int) -> bool:
+        """Telemetry watchdog: no decoded TOW for watchdog_symbols epochs
+        recycles the satellite (gps_l1_ca_telemetry_decoder_gs.cc:364).
+        Returns True when the channel was released."""
+        wd = self.cfg.watchdog_symbols
+        if dec is None or wd <= 0:
+            return False
+        if dec.tow_at_symbol(self.sym_count[prn] - 1) is not None:
+            self._no_tow_syms[prn] = 0
+            return False
+        self._no_tow_syms[prn] = self._no_tow_syms.get(prn, 0) + n_new
+        if self._no_tow_syms[prn] <= wd:
+            return False
+        self.state = self.trk.deactivate_channel(self.state, ch)
+        self._release(ch, prn, f"telemetry watchdog "
+                      f"({self._no_tow_syms[prn]} symbols, no frame)")
+        self._no_tow_syms[prn] = 0
+        self.watchdog_trips += 1
+        return True
+
+    def _harvest(self, outs, block_offset_abs: int, decim: int = 1) -> None:
+        """Stream tracking epochs into telemetry decoders + histories.
+
+        `decim` > 1: the loop-state fields (rem_carr/doppler/cn0) of `outs`
+        are exact only at epochs k % decim == decim-1 (engine
+        capture_decim); prompts/starts stay full-rate for telemetry, and
+        observables history points land on the decimated grid."""
+        valid = outs.valid                        # [E, C]
+        starts = outs.start
+        corr = outs.correlators                   # [E, C, K] complex
+        dops = outs.carrier_doppler_hz
+        lens = outs.cur_len
+        cn0s = outs.cn0_dbhz
+        active = outs.active
+        p_idx = self.trk.cfg.prompt_index
+        for ch, prn in enumerate(self.channel_prn):
+            if prn is None:
+                continue
+            v = valid[:, ch]
+            if not v.any():
+                if not bool(active[-1, ch]):
+                    self._release(ch, prn, "lost lock")
+                continue
+            # leaving symbol mode: complete the decoder's epoch stream first
+            if self._sym_carry.get(prn, (0.0, 0))[1]:
+                self._flush_sym_carry(prn)
+            prompts = corr[v, ch, p_idx]
+            ep_starts = starts[v, ch].astype(np.int64) + block_offset_abs
+            ep_dops = dops[v, ch]
+            # code-period boundary = integer start + fractional code phase
+            # AT that start (the device outputs rem at the NEXT start, so
+            # shift by one epoch, carrying across segments).  The device
+            # wraps rem into [0,1) and realizes the floor in the NEXT epoch
+            # length (A.6): reconstruct the pre-floor fraction
+            # frac_j = rem_j - round(rem_j - rem_{j-1}) (the true drift is
+            # << 0.5 sample/epoch), which pairs exactly with start_{j+1}.
+            rems_next = np.asarray(outs.rem_code_phase_samples,
+                                   dtype=np.float64)[v, ch]
+            prev_rem = self.last_rem.get(prn, float(rems_next[0]))
+            ext = np.concatenate([[prev_rem], rems_next])
+            fracs = ext[1:] - np.round(np.diff(ext))
+            rems_at = np.concatenate(
+                [[self.last_frac.get(prn, prev_rem)], fracs[:-1]])
+            if len(rems_next):
+                self.last_rem[prn] = float(rems_next[-1])
+                self.last_frac[prn] = float(fracs[-1])
+            dec = self.decoders.get(prn)
+            base_sym = self.sym_count[prn]
+            # accumulated carrier phase = the device NCO ledger unwrapped in
+            # host float64 (gnss_synchro.h:61-80 Carrier_phase_rads)
+            ep_lens = lens[v, ch].astype(np.float64)
+            rems_carr = np.asarray(outs.rem_carr_phase_rad,
+                                   dtype=np.float64)[v, ch]
+            ep_cn0 = cn0s[v, ch]
+            nv = len(prompts)
+            if decim <= 1:
+                acc0 = self.carrier_phase_acc.get(prn, 0.0)
+                prev_carr = self.last_carr_rem.get(
+                    prn, float(rems_carr[0]) if len(rems_carr) else 0.0)
+                # step applied between consecutive ledger values covers the
+                # NEXT epoch (engine A.6 note): pair dopp_k with len_{k+1}
+                lens_next = np.concatenate(
+                    [ep_lens[1:], ep_lens[-1:]]) if len(ep_lens) else ep_lens
+                est = (2.0 * np.pi * ep_dops.astype(np.float64)
+                       * lens_next / self.cfg.fs_hz)
+                prevs = np.concatenate(
+                    [[prev_carr], rems_carr[:-1]]) if len(rems_carr) \
+                    else rems_carr
+                resid = rems_carr - prevs - est
+                deltas = est + (np.mod(resid + np.pi, 2.0 * np.pi) - np.pi)
+                acc_series = acc0 + np.cumsum(deltas)
+                if len(acc_series):
+                    self.carrier_phase_acc[prn] = float(acc_series[-1])
+                    self.last_carr_rem[prn] = float(rems_carr[-1])
+                if dec is not None:
+                    dec.push(prompts.real, ep_starts)
+                    hist = self.histories[prn]
+                    for k in range(nv):
+                        tow = dec.tow_at_symbol(base_sym + k)
+                        if tow is not None:
+                            hist.push(
+                                float(ep_starts[k]) + float(rems_at[k]),
+                                tow, float(ep_dops[k]),
+                                float(acc_series[k]), float(ep_cn0[k]))
+            else:
+                # decimated grid: history/ledger points at valid epochs
+                # m = decim, 2*decim, ... whose entering state is exact at
+                # index m-1; `valid` is a prefix per segment (start strictly
+                # increases), so valid-sequence indices == buffer indices
+                D = decim
+                push_m = np.arange(D, nv, D)
+                acc = self.carrier_phase_acc.get(prn, 0.0)
+                prev_carr = self.last_carr_rem.get(prn)
+                prev_s = self._ledger_prev_start.get(prn)
+                acc_series = np.zeros(len(push_m))
+                for j, m in enumerate(push_m):
+                    carr_m = float(rems_carr[m - 1])
+                    dop_m = float(ep_dops[m - 1])
+                    s_m = float(ep_starts[m])
+                    if prev_s is not None and prev_carr is not None:
+                        est = (2.0 * np.pi * dop_m * (s_m - prev_s)
+                               / self.cfg.fs_hz)
+                        resid = carr_m - prev_carr - est
+                        acc += est + (np.mod(resid + np.pi, 2.0 * np.pi)
+                                      - np.pi)
+                    prev_s, prev_carr = s_m, carr_m
+                    acc_series[j] = acc
+                self.carrier_phase_acc[prn] = acc
+                if prev_carr is not None:
+                    self.last_carr_rem[prn] = prev_carr
+                if prev_s is not None:
+                    self._ledger_prev_start[prn] = prev_s
+                if dec is not None:
+                    dec.push(prompts.real, ep_starts)
+                    hist = self.histories[prn]
+                    for j, m in enumerate(push_m):
+                        tow = dec.tow_at_symbol(base_sym + int(m))
+                        if tow is not None:
+                            hist.push(
+                                float(ep_starts[m]) + float(rems_at[m]),
+                                tow, float(ep_dops[m - 1]),
+                                float(acc_series[j]),
+                                float(ep_cn0[m - 1]))
+            self.sym_count[prn] = base_sym + len(prompts)
+            if self._watchdog(ch, prn, dec, len(prompts)):
+                continue
+            if not bool(active[-1, ch]):
+                self._release(ch, prn, "lost lock")
+
+    # ---------------- symbol-grid harvest ----------
+
+    def _pull_in_done(self) -> bool:
+        """True once every active channel reports bit sync — the
+        steady-state criterion that lets the capture loop use its full
+        segment length."""
+        any_active = False
+        for prn in self.channel_prn:
+            if prn is None:
+                continue
+            any_active = True
+            dec = self.decoders.get(prn)
+            if dec is None or dec.bit_offset is None:
+                return False
+        return any_active
+
+    def _symbol_offsets(self):
+        """Per-channel symbol-boundary offsets (in [1, N]) for the
+        symbol-grid capture reduction, or None while any active channel has
+        no bit sync yet."""
+        if self.cfg.symbol_readback != "auto":
+            return None
+        N = self._sec_period
+        offs = np.full(self.cfg.n_channels, N, dtype=np.int32)
+        any_active = False
+        for ch, prn in enumerate(self.channel_prn):
+            if prn is None:
+                continue
+            any_active = True
+            dec = self.decoders.get(prn)
+            bit0 = dec.bit_offset if dec is not None else None
+            if bit0 is None:
+                return None
+            offs[ch] = ((bit0 - self.sym_count[prn] - 1) % N) + 1
+        return offs if any_active else None
+
+    def _flush_sym_carry(self, prn) -> None:
+        """Emit a pending partial symbol before leaving symbol mode so the
+        decoder's epoch indexing stays gap-free."""
+        carry = self._sym_carry.get(prn)
+        if not carry or carry[1] == 0:
+            return
+        dec = self.decoders.get(prn)
+        if dec is not None:
+            pend = carry[1]
+            vals = np.full(pend, carry[0])
+            st0 = int(carry[3] if carry[3] is not None else 0)
+            sts = st0 + np.arange(pend, dtype=np.int64) * self.trk._t0_int
+            dec.push(vals, sts)
+        self._sym_carry[prn] = [0.0, 0, carry[2], None]
+
+    def _harvest_symbols(self, souts, block_offset_abs: int,
+                         sym_off) -> None:
+        """Harvest a SymbolOutputs segment.
+
+        Decoders receive one synthesized epoch batch per completed symbol
+        (constant value = the symbol's prompt mean — bit-sign exact, since
+        every epoch of a symbol carries the same bit); observables history
+        points land on the symbol grid (20 ms), with the same entering-state
+        pairing and ledger recursion as the decimated per-epoch path."""
+        N = self._sec_period
+        t0 = self.trk._t0_int
+        fs = self.cfg.fs_hz
+        vcount = souts.vcount
+        means_i = np.asarray(souts.mean_i, dtype=np.float64)
+        starts = np.asarray(souts.start).astype(np.int64) + block_offset_abs
+        fracs = np.asarray(souts.frac, dtype=np.float64)
+        carrs = np.asarray(souts.rem_carr_phase_rad, dtype=np.float64)
+        dops = np.asarray(souts.carrier_doppler_hz, dtype=np.float64)
+        cn0s = np.asarray(souts.cn0_dbhz, dtype=np.float64)
+        S = vcount.shape[0]
+        for ch, prn in enumerate(self.channel_prn):
+            if prn is None:
+                continue
+            nv = int(souts.n_valid[ch])
+            if nv == 0:
+                if not bool(souts.active[ch]):
+                    self._release(ch, prn, "lost lock")
+                continue
+            dec = self.decoders.get(prn)
+            base_sym = self.sym_count[prn]
+            b0 = int(sym_off[ch])
+            carry = self._sym_carry.setdefault(
+                prn, [0.0, 0, (N - b0) % N, None])
+            if carry[2] != (N - b0) % N:
+                # phase slip (mode switch / reacquisition): resync
+                self._flush_sym_carry(prn)
+                carry = self._sym_carry[prn]
+                carry[2] = (N - b0) % N
+            hist = self.histories[prn]
+            acc = self.carrier_phase_acc.get(prn, 0.0)
+            prev_carr = self.last_carr_rem.get(prn)
+            prev_s = self._ledger_prev_start.get(prn)
+            # one batched decoder push per segment
+            emit_v: list[np.ndarray] = []
+            emit_s: list[np.ndarray] = []
+            for s in range(S):
+                k = int(vcount[s, ch])
+                if k == 0:
+                    if s > 0:
+                        break           # valid slots form a prefix
+                    continue
+                if s >= 1:
+                    s_m = float(starts[s, ch])
+                    carr_m = float(carrs[s, ch])
+                    dop_m = float(dops[s, ch])
+                    if prev_s is not None and prev_carr is not None:
+                        est = 2.0 * np.pi * dop_m * (s_m - prev_s) / fs
+                        resid = carr_m - prev_carr - est
+                        acc += est + (np.mod(resid + np.pi, 2.0 * np.pi)
+                                      - np.pi)
+                    prev_s, prev_carr = s_m, carr_m
+                    if dec is not None:
+                        e_s = b0 + (s - 1) * N
+                        tow = dec.tow_at_symbol(base_sym + e_s)
+                        if tow is not None:
+                            hist.push(s_m + float(fracs[s, ch]), tow,
+                                      dop_m, acc, float(cn0s[s, ch]))
+                if dec is not None:
+                    if carry[1] == 0:
+                        carry[3] = int(starts[s, ch])
+                    carry[0] += float(means_i[s, ch])
+                    carry[1] += k
+                    carry[2] += k
+                    if carry[2] >= N:
+                        pend = carry[1]
+                        st0 = int(carry[3])
+                        emit_v.append(np.full(pend, carry[0]))
+                        emit_s.append(
+                            st0 + np.arange(pend, dtype=np.int64) * t0)
+                        carry[0], carry[1], carry[2], carry[3] = \
+                            0.0, 0, 0, None
+            if dec is not None and emit_v:
+                dec.push(np.concatenate(emit_v), np.concatenate(emit_s))
+            self.carrier_phase_acc[prn] = acc
+            if prev_carr is not None:
+                self.last_carr_rem[prn] = prev_carr
+            if prev_s is not None:
+                self._ledger_prev_start[prn] = prev_s
+            self.sym_count[prn] = base_sym + nv
+            if self._watchdog(ch, prn, dec, nv):
+                continue
+            if not bool(souts.active[ch]):
+                self._release(ch, prn, "lost lock")
+
+    def _maybe_extend(self) -> None:
+        """State 2 -> 3/4 switch once telemetry reports bit sync: coherent
+        extension over extend_correlation_symbols epochs aligned to each
+        channel's bit grid, with the narrow loop bandwidths
+        (dll_pll_veml_tracking.cc:1774-1900)."""
+        n = self.trk.cfg.extend_correlation_symbols
+        period = self._sec_period
+        if n <= 1 or period % n != 0:
+            return
+        # state.mode is host-written only (activate_channel /
+        # enable_extended) — the host shadow avoids a device sync
+        for ch, prn in enumerate(self.channel_prn):
+            if prn is None or self._mode_host[ch] != 0:
+                continue
+            dec = self.decoders.get(prn)
+            bit0 = getattr(dec, "bit_offset", None)
+            if bit0 is None:
+                continue
+            e = (bit0 - self.sym_count[prn]) % period
+            self.state = self.trk.enable_extended(self.state, ch, e)
+            self._mode_host[ch] = 1
+            log.info("ch %d PRN %d -> extended coherent (%d ms, boundary in "
+                     "%d epochs)", ch, prn, n, e)
+
+    # ---------------- observables + PVT ----------------
+
+    def _eph_for(self, prn: int):
+        dec = self.decoders.get(prn)
+        if dec is not None and dec.ephemeris_complete:
+            return dec.ephemeris
+        return None
+
+    def _observables_and_pvt(self) -> None:
+        cfg = self.cfg
+        tick = int(round(cfg.fs_hz * cfg.obs_interval_ms * 1e-3))
+        ready_hist = {
+            p: h for p, h in self.histories.items()
+            if p in self.decoders and self._eph_for(p) is not None
+            and len(h.start_samples) >= 2
+        }
+        if len(ready_hist) < 4:
+            return
+        if self._next_obs_sample is None:
+            earliest = max(h.start_samples[0] for h in ready_hist.values())
+            self._next_obs_sample = ((earliest // tick) + 1) * tick
+        # process all ticks fully covered by every ready history
+        covered = min(h.start_samples[-1] for h in ready_hist.values())
+        while self._next_obs_sample <= covered:
+            rx_sample = self._next_obs_sample
+            if self.rx_tow_s is None:
+                rx_tow, obs = compute_observables(ready_hist, rx_sample,
+                                                  cfg.fs_hz, None)
+                if obs:
+                    self.rx_tow_s = rx_tow
+                    self.rx_tow_sample = rx_sample
+            else:
+                rx_tow = self.rx_tow_s + (rx_sample - self.rx_tow_sample) \
+                    / cfg.fs_hz
+                _, obs = compute_observables(ready_hist, rx_sample,
+                                             cfg.fs_hz, rx_tow)
+            if obs:
+                self.obs_epochs.append((rx_tow, obs))
+            # PVT.output_rate_ms: solve at the configured cadence while
+            # observables (and the Hatch smoother state) keep the full
+            # obs_interval rate
+            pvt_decim = max(1, (cfg.pvt_output_rate_ms or 0)
+                            // cfg.obs_interval_ms)
+            solve_now = (rx_sample // tick) % pvt_decim == 0
+            if len(obs) >= 4:
+                prs = {p: o.pseudorange_m for p, o in obs.items()}
+                if self._smoother is not None:
+                    prs = {p: self._smoother.smooth(
+                        p, o.pseudorange_m, o.carrier_phase_cycles)
+                        for p, o in obs.items()}
+            if len(obs) >= 4 and solve_now:
+                ephs = {p: self._eph_for(p) for p in obs}
+                iono = None
+                if cfg.iono_model == "broadcast":
+                    for p in obs:
+                        dec_iono = getattr(self.decoders[p], "iono", None)
+                        if dec_iono is not None and dec_iono.valid:
+                            iono = dec_iono
+                            break
+                sol = solve_pvt(
+                    ephs, prs, rx_tow,
+                    dopplers_hz={p: o.doppler_hz for p, o in obs.items()},
+                    carrier_freq_hz=cfg.spec.carrier_freq_hz,
+                    iono=iono,
+                    apply_tropo=cfg.trop_model == "saastamoinen",
+                    el_mask_deg=cfg.elevation_mask_deg,
+                    weighted=cfg.pvt_weighted,
+                    raim=cfg.raim,
+                    raim_sigma_m=cfg.raim_sigma_m,
+                )
+                if sol.valid:
+                    self.solutions.append(sol)
+            self._next_obs_sample += tick
+
+    def _scale_for(self, samples) -> float:
+        """Unit-RMS ingest normalization (computed once): bounds prompt
+        magnitudes; every acquisition/CN0/lock statistic is
+        scale-invariant."""
+        if self._ingest_scale is None:
+            head = np.asarray(samples[: min(len(samples), 1 << 18)])
+            rms = float(np.sqrt(np.mean(np.abs(head) ** 2)))
+            self._ingest_scale = 1.0 / rms if rms > 0 else 1.0
+        return self._ingest_scale
+
+    # ---------------- main loop ----------------
+
+    def preload(self, samples: np.ndarray) -> None:
+        """Upload the whole capture to device memory once (complex64,
+        normalized); process(samples) then slices tracking segments on the
+        device instead of uploading per segment."""
+        x = torch.as_tensor(np.ascontiguousarray(samples, np.complex64))
+        self._samples_dev = x.to(self.device) * np.float32(
+            self._scale_for(samples))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def process(self, samples: np.ndarray) -> list[PvtSolution]:
+        """Run the receiver over a full capture (complex64 at fs).
+
+        Tracking runs in multi-block device segments (one host round-trip
+        per segment); the channel FSM, telemetry, observables and PVT run on
+        the host between segments."""
+        cfg = self.cfg
+        base = int(round(cfg.fs_hz * cfg.block_ms * 1e-3))
+        nmax = self.trk.cfg.epoch_samples_max
+        total = len(samples)
+        seg_blocks = max(1, cfg.reacq_interval_blocks)
+        self._pos = 0
+        while self._pos + base + nmax <= total:
+            need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
+            if self._pos + need <= total:
+                self._acquire_and_assign(
+                    self._pos, samples[self._pos:self._pos + need])
+            # keep segments short through pull-in (an idle channel with
+            # satellites still acquirable, or an active channel without bit
+            # sync) so satellites (re)acquire at the reference's channel-FSM
+            # latency; steady state gets the full segment
+            seg_now = seg_blocks
+            idle_wants_acq = any(p is None for p in self.channel_prn) \
+                and self._empty_acq_streak < 5
+            if idle_wants_acq or not self._pull_in_done():
+                seg_now = min(seg_blocks, 25)
+            n_blocks = min(seg_now, (total - self._pos - nmax) // base)
+            if n_blocks < 1:
+                break
+            span = n_blocks * base
+            sdev = self._samples_dev
+            if sdev is not None and sdev.shape[0] >= self._pos + span + nmax:
+                seg_dev = sdev[self._pos:self._pos + span + nmax]
+            else:
+                seg = np.ascontiguousarray(
+                    samples[self._pos:self._pos + span + nmax], np.complex64)
+                seg_dev = torch.as_tensor(seg).to(self.device) * np.float32(
+                    self._scale_for(samples))
+            sym_off = self._symbol_offsets()
+            if sym_off is not None:
+                self.state, souts = self.trk.track_capture_symbols(
+                    seg_dev, self.state, span, sym_off, self._sec_period)
+                self._harvest_symbols(souts, self._pos, sym_off)
+            else:
+                self.state, outs = self.trk.track_capture(
+                    seg_dev, self.state, span)
+                self._harvest(outs, self._pos,
+                              decim=self.trk.capture_decim)
+            self._maybe_extend()
+            self._observables_and_pvt()
+            self._pos += span
+            self._blocks_done += n_blocks
+        return self.solutions

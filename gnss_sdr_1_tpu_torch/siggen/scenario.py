@@ -1,0 +1,210 @@
+"""Geometry-consistent multi-satellite scenarios.
+
+Produces SatParams (delay/Doppler/Doppler-rate + LNAV bit streams) that are
+CONSISTENT with a set of broadcast ephemerides and a receiver position, so
+the full receiver chain (acquisition -> tracking -> telemetry -> observables
+-> PVT) can be validated against known truth — the role the external
+`gnss-sim` signal generator plays for the reference's system tests
+(SURVEY.md §4, position_test.cc).
+
+Timebase convention: receiver sample 0 corresponds to GPS time `t0_tow` on a
+perfect receiver clock; each satellite's bit stream index k corresponds to
+transmit time `bits_tow0 + k/50`, and the signal delay is the light time
+minus the SV clock offset, fitted quadratically over the run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..constants import SPEED_OF_LIGHT_M_S, GPS_OMEGA_EARTH_DOT
+from ..pvt.ephemeris import satellite_clock_correction, satellite_position_velocity
+from ..telemetry.lnav import GpsEphemeris, encode_lnav_frame
+from .generator import SatParams
+
+
+def make_test_ephemeris(prn: int, toe: float, week: int = 220,
+                        plane_raan_deg: float = 0.0, anomaly_deg: float = 0.0,
+                        af0: float = 0.0) -> GpsEphemeris:
+    """A plausible GPS MEO ephemeris (circular-ish, i=55 deg)."""
+    def semicircles(deg: float) -> float:
+        """Wrap an angle [deg] into the ICD's [-1, 1) semicircle range."""
+        return ((deg / 180.0 + 1.0) % 2.0) - 1.0
+
+    return GpsEphemeris(
+        prn=prn, week=week,
+        toc=toe, toe=toe,
+        af0=af0, af1=0.0, af2=0.0, tgd=0.0,
+        iodc=prn, iode=prn,
+        sqrt_a=np.sqrt(26_560_000.0),
+        e=0.004 + 0.0004 * (prn % 5),
+        m0=semicircles(anomaly_deg),
+        delta_n=4.2e-9 / np.pi,
+        omega0=semicircles(plane_raan_deg),
+        i0=np.radians(55.0) / np.pi,
+        omega=np.radians(30.0 + prn) / np.pi,
+        omega_dot=-8.0e-9 / np.pi,
+        idot=2.0e-10 / np.pi,
+        cuc=0.0, cus=0.0, crc=0.0, crs=0.0, cic=0.0, cis=0.0,
+    )
+
+
+def observed_delay_s(eph: GpsEphemeris, rx_ecef: np.ndarray, t_rx: float) -> float:
+    """Light-time solution: delay from SV to receiver at GPS receive time
+    t_rx, including earth rotation during flight and the SV clock offset
+    (signal timeline runs on the SV clock)."""
+    tau = 0.07
+    for _ in range(4):
+        t_tx = t_rx - tau
+        pos, _ = satellite_position_velocity(eph, t_tx)
+        theta = GPS_OMEGA_EARTH_DOT * tau
+        c, s = np.cos(theta), np.sin(theta)
+        pos_rot = np.array([
+            c * pos[0] + s * pos[1], -s * pos[0] + c * pos[1], pos[2]
+        ])
+        tau = np.linalg.norm(pos_rot - rx_ecef) / SPEED_OF_LIGHT_M_S
+    clk = satellite_clock_correction(eph, t_rx - tau)
+    return tau - clk
+
+
+def _auto_place(rx_ecef: np.ndarray, prns: list[int], toe: float,
+                t0_tow: float) -> tuple[list[float], list[float]]:
+    """Pick (raan, anomaly) per satellite so the constellation is spread in
+    azimuth at 25-70 deg elevation above rx_ecef."""
+    from ..pvt.geodesy import az_el
+
+    n = len(prns)
+    targets_az = [i * 360.0 / n for i in range(n)]
+    raan_grid = np.arange(-180.0, 180.0, 20.0)
+    anom_grid = np.arange(0.0, 360.0, 12.0)
+    raans, anoms = [], []
+    for i, prn in enumerate(prns):
+        cands = []
+        for raan in raan_grid:
+            for anom in anom_grid:
+                eph = make_test_ephemeris(prn, toe, plane_raan_deg=raan,
+                                          anomaly_deg=anom)
+                pos, _ = satellite_position_velocity(eph, t0_tow)
+                az, el = az_el(rx_ecef, pos)
+                el_deg = np.degrees(el)
+                if 25.0 <= el_deg <= 70.0:
+                    cands.append((np.degrees(az), el_deg, raan, anom))
+        tgt_el = 35.0 + 20.0 * ((i % 3) - 1)
+        best = min(
+            cands,
+            key=lambda c: min(abs(c[0] - targets_az[i]),
+                              360 - abs(c[0] - targets_az[i])) + abs(c[1] - tgt_el),
+        )
+        raans.append(best[2])
+        anoms.append(best[3])
+    return raans, anoms
+
+
+@dataclasses.dataclass
+class Scenario:
+    sats: list[SatParams]
+    ephemerides: dict[int, GpsEphemeris]
+    rx_ecef: np.ndarray
+    t0_tow: float              # GPS TOW at receiver sample 0
+    bits_tow0: float           # TOW at bit-stream index 0 (subframe boundary)
+    truth: dict[int, dict]    # per-PRN delay/doppler truth at t=0
+    # constant receiver velocity (dynamic scenarios; position_test.cc's
+    # Spirent motion analogue) — truth position at t is rx_ecef + t*vel
+    rx_vel_ecef: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3))
+
+    def rx_at(self, t_since_t0: float) -> np.ndarray:
+        return self.rx_ecef + t_since_t0 * self.rx_vel_ecef
+
+
+def build_scenario(
+    rx_ecef: np.ndarray,
+    prns: list[int],
+    t0_tow: float,
+    duration_s: float,
+    cn0_dbhz: float = 44.0,
+    chip_rate: float | None = None,
+    carrier_freq: float | None = None,
+    raans: list[float] | None = None,
+    anomalies: list[float] | None = None,
+    subframe_cycle: tuple[int, ...] = (1, 2, 3, 4, 5),
+    signal: str = "1C",
+    rx_vel_ecef: np.ndarray | None = None,
+) -> Scenario:
+    """Build consistent SatParams + ephemerides for `prns` visible from
+    rx_ecef.  Orbit planes/anomalies default to a spread that puts the
+    satellites above the horizon for a receiver near the prime meridian
+    mid-latitudes; pass explicit raans/anomalies otherwise.  GPS L1 C/A
+    (LNAV) only: other signals' message streams are not ported yet."""
+    if signal != "1C":
+        raise NotImplementedError(
+            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C' only)")
+    if chip_rate is None:
+        chip_rate = 1.023e6
+    if carrier_freq is None:
+        from ..constants import SIGNALS
+
+        carrier_freq = float(SIGNALS[signal].carrier_freq_hz)
+    toe = np.floor(t0_tow / 7200.0) * 7200.0   # ephemeris reference nearby
+    # bit stream starts at the last subframe boundary before the earliest
+    # possible transmit time (t0 - 0.1 s)
+    boundary = 6.0
+    bits_tow0 = np.floor((t0_tow - 0.1) / boundary) * boundary
+
+    sats: list[SatParams] = []
+    ephs: dict[int, GpsEphemeris] = {}
+    truth: dict[int, dict] = {}
+    _vel = (np.zeros(3) if rx_vel_ecef is None
+            else np.asarray(rx_vel_ecef, float))
+
+    def _rx_at(t_rx: float) -> np.ndarray:
+        """Receiver ECEF at GPS receive time (constant-velocity motion)."""
+        return rx_ecef + (t_rx - t0_tow) * _vel
+    if raans is None or anomalies is None:
+        raans, anomalies = _auto_place(rx_ecef, prns, toe, t0_tow)
+    for i, prn in enumerate(prns):
+        raan = raans[i]
+        anom = anomalies[i]
+        eph = make_test_ephemeris(prn, toe, plane_raan_deg=raan,
+                                  anomaly_deg=anom, af0=2e-5 * ((i % 3) - 1))
+        ephs[prn] = eph
+
+        def observed(t_rx, _e=eph):
+            return observed_delay_s(_e, _rx_at(t_rx), t_rx)
+        # cubic fit of observed delay over the run (the quadratic residual
+        # of a MEO pass over 24 s is meters; cubic leaves centimeters)
+        ts = np.linspace(0.0, duration_s, 5)
+        taus = np.array([observed(t0_tow + dt) for dt in ts])
+        coef = np.polyfit(ts, taus, 3)     # tau(t) ~ c3 t^3 + ... + c0
+        tau0, tau_dot = coef[3], coef[2]
+        doppler = -carrier_freq * tau_dot
+        doppler_rate = -carrier_freq * 2.0 * coef[1]
+        doppler_rate2 = -carrier_freq * 6.0 * coef[0]
+        # delay of the bit/code stream relative to the bits_tow0 origin:
+        # stream time at rx t is (t0_tow + t - tau(t)) - bits_tow0, so the
+        # generator's delay (stream starts at chips=0) is tau0 minus the
+        # stream time already elapsed at t=0.
+        stream_offset_s = t0_tow - bits_tow0
+        delay_chips = (tau0 - stream_offset_s) * chip_rate
+        # nav bits covering the run (+ margin)
+        n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
+        bits01 = encode_lnav_frame(eph, bits_tow0, n_subframes=n_sf,
+                                   subframe_cycle=subframe_cycle)
+        nav_bits = (1.0 - 2.0 * bits01).astype(np.float64)
+        sats.append(SatParams(
+            prn=prn, doppler_hz=doppler, doppler_rate_hz_s=doppler_rate,
+            doppler_rate2_hz_s2=doppler_rate2,
+            delay_chips=delay_chips, cn0_dbhz=cn0_dbhz,
+            phase_rad=float(2.0 * np.pi * ((i * 0.37) % 1.0)),
+            nav_bits=nav_bits,
+        ))
+        truth[prn] = {
+            "delay_s": tau0, "doppler_hz": doppler,
+            "doppler_rate_hz_s": doppler_rate,
+        }
+    return Scenario(sats=sats, ephemerides=ephs, rx_ecef=rx_ecef,
+                    t0_tow=t0_tow, bits_tow0=bits_tow0, truth=truth,
+                    rx_vel_ecef=(np.zeros(3) if rx_vel_ecef is None
+                                 else np.asarray(rx_vel_ecef, float)))

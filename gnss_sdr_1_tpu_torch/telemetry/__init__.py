@@ -1,0 +1,19 @@
+"""Telemetry decoding (host-side — bit-level, branchy, low-rate).
+
+Reference parity: src/algorithms/telemetry_decoder/: GPS L1 C/A LNAV
+(gps_l1_ca_telemetry_decoder_gs.cc + gps_navigation_message.cc).
+"""
+
+from .lnav import (
+    LNAV_PREAMBLE,
+    GpsEphemeris,
+    encode_lnav_frame,
+    decode_subframe,
+    parity_check,
+)
+from .decoder import LnavDecoder, SymbolBatch
+
+__all__ = [
+    "LNAV_PREAMBLE", "GpsEphemeris", "encode_lnav_frame", "decode_subframe",
+    "parity_check", "LnavDecoder", "SymbolBatch",
+]
