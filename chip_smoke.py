@@ -4,16 +4,25 @@
     python3 chip_smoke.py
 
 Phases (one line each, with times):
-  1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. the CUDA tracking-chain kernel against its plain torch version on the
-     card, at the main path's shapes (E=16, LW=68, C=12, K=3), on random
-     inputs and on the inputs of a real chunk taken mid-track;
-  3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s);
+  1. the card (nvidia-smi name and power limit) and the kernel build (one
+     nvcc for the tracking library), with ptxas' registers, stack frame and
+     spills of every kernel instance;
+  2. both CUDA kernels against their plain torch versions on the card, at
+     the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
+     inputs and on the inputs of a real chunk taken mid-track: the chunk
+     correlator (chunk_corr) and the tracking chain (track_chain), each
+     timed (device time per launch from the profiler, the plain version,
+     and for the correlator the torch.bmm pair it replaces); then the
+     capture entry (both kernels over three chunks in one call) against
+     the plain chunk loop on the CPU;
+  3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
+     same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
-     (RTF, valid epochs, chain launches == chunks);
+     (RTF, valid epochs, each kernel's launches == chunks);
   5. the receiver end to end — the main path: 12 satellites, 30 s, live
      LNAV, PVT every 100 ms, the capture preloaded to the card (e2e RTF,
-     fixes, median 3D error against the scenario truth).
+     fixes, median 3D error against the scenario truth, each kernel's
+     launches == chunks).
 Then one JSON line describing every kernel, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -27,8 +36,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +60,13 @@ PEAK_F32_S = 67e12
 # NCO ~15, CN0/lock ~25, ledger ~10, with each transcendental counted as
 # ~8 — an estimate; the chain is bound by neither bytes nor operations
 OPS_PER_EPOCH_CHANNEL = 300
+# float32 operations per wiped sample of the correlator besides the lag
+# products: phase (multiply, add), the complex rotation (4 multiplies,
+# 2 adds); the sine and cosine are not counted
+WIPE_OPS_PER_SAMPLE = 8
+# chunks of the capture entry's check in phase 2 (the sample limit of the
+# mid-track segment, 40 ms, ends inside the third)
+CAPTURE_CHUNKS = 3
 
 
 def log(msg: str) -> None:
@@ -66,6 +84,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import gnss_sdr_1_tpu_torch  # noqa: F401  (sets TF32 off)
     from gnss_sdr_1_tpu_torch.ops import _build
+    from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
     if torch.backends.cuda.matmul.allow_tf32 or \
@@ -80,22 +99,46 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(["track_chain"])
-    tc._lib()
+    _build.library()
     build_s = time.perf_counter() - t0
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | kernel build {build_s:.2f} s")
-    log("    ptxas: " + " ".join(
-        _build.BUILD_LOG.get("track_chain", {}).get("ptxas", "").split()))
+        f"{torch.version.cuda} | kernel build {build_s:.2f} s (nvcc, "
+        f"{' '.join(_build.ARCH_FLAGS)})")
+    ptxas = ptxas_report(_build.BUILD_LOG[_build.LIBRARY]["ptxas"])
+    for name, r in ptxas.items():
+        log(f"    ptxas {name}: {r['registers']} registers, "
+            f"{r['stack']} B stack frame, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads")
+    chain_inst = [r for n, r in ptxas.items() if n.startswith("track_chain")]
+    if not chain_inst or not any(n.startswith("chunk_corr") for n in ptxas):
+        raise AssertionError(f"ptxas report lacks a kernel: {list(ptxas)}")
+    for r in chain_inst:
+        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"track_chain uses local memory: {r}")
 
-    # ---- 2. kernel vs plain ----
+    # ---- 2. kernels vs plain ----
     t0 = time.perf_counter()
-    k_rep = phase_kernel(dev, tc)
-    log(f"[2] chain kernel vs plain: max |diff| {k_rep['max_abs_err']:.3e} "
-        f"(random {k_rep['err_random']:.3e}, mid-track "
-        f"{k_rep['err_track']:.3e}), kernel {k_rep['ms']:.4f} ms/launch, "
-        f"plain {k_rep['plain_ms']:.3f} ms, bound {k_rep['bound_ms']:.2e} ms "
-        f"({k_rep['bound_by']}) | {time.perf_counter() - t0:.1f} s")
+    k_rep = phase_kernels(dev, cc, tc)
+    cr, ch = k_rep["chunk_corr"], k_rep["track_chain"]
+    log(f"[2] chunk_corr vs plain: max |diff| {cr['max_abs_err']:.3e} "
+        f"(random {cr['err_random']:.3e} of max|z| {cr['scale_random']:.3e}, "
+        f"mid-track {cr['err_track']:.3e} of {cr['scale_track']:.3e}), "
+        f"kernel {cr['ms']:.5f} ms/launch device ({cr['ms_host']:.5f} from "
+        f"the host), plain {cr['plain_ms']:.3f} ms, torch.bmm pair "
+        f"{cr['library_ms']:.5f} ms, bound {cr['bound_ms']:.2e} ms "
+        f"({cr['bound_by']})")
+    log(f"    track_chain vs plain: max |diff| {ch['max_abs_err']:.3e} "
+        f"(random {ch['err_random']:.3e}, mid-track {ch['err_track']:.3e}), "
+        f"int rows exact, kernel {ch['ms']:.5f} ms/launch device "
+        f"({ch['ms_host']:.5f} from the host), plain {ch['plain_ms']:.3f} "
+        f"ms, bound {ch['bound_ms']:.2e} ms ({ch['bound_by']})")
+    log(f"    track_capture ({ch['capture_chunks']} chunks, one call) vs the "
+        f"plain chunk loop on the CPU: max |diff| {ch['err_capture']:.3e}, "
+        f"int rows exact, {ch['capture_valid_epochs']} valid epochs | "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not cr["ms"] <= cr["library_ms"]:
+        raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
+                             f"the torch.bmm pair {cr['library_ms']:.5f} ms")
 
     # ---- 3. acquisition ----
     t0 = time.perf_counter()
@@ -105,39 +148,55 @@ def main() -> None:
     acq = phase_acquisition(dev, sats, x_eng)
     log(f"[3] acquisition: {acq['detected']}/12 at the true Doppler and "
         f"delay, {acq['ffts_per_s']:.0f} FFTs/s "
-        f"({acq['ms_per_call']:.2f} ms/call, F={acq['fft_size']}) | "
+        f"({acq['ms_per_call']:.2f} ms/call, F={acq['fft_size']}); against "
+        f"the CPU run: same detections and Doppler bins, max delay diff "
+        f"{acq['cpu_max_delay_diff']:.3f} samples, max stat rel diff "
+        f"{acq['cpu_max_stat_rel']:.2e} | "
         f"{time.perf_counter() - t0:.1f} s (capture made in {gen_s:.1f} s)")
 
     # ---- 4. engine ----
     t0 = time.perf_counter()
-    eng = phase_engine(dev, tc, sats, x_eng)
+    eng = phase_engine(dev, cc, tc, sats, x_eng)
     del x_eng
     log(f"[4] engine: 12 ch x {eng['signal_s']:.1f} s, RTF "
-        f"{eng['rtf']:.2f} ({eng['wall_s']:.2f} s), valid "
-        f"{eng['n_valid']}/{eng['expected']:.0f} epochs, chain launches {eng['launches']} == chunks "
-        f"{eng['chunks']} | {time.perf_counter() - t0:.1f} s")
+        f"{eng['rtf']:.2f} ({eng['wall_s']:.3f} s), valid "
+        f"{eng['n_valid']}/{eng['expected']:.0f} epochs, launches "
+        f"chunk_corr {eng['launches_chunk_corr']} track_chain "
+        f"{eng['launches_track_chain']} == chunks {eng['chunks']} | "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 5. receiver end to end (the main path) ----
     t0 = time.perf_counter()
-    e2e = phase_e2e(dev, tc)
+    e2e = phase_e2e(dev, cc, tc)
     log(f"[5] receiver e2e: 12 sats x {E2E_S:g} s, RTF {e2e['rtf']:.2f} "
-        f"({e2e['wall_s']:.1f} s), fixes {e2e['fixes']}, median 3D error "
-        f"{e2e['median_3d_m']:.2f} m, chain launches {e2e['launches']} | "
+        f"({e2e['wall_s']:.2f} s), fixes {e2e['fixes']}, median 3D error "
+        f"{e2e['median_3d_m']:.2f} m, launches chunk_corr "
+        f"{e2e['launches_chunk_corr']} track_chain "
+        f"{e2e['launches_track_chain']} == chunks {e2e['chunks']} | "
         f"{time.perf_counter() - t0:.1f} s (capture made in "
         f"{e2e['gen_s']:.1f} s)")
 
+    src = "gnss_sdr_1_tpu_torch/csrc/"
     kernels = [{
+        "name": "chunk_corr", "route": "cuda",
+        "source": src + "chunk_corr.cuh",
+        "replaces": "gnss_sdr_1_tpu/track/engine.py:828",
+        "launches": e2e["launches_chunk_corr"],
+        "max_abs_err": cr["max_abs_err"], "ms": cr["ms"],
+        "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
+        "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
+    }, {
         "name": "track_chain", "route": "cuda",
-        "source": "gnss_sdr_1_tpu_torch/csrc/track_chain.cu",
+        "source": src + "track_chain.cu",
         "replaces": "gnss_sdr_1_tpu/ops/pallas_chain.py:503",
-        "launches": e2e["launches"], "max_abs_err": k_rep["max_abs_err"],
-        "ms": k_rep["ms"], "plain_ms": k_rep["plain_ms"],
-        "bound_ms": k_rep["bound_ms"], "bound_by": k_rep["bound_by"],
-        "library_ms": None,
+        "launches": e2e["launches_track_chain"],
+        "max_abs_err": ch["max_abs_err"], "ms": ch["ms"],
+        "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
+        "bound_by": ch["bound_by"], "library_ms": None,
     }]
-    report = {"card": smi, "build_s": build_s, "kernel": k_rep,
-              "acquisition": acq, "engine": eng, "e2e": e2e,
-              "total_s": time.perf_counter() - t_all}
+    report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
+              "kernels": k_rep, "acquisition": acq, "engine": eng,
+              "e2e": e2e, "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1, default=float))
@@ -150,7 +209,45 @@ def main() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernel against plain
+# phase 1: what ptxas reports
+# ---------------------------------------------------------------------------
+
+_KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
+                 "17chunk_corr_kernel": "chunk_corr"}
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers, stack frame and spills of every kernel instance in
+    `nvcc -Xptxas -v` output, keyed by a readable name (template arguments
+    of the chain: K, PLL order, secondary-code data flag, secondary row)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = None
+            for mangled, short in _KERNEL_NAMES.items():
+                if mangled in m.group(1):
+                    args = re.findall(r"L[ib](\d+)E", m.group(1))
+                    cur = short + "<" + ",".join(args) + ">"
+                    out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against plain
 # ---------------------------------------------------------------------------
 
 
@@ -234,7 +331,30 @@ def _chain_diff(tc, got, want, rows_out=None):
     return worst
 
 
+def _corr_diff(got, want, want_cpu):
+    """chunk_corr: slice origins and step0 exact (the chain's int rows
+    depend on them) against the plain version on the CPU, which divides
+    as the kernel does (on CUDA tensors torch divides by a Python scalar as
+    a multiply by the float reciprocal); lag windows within 1e-4 of max|z|
+    of the plain version on the card (the kernel's sums run in another
+    order than cuBLAS').  Returns (max |diff|, max|z|)."""
+    zr, zi, s_reg, step0 = (t.cpu() for t in got)
+    wr, wi, ws, _ = (t.cpu() for t in want)
+    _, _, s_cpu, step0_cpu = want_cpu
+    if not (torch.equal(s_reg, ws) and torch.equal(s_reg, s_cpu)):
+        raise AssertionError("chunk_corr slice origins differ")
+    if not torch.equal(step0, step0_cpu):
+        raise AssertionError("chunk_corr step0 differs from the CPU's")
+    scale = float(max(wr.abs().max(), wi.abs().max()))
+    d = float(max((zr - wr).abs().max(), (zi - wi).abs().max()))
+    if not d <= 1e-4 * scale:
+        raise AssertionError(f"chunk_corr |diff| {d:.3e} > 1e-4 x max|z| "
+                             f"{scale:.3e}")
+    return d, scale
+
+
 def _time_cuda(fn, n):
+    """Per-call time from CUDA events around n back-to-back calls."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     fn()
@@ -247,14 +367,40 @@ def _time_cuda(fn, n):
     return a.elapsed_time(b) / n
 
 
-def phase_kernel(dev, tc):
+def _device_ms(fn, n):
+    """Device time per call: the kernels' durations in a profiler trace of
+    n calls, summed, over n.  Raises when the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        data = json.loads(path.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    us = sum(e["dur"] for e in events if e.get("cat") == "kernel")
+    if not us > 0:
+        raise AssertionError("the profiler trace holds no kernel event")
+    return us / n * 1e-3
+
+
+def phase_kernels(dev, cc, tc):
+    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
+
     # a real chunk taken mid-track: 0.25 s of tracking on the engine
-    # benchmark's scenario, then the next chunk's chain inputs
+    # benchmark's scenario, then the next chunk's inputs
     sats = _bench_sats(0.3)
     x = _gen(sats, 0.3, "kernel_chunk_0.3s_v1")
     eng = _engine(dev)
-    spec = eng.chain_spec
-    assert (spec.E, spec.LW, spec.C, spec.K) == (16, 68, 12, 3), spec
+    spec, cspec = eng.chain_spec, eng.corr_spec
+    assert (spec.E, spec.LW, spec.C, spec.K, cspec.NW) == (
+        16, 68, 12, 3, 4136), (spec, cspec)
     st = _activate_all(eng, sats)
     xd = torch.as_tensor(x, device=dev)
     span = int(FS * 0.25)
@@ -262,16 +408,71 @@ def phase_kernel(dev, tc):
                               span)
     seg = eng._pad_for_chunks(xd[span:])
     fst, ist = eng._pack_rows(st, int(FS * 0.04))
-    rep_t, sec_rows = eng._capture_tables(st)
-    track_args = eng._chain_inputs(seg, fst, ist, rep_t, sec_rows)
+    slot = st.prn_slot.to(torch.int32).contiguous()
+    sec_rows = eng._sec[slot.long()].T.contiguous()
+    rows = eng._rows
 
-    # random lag windows with the same state rows
+    # ---- chunk_corr: the mid-track chunk and random samples ----
     g = torch.Generator(device="cpu").manual_seed(7)
-    zr = torch.randn(track_args[0].shape, generator=g) * 100.0
-    zi = torch.randn(track_args[1].shape, generator=g) * 100.0
-    rand_args = (zr.to(dev), zi.to(dev)) + track_args[2:]
+    noise = torch.randn((seg.shape[0], 2), generator=g) * 100.0
+    seg_rand = torch.view_as_complex(noise).to(dev)
+    corr_out, corr_err, corr_scale = {}, {}, {}
+    for label, samples in (("random", seg_rand), ("track", seg)):
+        before = cc.launches
+        got = cc.chunk_corr(cspec, samples, rows, slot, fst, ist)
+        torch.cuda.synchronize()
+        if cc.launches != before + 1:
+            raise AssertionError("chunk_corr wrapper did not launch")
+        want = cc.chunk_corr_plain(cspec, samples, rows, slot, fst, ist)
+        want_cpu = cc.chunk_corr_plain(
+            cspec, *(t.cpu() for t in (samples, rows, slot, fst, ist)))
+        corr_err[label], corr_scale[label] = _corr_diff(got, want, want_cpu)
+        corr_out[label] = got
+    wr, wi, _, _ = cc.windows_plain(cspec, seg, fst, ist)
+    bank_t = cc.replica_bank(cspec, rows, slot)
 
-    errs, rows = {}, {}
+    def corr_call():
+        cc.chunk_corr_cuda(cspec, seg, rows, slot, fst, ist)
+
+    def bmm_pair():
+        torch.bmm(wr, bank_t)
+        torch.bmm(wi, bank_t)
+
+    corr_ms = _device_ms(corr_call, 200)
+    corr_host = _time_cuda(corr_call, 500)
+    corr_plain = _time_cuda(
+        lambda: cc.chunk_corr_plain(cspec, seg, rows, slot, fst, ist), 20)
+    bmm_ms = _device_ms(bmm_pair, 200)
+    # least time: bytes (each channel's segment, its replica row, the state
+    # rows read; the lag windows, slice origins and step0 written) against
+    # operations (the lag products over this chunk's wiped samples)
+    C, E, LW = cspec.C, cspec.E, cspec.LW
+    n_wiped = int(((wr != 0) | (wi != 0)).sum())
+    c_bytes = (C * cspec.seg_len * 8 + C * cspec.QW * 4
+               + (fst.shape[0] + ist.shape[0]) * C * 4
+               + (2 * C * E * LW + C * E + C) * 4)
+    c_ops = 4 * LW * n_wiped + WIPE_OPS_PER_SAMPLE * n_wiped
+    tb, to = c_bytes / PEAK_BYTES_S * 1e3, c_ops / PEAK_F32_S * 1e3
+    corr_rep = {
+        "err_random": corr_err["random"], "err_track": corr_err["track"],
+        "scale_random": corr_scale["random"],
+        "scale_track": corr_scale["track"],
+        "max_abs_err": max(corr_err.values()), "ms": corr_ms,
+        "ms_host": corr_host,
+        "plain_ms": corr_plain, "library_ms": bmm_ms,
+        "library": "torch.bmm pair on the plain path's wiped windows (the "
+                   "product alone)",
+        "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
+        else "operations", "bound_bytes": c_bytes, "bound_ops": c_ops,
+        "wiped_samples": n_wiped, "NW": cspec.NW}
+
+    # ---- track_chain: the correlator's mid-track output, random z ----
+    zr_t, zi_t, s_reg, step0 = corr_out["track"]
+    track_args = (zr_t, zi_t, s_reg, step0, sec_rows, fst, ist)
+    zr = torch.randn(zr_t.shape, generator=g) * 100.0
+    zi = torch.randn(zi_t.shape, generator=g) * 100.0
+    rand_args = (zr.to(dev), zi.to(dev)) + track_args[2:]
+    errs, rows_diff = {}, {}
     for label, args in (("random", rand_args), ("track", track_args)):
         before = tc.launches
         got = tc.chain(spec, *args)
@@ -279,27 +480,51 @@ def phase_kernel(dev, tc):
         if tc.launches != before + 1:
             raise AssertionError("chain wrapper did not launch the kernel")
         want = tc.chain_plain(spec, *args)
-        rows[label] = []
-        errs[label] = _chain_diff(tc, got, want, rows[label])
-    ms = _time_cuda(lambda: tc.chain(spec, *track_args), 500)
-    plain_ms = _time_cuda(lambda: tc.chain_plain(spec, *track_args), 5)
+        rows_diff[label] = []
+        errs[label] = _chain_diff(tc, got, want, rows_diff[label])
+
+    # ---- the capture entry: both kernels over several chunks in one call,
+    #      against the plain chunk loop on the CPU ----
+    cap_args = (seg, rows, slot, sec_rows, fst, ist)
+    n_cap = CAPTURE_CHUNKS
+    before = (cc.launches, tc.launches)
+    got = tcap.track_capture(spec, cspec, n_cap, *cap_args)
+    torch.cuda.synchronize()
+    if (cc.launches, tc.launches) != (before[0] + n_cap, before[1] + n_cap):
+        raise AssertionError("track_capture did not launch both kernels "
+                             "for every chunk")
+    want = tcap.track_capture_plain(spec, cspec, n_cap,
+                                    *(t.cpu() for t in cap_args))
+    errs["capture"] = _chain_diff(tc, got, want)
+    n_valid_cap = int(want[0][:, tc.O_VALID].sum())
+    if not n_valid_cap > 0:
+        raise AssertionError("the capture check tracked no valid epoch")
+
+    chain_ms = _device_ms(lambda: tc.chain_cuda(spec, *track_args), 200)
+    chain_host = _time_cuda(lambda: tc.chain_cuda(spec, *track_args), 500)
+    chain_plain = _time_cuda(lambda: tc.chain_plain(spec, *track_args), 5)
 
     # least time for the same work: bytes the function needs (the 2K lags
     # per plane each epoch reads, state and outputs once) vs operations
-    E, C, K = spec.E, spec.C, spec.K
+    K = spec.K
     sf, si = tc.n_frows(K), tc.N_IROWS
     n_bytes = 4 * (2 * 2 * K * E * C                 # lag reads, I and Q
-                   + E * C + C + spec.sec_len * C     # s_pred, step0, sec
+                   + E * C + C + spec.sec_len * C     # s_reg, step0, sec
                    + 2 * (sf + si) * C                # state in and out
                    + E * (tc.N_OROWS + 2 + 2 * K) * C)  # per-epoch outputs
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = OPS_PER_EPOCH_CHANNEL * E * C / PEAK_F32_S * 1e3
-    return {"err_random": errs["random"], "err_track": errs["track"],
-            "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": n_bytes, "E": E, "LW": spec.LW, "C": C, "K": K,
-            "rows": rows}
+    chain_rep = {
+        "err_random": errs["random"], "err_track": errs["track"],
+        "err_capture": errs["capture"], "capture_chunks": n_cap,
+        "capture_valid_epochs": n_valid_cap,
+        "max_abs_err": max(errs["random"], errs["track"]), "ms": chain_ms,
+        "ms_host": chain_host,
+        "plain_ms": chain_plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": n_bytes, "E": E, "LW": LW, "C": C, "K": K,
+        "rows": rows_diff}
+    return {"chunk_corr": corr_rep, "track_chain": chain_rep}
 
 
 # ---------------------------------------------------------------------------
@@ -317,12 +542,12 @@ def phase_acquisition(dev, sats, x):
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
 
     prns = [s.prn for s in sats]
-    acq = PcpsAcquisition(
-        AcqConfig(fs_hz=FS, samples_per_code=4092, samples_per_chip=4,
-                  doppler_max_hz=5000.0, doppler_step_hz=250.0, max_dwells=2,
-                  make_two_steps=False),
-        {p: gps_l1ca_code(p) for p in prns}, fs_code_rate=(1.023e6, 1023),
-        device=dev)
+    cfg = AcqConfig(fs_hz=FS, samples_per_code=4092, samples_per_chip=4,
+                    doppler_max_hz=5000.0, doppler_step_hz=250.0,
+                    max_dwells=2, make_two_steps=False)
+    codes = {p: gps_l1ca_code(p) for p in prns}
+    acq = PcpsAcquisition(cfg, codes, fs_code_rate=(1.023e6, 1023),
+                          device=dev)
     xs = x[: acq.cfg.fft_size * 2]
     res = acq.acquire(xs)
     n = 5
@@ -331,6 +556,26 @@ def phase_acquisition(dev, sats, x):
         acq.acquire(xs)
     wall = (time.perf_counter() - t0) / n
     ffts = len(prns) * acq.cfg.num_doppler_bins * 2 * 2
+    # the card against the same acquisition on the CPU (ROADMAP.md's bar):
+    # the same detections, the same Doppler bin, the delay within 1 sample,
+    # the statistics to rtol 1e-4
+    ref = PcpsAcquisition(cfg, codes, fs_code_rate=(1.023e6, 1023),
+                          device="cpu").acquire(xs)
+    if not np.array_equal(res.positive, ref.positive):
+        raise AssertionError(f"acquisition detections differ from the CPU: "
+                             f"{res.positive} vs {ref.positive}")
+    if not np.array_equal(res.doppler_hz, ref.doppler_hz):
+        raise AssertionError(f"acquisition Doppler bins differ from the "
+                             f"CPU: {res.doppler_hz} vs {ref.doppler_hz}")
+    dd_cpu = np.abs(res.delay_samples - ref.delay_samples)
+    dd_cpu = np.minimum(dd_cpu, 4092 - dd_cpu)
+    if not (dd_cpu <= 1.0).all():
+        raise AssertionError(f"acquisition delays differ from the CPU by "
+                             f"{dd_cpu}")
+    rel = np.abs(res.test_stat - ref.test_stat) / np.abs(ref.test_stat)
+    if not (rel <= 1e-4).all():
+        raise AssertionError(f"acquisition statistics differ from the CPU "
+                             f"by {rel}")
     # a detection at the truth: the code delay within 2 samples and the
     # Doppler within two 250 Hz bins (the 1 ms coherent window's main lobe
     # is +-1 kHz wide, so noise picks among neighbouring bins)
@@ -341,6 +586,7 @@ def phase_acquisition(dev, sats, x):
         dd = min(dd, 4092 - dd)
         df = abs(res.doppler_hz[k] - s.doppler_hz)
         found.append({"prn": s.prn, "stat": float(res.test_stat[k]),
+                      "stat_cpu": float(ref.test_stat[k]),
                       "doppler_err_hz": float(df), "delay_err": float(dd),
                       "hit": bool(res.positive[k] and df <= 500.0
                                   and dd <= 2.0)})
@@ -350,41 +596,64 @@ def phase_acquisition(dev, sats, x):
                              f"{found}")
     return {"detected": det, "ffts_per_s": ffts / wall,
             "ms_per_call": wall * 1e3, "fft_size": acq.cfg.fft_size,
-            "per_prn": found}
+            "cpu_max_delay_diff": float(dd_cpu.max()),
+            "cpu_max_stat_rel": float(rel.max()), "per_prn": found}
 
 
-def phase_engine(dev, tc, sats, x):
+def _count_chunks(eng):
+    """Count the chunks the engine's capture calls run (ceil(n_epochs / E)
+    per call), independently of the kernels' own launch counters."""
+    counter = {"chunks": 0}
+    run = eng._run_capture
+
+    def counted(samples, state, limit, n_epochs):
+        counter["chunks"] += -(-n_epochs // eng.chain_spec.E)
+        return run(samples, state, limit, n_epochs)
+
+    eng._run_capture = counted
+    return counter
+
+
+def _check_launches(cc, tc, chunks, what):
+    if not chunks > 0:
+        raise AssertionError(f"{what}: no chunk ran")
+    for name, n in (("chunk_corr", cc.launches), ("track_chain",
+                                                  tc.launches)):
+        if n != chunks:
+            raise AssertionError(f"{what}: {n} {name} launches for {chunks} "
+                                 f"chunks")
+
+
+def phase_engine(dev, cc, tc, sats, x):
     eng = _engine(dev)
     st = _activate_all(eng, sats)
     nmax = eng.cfg.epoch_samples_max
     xd = torch.as_tensor(x, device=dev)
     span = len(x) - nmax
     sym_off = np.full(12, 20, dtype=np.int32)
-    # first-use warm-up (cuBLAS, kernel load) on 0.1 s
+    # first-use warm-up (kernel load) on 0.1 s
     w = int(FS * 0.1)
     eng.track_capture_symbols(xd[: w + nmax], st, w, sym_off, 20)
     torch.cuda.synchronize()
-    tc.launches = 0
+    counter = _count_chunks(eng)
+    cc.launches = tc.launches = 0
     t0 = time.perf_counter()
     st2, souts = eng.track_capture_symbols(xd, st, span, sym_off, 20)
     n_valid = int(souts.n_valid.sum())
     wall = time.perf_counter() - t0
-    launches = tc.launches
-    n_epochs = span // (eng._t0_int - 2) + 2
-    chunks = -(-n_epochs // eng.chain_spec.E)
+    chunks = counter["chunks"]
+    _check_launches(cc, tc, chunks, "engine")
     signal_s = span / FS
     expected = signal_s / 1e-3 * 12
     if not n_valid > 0.85 * expected:
         raise AssertionError(f"engine: {n_valid} valid epochs of "
                              f"{expected:.0f} expected")
-    if launches != chunks:
-        raise AssertionError(f"engine: {launches} chain launches for "
-                             f"{chunks} chunks")
     if not bool(st2.active.all()):
         raise AssertionError("engine: a channel lost lock")
     return {"rtf": signal_s / wall, "wall_s": wall, "signal_s": signal_s,
-            "n_valid": n_valid, "expected": expected, "launches": launches,
-            "chunks": chunks}
+            "n_valid": n_valid, "expected": expected,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches, "chunks": chunks}
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +661,7 @@ def phase_engine(dev, tc, sats, x):
 # ---------------------------------------------------------------------------
 
 
-def phase_e2e(dev, tc):
+def phase_e2e(dev, cc, tc):
     from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
     from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
     from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
@@ -410,13 +679,12 @@ def phase_e2e(dev, tc):
         prn_search=tuple(prns), reacq_interval_blocks=125,
         pvt_output_rate_ms=100), device=dev)
     rx.preload(x)
-    tc.launches = 0
+    counter = _count_chunks(rx.trk)
+    cc.launches = tc.launches = 0
     t0 = time.perf_counter()
     sols = rx.process(x)
     wall = time.perf_counter() - t0
-    launches = tc.launches
-    if launches <= 0:
-        raise AssertionError("e2e: the chain kernel was never launched")
+    _check_launches(cc, tc, counter["chunks"], "e2e")
     if len(sols) < MIN_FIXES:
         raise AssertionError(f"e2e: {len(sols)} fixes (< {MIN_FIXES})")
     e3d = np.linalg.norm(np.stack([s.rx_ecef_m for s in sols])
@@ -426,7 +694,9 @@ def phase_e2e(dev, tc):
         raise AssertionError(f"e2e: median 3D error {med:.2f} m")
     return {"rtf": dur / wall, "wall_s": wall, "fixes": len(sols),
             "median_3d_m": med, "max_3d_m": float(e3d.max()),
-            "launches": launches, "gen_s": gen_s,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches,
+            "chunks": counter["chunks"], "gen_s": gen_s,
             "channels": list(rx.channel_prn)}
 
 

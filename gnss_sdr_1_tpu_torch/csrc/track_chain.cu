@@ -1,4 +1,6 @@
-// Fused per-epoch tracking chain for NVIDIA Hopper (sm_90a).
+// Fused per-epoch tracking chain for NVIDIA Hopper (sm_90a), and the
+// capture-level entry that enqueues the chunk correlator (chunk_corr.cuh)
+// and the chain for every chunk of a capture segment.
 //
 // Replaces the Pallas TPU kernel gnss_sdr_1_tpu/ops/pallas_chain.py
 // (`_make_kernel`, built by `make_chain_call`).  Computes exactly what the
@@ -7,29 +9,40 @@
 // of the chunked DLL/PLL tracking engine, with the loop state carried from
 // epoch to epoch.
 //
-// Design: one thread per channel, each thread loops over the E epochs with
-// the whole state in registers.  The only device-memory traffic is the lag
-// window of each epoch (two interpolation lags per tap) and the per-epoch
-// output rows.  Layout stays [E, LW, C] / [ROWS, C] with the channel index
-// innermost, so neighbouring threads read neighbouring addresses.
+// What bounds it: per 16-epoch chunk and channel a few hundred float32
+// operations per epoch and ~9 KB of lag windows, so neither bytes nor
+// operations: the time is one dependent chain of E epochs (three atan2f,
+// two log10f, a sincos and several divisions per epoch on the critical
+// path).  Nothing inside a channel's chain can run in parallel.
 //
-// What bounds it: per 16-epoch chunk at C = 12 channels it reads about
-// 104 KB (zr + zi = 2 x 16 x 68 x 12 x 4 B; the kernel itself touches only
-// 2 lags x K taps of each window) and writes about 12 KB, a few hundred
-// flops per epoch and channel.  Neither bytes nor flops bound it: the time
-// is the serial chain of E dependent epochs in one thread (transcendentals
-// and divisions on the critical path) plus the launch cost.  Making it fast
-// waits for a later change: a persistent kernel that walks the whole chunk
-// loop, or a CUDA graph over the chunk loop, are the candidates.
+// Design, against that chain:
+// - one warp per channel (one block of 32 threads): the lanes stage the
+//   channel's whole chunk window (zr, zi as [C, E, LW], one contiguous block
+//   per plane), its slice origins and its secondary-code column in shared
+//   memory with asynchronous copies that overlap the state loads, then
+//   lane 0 walks the E epochs with the state in registers.
+//   Each epoch's tap read, whose address depends on the previous epoch's
+//   code phase, costs a shared-memory access instead of an L2/HBM round
+//   trip;
+// - templates on K (3 or 5 taps, prompt at K / 2), the PLL order and the
+//   secondary-code flags, so every tap array is indexed by constants and
+//   stays in registers (no stack frame);
+// - the rotation's sine and cosine come from a reduction by pi/2 in double
+//   precision and float polynomials (sincos_reduced), which has no
+//   local-memory slow path;
+// - the capture entry writes the per-epoch rows straight into the
+//   capture-wide outputs and ping-pongs the state between two buffers, so
+//   a segment costs two launches per chunk and nothing else.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3, WITHOUT
-// --use_fast_math, so atan2f / sincosf / log10f keep full float32 accuracy
-// (the phase discriminators are held to ~4e-7 rad against the reference).
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false,
+// WITHOUT --use_fast_math, so atan2f / log10f keep full float32 accuracy
+// and products round op by op like the plain version.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "chunk_corr.cuh"
+#include "rows.cuh"
 
 #define MAX_K 5
+#define TINY_F 1.17549435e-38f
 
 struct ChainParams {
     int E, LW, K, C, sec_len, P, order, sec_data;
@@ -44,52 +57,73 @@ struct ChainParams {
     float bout_base[3], bout_slope[3];
 };
 
-// row indices (ops/track_chain.py F_* / I_* / O_*)
-enum {
-    F_REM_CODE = 0, F_DELTA, F_DOPPLER, F_REM_CARR, F_CARR_W, F_CARR_X,
-    F_PREV_R, F_PREV_I, F_SABSI, F_SI2, F_SQ2, F_CN0, F_ACCH_R, F_ACCH_I,
-    F_CARR_OFF, F_DLL_IN0 = 15, F_DLL_OUT0 = 18, F_ACC_R0 = 21
-};
-enum {
-    I_ACTIVE = 0, I_START, I_CURLEN, I_PUSH, I_LOCKFAIL, I_EPOCHS, I_FLL_ON,
-    I_MODE, I_EXTCNT, I_SEC_ON, I_SEC_IDX, I_LIMIT, N_IROWS
-};
-enum {
-    O_DOPPLER = 0, O_DELTA, O_REM_CODE, O_REM_CARR, O_CN0, O_VALID,
-    O_ACTIVE, N_OROWS
-};
-
-#define TWO_PI_F 6.283185307179586f
-#define PI_F 3.141592653589793f
-#define TINY_F 1.17549435e-38f
-
-// numpy/JAX `mod`: result takes the sign of the divisor (exact fmod, then
-// + m where the signs differ).  fmodf alone would keep the dividend's sign.
-__device__ __forceinline__ float mod_floor(float x, float m) {
-    float r = fmodf(x, m);
-    if (r != 0.0f && ((r < 0.0f) != (m < 0.0f))) r += m;
-    return r;
-}
-
 // numpy/JAX `sign`: sign(0) == 0 (copysignf would give +-1).
 __device__ __forceinline__ float sign0(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-template <int K>
-__global__ void __launch_bounds__(128)
+// sin and cos of x: n = rint(x * 2/pi), r = x - n pi/2 in double
+// (fdlibm's 33-bit pi/2 head, exact products for |x| < 2^20 pi/2), then the
+// Cephes float polynomials on [-pi/4, pi/4]; <= 1.5 ulp from the true
+// values.  Beyond ~1.6e6 rad the reduction loses accuracy; the chain's
+// phase differences stay within a few radians.
+__device__ __forceinline__ void sincos_reduced(float x, float* s, float* c) {
+    const double xd = (double)x;
+    const double n = rint(xd * 0.63661977236758134308);
+    double r = fma(-n, 1.57079632673412561417e+00, xd);
+    r = fma(-n, 6.07710050650619224932e-11, r);
+    const float rf = (float)r;
+    const float z = rf * rf;
+    const float ps = fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z,
+                          -1.6666654611e-1f);
+    const float sr = fmaf(rf * z, ps, rf);
+    const float pc = fmaf(fmaf(2.443315711809948e-5f, z,
+                               -1.388731625493765e-3f), z,
+                          4.166664568298827e-2f);
+    const float cr = fmaf(z * z, pc, fmaf(-0.5f, z, 1.0f));
+    const int quad = (int)((long long)n & 3);
+    *s = quad == 0 ? sr : (quad == 1 ? cr : (quad == 2 ? -sr : -cr));
+    *c = quad == 0 ? cr : (quad == 1 ? -sr : (quad == 2 ? -cr : sr));
+}
+
+template <int K, int ORDER, bool SEC_DATA, bool HAS_SEC>
+__global__ void __launch_bounds__(32)
 track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
-                   const int* __restrict__ s_pred,
+                   const int* __restrict__ s_reg,
                    const float* __restrict__ step0_p,
                    const float* __restrict__ sec_rows,
                    const float* __restrict__ fst, const int* __restrict__ ist,
                    float* __restrict__ out_f, int* __restrict__ out_i,
                    float* __restrict__ out_corr, float* __restrict__ fst_out,
                    int* __restrict__ ist_out, const ChainParams p) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    constexpr int P = K / 2;
+    extern __shared__ __align__(16) float ch_smem[];
+    const int c = blockIdx.x;
     const int C = p.C;
-    if (c >= C) return;
-    const int P = p.P;
+    const int LW = p.LW;
+    const int ELW = p.E * LW;
+    float* zr_s = ch_smem;                             // [E, LW]
+    float* zi_s = ch_smem + ELW;                       // [E, LW]
+    int* sreg_s = reinterpret_cast<int*>(ch_smem + 2 * ELW);   // [E]
+    float* sec_s = ch_smem + 2 * ELW + p.E;            // [sec_len]
+
+    // ---- stage the channel's chunk in shared memory: every lane starts
+    //      its asynchronous copies, then the state loads below overlap
+    //      them ----
+    {
+        const float* zr_c = zr + (size_t)c * ELW;
+        const float* zi_c = zi + (size_t)c * ELW;
+        for (int i = threadIdx.x; i < ELW; i += 32) {
+            cp_async4(zr_s + i, zr_c + i);
+            cp_async4(zi_s + i, zi_c + i);
+        }
+        for (int i = threadIdx.x; i < p.E; i += 32)
+            cp_async4(sreg_s + i, s_reg + c * p.E + i);
+        asm volatile("cp.async.commit_group;\n" ::);
+        if (HAS_SEC)
+            for (int i = threadIdx.x; i < p.sec_len; i += 32)
+                sec_s[i] = sec_rows[i * C + c];
+    }
 
     // ---- load state (rows of [ROWS, C]) ----
     float rem_code = fst[F_REM_CODE * C + c];
@@ -132,6 +166,9 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
     int sec_idx = ist[I_SEC_IDX * C + c];
     const int limit = ist[I_LIMIT * C + c];
     const float step0 = step0_p[c];
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncwarp();
+    if (threadIdx.x != 0) return;
 
     const bool narrow = mode0 >= 1;
     const float narrow_f = narrow ? 1.0f : 0.0f;
@@ -148,7 +185,6 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
     const float w0f2 = pll[4], a2 = pll[5], a3 = pll[6], b3 = pll[7];
 
     float dphi = 0.0f;
-    const int LW = p.LW;
 
     for (int kk = 0; kk < p.E; ++kk) {
         const bool active = active_i > 0;
@@ -158,10 +194,10 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
         // ---- tap read at the TRUE code phase: linear interpolation
         //      weight max(0, 1-|pos-l|) is non-zero on floor(pos) and
         //      floor(pos)+1 only ----
-        const float d_s = (float)(start - s_pred[kk * C + c]);
+        const float d_s = (float)(start - sreg_s[kk]);
         const float rem_eff = (d_s + rem_code) * (1.0f + delta / p.chip_rate);
-        const float* zr_k = zr + (size_t)kk * LW * C + c;
-        const float* zi_k = zi + (size_t)kk * LW * C + c;
+        const float* zr_k = zr_s + kk * LW;
+        const float* zi_k = zi_s + kk * LW;
         float taps_r[K], taps_i[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -171,13 +207,13 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
             float tr = 0.0f, ti = 0.0f;
             if (l0 >= 0 && l0 < LW) {
                 const float w = 1.0f - (pos - fl);
-                tr += zr_k[(size_t)l0 * C] * w;
-                ti += zi_k[(size_t)l0 * C] * w;
+                tr += zr_k[l0] * w;
+                ti += zi_k[l0] * w;
             }
             if (l0 + 1 >= 0 && l0 + 1 < LW) {
                 const float w = 1.0f - ((fl + 1.0f) - pos);
-                tr += zr_k[(size_t)(l0 + 1) * C] * w;
-                ti += zi_k[(size_t)(l0 + 1) * C] * w;
+                tr += zr_k[l0 + 1] * w;
+                ti += zi_k[l0 + 1] * w;
             }
             taps_r[k] = tr;
             taps_i[k] = ti;
@@ -187,7 +223,7 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
         const float step_true = TWO_PI_F * (doppler + carr_off) / p.fs;
         const float dphi_mid = dphi + (step_true - step0) * 0.5f * (float)cur_len;
         float rs, rc;
-        sincosf(dphi_mid, &rs, &rc);
+        sincos_reduced(dphi_mid, &rs, &rc);
         float corr_r[K], corr_i[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -197,14 +233,12 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 
         // ---- loop closure ----
         const float t_epoch = (float)cur_len / p.fs;
-        float sec_chip;
-        if (p.sec_len > 1) {
-            const int idx_c = min(sec_idx, p.sec_len - 1);
-            sec_chip = sec_rows[idx_c * C + c];
+        float s = 1.0f;
+        if (HAS_SEC) {
+            if (sec_on) s = sec_s[min(sec_idx, p.sec_len - 1)];
         } else {
-            sec_chip = sec_rows[c];
+            if (sec_on) s = sec_rows[c];
         }
-        const float s = sec_on ? sec_chip : 1.0f;
         float cw_r[K], cw_i[K], acc_r[K], acc_i[K], disc_r[K], disc_i[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
@@ -226,7 +260,7 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
         const float costas = (dp_r != 0.0f
             ? atan2f(dp_i * sign0(dp_r), fabsf(dp_r)) : 0.0f) / TWO_PI_F;
         float carr_err_cyc;
-        if (p.sec_data || !sec_on) {
+        if (SEC_DATA || !sec_on) {
             carr_err_cyc = costas;
         } else {
             carr_err_cyc = atan2f(dp_i, dp_r) / TWO_PI_F;
@@ -249,7 +283,7 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
 
         // --- FLL-assisted PLL cascade (A.5) ---
         float w_new, x_new, doppler_new;
-        if (p.order == 3) {
+        if (ORDER == 3) {
             w_new = cw + t_int * (w0p3 * pll_in + w0f2 * fll_in);
             x_new = cx + t_int * (0.5f * w_new + a2 * w0f * fll_in
                                   + a3 * w0p2 * pll_in);
@@ -340,7 +374,7 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
             : (epochs_in_track < p.fll_epochs));
         const bool turnoff = narrow && fll_on && !fll_still_on;
         if (turnoff && valid) {
-            if (p.order == 3) { cw_m = 0.0f; cx_m = 2.0f * doppler_m; }
+            if (ORDER == 3) { cw_m = 0.0f; cx_m = 2.0f * doppler_m; }
             else { cw_m = doppler_m; cx_m = 0.0f; }
         }
 
@@ -459,28 +493,119 @@ track_chain_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
     ist_out[I_LIMIT * C + c] = limit;
 }
 
+typedef void (*ChainKernel)(const float*, const float*, const int*,
+                            const float*, const float*, const float*,
+                            const int*, float*, int*, float*, float*, int*,
+                            const ChainParams);
+
+// The template instance for a spec (K, order, sec_data, sec_len > 1), or
+// null when the kernel does not take the spec.
+static ChainKernel chain_kernel_for(const ChainParams& p) {
+#define CH_PICK(KV, OV)                                                     \
+    if (p.sec_data) return p.sec_len > 1                                    \
+        ? track_chain_kernel<KV, OV, true, true>                            \
+        : track_chain_kernel<KV, OV, true, false>;                          \
+    return p.sec_len > 1 ? track_chain_kernel<KV, OV, false, true>          \
+                         : track_chain_kernel<KV, OV, false, false>;
+    if (p.P != p.K / 2) return nullptr;
+    if (p.K == 3 && p.order == 3) { CH_PICK(3, 3) }
+    if (p.K == 3 && p.order == 2) { CH_PICK(3, 2) }
+    if (p.K == 5 && p.order == 3) { CH_PICK(5, 3) }
+    if (p.K == 5 && p.order == 2) { CH_PICK(5, 2) }
+#undef CH_PICK
+    return nullptr;
+}
+
+static inline size_t chain_smem_bytes(const ChainParams& p) {
+    return sizeof(float) * (2 * (size_t)p.E * p.LW + p.E + p.sec_len);
+}
+
+// The chain kernel, checked, and the launch attribute for its dynamic
+// shared memory (needed above 48 KB).
+static cudaError_t chain_prepare(const ChainParams& p, ChainKernel* kernel) {
+    *kernel = chain_kernel_for(p);
+    if (*kernel == nullptr) return cudaErrorInvalidValue;
+    return cudaFuncSetAttribute(*kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)chain_smem_bytes(p));
+}
+
+static inline cudaError_t chain_enqueue(
+    ChainKernel kernel, const ChainParams& p, const void* zr, const void* zi,
+    const void* s_reg, const void* step0, const void* sec_rows,
+    const void* fst, const void* ist, void* out_f, void* out_i,
+    void* out_corr, void* fst_out, void* ist_out, cudaStream_t s) {
+    kernel<<<p.C, 32, chain_smem_bytes(p), s>>>(
+        (const float*)zr, (const float*)zi, (const int*)s_reg,
+        (const float*)step0, (const float*)sec_rows, (const float*)fst,
+        (const int*)ist, (float*)out_f, (int*)out_i, (float*)out_corr,
+        (float*)fst_out, (int*)ist_out, p);
+    return cudaGetLastError();
+}
+
+extern "C" int chunk_corr_launch(
+    const void* x, int n_samp, const void* rows, const void* slot,
+    const void* fst, const void* ist, void* zr, void* zi, void* s_reg,
+    void* step0, const CorrParams* params, void* stream) {
+    const CorrParams p = *params;
+    cudaError_t err = chunk_corr_prepare(p);
+    if (err != cudaSuccess) return (int)err;
+    return (int)chunk_corr_enqueue(p, x, n_samp, rows, slot, fst, ist, zr,
+                                   zi, s_reg, step0,
+                                   reinterpret_cast<cudaStream_t>(stream));
+}
+
 extern "C" int track_chain_launch(
-    const void* zr, const void* zi, const void* s_pred, const void* step0,
+    const void* zr, const void* zi, const void* s_reg, const void* step0,
     const void* sec_rows, const void* fst, const void* ist, void* out_f,
     void* out_i, void* out_corr, void* fst_out, void* ist_out,
     const ChainParams* params, void* stream) {
     const ChainParams p = *params;
-    const int threads = p.C <= 32 ? 32 : (p.C <= 64 ? 64 : 128);
-    const int blocks = (p.C + threads - 1) / threads;
+    ChainKernel kernel;
+    cudaError_t err = chain_prepare(p, &kernel);
+    if (err != cudaSuccess) return (int)err;
+    return (int)chain_enqueue(kernel, p, zr, zi, s_reg, step0, sec_rows, fst,
+                              ist, out_f, out_i, out_corr, fst_out, ist_out,
+                              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Every chunk of a capture segment: chunk i's correlator and chain read the
+// state of chunk i - 1 (the input state for i = 0) and the chain writes
+// chunk i's state into ping-pong buffer i % 2 and its per-epoch rows at
+// epoch offset i * E of the capture-wide outputs.  Enqueues 2 * n_chunks
+// launches on `stream`, checks each, never synchronises and allocates
+// nothing; returns the first error.
+extern "C" int track_capture_launch(
+    int n_chunks, const void* x, int n_samp, const void* rows,
+    const void* slot, const void* sec_rows, const void* fst_in,
+    const void* ist_in, void* fst_a, void* ist_a, void* fst_b, void* ist_b,
+    void* zr, void* zi, void* s_reg, void* step0, void* out_f, void* out_i,
+    void* out_corr, const CorrParams* corr_params,
+    const ChainParams* chain_params, void* stream) {
+    const CorrParams cp = *corr_params;
+    const ChainParams p = *chain_params;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define LAUNCH(KV)                                                          \
-    track_chain_kernel<KV><<<blocks, threads, 0, s>>>(                      \
-        (const float*)zr, (const float*)zi, (const int*)s_pred,             \
-        (const float*)step0, (const float*)sec_rows, (const float*)fst,     \
-        (const int*)ist, (float*)out_f, (int*)out_i, (float*)out_corr,      \
-        (float*)fst_out, (int*)ist_out, p)
-    if (p.K == 3) {
-        LAUNCH(3);
-    } else if (p.K == 5) {
-        LAUNCH(5);
-    } else {
-        return (int)cudaErrorInvalidValue;
+    ChainKernel kernel;
+    cudaError_t err = chunk_corr_prepare(cp);
+    if (err == cudaSuccess) err = chain_prepare(p, &kernel);
+    if (err != cudaSuccess) return (int)err;
+    void* fst_buf[2] = {fst_a, fst_b};
+    void* ist_buf[2] = {ist_a, ist_b};
+    const size_t f_stride = (size_t)p.E * N_OROWS * p.C;
+    const size_t i_stride = (size_t)p.E * 2 * p.C;
+    const size_t c_stride = (size_t)p.E * 2 * p.K * p.C;
+    for (int i = 0; i < n_chunks; ++i) {
+        const void* f_cur = i == 0 ? fst_in : fst_buf[(i - 1) % 2];
+        const void* i_cur = i == 0 ? ist_in : ist_buf[(i - 1) % 2];
+        err = chunk_corr_enqueue(cp, x, n_samp, rows, slot, f_cur, i_cur, zr,
+                                 zi, s_reg, step0, s);
+        if (err != cudaSuccess) return (int)err;
+        err = chain_enqueue(kernel, p, zr, zi, s_reg, step0, sec_rows, f_cur,
+                            i_cur, (float*)out_f + i * f_stride,
+                            (int*)out_i + i * i_stride,
+                            (float*)out_corr + i * c_stride, fst_buf[i % 2],
+                            ist_buf[i % 2], s);
+        if (err != cudaSuccess) return (int)err;
     }
-#undef LAUNCH
-    return (int)cudaGetLastError();
+    return 0;
 }

@@ -2,10 +2,14 @@
 
 Each `csrc/<name>.cu` has a plain C interface; it is compiled for Hopper
 (`sm_90a`) into `build/lib<name>-<hash>.so` beside the package and loaded
-with ctypes.  The file name carries a hash of the source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  The build runs
-from the repository's sources alone: nvcc from `$CUDA_HOME/bin`,
-`/usr/local/cuda/bin` or the PATH.
+with ctypes.  The file name carries a hash of the source, of every header
+in `csrc/` and of the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  The build runs from the repository's sources
+alone: nvcc from `$CUDA_HOME/bin`, `/usr/local/cuda/bin` or the PATH.
+
+The tracking kernels form one library, `track_chain` (`library()`): the
+chain in `track_chain.cu`, the chunk correlator in `chunk_corr.cuh`, and the
+capture-level entry that enqueues both for every chunk.
 
 Flags: `-O3`, no `--use_fast_math` (atan2f / sincosf / log10f keep full
 float32 accuracy) and `--fmad=false` (no multiply-add contraction, so the
@@ -30,8 +34,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LOADED: dict[str, ctypes.CDLL] = {}
-# per-kernel build record: seconds taken (0.0 when reused) and ptxas report
+_LIB: ctypes.CDLL | None = None
+# per-library build record: seconds taken (0.0 when reused) and ptxas report
 BUILD_LOG: dict[str, dict] = {}
 
 
@@ -49,10 +53,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(
-        src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:
@@ -79,19 +84,32 @@ def build(name: str) -> pathlib.Path:
     return out
 
 
-def build_all(names) -> dict[str, pathlib.Path]:
-    """Compile several kernels at once, one nvcc process per source."""
-    names = [n for n in names if not _target(n).exists()]
-    from concurrent.futures import ThreadPoolExecutor
+LIBRARY = "track_chain"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points of the tracking library: pointers and the stream as
+# c_void_p (ctypes would cut a Python int to 32 bits), counts as c_int;
+# each returns the first CUDA error, 0 on success
+_ENTRIES = {
+    # x, n_samp, rows, slot, fst, ist, zr, zi, s_reg, step0, params, stream
+    "chunk_corr_launch": [_P, _I] + [_P] * 10,
+    # zr, zi, s_reg, step0, sec_rows, fst, ist, out_f, out_i, out_corr,
+    # fst_out, ist_out, params, stream
+    "track_chain_launch": [_P] * 14,
+    # n_chunks, x, n_samp, rows, slot, sec_rows, fst_in, ist_in, fst_a,
+    # ist_a, fst_b, ist_b, zr, zi, s_reg, step0, out_f, out_i, out_corr,
+    # corr params, chain params, stream
+    "track_capture_launch": [_I, _P, _I] + [_P] * 19,
+}
 
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        paths = list(pool.map(build, names))
-    return dict(zip(names, paths))
 
-
-def load_library(name: str) -> ctypes.CDLL:
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LOADED[name] = lib
-    return lib
+def library() -> ctypes.CDLL:
+    """The tracking library, built at first use, entry points declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build(LIBRARY)))
+        for fn_name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -14,20 +14,25 @@ seeding and the frozen-vs-true phase ledger.
 It replaces the Pallas kernel of the JAX package
 (gnss_sdr_1_tpu/ops/pallas_chain.py `_make_kernel`).  State crosses the
 call as row-stacked matrices (`n_frows(K)` x C float32 + `N_IROWS` x C
-int32) in the same row order (F_* / I_* / O_* below), so the engine's
-pack/unpack matches the JAX package's.
+int32) in the same row order (F_* / I_* / O_* below, and csrc/rows.cuh
+for the kernels), so the engine's pack/unpack matches the JAX package's.
 
 Numerics differ from the Pallas kernel in one documented place: the
 arctangents are the platform's `atan2` (Cephes' rational on the TPU side,
 <= 4e-7 rad apart), and the interpolated tap read sums two lags instead of
 all LW (the others carry zero weight).
 
+The lag windows come channel-major from the chunk correlator
+(ops.chunk_corr), so each channel's chunk is one contiguous block; the
+Pallas kernel takes them as [E, LW, C] for the TPU's lanes.
+
 Signature of `chain` / `chain_plain`:
-    (spec, zr [E,LW,C] f32, zi [E,LW,C] f32, s_pred [E,C] i32,
-     step0 [1,C] f32, sec_rows [sec_len,C] f32, fst [SF,C] f32,
+    (spec, zr [C,E,LW] f32, zi [C,E,LW] f32, s_reg [C,E] i32,
+     step0 [C] f32, sec_rows [sec_len,C] f32, fst [SF,C] f32,
      ist [SI,C] i32)
  -> (out_f [E,7,C] f32, out_i [E,2,C] i32, out_corr [E,2K,C] f32,
      fst' [SF,C] f32, ist' [SI,C] i32)
+`s_reg` is the regular-grid slice origin of each epoch window.
 """
 
 from __future__ import annotations
@@ -133,7 +138,7 @@ def mod_floor(x, m: float):
 # ---------------------------------------------------------------------------
 
 
-def chain_plain(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
+def chain_plain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
     """The chain in plain torch ops (any device); same rows as the kernel."""
     E, LW, K = spec.E, spec.LW, spec.K
     P = spec.prompt_index
@@ -143,7 +148,7 @@ def chain_plain(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
     i32 = torch.int32
     C = fst.shape[1]
     step0 = step0.reshape(C)
-    lag = torch.arange(LW, dtype=f32, device=dev)[:, None]       # [LW, 1]
+    lag = torch.arange(LW, dtype=f32, device=dev)[None, :]       # [1, LW]
 
     def sel(narrow_f, w, n):
         base, slope = _sel_pair(w, n)
@@ -181,15 +186,15 @@ def chain_plain(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
         validf = valid.to(f32)
 
         # ---- tap read at the TRUE code phase ----
-        d_s = (start - s_pred[kk]).to(f32)
+        d_s = (start - s_reg[:, kk]).to(f32)
         rem_eff = (d_s + rem_code) * (1.0 + delta / _f32(spec.chip_rate))
         taps_r, taps_i = [], []
         for k in range(K):
             pos = (_f32(spec.lag_margin) + rem_eff
                    - _f32(spec.shifts_chips[k] * spec.spc_samples))
-            w = torch.clamp(1.0 - torch.abs(pos[None, :] - lag), min=0.0)
-            taps_r.append(torch.sum(zr[kk] * w, dim=0))
-            taps_i.append(torch.sum(zi[kk] * w, dim=0))
+            w = torch.clamp(1.0 - torch.abs(pos[:, None] - lag), min=0.0)
+            taps_r.append(torch.sum(zr[:, kk] * w, dim=1))
+            taps_i.append(torch.sum(zi[:, kk] * w, dim=1))
 
         # ---- rotate into the true-NCO frame ----
         step_true = _TWO_PI * (doppler + carr_off) / _f32(spec.fs)
@@ -481,6 +486,9 @@ def chain_params(spec: ChainSpec) -> ChainParams:
     the C entry copies the struct before it launches)."""
     if spec.K not in (3, 5) or spec.veml != (spec.K == 5):
         raise ValueError("the chain kernel takes K=3 (EPL) or K=5 (VEML)")
+    if spec.prompt_index != spec.K // 2 or spec.order not in (2, 3):
+        raise ValueError("the chain kernel takes the prompt at K // 2 and "
+                         "PLL order 2 or 3")
     p = ChainParams()
     p.E, p.LW, p.K, p.C = spec.E, spec.LW, spec.K, spec.C
     p.sec_len, p.P = spec.sec_len, spec.prompt_index
@@ -515,24 +523,8 @@ def chain_params(spec: ChainSpec) -> ChainParams:
     return p
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from ._build import load_library
-
-        lib = load_library("track_chain")
-        fn = lib.track_chain_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [
-            ctypes.POINTER(ChainParams), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check(t, name, shape, dtype):
+def check_tensor(t, name, shape, dtype):
+    """Raise unless `t` is a contiguous CUDA tensor of this shape and type."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor")
     if tuple(t.shape) != tuple(shape):
@@ -544,32 +536,40 @@ def _check(t, name, shape, dtype):
         raise ValueError(f"{name} must be contiguous")
 
 
-def chain_cuda(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
-    """Launch the CUDA kernel (one thread per channel, E epochs each)."""
-    global launches
-    E, LW, K, C = spec.E, spec.LW, spec.K, spec.C
+def check_inputs(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
+    """Device, dtype, shape and contiguity of the kernel's inputs."""
+    E, LW, C = spec.E, spec.LW, spec.C
     f32, i32 = torch.float32, torch.int32
-    SF = n_frows(K)
-    _check(zr, "zr", (E, LW, C), f32)
-    _check(zi, "zi", (E, LW, C), f32)
-    _check(s_pred, "s_pred", (E, C), i32)
-    _check(step0, "step0", (1, C), f32)
-    _check(sec_rows, "sec_rows", (spec.sec_len, C), f32)
-    _check(fst, "fst", (SF, C), f32)
-    _check(ist, "ist", (N_IROWS, C), i32)
+    check_tensor(zr, "zr", (C, E, LW), f32)
+    check_tensor(zi, "zi", (C, E, LW), f32)
+    check_tensor(s_reg, "s_reg", (C, E), i32)
+    check_tensor(step0, "step0", (C,), f32)
+    check_tensor(sec_rows, "sec_rows", (spec.sec_len, C), f32)
+    check_tensor(fst, "fst", (n_frows(spec.K), C), f32)
+    check_tensor(ist, "ist", (N_IROWS, C), i32)
+
+
+def chain_cuda(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
+    """Launch the CUDA kernel once (one warp per channel, E epochs each)."""
+    global launches
+    from ._build import library
+
+    check_inputs(spec, zr, zi, s_reg, step0, sec_rows, fst, ist)
+    E, K, C = spec.E, spec.K, spec.C
+    f32, i32 = torch.float32, torch.int32
     dev = zr.device
     out_f = torch.empty((E, N_OROWS, C), dtype=f32, device=dev)
     out_i = torch.empty((E, 2, C), dtype=i32, device=dev)
     out_corr = torch.empty((E, 2 * K, C), dtype=f32, device=dev)
-    fst_out = torch.empty((SF, C), dtype=f32, device=dev)
-    ist_out = torch.empty((N_IROWS, C), dtype=i32, device=dev)
-    params = chain_params(spec)
+    fst_out = torch.empty_like(fst)
+    ist_out = torch.empty_like(ist)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().track_chain_launch(
-        zr.data_ptr(), zi.data_ptr(), s_pred.data_ptr(), step0.data_ptr(),
+    err = library().track_chain_launch(
+        zr.data_ptr(), zi.data_ptr(), s_reg.data_ptr(), step0.data_ptr(),
         sec_rows.data_ptr(), fst.data_ptr(), ist.data_ptr(),
         out_f.data_ptr(), out_i.data_ptr(), out_corr.data_ptr(),
-        fst_out.data_ptr(), ist_out.data_ptr(), ctypes.byref(params), stream)
+        fst_out.data_ptr(), ist_out.data_ptr(),
+        ctypes.addressof(chain_params(spec)), stream)
     if err != 0:
         raise RuntimeError(f"track_chain kernel launch failed: CUDA error "
                            f"{err}")
@@ -577,14 +577,14 @@ def chain_cuda(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
     return out_f, out_i, out_corr, fst_out, ist_out
 
 
-def chain(spec: ChainSpec, zr, zi, s_pred, step0, sec_rows, fst, ist):
+def chain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
     """Run the chain where its inputs lie: the CUDA kernel for CUDA
     tensors, the plain torch version for CPU tensors."""
-    devs = {t.device.type for t in (zr, zi, s_pred, step0, sec_rows, fst,
+    devs = {t.device.type for t in (zr, zi, s_reg, step0, sec_rows, fst,
                                     ist)}
     if devs == {"cuda"}:
-        return chain_cuda(spec, zr, zi, s_pred, step0, sec_rows, fst, ist)
+        return chain_cuda(spec, zr, zi, s_reg, step0, sec_rows, fst, ist)
     if devs == {"cpu"}:
-        return chain_plain(spec, zr, zi, s_pred, step0, sec_rows, fst, ist)
+        return chain_plain(spec, zr, zi, s_reg, step0, sec_rows, fst, ist)
     raise ValueError(f"chain inputs must all lie on one device type, got "
                      f"{sorted(devs)}")

@@ -17,13 +17,15 @@ Tracking states (reference general_work :1544-1900):
 
 Chunked correlation: `chunk_epochs` (E) epochs of every channel are sliced
 on the regular epoch grid with the chunk-entry (frozen) NCO rates, wiped
-off, and correlated against the per-slot shifted-replica bank in ONE
-batched matmul per I/Q plane, giving a lag window of LW lags per epoch.
-One launch of the tracking-chain kernel (ops.track_chain) then runs the
-exact sequential per-epoch loop closure for the chunk: it reads each
-epoch's taps from the lag window at the TRUE code phase and rotates them by
-the known frozen-vs-true carrier phase difference.  The chain's state
-crosses chunks as row-stacked matrices (fst [SF, C] f32, ist [SI, C] i32).
+off, and correlated against the per-slot shifted-replica bank, giving a
+lag window of LW lags per epoch (ops.chunk_corr).  The tracking chain
+(ops.track_chain) then runs the exact sequential per-epoch loop closure for
+the chunk: it reads each epoch's taps from the lag window at the TRUE code
+phase and rotates them by the known frozen-vs-true carrier phase
+difference.  The chain's state crosses chunks as row-stacked matrices
+(fst [SF, C] f32, ist [SI, C] i32).  On the card one C call enqueues both
+kernels for every chunk of a capture segment (ops.track_capture); on the
+CPU the same chunk loop runs in Python with the plain versions.
 
 Numerical contracts (SURVEY.md Appendix A): A.2 code resampling on the lag
 grid, A.3 discriminators, A.4 carrier-aided code NCO, A.5 loop filters,
@@ -33,24 +35,21 @@ estimator + carrier lock detector + max_lock_fail.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import chunk_corr as cc
+from ..ops import track_capture as tcap
 from ..ops import track_chain as tc
 from .config import TrackConfig
 from .loop_filter import fll_pll_coefficients, iir_coefficients
 
-_TWO_PI = 2.0 * np.pi
 _F32 = torch.float32
 _I32 = torch.int32
-
-
-def _f32(v) -> float:
-    """Round a Python number to the nearest float32 value."""
-    return float(np.float32(v))
 
 
 class TrackState(NamedTuple):
@@ -238,14 +237,21 @@ class TrackingEngine:
         # shifted-replica bank R[s, l, n] = code((n - l + margin)*a0 mod L):
         # the true lv-periodic code at every (lag, sample) pair, so window
         # samples below the lag index correlate against the correctly
-        # phased previous code period
-        LW = self._lag_window
-        ngrid = (np.arange(self._corr_win)[None, :]
-                 - np.arange(LW)[:, None])
-        chip_idx = np.floor(a0 * (ngrid + self._lag_margin)).astype(np.int64)
-        self.rep_rows_np = np.asarray(codes)[:, np.mod(chip_idx, lv)].astype(
-            np.float32)                                  # [slots, LW, NW]
-        self._rep_rows = torch.as_tensor(self.rep_rows_np, device=dev)
+        # phased previous code period.  R depends on n - l only: the
+        # Toeplitz row table holds rows[s, m + LW - 1] = R[s, l, l + m] for
+        # m = n - l in [-(LW-1), NW-1], from the same expression
+        LW, NW = self._lag_window, self._corr_win
+        self._codes_np = np.asarray(codes)
+        self._a0 = a0
+        m = np.arange(-(LW - 1), NW)
+        chip_idx = np.floor(a0 * (m + self._lag_margin)).astype(np.int64)
+        rows = np.zeros((codes.shape[0], cc.row_width(LW, NW)), np.float32)
+        rows[:, :LW - 1 + NW] = self._codes_np[:, np.mod(chip_idx, lv)]
+        self._rows = torch.as_tensor(rows, device=dev)   # [slots, QW]
+        self.corr_spec = cc.CorrSpec(
+            E=E, LW=LW, NW=NW, C=cfg.n_channels, t0_int=self._t0_int,
+            t0_frac=self._t0_frac, grid_pad=self._grid_pad,
+            chip_rate=float(cfg.chip_rate_chips_s), fs=float(cfg.fs_hz))
         self._fll_epochs = int(round(cfg.pull_in_time_s / cfg.code_period_s))
         w, n = self._fllpll, self._fllpll_n
         self.chain_spec = tc.ChainSpec(
@@ -273,6 +279,17 @@ class TrackingEngine:
             dll_b_out=tuple(float(v) for v in b_out),
             dll_b_out_n=tuple(float(v) for v in b_out_n),
         )
+
+    @functools.cached_property
+    def rep_rows_np(self) -> np.ndarray:
+        """The full shifted-replica bank [slots, LW, NW] (the JAX package's
+        `_rep_rows`), built from its own expression."""
+        ngrid = (np.arange(self._corr_win)[None, :]
+                 - np.arange(self._lag_window)[:, None])
+        chip_idx = np.floor(self._a0 * (ngrid + self._lag_margin)).astype(
+            np.int64)
+        lv = self._codes_np.shape[1]
+        return self._codes_np[:, np.mod(chip_idx, lv)].astype(np.float32)
 
     # ---------------- state management (host) ----------------
 
@@ -456,82 +473,7 @@ class TrackingEngine:
             carr_offset_hz=fst[tc.F_CARR_OFF],
         )
 
-    # ---------------- device path: one chunk ----------------
-
-    def _chunk_windows(self, samples, fst, ist):
-        """Chunk-window extraction on the REGULAR epoch grid, wiped with the
-        chunk-entry (frozen) NCO.  `samples` is the zero-padded complex64
-        capture.  Returns (wiped_r, wiped_i [C, E, NW] f32, zero outside each
-        epoch's true content; s_reg [C, E] i32; step0 [C] f32)."""
-        cfg = self.cfg
-        E, NW, t0i = self._chunk_epochs, self._corr_win, self._t0_int
-        dev = samples.device
-        n_samp = samples.shape[0]
-        start, cur_len = ist[tc.I_START], ist[tc.I_CURLEN]
-        rem_code, delta0 = fst[tc.F_REM_CODE], fst[tc.F_DELTA]
-
-        # --- predict epoch starts/lengths under the frozen code frequency ---
-        codef0 = _f32(cfg.chip_rate_chips_s) + delta0
-        d_t0 = _f32(-(np.float32(t0i) + np.float32(self._t0_frac))) \
-            * delta0 / codef0
-        c_step = _f32(self._t0_frac) + d_t0                        # [C]
-        k = torch.arange(E + 1, dtype=_F32, device=dev)
-        r = rem_code[:, None] + (k[None, :] - 1.0) * c_step[:, None]
-        s_pred = (start[:, None] + cur_len[:, None]
-                  + (k[None, :].to(_I32) - 1) * t0i
-                  + torch.floor(r).to(_I32))                       # [C, E+1]
-        s_pred[:, 0] = start
-        len_pred = s_pred[:, 1:] - s_pred[:, :-1]                  # [C, E]
-
-        # --- per-channel segment -> E static epoch windows (views) ---
-        seg_len = (E - 1) * t0i + NW
-        off = torch.clamp(start - self._grid_pad, 0, n_samp - seg_len)
-        idx = off.to(torch.int64)[:, None] + torch.arange(
-            seg_len, device=dev)[None, :]
-        seg = samples[idx]                                         # [C, seg]
-        seg_r = seg.real.unfold(1, NW, t0i)                        # [C, E, NW]
-        seg_i = seg.imag.unfold(1, NW, t0i)
-        s_reg = off[:, None] + (torch.arange(E, dtype=_I32, device=dev)
-                                * t0i)[None, :]                    # [C, E]
-
-        # --- frozen-NCO carrier wipe-off across the chunk ---
-        step0 = _f32(_TWO_PI) * (fst[tc.F_DOPPLER] + fst[tc.F_CARR_OFF]) \
-            / _f32(cfg.fs_hz)
-        phi_k = tc.mod_floor(
-            fst[tc.F_REM_CARR][:, None]
-            + step0[:, None] * (s_reg - start[:, None]).to(_F32),
-            _f32(_TWO_PI))                                         # [C, E]
-        n = torch.arange(NW, dtype=_F32, device=dev)
-        phase = phi_k[..., None] + step0[:, None, None] * n
-        cs, sn = torch.cos(phase), torch.sin(phase)
-        # (re + j im) * (cos - j sin)
-        wr = seg_r * cs + seg_i * sn
-        wi = seg_i * cs - seg_r * sn
-        # mask to each epoch's true content [d', d' + len_pred)
-        dp = (s_pred[:, :E] - s_reg).to(_F32)[..., None]           # [C, E, 1]
-        mask = (n >= dp) & (n < dp + len_pred[..., None].to(_F32))
-        zero = torch.zeros((), dtype=_F32, device=dev)
-        wr = torch.where(mask, wr, zero)
-        wi = torch.where(mask, wi, zero)
-        return wr, wi, s_reg, step0
-
-    def _chain_inputs(self, samples, fst, ist, rep_t, sec_rows):
-        """The chain's arguments for one chunk on packed rows: window +
-        wipe, then the lag-window correlation as one batched matmul per I/Q
-        plane (full float32)."""
-        wr, wi, s_reg, step0 = self._chunk_windows(samples, fst, ist)
-        # [C, E, NW] x [C, NW, LW] -> [C, E, LW] -> kernel layout [E, LW, C]
-        zr = torch.bmm(wr, rep_t).permute(1, 2, 0).contiguous()
-        zi = torch.bmm(wi, rep_t).permute(1, 2, 0).contiguous()
-        return (zr, zi, s_reg.T.contiguous(), step0[None].contiguous(),
-                sec_rows, fst, ist)
-
-    def _capture_tables(self, state: TrackState):
-        """Per-channel replica bank [C, NW, LW] (transposed view) and
-        secondary rows [sec_len, C] for the channels' PRN slots."""
-        slot = state.prn_slot.to(torch.int64)
-        return (self._rep_rows[slot].transpose(1, 2),
-                self._sec[slot].T.contiguous())
+    # ---------------- device path: the chunk loop ----------------
 
     def _pad_for_chunks(self, samples):
         """Zero-pad the capture tail ONCE per call so every chunk's segment
@@ -551,29 +493,23 @@ class TrackingEngine:
     def _run_capture(self, samples, state: TrackState, limit: int,
                      n_epochs: int):
         """Chunk loop over a device-resident capture: ceil(n_epochs / E)
-        chunks, every chunk one chain launch.  Returns the final state and
-        the per-epoch rows (out_f [cap, 7, C], out_i [cap, 2, C], out_corr
-        [cap, 2K, C]) still on the device."""
+        chunks, each one correlator and one chain launch, all enqueued by
+        one call on the card.  Returns the final state and the per-epoch
+        rows (out_f [cap, 7, C], out_i [cap, 2, C], out_corr [cap, 2K, C])
+        still on the device."""
         if samples.device.type != self.device.type:
             raise ValueError(f"capture lies on {samples.device}, engine on "
                              f"{self.device}")
-        samples = self._pad_for_chunks(samples.to(torch.complex64))
-        cfg, dev = self.cfg, self.device
-        C, K, E = cfg.n_channels, cfg.n_taps, self._chunk_epochs
+        samples = self._pad_for_chunks(
+            samples.to(torch.complex64).contiguous())
+        E = self._chunk_epochs
         n_chunks = (n_epochs + E - 1) // E
-        cap = n_chunks * E
-        out_f = torch.empty((cap, tc.N_OROWS, C), dtype=_F32, device=dev)
-        out_i = torch.empty((cap, 2, C), dtype=_I32, device=dev)
-        out_corr = torch.empty((cap, 2 * K, C), dtype=_F32, device=dev)
         fst, ist = self._pack_rows(state, limit)
-        rep_t, sec_rows = self._capture_tables(state)
-        for i in range(n_chunks):
-            of, oi, oc, fst, ist = tc.chain(
-                self.chain_spec,
-                *self._chain_inputs(samples, fst, ist, rep_t, sec_rows))
-            out_f[i * E:(i + 1) * E] = of
-            out_i[i * E:(i + 1) * E] = oi
-            out_corr[i * E:(i + 1) * E] = oc
+        slot = state.prn_slot.to(_I32).contiguous()
+        sec_rows = self._sec[slot.long()].T.contiguous()
+        out_f, out_i, out_corr, fst, ist = tcap.track_capture(
+            self.chain_spec, self.corr_spec, n_chunks, samples, self._rows,
+            slot, sec_rows, fst, ist)
         return self._unpack_rows(state, fst, ist), out_f, out_i, out_corr
 
     # ---------------- output reductions ----------------

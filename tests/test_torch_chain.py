@@ -5,6 +5,10 @@ JAX engine tracked.  Covers PLL order 2 and 3, wide and narrow/extended
 mode, the in-loop secondary wipe, a lock-fail drop, a dead channel and the
 sample limit.
 
+The inputs are made in the Pallas kernel's layout (lag windows [E, LW, C],
+slice origins [E, C], step0 [1, C]) and permuted into the port's
+channel-major one ([C, E, LW], [C, E], [C]).
+
 Tolerances: int rows and flags exact; float32 rows at atol 1e-4 of the
 row's scale (the port uses atan2 where the TPU kernel uses the Cephes
 rational, <= 4e-7 rad apart, and sums taps in another order).  The CUDA
@@ -152,6 +156,14 @@ def _case(tracked_state, case, seed):
     return dataclasses.replace(spec, C=C), args
 
 
+def _port_args(args):
+    """The port's layout of one case's inputs, as torch tensors."""
+    zr, zi, s_reg, step0, sec, fst, ist = args
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        zr.transpose(2, 0, 1), zi.transpose(2, 0, 1), s_reg.T, step0[0],
+        sec, fst, ist))
+
+
 CASES = {
     "wide_order3": dict(order=3, dead=True),
     "wide_order2_limit": dict(order=2, limit=True),
@@ -189,7 +201,7 @@ def test_chain_plain_matches_pallas_interpret(jax_chain, tracked_state,
     jspec = jax_chain.ChainSpec(**dataclasses.asdict(spec))
     want = jax_chain.make_chain_call(jspec, interpret=True)(
         *(jnp.asarray(a) for a in args))
-    got = tc.chain(spec, *(torch.from_numpy(a) for a in args))
+    got = tc.chain(spec, *_port_args(args))
     _compare(got, want, case)
     ist_out = np.asarray(got[4])
     out_f = np.asarray(got[0])
@@ -208,12 +220,12 @@ def test_chain_plain_matches_pallas_interpret(jax_chain, tracked_state,
 
 def test_chain_wrapper_counts_only_kernel_launches(port_state):
     spec, args = _case(port_state, CASES["wide_order3"], seed=3)
+    port = _port_args(args)
     before = tc.launches
-    tc.chain(spec, *(torch.from_numpy(a) for a in args))
+    tc.chain(spec, *port)
     assert tc.launches == before
     with pytest.raises(ValueError):
-        tc.chain(spec, *(torch.from_numpy(a) for a in args[:-1]),
-                 torch.from_numpy(args[-1]).to("meta"))
+        tc.chain(spec, *port[:-1], port[-1].to("meta"))
 
 
 @pytest.mark.gpu
@@ -223,7 +235,7 @@ def test_chain_kernel_matches_plain_on_gpu(port_state, case):
         pytest.skip("needs an NVIDIA GPU (the CUDA chain kernel has no CPU "
                     "mode)")
     spec, args = _case(port_state, CASES[case], seed=len(case))
-    dev = [torch.from_numpy(a).cuda() for a in args]
+    dev = [t.cuda() for t in _port_args(args)]
     before = tc.launches
     got = tc.chain(spec, *dev)
     torch.cuda.synchronize()
