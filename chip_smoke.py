@@ -14,7 +14,9 @@ Phases (one line each, with times):
      timed (device time per launch from the profiler, the plain version,
      and for the correlator the torch.bmm pair it replaces); then the
      capture entry (both kernels over three chunks in one call) against
-     the plain chunk loop on the CPU;
+     the plain chunk loop on the CPU; the same three checks (untimed) at
+     the engine's shapes for 2.046 Msps (phase 7's rate) and 2.6 Msps
+     (gps_l1_kalman.conf's, 2.54 samples per chip);
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -22,8 +24,20 @@ Phases (one line each, with times):
   5. the receiver end to end — the main path: 12 satellites, 30 s, live
      LNAV, PVT every 100 ms, the capture preloaded to the card (e2e RTF,
      fixes, median 3D error against the scenario truth, each kernel's
-     launches == chunks).
-Then one JSON line describing every kernel, the nvidia-smi line, and last
+     launches == chunks);
+  6. the conf-file CLI (`python -m gnss_sdr_1_tpu_torch`, run in-process)
+     on phase 5's capture written as an `ishort` file: File_Signal_Source,
+     Pass_Through, 12 channels, DLL/PLL (fixes and median 3D error from
+     position.geojson, all seven output files, launches == chunks);
+  7. the CLI on the same capture mixed up to a 420 kHz IF: the
+     Freq_Xlating_Fir_Filter conditioner on the card decimating to
+     2.046 Msps (held to the same FrontEnd on the CPU over the first
+     0.5 s), then both kernels at that rate;
+  8. the CLI with GPS_L1_CA_KF_Tracking on phase 6's file (RTF, fixes,
+     median 3D error, KF epochs), and the launches per KF epoch from a
+     profiler trace of one 40 ms block.
+Then one JSON line describing every kernel (launches summed over phases 5-7,
+each read just after its run), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
 once.  Synthetic captures are cached in chip_smoke_cache/ (git-ignored);
@@ -34,6 +48,8 @@ the full report (per-row kernel diffs, per-PRN acquisition results) goes to
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import pathlib
 import re
@@ -67,6 +83,20 @@ WIPE_OPS_PER_SAMPLE = 8
 # chunks of the capture entry's check in phase 2 (the sample limit of the
 # mid-track segment, 40 ms, ends inside the third)
 CAPTURE_CHUNKS = 3
+# phase 2's extra kernel checks: phase 7's internal rate and
+# gps_l1_kalman.conf's (a non-integer number of samples per chip)
+CHECK_RATES = (2.046e6, 2.6e6)
+# phases 6-8: the capture as the verify recipe writes it (int16 I/Q at
+# this scale), the IF of phase 7 and its internal rate (decimation 2)
+ISHORT_SCALE = 1500.0
+IF_HZ = 420e3
+FS_IF = FS / 2
+MIN_FIXES_IF = 100
+# the KF receiver's bars (tests/test_kf_tracking.py:179-184)
+MIN_FIXES_KF = 10
+OUTPUT_FILES = ("position.kml", "position.gpx", "position.geojson",
+                "position.nmea", "observables.rnx", "brdc.rnx",
+                "observables.rtcm")
 
 
 def log(msg: str) -> None:
@@ -134,8 +164,14 @@ def main() -> None:
         f"ms, bound {ch['bound_ms']:.2e} ms ({ch['bound_by']})")
     log(f"    track_capture ({ch['capture_chunks']} chunks, one call) vs the "
         f"plain chunk loop on the CPU: max |diff| {ch['err_capture']:.3e}, "
-        f"int rows exact, {ch['capture_valid_epochs']} valid epochs | "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"int rows exact, {ch['capture_valid_epochs']} valid epochs")
+    for r in k_rep["other_rates"]:
+        log(f"    at {r['fs'] / 1e6:g} Msps (NW={r['NW']}, LW={r['LW']}, "
+            f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
+            f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
+            f"track_chain {r['chain_err']:.3e}, capture "
+            f"{r['capture_err']:.3e}, int rows exact")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
                              f"the torch.bmm pair {cr['library_ms']:.5f} ms")
@@ -167,21 +203,53 @@ def main() -> None:
 
     # ---- 5. receiver end to end (the main path) ----
     t0 = time.perf_counter()
-    e2e = phase_e2e(dev, cc, tc)
+    scen, x_e2e, gen_s = e2e_capture()
+    e2e = phase_e2e(dev, cc, tc, scen, x_e2e)
     log(f"[5] receiver e2e: 12 sats x {E2E_S:g} s, RTF {e2e['rtf']:.2f} "
         f"({e2e['wall_s']:.2f} s), fixes {e2e['fixes']}, median 3D error "
         f"{e2e['median_3d_m']:.2f} m, launches chunk_corr "
         f"{e2e['launches_chunk_corr']} track_chain "
         f"{e2e['launches_track_chain']} == chunks {e2e['chunks']} | "
-        f"{time.perf_counter() - t0:.1f} s (capture made in "
-        f"{e2e['gen_s']:.1f} s)")
+        f"{time.perf_counter() - t0:.1f} s (capture made in {gen_s:.1f} s)")
 
+    # ---- 6-8. the conf-file CLI on files written from phase 5's capture ----
+    t0 = time.perf_counter()
+    files = write_cli_files(x_e2e)
+    del x_e2e
+    log(f"    CLI captures written ({', '.join(p.name for p in files)}) | "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli6 = phase_cli_passthrough(cc, tc, scen, files[0])
+    log(f"[6] CLI, ishort file, Pass_Through: {cli6['summary']} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli7 = phase_cli_if(dev, cc, tc, scen, files[1])
+    log(f"[7] CLI, IF {IF_HZ / 1e3:g} kHz, Freq_Xlating_Fir_Filter to "
+        f"{FS_IF / 1e6:g} Msps: {cli7['summary']}; conditioner on the card "
+        f"vs the CPU over {cli7['cond_check_s']:g} s: max |diff| "
+        f"{cli7['cond_err']:.3e} of max {cli7['cond_scale']:.3e}, "
+        f"{cli7['condition_s']:.3f} s to condition the {E2E_S:g} s | "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli8 = phase_cli_kf(dev, cc, tc, scen, files[0])
+    kfp = cli8["profile"]
+    log(f"[8] CLI, GPS_L1_CA_KF_Tracking: {cli8['summary']}; "
+        f"{cli8['kf_epochs']} KF epoch steps, {cli8['ms_per_epoch']:.3f} ms "
+        f"of wall each; one 40 ms block ({kfp['epochs']} epochs, 12 ch) "
+        f"profiled: {kfp['launches_per_epoch']:.1f} kernel launches and "
+        f"{kfp['device_us_per_epoch']:.1f} us of device time per epoch, "
+        f"{kfp['wall_ms_per_epoch']:.3f} ms of wall | "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # launches of each kernel over every path that runs it, each counted
+    # with the counters set to 0 just before the run and read just after
+    paths = (e2e, cli6, cli7)
     src = "gnss_sdr_1_tpu_torch/csrc/"
     kernels = [{
         "name": "chunk_corr", "route": "cuda",
         "source": src + "chunk_corr.cuh",
         "replaces": "gnss_sdr_1_tpu/track/engine.py:828",
-        "launches": e2e["launches_chunk_corr"],
+        "launches": sum(p["launches_chunk_corr"] for p in paths),
         "max_abs_err": cr["max_abs_err"], "ms": cr["ms"],
         "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
         "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
@@ -189,14 +257,15 @@ def main() -> None:
         "name": "track_chain", "route": "cuda",
         "source": src + "track_chain.cu",
         "replaces": "gnss_sdr_1_tpu/ops/pallas_chain.py:503",
-        "launches": e2e["launches_track_chain"],
+        "launches": sum(p["launches_track_chain"] for p in paths),
         "max_abs_err": ch["max_abs_err"], "ms": ch["ms"],
         "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
         "bound_by": ch["bound_by"], "library_ms": None,
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
-              "e2e": e2e, "total_s": time.perf_counter() - t_all}
+              "e2e": e2e, "cli_passthrough": cli6, "cli_if": cli7,
+              "cli_kf": cli8, "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1, default=float))
@@ -251,13 +320,13 @@ def ptxas_report(text: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _engine(dev):
+def _engine(dev, fs=FS):
     """The engine benchmark's tracker: 12 channels, 16-epoch chunks."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 
     codes = np.stack([gps_l1ca_code(p) for p in range(1, 13)])
-    cfg = TrackConfig(fs_hz=FS, code_length_chips=1023,
+    cfg = TrackConfig(fs_hz=fs, code_length_chips=1023,
                       chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
                       n_channels=12, chunk_epochs=16)
     return TrackingEngine(cfg, codes, device=dev)
@@ -276,14 +345,15 @@ def _bench_sats(duration_s):
 
 
 def _activate_all(eng, sats):
+    fs = eng.cfg.fs_hz
     st = eng.init_state()
     for ch, s in enumerate(sats):
-        st = eng.activate_channel(st, ch, ch, s.delay_chips / 1.023e6 * FS,
+        st = eng.activate_channel(st, ch, ch, s.delay_chips / 1.023e6 * fs,
                                   s.doppler_hz, 0, 0)
     return st
 
 
-def _gen(sats, duration_s, key):
+def _gen(sats, duration_s, key, fs=FS):
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
     from gnss_sdr_1_tpu_torch.siggen import generate_baseband
@@ -293,7 +363,7 @@ def _gen(sats, duration_s, key):
     if path.exists():
         return np.load(path)
     x = generate_baseband(GPS_L1_CA, sats,
-                          {s.prn: gps_l1ca_code(s.prn) for s in sats}, FS,
+                          {s.prn: gps_l1ca_code(s.prn) for s in sats}, fs,
                           duration_s, noise=True)
     np.save(path, x)
     return x
@@ -379,41 +449,42 @@ def _device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        data = json.loads(path.read_text())
-    events = data["traceEvents"] if isinstance(data, dict) else data
-    us = sum(e["dur"] for e in events if e.get("cat") == "kernel")
+    us = sum(e["dur"] for e in _kernel_events(prof))
     if not us > 0:
         raise AssertionError("the profiler trace holds no kernel event")
     return us / n * 1e-3
 
 
-def phase_kernels(dev, cc, tc):
-    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
-
-    # a real chunk taken mid-track: 0.25 s of tracking on the engine
-    # benchmark's scenario, then the next chunk's inputs
+def _midtrack(dev, fs):
+    """The engine at `fs` after 0.25 s of tracking on the engine benchmark's
+    scenario, and the inputs of its next chunk:
+    (engine, seg, rows, slot, sec_rows, fst, ist)."""
     sats = _bench_sats(0.3)
-    x = _gen(sats, 0.3, "kernel_chunk_0.3s_v1")
-    eng = _engine(dev)
-    spec, cspec = eng.chain_spec, eng.corr_spec
-    assert (spec.E, spec.LW, spec.C, spec.K, cspec.NW) == (
-        16, 68, 12, 3, 4136), (spec, cspec)
+    x = _gen(sats, 0.3, f"kernel_chunk_{fs:.0f}_0.3s_v1", fs)
+    eng = _engine(dev, fs)
     st = _activate_all(eng, sats)
     xd = torch.as_tensor(x, device=dev)
-    span = int(FS * 0.25)
+    span = int(fs * 0.25)
     st, _ = eng.track_capture(xd[: span + eng.cfg.epoch_samples_max], st,
                               span)
     seg = eng._pad_for_chunks(xd[span:])
-    fst, ist = eng._pack_rows(st, int(FS * 0.04))
+    fst, ist = eng._pack_rows(st, int(fs * 0.04))
     slot = st.prn_slot.to(torch.int32).contiguous()
     sec_rows = eng._sec[slot.long()].T.contiguous()
-    rows = eng._rows
+    return eng, seg, eng._rows, slot, sec_rows, fst, ist
+
+
+def _check_kernels(dev, cc, tc, inputs, g):
+    """Both kernels against their plain versions on a mid-track chunk and
+    on random inputs (the chain on the correlator's mid-track output), and
+    the capture entry over CAPTURE_CHUNKS chunks in one call against the
+    plain chunk loop on the CPU.  Raises on any disagreement."""
+    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
+
+    eng, seg, rows, slot, sec_rows, fst, ist = inputs
+    spec, cspec = eng.chain_spec, eng.corr_spec
 
     # ---- chunk_corr: the mid-track chunk and random samples ----
-    g = torch.Generator(device="cpu").manual_seed(7)
     noise = torch.randn((seg.shape[0], 2), generator=g) * 100.0
     seg_rand = torch.view_as_complex(noise).to(dev)
     corr_out, corr_err, corr_scale = {}, {}, {}
@@ -428,43 +499,6 @@ def phase_kernels(dev, cc, tc):
             cspec, *(t.cpu() for t in (samples, rows, slot, fst, ist)))
         corr_err[label], corr_scale[label] = _corr_diff(got, want, want_cpu)
         corr_out[label] = got
-    wr, wi, _, _ = cc.windows_plain(cspec, seg, fst, ist)
-    bank_t = cc.replica_bank(cspec, rows, slot)
-
-    def corr_call():
-        cc.chunk_corr_cuda(cspec, seg, rows, slot, fst, ist)
-
-    def bmm_pair():
-        torch.bmm(wr, bank_t)
-        torch.bmm(wi, bank_t)
-
-    corr_ms = _device_ms(corr_call, 200)
-    corr_host = _time_cuda(corr_call, 500)
-    corr_plain = _time_cuda(
-        lambda: cc.chunk_corr_plain(cspec, seg, rows, slot, fst, ist), 20)
-    bmm_ms = _device_ms(bmm_pair, 200)
-    # least time: bytes (each channel's segment, its replica row, the state
-    # rows read; the lag windows, slice origins and step0 written) against
-    # operations (the lag products over this chunk's wiped samples)
-    C, E, LW = cspec.C, cspec.E, cspec.LW
-    n_wiped = int(((wr != 0) | (wi != 0)).sum())
-    c_bytes = (C * cspec.seg_len * 8 + C * cspec.QW * 4
-               + (fst.shape[0] + ist.shape[0]) * C * 4
-               + (2 * C * E * LW + C * E + C) * 4)
-    c_ops = 4 * LW * n_wiped + WIPE_OPS_PER_SAMPLE * n_wiped
-    tb, to = c_bytes / PEAK_BYTES_S * 1e3, c_ops / PEAK_F32_S * 1e3
-    corr_rep = {
-        "err_random": corr_err["random"], "err_track": corr_err["track"],
-        "scale_random": corr_scale["random"],
-        "scale_track": corr_scale["track"],
-        "max_abs_err": max(corr_err.values()), "ms": corr_ms,
-        "ms_host": corr_host,
-        "plain_ms": corr_plain, "library_ms": bmm_ms,
-        "library": "torch.bmm pair on the plain path's wiped windows (the "
-                   "product alone)",
-        "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
-        else "operations", "bound_bytes": c_bytes, "bound_ops": c_ops,
-        "wiped_samples": n_wiped, "NW": cspec.NW}
 
     # ---- track_chain: the correlator's mid-track output, random z ----
     zr_t, zi_t, s_reg, step0 = corr_out["track"]
@@ -499,6 +533,77 @@ def phase_kernels(dev, cc, tc):
     n_valid_cap = int(want[0][:, tc.O_VALID].sum())
     if not n_valid_cap > 0:
         raise AssertionError("the capture check tracked no valid epoch")
+    return {"corr_err": corr_err, "corr_scale": corr_scale,
+            "chain_err": errs, "rows": rows_diff, "track_args": track_args,
+            "capture_valid_epochs": n_valid_cap}
+
+
+def phase_kernels(dev, cc, tc):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    # a real chunk taken mid-track at the main path's shapes
+    inputs = _midtrack(dev, FS)
+    eng, seg, rows, slot, sec_rows, fst, ist = inputs
+    spec, cspec = eng.chain_spec, eng.corr_spec
+    assert (spec.E, spec.LW, spec.C, spec.K, cspec.NW) == (
+        16, 68, 12, 3, 4136), (spec, cspec)
+    chk = _check_kernels(dev, cc, tc, inputs, g)
+    corr_err, corr_scale, errs = (chk["corr_err"], chk["corr_scale"],
+                                  chk["chain_err"])
+    track_args = chk["track_args"]
+
+    # the same checks, untimed, at the other rates the CLI phases run
+    other = []
+    for fs in CHECK_RATES:
+        inp = _midtrack(dev, fs)
+        c = _check_kernels(dev, cc, tc, inp, g)
+        other.append({
+            "fs": fs, "samples_per_chip": fs / 1.023e6,
+            "NW": inp[0].corr_spec.NW, "LW": inp[0].corr_spec.LW,
+            "corr_err": max(c["corr_err"].values()),
+            "corr_scale": max(c["corr_scale"].values()),
+            "chain_err": max(c["chain_err"]["random"],
+                             c["chain_err"]["track"]),
+            "capture_err": c["chain_err"]["capture"],
+            "capture_valid_epochs": c["capture_valid_epochs"]})
+
+    wr, wi, _, _ = cc.windows_plain(cspec, seg, fst, ist)
+    bank_t = cc.replica_bank(cspec, rows, slot)
+
+    def corr_call():
+        cc.chunk_corr_cuda(cspec, seg, rows, slot, fst, ist)
+
+    def bmm_pair():
+        torch.bmm(wr, bank_t)
+        torch.bmm(wi, bank_t)
+
+    corr_ms = _device_ms(corr_call, 200)
+    corr_host = _time_cuda(corr_call, 500)
+    corr_plain = _time_cuda(
+        lambda: cc.chunk_corr_plain(cspec, seg, rows, slot, fst, ist), 20)
+    bmm_ms = _device_ms(bmm_pair, 200)
+    # least time: bytes (each channel's segment, its replica row, the state
+    # rows read; the lag windows, slice origins and step0 written) against
+    # operations (the lag products over this chunk's wiped samples)
+    C, E, LW = cspec.C, cspec.E, cspec.LW
+    n_wiped = int(((wr != 0) | (wi != 0)).sum())
+    c_bytes = (C * cspec.seg_len * 8 + C * cspec.QW * 4
+               + (fst.shape[0] + ist.shape[0]) * C * 4
+               + (2 * C * E * LW + C * E + C) * 4)
+    c_ops = 4 * LW * n_wiped + WIPE_OPS_PER_SAMPLE * n_wiped
+    tb, to = c_bytes / PEAK_BYTES_S * 1e3, c_ops / PEAK_F32_S * 1e3
+    corr_rep = {
+        "err_random": corr_err["random"], "err_track": corr_err["track"],
+        "scale_random": corr_scale["random"],
+        "scale_track": corr_scale["track"],
+        "max_abs_err": max([*corr_err.values()]
+                           + [r["corr_err"] for r in other]),
+        "ms": corr_ms, "ms_host": corr_host,
+        "plain_ms": corr_plain, "library_ms": bmm_ms,
+        "library": "torch.bmm pair on the plain path's wiped windows (the "
+                   "product alone)",
+        "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
+        else "operations", "bound_bytes": c_bytes, "bound_ops": c_ops,
+        "wiped_samples": n_wiped, "NW": cspec.NW}
 
     chain_ms = _device_ms(lambda: tc.chain_cuda(spec, *track_args), 200)
     chain_host = _time_cuda(lambda: tc.chain_cuda(spec, *track_args), 500)
@@ -516,15 +621,18 @@ def phase_kernels(dev, cc, tc):
     t_ops = OPS_PER_EPOCH_CHANNEL * E * C / PEAK_F32_S * 1e3
     chain_rep = {
         "err_random": errs["random"], "err_track": errs["track"],
-        "err_capture": errs["capture"], "capture_chunks": n_cap,
-        "capture_valid_epochs": n_valid_cap,
-        "max_abs_err": max(errs["random"], errs["track"]), "ms": chain_ms,
+        "err_capture": errs["capture"], "capture_chunks": CAPTURE_CHUNKS,
+        "capture_valid_epochs": chk["capture_valid_epochs"],
+        "max_abs_err": max([errs["random"], errs["track"]]
+                           + [r["chain_err"] for r in other]),
+        "ms": chain_ms,
         "ms_host": chain_host,
         "plain_ms": chain_plain, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_bytes": n_bytes, "E": E, "LW": LW, "C": C, "K": K,
-        "rows": rows_diff}
-    return {"chunk_corr": corr_rep, "track_chain": chain_rep}
+        "rows": chk["rows"]}
+    return {"chunk_corr": corr_rep, "track_chain": chain_rep,
+            "other_rates": other}
 
 
 # ---------------------------------------------------------------------------
@@ -600,18 +708,26 @@ def phase_acquisition(dev, sats, x):
             "cpu_max_stat_rel": float(rel.max()), "per_prn": found}
 
 
-def _count_chunks(eng):
-    """Count the chunks the engine's capture calls run (ceil(n_epochs / E)
-    per call), independently of the kernels' own launch counters."""
+@contextlib.contextmanager
+def _counting(cc, tc):
+    """Set both kernels' launch counters to 0 and count the chunks that
+    every TrackingEngine capture call runs inside the block
+    (ceil(n_epochs / E) per call), independently of the counters."""
+    from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
+
     counter = {"chunks": 0}
-    run = eng._run_capture
+    run = TrackingEngine._run_capture
 
-    def counted(samples, state, limit, n_epochs):
-        counter["chunks"] += -(-n_epochs // eng.chain_spec.E)
-        return run(samples, state, limit, n_epochs)
+    def counted(self, samples, state, limit, n_epochs):
+        counter["chunks"] += -(-n_epochs // self.chain_spec.E)
+        return run(self, samples, state, limit, n_epochs)
 
-    eng._run_capture = counted
-    return counter
+    TrackingEngine._run_capture = counted
+    cc.launches = tc.launches = 0
+    try:
+        yield counter
+    finally:
+        TrackingEngine._run_capture = run
 
 
 def _check_launches(cc, tc, chunks, what):
@@ -635,12 +751,11 @@ def phase_engine(dev, cc, tc, sats, x):
     w = int(FS * 0.1)
     eng.track_capture_symbols(xd[: w + nmax], st, w, sym_off, 20)
     torch.cuda.synchronize()
-    counter = _count_chunks(eng)
-    cc.launches = tc.launches = 0
-    t0 = time.perf_counter()
-    st2, souts = eng.track_capture_symbols(xd, st, span, sym_off, 20)
-    n_valid = int(souts.n_valid.sum())
-    wall = time.perf_counter() - t0
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        st2, souts = eng.track_capture_symbols(xd, st, span, sym_off, 20)
+        n_valid = int(souts.n_valid.sum())
+        wall = time.perf_counter() - t0
     chunks = counter["chunks"]
     _check_launches(cc, tc, chunks, "engine")
     signal_s = span / FS
@@ -661,43 +776,314 @@ def phase_engine(dev, cc, tc, sats, x):
 # ---------------------------------------------------------------------------
 
 
-def phase_e2e(dev, cc, tc):
+def e2e_capture():
+    """The e2e scenario (bench.py:294-348): 12 satellites, 30 s at
+    4.092 Msps, live LNAV at 47 dB-Hz.  Returns (scenario, samples, seconds
+    spent making them)."""
     from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
-    from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
     from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 
-    dur = E2E_S
-    prns = list(range(1, 13))
     rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
-    scen = build_scenario(rx_ecef, prns, t0_tow=345601.25, duration_s=dur,
-                          cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
+    scen = build_scenario(rx_ecef, list(range(1, 13)), t0_tow=345601.25,
+                          duration_s=E2E_S, cn0_dbhz=47.0,
+                          subframe_cycle=(1, 2, 3))
     t0 = time.perf_counter()
-    x = _gen(scen.sats, dur, f"e2e_{FS:.0f}_{dur:.0f}_v1")
-    gen_s = time.perf_counter() - t0
+    x = _gen(scen.sats, E2E_S, f"e2e_{FS:.0f}_{E2E_S:.0f}_v1")
+    return scen, x, time.perf_counter() - t0
+
+
+def _errors_3d(ecef, scen, what, min_fixes):
+    """Fix count and 3D errors against the scenario truth; raises below
+    `min_fixes` fixes or at a median 3D error of 5 m or more."""
+    ecef = np.asarray(ecef, np.float64).reshape(-1, 3)
+    if len(ecef) < min_fixes:
+        raise AssertionError(f"{what}: {len(ecef)} fixes (< {min_fixes})")
+    e3d = np.linalg.norm(ecef - scen.rx_ecef, axis=1)
+    med = float(np.median(e3d))
+    if not np.isfinite(e3d).all() or not med < 5.0:
+        raise AssertionError(f"{what}: median 3D error {med:.2f} m")
+    return {"fixes": len(ecef), "median_3d_m": med,
+            "max_3d_m": float(e3d.max())}
+
+
+def phase_e2e(dev, cc, tc, scen, x):
+    from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
+
+    prns = [s.prn for s in scen.sats]
     rx = Receiver(ReceiverConfig(
         fs_hz=FS, signal_id="1C", n_channels=len(prns),
         prn_search=tuple(prns), reacq_interval_blocks=125,
         pvt_output_rate_ms=100), device=dev)
     rx.preload(x)
-    counter = _count_chunks(rx.trk)
-    cc.launches = tc.launches = 0
-    t0 = time.perf_counter()
-    sols = rx.process(x)
-    wall = time.perf_counter() - t0
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
     _check_launches(cc, tc, counter["chunks"], "e2e")
-    if len(sols) < MIN_FIXES:
-        raise AssertionError(f"e2e: {len(sols)} fixes (< {MIN_FIXES})")
-    e3d = np.linalg.norm(np.stack([s.rx_ecef_m for s in sols])
-                         - scen.rx_ecef, axis=1)
-    med = float(np.median(e3d))
-    if not np.isfinite(e3d).all() or not med < 5.0:
-        raise AssertionError(f"e2e: median 3D error {med:.2f} m")
-    return {"rtf": dur / wall, "wall_s": wall, "fixes": len(sols),
-            "median_3d_m": med, "max_3d_m": float(e3d.max()),
+    return {"rtf": E2E_S / wall, "wall_s": wall,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, "e2e",
+                         MIN_FIXES),
             "launches_chunk_corr": cc.launches,
             "launches_track_chain": tc.launches,
-            "chunks": counter["chunks"], "gen_s": gen_s,
-            "channels": list(rx.channel_prn)}
+            "chunks": counter["chunks"], "channels": list(rx.channel_prn)}
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: the conf-file CLI
+# ---------------------------------------------------------------------------
+
+
+def write_cli_files(x):
+    """Phase 5's capture as interleaved int16 I/Q at ISHORT_SCALE (the
+    verify recipe's format), as it is and mixed up to IF_HZ.  Returns the
+    two paths."""
+    CACHE.mkdir(exist_ok=True)
+    paths = (CACHE / f"e2e_{FS:.0f}_{E2E_S:.0f}.ishort",
+             CACHE / f"e2e_{FS:.0f}_{E2E_S:.0f}_if{IF_HZ:.0f}.ishort")
+    step = 1 << 22
+    with open(paths[0], "wb") as f0, open(paths[1], "wb") as f1:
+        for a in range(0, len(x), step):
+            seg = x[a:a + step].astype(np.complex128)
+            n = np.arange(a, a + len(seg), dtype=np.float64)
+            mixed = seg * np.exp(2j * np.pi * IF_HZ / FS * n)
+            for f, y in ((f0, seg), (f1, mixed)):
+                iq = np.empty(2 * len(y), dtype=np.int16)
+                iq[0::2] = np.clip(np.round(y.real * ISHORT_SCALE),
+                                   -32767, 32767)
+                iq[1::2] = np.clip(np.round(y.imag * ISHORT_SCALE),
+                                   -32767, 32767)
+                iq.tofile(f)
+    return paths
+
+
+def _write_conf(name, capture, tracking, fs_internal=FS, **extra):
+    """A 12-channel GPS L1 C/A conf over an ishort capture at FS, PVT every
+    100 ms; `extra` adds or overrides keys (dots written as '__')."""
+    items = {
+        "GNSS-SDR.internal_fs_sps": f"{fs_internal:.0f}",
+        "SignalSource.implementation": "File_Signal_Source",
+        "SignalSource.filename": str(capture),
+        "SignalSource.item_type": "ishort",
+        "SignalSource.sampling_frequency": f"{FS:.0f}",
+        "SignalConditioner.implementation": "Pass_Through",
+        "Channels_1C.count": "12",
+        "Acquisition_1C.implementation": "GPS_L1_CA_PCPS_Acquisition",
+        "Acquisition_1C.threshold": "2.0",
+        "Acquisition_1C.doppler_max": "5000",
+        "Acquisition_1C.doppler_step": "250",
+        "Tracking_1C.implementation": tracking,
+        "TelemetryDecoder_1C.implementation": "GPS_L1_CA_Telemetry_Decoder",
+        "Observables.implementation": "Hybrid_Observables",
+        "PVT.implementation": "RTKLIB_PVT",
+        "PVT.positioning_mode": "Single",
+        "PVT.output_rate_ms": "100",
+    }
+    items.update({k.replace("__", "."): str(v) for k, v in extra.items()})
+    path = CACHE / name
+    path.write_text("".join(f"{k}={v}\n" for k, v in items.items()))
+    return path
+
+
+def _run_cli(argv, scen, out_dir, min_fixes, what):
+    """`python -m gnss_sdr_1_tpu_torch argv` in this process, on the card
+    (no --device).  Checks the exit code, the seven output files and the
+    fixes in position.geojson against the scenario truth."""
+    from gnss_sdr_1_tpu_torch.__main__ import main as cli_main
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu_torch.runtime.config import FrontEnd
+    from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver
+
+    # the walls of Receiver.process and of the conditioner (FrontEnd.process,
+    # host-to-card copy and back included) and the signal length, unrounded
+    proc, cond, seen = Receiver.process, FrontEnd.process, {}
+
+    def timed_process(self, samples):
+        t = time.perf_counter()
+        try:
+            return proc(self, samples)
+        finally:
+            seen.update(wall=time.perf_counter() - t,
+                        signal_s=len(samples) / self.cfg.fs_hz)
+
+    def timed_condition(self, x, device=None):
+        t = time.perf_counter()
+        try:
+            return cond(self, x, device=device)
+        finally:
+            seen["condition_s"] = time.perf_counter() - t
+
+    buf = io.StringIO()
+    Receiver.process, FrontEnd.process = timed_process, timed_condition
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(list(argv) + ["--out_dir", str(out_dir)])
+    finally:
+        Receiver.process, FrontEnd.process = proc, cond
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"    | {ln}")
+    if rc != 0:
+        raise AssertionError(f"{what}: the CLI exited with {rc}")
+    m = re.search(r"Processed in \S+ s \(RTF \S+x\); (\d+) PVT fixes",
+                  buf.getvalue())
+    if m is None:
+        raise AssertionError(f"{what}: no 'Processed in' line")
+    missing = [n for n in OUTPUT_FILES if not (out_dir / n).is_file()]
+    if missing:
+        raise AssertionError(f"{what}: output files missing: {missing}")
+    coords = json.loads((out_dir / "position.geojson").read_text())[
+        "geometry"]["coordinates"]
+    lon, lat, h = np.asarray(coords, np.float64).reshape(-1, 3).T
+    ecef = np.stack(llh_to_ecef(np.radians(lat), np.radians(lon), h), -1)
+    if len(ecef) != int(m.group(1)):
+        raise AssertionError(f"{what}: {len(ecef)} positions in the GeoJSON "
+                             f"for {m.group(1)} fixes")
+    rep = _errors_3d(ecef, scen, what, min_fixes)
+    rep.update(process_wall_s=seen["wall"], signal_s=seen["signal_s"],
+               process_rtf=seen["signal_s"] / seen["wall"], cli_wall_s=wall,
+               cli_rtf=seen["signal_s"] / wall,
+               condition_s=seen.get("condition_s"), lines=lines)
+    rep["summary"] = (
+        f"exit 0, RTF {rep['process_rtf']:.2f} of Receiver.process "
+        f"({seen['wall']:.2f} s; {rep['cli_rtf']:.2f} for the whole CLI, "
+        f"{wall:.2f} s), "
+        f"fixes {rep['fixes']}, median 3D error {rep['median_3d_m']:.2f} m, "
+        f"{len(OUTPUT_FILES)} output files")
+    return rep
+
+
+def _cli_launches(cc, tc, rep, counter, what):
+    _check_launches(cc, tc, counter["chunks"], what)
+    rep.update(launches_chunk_corr=cc.launches,
+               launches_track_chain=tc.launches, chunks=counter["chunks"])
+    rep["summary"] += (f", launches chunk_corr {cc.launches} track_chain "
+                       f"{tc.launches} == chunks {counter['chunks']}")
+    return rep
+
+
+def phase_cli_passthrough(cc, tc, scen, capture):
+    conf = _write_conf("cli_passthrough.conf", capture,
+                       "GPS_L1_CA_DLL_PLL_Tracking")
+    with _counting(cc, tc) as counter:
+        rep = _run_cli(["-c", str(conf)], scen, CACHE / "cli_passthrough",
+                       MIN_FIXES, "CLI pass-through")
+    return _cli_launches(cc, tc, rep, counter, "CLI pass-through")
+
+
+def phase_cli_if(dev, cc, tc, scen, capture):
+    from gnss_sdr_1_tpu_torch.io import FileSignalSource
+    from gnss_sdr_1_tpu_torch.runtime.config import (FileConfiguration,
+                                                     build_frontend)
+
+    conf = _write_conf(
+        "cli_if.conf", capture, "GPS_L1_CA_DLL_PLL_Tracking",
+        fs_internal=FS_IF, SignalSource__freq_IF=f"{IF_HZ:.0f}",
+        SignalConditioner__implementation="Signal_Conditioner",
+        DataTypeAdapter__implementation="Pass_Through",
+        InputFilter__implementation="Freq_Xlating_Fir_Filter",
+        InputFilter__IF=f"{IF_HZ:.0f}", InputFilter__number_of_taps=65,
+        Resampler__implementation="Pass_Through")
+    # the conditioner on the card against the same FrontEnd on the CPU
+    fe = build_frontend(FileConfiguration(str(conf)))
+    check_s = 0.5
+    head = FileSignalSource(str(capture), item_type="ishort",
+                            sampling_frequency=FS).read(0, int(FS * check_s))
+    got = fe.process(head, device=dev)
+    want = fe.process(head, device="cpu")
+    if got.shape != want.shape or got.shape[0] != int(FS_IF * check_s):
+        raise AssertionError(f"conditioner shapes {got.shape} {want.shape}")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"conditioner on the card differs from the "
+                             f"CPU: {err:.3e} > 1e-4 x {scale:.3e}")
+    with _counting(cc, tc) as counter:
+        rep = _run_cli(["-c", str(conf)], scen, CACHE / "cli_if",
+                       MIN_FIXES_IF, "CLI IF")
+    rep.update(cond_err=err, cond_scale=scale, cond_check_s=check_s)
+    return _cli_launches(cc, tc, rep, counter, "CLI IF")
+
+
+def _kernel_events(prof):
+    """The device-kernel events of a finished torch.profiler run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        data = json.loads(path.read_text())
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def _kf_block_profile(dev, scen, capture):
+    """Kernel launches, device time and wall per KF epoch: one 40 ms block
+    of 12 channels (activated at the scenario's Dopplers and delays) under
+    torch.profiler after a warm-up block, and a third block timed alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.io import FileSignalSource
+    from gnss_sdr_1_tpu_torch.track.kf import KfTrackConfig, KfTrackingEngine
+
+    eng = KfTrackingEngine(
+        KfTrackConfig(fs_hz=FS, code_length_chips=1023,
+                      chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
+                      n_channels=len(scen.sats)),
+        np.stack([gps_l1ca_code(s.prn) for s in scen.sats]), device=dev)
+    base = int(FS * 0.04)
+    nmax = eng.cfg.epoch_samples_max
+    n_ep = base // (eng._t0_int - 2) + 2
+    x = torch.as_tensor(FileSignalSource(
+        str(capture), item_type="ishort", sampling_frequency=FS).read(
+            0, 3 * base + nmax), device=dev)
+    st = eng.init_state()
+    for ch, s in enumerate(scen.sats):
+        st = eng.activate_channel(st, ch, ch,
+                                  (s.delay_chips % 1023) / 1.023e6 * FS,
+                                  s.doppler_hz, 0, 0, doppler_step_hz=250.0)
+    st, _ = eng.track_block(x[: base + nmax], st, base)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, _ = eng.track_block(x[base: 2 * base + nmax], st, base)
+        torch.cuda.synchronize()
+    kern = _kernel_events(prof)
+    t0 = time.perf_counter()
+    st, outs = eng.track_block(x[2 * base: 3 * base + nmax], st, base)
+    wall = time.perf_counter() - t0
+    if not outs.valid.any():
+        raise AssertionError("KF profile block tracked no valid epoch")
+    return {"epochs": n_ep, "launches_per_epoch": len(kern) / n_ep,
+            "device_us_per_epoch": sum(e["dur"] for e in kern) / n_ep,
+            "wall_ms_per_epoch": wall / n_ep * 1e3}
+
+
+def phase_cli_kf(dev, cc, tc, scen, capture):
+    from gnss_sdr_1_tpu_torch.track.kf import KfTrackingEngine
+
+    conf = _write_conf("cli_kf.conf", capture, "GPS_L1_CA_KF_Tracking")
+    steps = {"n": 0}
+    step = KfTrackingEngine._epoch_step
+
+    def counted(self, *a, **kw):
+        steps["n"] += 1
+        return step(self, *a, **kw)
+
+    KfTrackingEngine._epoch_step = counted
+    try:
+        with _counting(cc, tc):
+            rep = _run_cli(["-c", str(conf)], scen, CACHE / "cli_kf",
+                           MIN_FIXES_KF, "CLI KF")
+    finally:
+        KfTrackingEngine._epoch_step = step
+    if not steps["n"] > 0 or cc.launches or tc.launches:
+        raise AssertionError(f"CLI KF: {steps['n']} KF epoch steps, "
+                             f"{cc.launches} + {tc.launches} DLL/PLL launches")
+    rep.update(kf_epochs=steps["n"],
+               ms_per_epoch=rep["process_wall_s"] / steps["n"] * 1e3,
+               profile=_kf_block_profile(dev, scen, capture))
+    return rep
 
 
 if __name__ == "__main__":

@@ -8,9 +8,10 @@ on the card (batched PCPS on torch.fft, the chunked tracking engine with
 its CUDA chain kernel); the lifecycle FSM stays on the host between
 capture segments.
 
-This package carries GPS L1 C/A ('1C') with PCPS acquisition and the
-DLL/PLL engine.  Streaming, checkpoint/resume, monitors, assistance, the
-KF engine and FDMA are not ported yet: ReceiverConfig refuses them.
+This package carries GPS L1 C/A ('1C') with PCPS acquisition and either
+the chunked DLL/PLL engine or the Kalman-filter tracker
+(`track_engine="kf"`, track.kf).  Streaming, checkpoint/resume, monitors,
+assistance and FDMA are not ported yet: ReceiverConfig refuses them.
 """
 
 from __future__ import annotations
@@ -24,12 +25,14 @@ import torch
 from .. import resolve_device
 from ..acquire import AcqConfig, PcpsAcquisition
 from ..codes import tracking_replica
+from ..condition.filters import to_device
 from ..constants import SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
 from ..pvt.solver import PvtSolution, solve_pvt
 from ..telemetry.decoder import LnavDecoder
-from ..track import TrackConfig, TrackingEngine
+from ..track import TrackConfig, TrackingEngine, TrackOutputs
+from ..track.kf import KfTrackConfig, KfTrackingEngine
 
 log = logging.getLogger("gnss_sdr_1_tpu_torch.receiver")
 
@@ -50,6 +53,8 @@ class ReceiverConfig:
     acq_bit_transition: bool = False
     acq_tong: bool = False
     acq_strategy: str = "pcps"
+    # tracking engine from Tracking_1C.implementation: dll_pll | kf
+    # (GPS_L1_CA_KF_Tracking -> track.kf.KfTrackingEngine)
     track_engine: str = "dll_pll"
     doppler_step2_hz: float = 40.0
     num_doppler_bins_step2: int = 10
@@ -98,15 +103,16 @@ class ReceiverConfig:
 
     def __post_init__(self) -> None:
         refused = {
-            "signal_id": (self.signal_id, "1C"),
-            "acq_strategy": (self.acq_strategy, "pcps"),
-            "track_engine": (self.track_engine, "dll_pll"),
-            "positioning_mode": (self.positioning_mode, "Single"),
+            "signal_id": (self.signal_id, ("1C",)),
+            "acq_strategy": (self.acq_strategy, ("pcps",)),
+            "track_engine": (self.track_engine, ("dll_pll", "kf")),
+            "positioning_mode": (self.positioning_mode, ("Single",)),
         }
         for name, (got, only) in refused.items():
-            if got != only:
+            if got not in only:
                 raise NotImplementedError(
-                    f"{name}={got!r} is not ported yet (only {only!r})")
+                    f"{name}={got!r} is not ported yet (only "
+                    f"{', '.join(map(repr, only))})")
         for name in ("acq_tong", "fdma_k", "enable_monitor",
                      "enable_pvt_monitor"):
             if getattr(self, name):
@@ -153,29 +159,48 @@ class Receiver:
             device=self.device)
         # bit period in epochs — the coherent-extension alignment grid
         self._sec_period = 20
-        self.trk = TrackingEngine(
-            TrackConfig(
-                fs_hz=fs,
-                code_length_chips=spec.code_length_chips,
-                chip_rate_chips_s=spec.code_rate_chips_s,
-                carrier_freq_hz=spec.carrier_freq_hz,
-                n_channels=cfg.n_channels,
-                code_samples_per_chip=spc_code,
-                pll_bw_hz=cfg.pll_bw_hz,
-                dll_bw_hz=cfg.dll_bw_hz,
-                pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
-                dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
-                extend_correlation_symbols=max(1, min(
-                    cfg.extend_correlation_symbols, self._sec_period)),
-                enable_fll_pull_in=cfg.enable_fll_pull_in,
-                pull_in_time_s=cfg.pull_in_time_s,
-                early_late_space_chips=cfg.early_late_space_chips,
-                very_early_late_space_chips=cfg.very_early_late_space_chips,
-                chunk_epochs=cfg.chunk_epochs,
-            ),
-            np.stack([self._codes[p] for p in self.acq.prns]),
-            device=self.device,
-        )
+        # tracking engine from Tracking_1C.implementation: the chunked
+        # DLL/PLL engine, or the Kalman carrier tracker
+        # (gps_l1_ca_kf_tracking_cc.h:76 — a drop-in channel tracking
+        # implementation producing the same outputs)
+        self.trk_kind = cfg.track_engine
+        codes = np.stack([self._codes[p] for p in self.acq.prns])
+        if self.trk_kind == "kf":
+            self.trk = KfTrackingEngine(
+                KfTrackConfig(
+                    fs_hz=fs,
+                    code_length_chips=spec.code_length_chips * spc_code,
+                    chip_rate_chips_s=virtual_rate,
+                    carrier_freq_hz=spec.carrier_freq_hz,
+                    n_channels=cfg.n_channels,
+                    dll_bw_hz=cfg.dll_bw_hz,
+                    early_late_space_chips=(
+                        cfg.early_late_space_chips * spc_code),
+                ),
+                codes, device=self.device)
+        else:
+            self.trk = TrackingEngine(
+                TrackConfig(
+                    fs_hz=fs,
+                    code_length_chips=spec.code_length_chips,
+                    chip_rate_chips_s=spec.code_rate_chips_s,
+                    carrier_freq_hz=spec.carrier_freq_hz,
+                    n_channels=cfg.n_channels,
+                    code_samples_per_chip=spc_code,
+                    pll_bw_hz=cfg.pll_bw_hz,
+                    dll_bw_hz=cfg.dll_bw_hz,
+                    pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
+                    dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
+                    extend_correlation_symbols=max(1, min(
+                        cfg.extend_correlation_symbols, self._sec_period)),
+                    enable_fll_pull_in=cfg.enable_fll_pull_in,
+                    pull_in_time_s=cfg.pull_in_time_s,
+                    early_late_space_chips=cfg.early_late_space_chips,
+                    very_early_late_space_chips=(
+                        cfg.very_early_late_space_chips),
+                    chunk_epochs=cfg.chunk_epochs,
+                ),
+                codes, device=self.device)
         self._slot_of_prn = {p: i for i, p in enumerate(self.acq.prns)}
 
         self.state = self.trk.init_state()
@@ -248,10 +273,14 @@ class Receiver:
                 continue
             idle_channels.remove(ch)
             self.channel_prn[ch] = prn
+            # the KF seeds its Doppler prior from the acq grid step
+            # (gps_l1_ca_kf_tracking_cc.cc:276-279)
+            step = ({"doppler_step_hz": self.cfg.doppler_step_hz}
+                    if self.trk_kind == "kf" else {})
             self.state = self.trk.activate_channel(
                 self.state, ch, self._slot_of_prn[prn],
                 float(res.delay_samples[k]), float(dops[k]),
-                samples_abs_offset, self._pos)
+                samples_abs_offset, self._pos, **step)
             self.decoders[prn] = LnavDecoder(prn)
             self._mode_host[ch] = 0
             self.histories[prn] = ChannelEpochHistory()
@@ -316,7 +345,7 @@ class Receiver:
         lens = outs.cur_len
         cn0s = outs.cn0_dbhz
         active = outs.active
-        p_idx = self.trk.cfg.prompt_index
+        p_idx = getattr(self.trk.cfg, "prompt_index", 1)
         for ch, prn in enumerate(self.channel_prn):
             if prn is None:
                 continue
@@ -450,8 +479,8 @@ class Receiver:
     def _symbol_offsets(self):
         """Per-channel symbol-boundary offsets (in [1, N]) for the
         symbol-grid capture reduction, or None while any active channel has
-        no bit sync yet."""
-        if self.cfg.symbol_readback != "auto":
+        no bit sync yet (and always for the KF tracker)."""
+        if self.cfg.symbol_readback != "auto" or self.trk_kind != "dll_pll":
             return None
         N = self._sec_period
         offs = np.full(self.cfg.n_channels, N, dtype=np.int32)
@@ -581,6 +610,8 @@ class Receiver:
         extension over extend_correlation_symbols epochs aligned to each
         channel's bit grid, with the narrow loop bandwidths
         (dll_pll_veml_tracking.cc:1774-1900)."""
+        if self.trk_kind != "dll_pll":
+            return          # the KF tracker has no extended/narrow states
         n = self.trk.cfg.extend_correlation_symbols
         period = self._sec_period
         if n <= 1 or period % n != 0:
@@ -686,15 +717,46 @@ class Receiver:
 
     # ---------------- main loop ----------------
 
+    def _segment_scale(self, samples) -> np.float32:
+        """Scale of the tracking input: unit RMS for the DLL/PLL engine;
+        the KF tracker takes the samples as they are, as the reference's
+        KF path does."""
+        if self.trk_kind == "kf":
+            return np.float32(1.0)
+        return np.float32(self._scale_for(samples))
+
     def preload(self, samples: np.ndarray) -> None:
-        """Upload the whole capture to device memory once (complex64,
-        normalized); process(samples) then slices tracking segments on the
-        device instead of uploading per segment."""
-        x = torch.as_tensor(np.ascontiguousarray(samples, np.complex64))
-        self._samples_dev = x.to(self.device) * np.float32(
-            self._scale_for(samples))
+        """Upload the whole capture to device memory once (complex64, at
+        the tracking input's scale); process(samples) then slices tracking
+        segments on the device instead of uploading per segment."""
+        self._samples_dev = to_device(samples, self.device) \
+            * self._segment_scale(samples)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _kf_track_segment(self, seg, span: int):
+        """Segment tracking through the KF engine: a loop over blocks (the
+        KF closes its filter every epoch and has no chunked capture path).
+        Returns (state, TrackOutputs with segment-relative epoch starts)."""
+        base = int(round(self.cfg.fs_hz * self.cfg.block_ms * 1e-3))
+        nmax = self.trk.cfg.epoch_samples_max
+        st = self.state
+        pos = 0
+        pieces = []
+        while pos + base <= span:
+            st, outs = self.trk.track_block(seg[pos:pos + base + nmax], st,
+                                            base)
+            pieces.append(outs._replace(start=outs.start + pos))
+            pos += base
+        cat = type(pieces[0])(*(np.concatenate(xs) for xs in zip(*pieces)))
+        return st, TrackOutputs(
+            valid=cat.valid, start=cat.start, cur_len=cat.cur_len,
+            correlators=cat.correlators,
+            carrier_doppler_hz=cat.carrier_doppler_hz,
+            code_freq_delta=cat.code_freq_delta,
+            rem_code_phase_samples=cat.rem_code_phase_samples,
+            rem_carr_phase_rad=cat.rem_carr_phase_rad,
+            cn0_dbhz=cat.cn0_dbhz, active=cat.active)
 
     def process(self, samples: np.ndarray) -> list[PvtSolution]:
         """Run the receiver over a full capture (complex64 at fs).
@@ -730,12 +792,14 @@ class Receiver:
             if sdev is not None and sdev.shape[0] >= self._pos + span + nmax:
                 seg_dev = sdev[self._pos:self._pos + span + nmax]
             else:
-                seg = np.ascontiguousarray(
-                    samples[self._pos:self._pos + span + nmax], np.complex64)
-                seg_dev = torch.as_tensor(seg).to(self.device) * np.float32(
-                    self._scale_for(samples))
+                seg_dev = to_device(
+                    samples[self._pos:self._pos + span + nmax], self.device) \
+                    * self._segment_scale(samples)
             sym_off = self._symbol_offsets()
-            if sym_off is not None:
+            if self.trk_kind == "kf":
+                self.state, outs = self._kf_track_segment(seg_dev, span)
+                self._harvest(outs, self._pos)
+            elif sym_off is not None:
                 self.state, souts = self.trk.track_capture_symbols(
                     seg_dev, self.state, span, sym_off, self._sec_period)
                 self._harvest_symbols(souts, self._pos, sym_off)

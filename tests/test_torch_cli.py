@@ -1,0 +1,247 @@
+"""The port's conf-file CLI and its configuration layer against the JAX
+package's: every conf in conf/ parses to the same items and frontend; the
+six GPS L1 C/A confs that need only what the port carries map to the same
+ReceiverConfig values and build a Receiver; every other conf, and every
+flag of a feature not ported yet, is refused with its ROADMAP.md item; the
+block registries agree; and both CLIs print the same lines on a short
+capture.  The slow case runs both CLIs to fixes on a 24 s capture."""
+
+import dataclasses
+import json
+import pathlib
+
+import numpy as np
+import pytest
+
+from gnss_sdr_1_tpu import __main__ as jcli
+from gnss_sdr_1_tpu.runtime import factory as jfactory
+from gnss_sdr_1_tpu.runtime.config import FileConfiguration as JConf
+from gnss_sdr_1_tpu.runtime.config import build_frontend as jbuild
+from gnss_sdr_1_tpu.runtime.config import to_receiver_config as jrc
+from gnss_sdr_1_tpu_torch import __main__ as tcli
+from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
+from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+from gnss_sdr_1_tpu_torch.runtime import Receiver
+from gnss_sdr_1_tpu_torch.runtime import factory as tfactory
+from gnss_sdr_1_tpu_torch.runtime.config import FileConfiguration as TConf
+from gnss_sdr_1_tpu_torch.runtime.config import build_frontend as tbuild
+from gnss_sdr_1_tpu_torch.runtime.config import to_receiver_config as trc
+from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband
+from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+
+CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
+CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
+PORTED = ["gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
+          "gps_l1_kalman.conf", "gps_l1_nsr.conf",
+          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf"]
+UNPORTED = [c for c in CONFS if c not in PORTED]
+RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+
+
+def test_corpus_split():
+    assert len(CONFS) == 16 and len(UNPORTED) == 10
+    assert set(PORTED) <= set(CONFS)
+
+
+@pytest.mark.parametrize("name", CONFS)
+def test_conf_parses_like_jax(name):
+    path = str(CONF_DIR / name)
+    cj, ct = JConf(path), TConf(path)
+    assert dict(ct.items()) == dict(cj.items())
+    assert dataclasses.asdict(tbuild(ct)) == dataclasses.asdict(jbuild(cj))
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_conf_maps_like_jax(name):
+    path = str(CONF_DIR / name)
+    rj, rt = jrc(JConf(path)), trc(TConf(path))
+    shared = ({f.name for f in dataclasses.fields(rt)}
+              & {f.name for f in dataclasses.fields(rj)})
+    # every field but the port's own chunk length
+    assert {f.name for f in dataclasses.fields(rt)} - shared == {
+        "chunk_epochs"}
+    for f in sorted(shared):
+        assert getattr(rt, f) == getattr(rj, f), f
+    rx = Receiver(rt, device="cpu")
+    assert rx.trk_kind == rt.track_engine
+    if rx.trk_kind == "dll_pll":
+        # the chunk correlator's geometry holds at this rate (a
+        # non-integer number of samples per chip included)
+        p = cc.corr_params(rx.trk.corr_spec)
+        assert p.smem_bytes <= cc.MAX_SMEM and p.L % cc.TL == 0
+        assert rx.trk.chain_spec.K == 3 and rx.trk.chain_spec.order in (2, 3)
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_conf_runs_through_cli(name, tmp_path, capsys):
+    """The port's CLI runs each ported conf end to end on the CPU over
+    0.1 s of random items in the conf's item_type at its source rate (the
+    conf names no file here, so --signal_file gives one)."""
+    from gnss_sdr_1_tpu_torch.io.formats import FORMATS
+
+    conf = TConf(str(CONF_DIR / name))
+    fe = tbuild(conf)
+    fmt = FORMATS[conf.property("SignalSource.item_type", "ishort")]
+    n_items = int(fe.source_fs_hz * 0.1) * fmt.items_per_sample \
+        // fmt.samples_per_item
+    rng = np.random.default_rng(17)
+    if fmt.dtype == np.complex64:
+        raw = (rng.standard_normal(n_items)
+               + 1j * rng.standard_normal(n_items)).astype(np.complex64)
+    else:
+        info = np.iinfo(fmt.dtype)
+        raw = rng.integers(info.min, info.max, size=n_items, endpoint=True,
+                           dtype=np.int64).astype(fmt.dtype)
+    cap = tmp_path / "cap.raw"
+    raw.tofile(cap)
+    lines = _run(tcli, ["-c", str(CONF_DIR / name), "--signal_file",
+                        str(cap), "--device", "cpu", "--channels", "2",
+                        "--out_dir", str(tmp_path / "out")], capsys)
+    assert lines[0].startswith("Processing ") and "2 1C channels" in lines[0]
+    assert (lines[1].startswith("Conditioning: ")) == (not fe.is_passthrough)
+    assert any(ln.startswith("Processed in ") for ln in lines)
+    assert lines[-1] == "No position fix obtained."
+
+
+@pytest.mark.parametrize("name", UNPORTED)
+def test_unported_conf_refused_with_roadmap_item(name, capsys):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item"):
+        trc(TConf(str(CONF_DIR / name)))
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["-c", str(CONF_DIR / name), "--device", "cpu",
+                   "--signal_file", str(CONF_DIR / name)])
+    assert e.value.code == 2
+    assert "ROADMAP.md §1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
+    ("--supl", "localhost"), ("--telecommand_port", "2101"),
+    ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111"),
+    ("--signal", "1B")])
+def test_unported_flag_refused(flag, value, capsys):
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
+    assert e.value.code == 2
+    assert "ROADMAP.md §1 item" in capsys.readouterr().err
+
+
+def test_cli_needs_a_card_unless_asked_for_the_cpu(capsys):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["--signal_file", "x.dat"])
+    assert e.value.code == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_registries_match():
+    assert list(tfactory.REGISTRY) == list(jfactory.REGISTRY)
+    for name, bj in jfactory.REGISTRY.items():
+        bt = tfactory.REGISTRY[name]
+        assert (bt.kind, bt.signal, bt.strategy, bt.status) == (
+            bj.kind, bj.signal, bj.strategy, bj.status), name
+    with pytest.raises(KeyError):
+        tfactory.resolve("No_Such_Block")
+    assert set(tfactory.STRATEGY_IMPL) == {
+        ("acquisition", "pcps"), ("tracking", "dll_pll"), ("tracking", "kf")}
+    for kind, strategy in tfactory.STRATEGY_IMPL:
+        assert tfactory.strategy_impl(kind, strategy).__module__.startswith(
+            "gnss_sdr_1_tpu_torch.")
+
+
+def _write_ishort(path, prns, fs, duration, t0_tow, scale=1500.0):
+    scen = build_scenario(RX, prns, t0_tow=t0_tow, duration_s=duration,
+                          cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
+    x = generate_baseband(GPS_L1_CA, scen.sats,
+                          {p: gps_l1ca_code(p) for p in prns}, fs, duration,
+                          noise=True)
+    iq = np.empty(2 * len(x), dtype=np.int16)
+    iq[0::2] = np.clip(np.round(x.real * scale), -32767, 32767)
+    iq[1::2] = np.clip(np.round(x.imag * scale), -32767, 32767)
+    iq.tofile(path)
+    return scen
+
+
+def _run(cli, argv, capsys):
+    assert cli.main(argv) == 0
+    return capsys.readouterr().out.splitlines()
+
+
+def test_cli_lines_match_jax(tmp_path, capsys):
+    """gps_l1_ishort.conf (4 Msps ishort, Direct_Resampler to 2 Msps) on a
+    0.3 s, 2-channel capture: the same Processing and Conditioning lines and
+    the same outcome."""
+    cap = tmp_path / "cap.ishort"
+    _write_ishort(cap, [3, 8], 4.0e6, 0.3, 345606.1)
+    common = ["-c", str(CONF_DIR / "gps_l1_ishort.conf"), "--signal_file",
+              str(cap), "--channels", "2"]
+    lj = _run(jcli, common + ["--platform", "cpu", "--out_dir",
+                              str(tmp_path / "j")], capsys)
+    lt = _run(tcli, common + ["--device", "cpu", "--out_dir",
+                              str(tmp_path / "t")], capsys)
+    assert lt[0].startswith("Processing 1200000 samples (0.3 s)")
+    assert lt[1].startswith("Conditioning: fs 4000000 -> 2000000 Hz")
+    assert lt[:2] == lj[:2]
+    assert lt[2].startswith("Processed in") and lj[2].startswith(
+        "Processed in")
+    assert lt[2].split(";")[1] == lj[2].split(";")[1]
+    assert lt[3:] == lj[3:]
+
+
+@pytest.mark.slow
+def test_cli_fixes_match_jax_on_24s_capture(tmp_path, capsys):
+    """The verify recipe's capture (24 s, 6 satellites, 2.046 Msps ishort):
+    the same fix count, identical brdc.rnx, the same observables.rnx
+    epochs, GeoJSON positions within 0.5 m of each other."""
+    cap = tmp_path / "verify.ishort"
+    scen = _write_ishort(cap, [1, 2, 3, 4, 5, 6], 2.046e6, 24.0, 345601.25)
+    conf = tmp_path / "verify.conf"
+    conf.write_text("\n".join([
+        "GNSS-SDR.internal_fs_sps=2046000",
+        "SignalSource.implementation=File_Signal_Source",
+        f"SignalSource.filename={cap}",
+        "SignalSource.item_type=ishort",
+        "SignalSource.sampling_frequency=2046000",
+        "SignalConditioner.implementation=Pass_Through",
+        "Channels_1C.count=6",
+        "Acquisition_1C.implementation=GPS_L1_CA_PCPS_Acquisition",
+        "Tracking_1C.implementation=GPS_L1_CA_DLL_PLL_Tracking",
+        # the JAX package's chunked engine (the port's counterpart)
+        "Tracking_1C.correlator=mxu",
+        "PVT.positioning_mode=Single", ""]))
+    outs = {}
+    for tag, cli, extra in (("j", jcli, ["--platform", "cpu"]),
+                            ("t", tcli, ["--device", "cpu"])):
+        lines = _run(cli, ["-c", str(conf), "--out_dir", str(tmp_path / tag)]
+                     + extra, capsys)
+        fixes = int(lines[1].split(";")[1].split()[0])
+        outs[tag] = (fixes, tmp_path / tag)
+    (fj, dj), (ft, dt) = outs["j"], outs["t"]
+    assert ft == fj >= 40
+    for name in ("position.kml", "position.gpx", "position.geojson",
+                 "position.nmea", "observables.rnx", "brdc.rnx",
+                 "observables.rtcm"):
+        assert (dt / name).exists() and (dj / name).exists(), name
+    assert (dt / "brdc.rnx").read_bytes() == (dj / "brdc.rnx").read_bytes()
+
+    def epochs(d):
+        return [ln for ln in (d / "observables.rnx").read_text().splitlines()
+                if ln.startswith(">")]
+
+    assert epochs(dt) == epochs(dj) and len(epochs(dt)) > 0
+
+    def positions(d):
+        feat = json.loads((d / "position.geojson").read_text())
+        lon, lat, h = np.asarray(feat["geometry"]["coordinates"],
+                                 np.float64).T
+        return llh_to_ecef(np.radians(lat), np.radians(lon), h).T
+
+    pj, pt = positions(dj), positions(dt)
+    assert pj.shape == pt.shape
+    assert np.linalg.norm(pt - pj, axis=1).max() < 0.5
+    assert np.median(np.linalg.norm(pt - scen.rx_ecef, axis=1)) < 5.0

@@ -145,6 +145,220 @@ def test_solve_pvt_identical():
     assert np.linalg.norm(b.rx_ecef_m - RX) < 20.0
 
 
+# ---------------------------------------------------------------------------
+# io/, pvt/printers.py, pvt/rtcm.py, telemetry/gnav.py, telemetry/inav.py
+# ---------------------------------------------------------------------------
+
+import gnss_sdr_1_tpu.io as jio  # noqa: E402
+import gnss_sdr_1_tpu.pvt.printers as jprint  # noqa: E402
+import gnss_sdr_1_tpu.pvt.rtcm as jrtcm  # noqa: E402
+import gnss_sdr_1_tpu.telemetry.gnav as jgnav  # noqa: E402
+import gnss_sdr_1_tpu.telemetry.inav as jinav  # noqa: E402
+import gnss_sdr_1_tpu_torch.io as tio  # noqa: E402
+import gnss_sdr_1_tpu_torch.pvt.printers as tprint  # noqa: E402
+import gnss_sdr_1_tpu_torch.pvt.rtcm as trtcm  # noqa: E402
+import gnss_sdr_1_tpu_torch.telemetry.gnav as tgnav  # noqa: E402
+import gnss_sdr_1_tpu_torch.telemetry.inav as tinav  # noqa: E402
+import gnss_sdr_1_tpu_torch.utils.native as tnative  # noqa: E402
+
+
+def _raw_items(fmt, n, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(fmt.dtype)
+    if dt.kind == "c":
+        return (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+            dt)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, size=n, endpoint=True,
+                        dtype=np.int64).astype(dt)
+
+
+@pytest.mark.parametrize("name", sorted(jio.FORMATS))
+def test_io_format_conversion_identical(name, tmp_path):
+    assert sorted(tio.FORMATS) == sorted(jio.FORMATS)
+    fj, ft = jio.FORMATS[name], tio.FORMATS[name]
+    assert dataclasses.asdict(fj) == dataclasses.asdict(ft)
+    raw = _raw_items(fj, 4001 * fj.items_per_sample, 21)
+    want = jio.convert_to_complex64(raw, fj)
+    got = tio.convert_to_complex64(raw, ft)
+    assert got.dtype == want.dtype == np.complex64
+    np.testing.assert_array_equal(got, want)
+    # the file source: whole reads, offset reads inside sub-byte items, and
+    # the valve bound
+    path = tmp_path / f"cap.{name}"
+    raw.tofile(path)
+    kw = dict(item_type=name, sampling_frequency=4e6, max_samples=3000,
+              skip_samples=3)
+    sj = jio.FileSignalSource(str(path), **kw)
+    st = tio.FileSignalSource(str(path), **kw)
+    assert st.n_samples == sj.n_samples
+    for start, count in ((0, st.n_samples), (5, 1001), (2990, 50)):
+        np.testing.assert_array_equal(st.read(start, count),
+                                      sj.read(start, count))
+    np.testing.assert_array_equal(tio.read_capture(str(path), name),
+                                  jio.read_capture(str(path), name))
+
+
+def _solutions(mod):
+    from importlib import import_module
+
+    solver = import_module(mod + ".pvt.solver")
+    out = []
+    for k in range(3):
+        out.append(solver.PvtSolution(
+            True, np.array([4797671.0 + k, 166532.5, 4185477.25 - k]),
+            1.5e-4, np.array([0.01, -0.02, 0.003]), 2e-9,
+            345600.0 + 0.1 * k, lat_deg=41.275 + 1e-6 * k,
+            lon_deg=1.988 - 2e-6 * k, height_m=80.0 + k,
+            dops={"pdop": 2.0, "hdop": 1.0, "vdop": 1.5, "gdop": 2.4,
+                  "tdop": 1.1}, n_sats=8 - k))
+    return out
+
+
+def _iono(lnav_mod):
+    return lnav_mod.GpsIono(alpha0=1.1e-8, alpha1=1.5e-8, alpha2=-6e-8,
+                            alpha3=-1.2e-7, beta0=9.2e4, beta1=1.3e5,
+                            beta2=-6.5e4, beta3=-5.2e5, valid=True)
+
+
+def test_printers_identical():
+    from gnss_sdr_1_tpu.siggen.scenario import make_test_ephemeris as jeph
+    from gnss_sdr_1_tpu_torch.siggen.scenario import \
+        make_test_ephemeris as teph
+
+    sj, st = _solutions("gnss_sdr_1_tpu"), _solutions("gnss_sdr_1_tpu_torch")
+    utc_j = jprint.gps_time_to_utc(2240, 345600.0)
+    utc_t = tprint.gps_time_to_utc(2240, 345600.0)
+    assert utc_t == utc_j
+    for fn in ("kml_document", "gpx_document", "geojson_document"):
+        assert getattr(tprint, fn)(st) == getattr(jprint, fn)(sj), fn
+    for fn in ("nmea_gga", "nmea_rmc"):
+        for a, b in zip(sj, st):
+            assert getattr(tprint, fn)(b, utc_t) == getattr(jprint, fn)(
+                a, utc_j)
+    assert tprint.nmea_gsa(st[-1], [3, 5, 9, 22]) == \
+        jprint.nmea_gsa(sj[-1], [3, 5, 9, 22])
+    sats = [(p, 10.0 + 7 * p, 3.5 * p, 40.0 + p) for p in range(1, 11)]
+    assert tprint.nmea_gsv(sats) == jprint.nmea_gsv(sats)
+    obs = {5: {"pseudorange_m": 21000000.123,
+               "carrier_phase_cycles": -110363000.456, "doppler_hz": 1234.5,
+               "cn0_dbhz": 44.0},
+           17: {"pseudorange_m": 23456789.012,
+                "carrier_phase_cycles": -123456789.987,
+                "doppler_hz": -4321.0, "cn0_dbhz": 31.5}}
+    for ver in (2, 3):
+        kw = dict(approx_xyz=sj[-1].rx_ecef_m, signals=("1C",),
+                  glonass_slots=None, version=ver, interval_s=0.02)
+        assert tprint.rinex_obs_header(
+            time_first_obs=tprint.gps_time_to_utc(2240, 345600.0, leap_s=0),
+            **kw) == jprint.rinex_obs_header(
+            time_first_obs=jprint.gps_time_to_utc(2240, 345600.0, leap_s=0),
+            **kw)
+        assert tprint.rinex_obs_epoch(2240, 345600.02, obs, signal="1C",
+                                      version=ver, signals=("1C",)) == \
+            jprint.rinex_obs_epoch(2240, 345600.02, obs, signal="1C",
+                                   version=ver, signals=("1C",))
+        assert tprint.rinex_nav_header(iono=_iono(tlnav), version=ver) == \
+            jprint.rinex_nav_header(iono=_iono(jlnav), version=ver)
+        for prn in (3, 17):
+            assert tprint.rinex_nav_record(teph(prn, 345600.0),
+                                           version=ver) == \
+                jprint.rinex_nav_record(jeph(prn, 345600.0), version=ver)
+
+
+def _glonass(mod):
+    return mod.GlonassEphemeris(
+        slot=5, freq_channel=-4, tb_s=8100.0, tk_s=8130.0,
+        x_km=11987.33, y_km=-18234.12, z_km=9123.001,
+        vx_kms=1.25553, vy_kms=-0.33221, vz_kms=2.11113,
+        ax_kms2=2.8e-9, ay_kms2=-9.3e-10, az_kms2=0.0,
+        gamma_n=1.8e-11, tau_n_s=-6.7e-5, health_bn=0, nt_days=731)
+
+
+def _galileo(mod):
+    return mod.GalileoEphemeris(
+        prn=11, wn=1130, iod_nav=87, toe=356400.0, toc=356400.0,
+        sqrt_a=5440.6, e=2.3e-4, m0=-0.25, delta_n=8.1e-10, omega0=0.41,
+        i0=0.311, omega=-0.6, omega_dot=-1.8e-9, idot=-6e-11,
+        cuc=-5e-7, cus=8e-6, crc=131.1, crs=-9.8, cic=2e-8, cis=4e-8,
+        af0=6.1e-4, af1=-8.2e-12, af2=0.0)
+
+
+def test_rtcm_frames_identical():
+    from gnss_sdr_1_tpu.siggen.scenario import make_test_ephemeris as jeph
+    from gnss_sdr_1_tpu_torch.siggen.scenario import \
+        make_test_ephemeris as teph
+
+    ecef = (4797671.0, 166532.5, 4185477.25)
+    for kw in (dict(gps=True), dict(glonass=True), dict(galileo=True),
+               dict(gps=True, height_m=1.25)):
+        assert trtcm.encode_mt1005(1234, ecef, **kw) == \
+            jrtcm.encode_mt1005(1234, ecef, **kw)
+    pairs = ((teph(7, 345600.0), jeph(7, 345600.0)),
+             (_glonass(tgnav), _glonass(jgnav)),
+             (_galileo(tinav), _galileo(jinav)))
+    for et, ej in pairs:
+        ft, fj = trtcm.encode_ephemeris(et), jrtcm.encode_ephemeris(ej)
+        assert ft == fj and ft
+    lam = 299792458.0 / 1575.42e6
+    sig = {"GPS": "1C", "GLONASS": "1G", "Galileo": "1B"}
+    for system in ("GPS", "GLONASS", "Galileo"):
+        obs_t, obs_j = ([mod.MsmObs(
+            sat=p, signal=sig[system],
+            pseudorange_m=2.1e7 + 1e4 * p + 0.37,
+            phase_range_m=2.1e7 + 1e4 * p + 0.41,
+            phase_rate_ms=-612.3 * p * lam, lock_time_s=12.5 + p,
+            cn0_dbhz=40.0 + 0.25 * p, wavelength_m=lam)
+            for p in (3, 9, 14)] for mod in (trtcm, jrtcm))
+        ep = jrtcm.glonass_msm_epoch(345600000) if system == "GLONASS" \
+            else 345600000
+        assert trtcm.glonass_msm_epoch(345600000) == \
+            jrtcm.glonass_msm_epoch(345600000)
+        ft = trtcm.encode_msm(system, 7, 1234, ep, obs_t)
+        assert ft == jrtcm.encode_msm(system, 7, 1234, ep, obs_j)
+        msgnum, payload = trtcm.deframe(ft)
+        assert trtcm.decode_msm(payload) == jrtcm.decode_msm(payload)
+    payload = bytes(range(40))
+    assert tnative.crc24q(payload) == jrtcm.crc24q(payload)
+    assert trtcm.frame(payload) == jrtcm.frame(payload)
+
+
+@pytest.mark.parametrize("pair", [(tgnav, jgnav), (tinav, jinav)],
+                         ids=["gnav", "inav"])
+def test_gnav_inav_dataclasses_identical(pair):
+    tmod, jmod = pair
+    names = [n for n, v in vars(jmod).items()
+             if dataclasses.is_dataclass(v) and v.__module__ == jmod.__name__]
+    assert names
+    for n in names:
+        ft = [(f.name, f.default) for f in dataclasses.fields(getattr(tmod, n))]
+        fj = [(f.name, f.default) for f in dataclasses.fields(getattr(jmod, n))]
+        assert ft == fj, n
+    if tmod is tgnav:
+        et, ej = _glonass(tgnav), _glonass(jgnav)
+        for sid in (1, 2, 3, 4):
+            bt = tgnav.encode_string(sid, et)
+            np.testing.assert_array_equal(bt, jgnav.encode_string(sid, ej))
+            np.testing.assert_array_equal(tgnav.string_to_symbols(bt),
+                                          jgnav.string_to_symbols(bt))
+            dt, dj = tgnav.GlonassEphemeris(), jgnav.GlonassEphemeris()
+            assert tgnav.decode_string(bt, dt) == jgnav.decode_string(bt, dj)
+            assert dataclasses.asdict(dt) == dataclasses.asdict(dj)
+    else:
+        et, ej = _galileo(tinav), _galileo(jinav)
+        for wt in (1, 2, 3, 4):
+            wt_bits = tinav.encode_word(wt, et)
+            np.testing.assert_array_equal(wt_bits, jinav.encode_word(wt, ej))
+            page = tinav.encode_page(wt_bits)
+            np.testing.assert_array_equal(page, jinav.encode_page(wt_bits))
+            dt, dj = tinav.GalileoEphemeris(), jinav.GalileoEphemeris()
+            assert tinav.decode_word(wt_bits, dt) == jinav.decode_word(
+                wt_bits, dj)
+            assert dataclasses.asdict(dt) == dataclasses.asdict(dj)
+        kt, kj = tinav.to_keplerian(et), jinav.to_keplerian(ej)
+        assert dataclasses.asdict(kt) == dataclasses.asdict(kj)
+
+
 def _port_sources():
     files = sorted((ROOT / "gnss_sdr_1_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_port.py"]

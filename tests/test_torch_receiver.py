@@ -49,7 +49,8 @@ def test_receiver_refuses_unported_options():
     with pytest.raises(NotImplementedError):
         ReceiverConfig(signal_id="1B")
     with pytest.raises(NotImplementedError):
-        ReceiverConfig(track_engine="kf")
+        ReceiverConfig(track_engine="veml")
+    ReceiverConfig(track_engine="kf")         # ported: track/kf.py
     with pytest.raises(NotImplementedError):
         ReceiverConfig(acq_strategy="tong")
     with pytest.raises(NotImplementedError):
