@@ -16,7 +16,11 @@ Phases (one line each, with times):
      capture entry (both kernels over three chunks in one call) against
      the plain chunk loop on the CPU; the same three checks (untimed) at
      the engine's shapes for 2.046 Msps (phase 7's rate) and 2.6 Msps
-     (gps_l1_kalman.conf's, 2.54 samples per chip);
+     (gps_l1_kalman.conf's, 2.54 samples per chip); the same three checks
+     at the Galileo E1 receiver's shape (K=5 VEML taps, E=16, C=8,
+     4.0 Msps: NW=16045, LW=69), timed like the first, and once more
+     (untimed) at 8.184 Msps, where the correlator walks its 4 ms window
+     (NW=32783) in two shared-memory tiles;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -35,9 +39,25 @@ Phases (one line each, with times):
      0.5 s), then both kernels at that rate;
   8. the CLI with GPS_L1_CA_KF_Tracking on phase 6's file (RTF, fixes,
      median 3D error, KF epochs), and the launches per KF epoch from a
-     profiler trace of one 40 ms block.
-Then one JSON line describing every kernel (launches summed over phases 5-7,
-each read just after its run), the nvidia-smi line, and last
+     profiler trace of one 40 ms block;
+  9. the acquisition strategies on the card, each held to the same call
+     on the CPU (detections, Doppler bins, delays within 1 sample,
+     statistics within 1e-4 relative, ms per call): PCPS with the
+     two-period window, QuickSync (fold 2), CCCWSR, 8 ms and Tong on
+     phase 10's Galileo E1 capture; Tong, fine-Doppler and QuickSync on
+     phase 3's GPS capture; the E5a CAF core on a seeded random input;
+ 10. the Galileo E1B receiver end to end: 8 satellites on 8 channels,
+     30 s at 4.0 Msps (not commensurate with the 2.046 MHz sinBOC rate),
+     48 dB-Hz, I/NAV word cycle 5,1,2,3,4, the capture preloaded to the
+     card (RTF, ephemerides, fixes, median 3D error, each kernel's
+     launches == chunks);
+ 11. the CLI on both Galileo E1 confs over phase 10's capture written as
+     a gr_complex file: conf/galileo_e1_gr_complex.conf with --fs and
+     --channels set to the capture's 4.0 Msps and 8 satellites, and
+     conf/galileo_e1_quicksync.conf as written.
+Then one JSON line describing every kernel (launches summed over phases
+5-7, 10 and 11, each read just after its run), the nvidia-smi line, and
+last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
 once.  Synthetic captures are cached in chip_smoke_cache/ (git-ignored);
@@ -97,6 +117,16 @@ MIN_FIXES_KF = 10
 OUTPUT_FILES = ("position.kml", "position.gpx", "position.geojson",
                 "position.nmea", "observables.rnx", "brdc.rnx",
                 "observables.rtcm")
+# phases 2 and 9-11: the Galileo E1B receiver's scenario
+# (tests/test_system_galileo.py scaled to 8 satellites) and its bars
+FS_E1 = 4.0e6
+E1_S = 30.0
+E1_PRNS = tuple(range(1, 9))
+E1_TILED_RATE = 8.184e6
+MIN_EPH_E1 = 6
+MIN_FIXES_E1 = 10
+# CCCWSR and 8 ms normalise their peak by F^2 times the input power
+E1_THRESHOLDS = {"cccwsr": 8e-4, "8ms": 8e-4}
 
 
 def log(msg: str) -> None:
@@ -165,12 +195,20 @@ def main() -> None:
     log(f"    track_capture ({ch['capture_chunks']} chunks, one call) vs the "
         f"plain chunk loop on the CPU: max |diff| {ch['err_capture']:.3e}, "
         f"int rows exact, {ch['capture_valid_epochs']} valid epochs")
-    for r in k_rep["other_rates"]:
-        log(f"    at {r['fs'] / 1e6:g} Msps (NW={r['NW']}, LW={r['LW']}, "
+    for r in k_rep["other_rates"] + [k_rep["e1"], k_rep["e1_tiled"]]:
+        log(f"    at {r['fs'] / 1e6:g} Msps (K={r['K']}, NW={r['NW']}, "
+            f"LW={r['LW']}, {r['tiles']} tile(s), "
             f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
             f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
             f"track_chain {r['chain_err']:.3e}, capture "
             f"{r['capture_err']:.3e}, int rows exact")
+    e1c, e1h = k_rep["e1"]["corr"], k_rep["e1"]["chain"]
+    log(f"    Galileo E1 shape (K=5, E=16, C=8, NW={e1c['NW']}): chunk_corr "
+        f"{e1c['ms']:.5f} ms/launch device, plain {e1c['plain_ms']:.3f} ms, "
+        f"torch.bmm pair {e1c['library_ms']:.5f} ms, bound "
+        f"{e1c['bound_ms']:.2e} ms ({e1c['bound_by']}); track_chain "
+        f"{e1h['ms']:.5f} ms/launch device, plain {e1h['plain_ms']:.3f} ms, "
+        f"bound {e1h['bound_ms']:.2e} ms ({e1h['bound_by']})")
     log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
@@ -182,6 +220,7 @@ def main() -> None:
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     acq = phase_acquisition(dev, sats, x_eng)
+    gps_head = x_eng[: int(FS * 0.1)].copy()      # phase 9's GPS samples
     log(f"[3] acquisition: {acq['detected']}/12 at the true Doppler and "
         f"delay, {acq['ffts_per_s']:.0f} FFTs/s "
         f"({acq['ms_per_call']:.2f} ms/call, F={acq['fft_size']}); against "
@@ -241,9 +280,43 @@ def main() -> None:
         f"{kfp['wall_ms_per_epoch']:.3f} ms of wall | "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- 9-11. acquisition strategies, Galileo E1 receiver and CLI ----
+    t0 = time.perf_counter()
+    scen_e1, x_e1, gen_s = e1_capture()
+    log(f"    Galileo E1 capture made ({len(E1_PRNS)} sats x {E1_S:g} s at "
+        f"{FS_E1 / 1e6:g} Msps) | {gen_s:.1f} s")
+    t0 = time.perf_counter()
+    acqv = phase_acq_variants(dev, x_e1[: int(FS_E1 * 0.3)], gps_head)
+    log("[9] acquisition strategies, card vs CPU (same detections and "
+        "Doppler bins, delays within 1 sample, statistics within 1e-4):")
+    for r in acqv:
+        log(f"    {r['what']}: {r['detected']} detections, max delay diff "
+            f"{r['max_delay_diff']:.3f} samples, max Doppler diff "
+            f"{r['max_doppler_diff']:.3f} Hz, max stat rel diff "
+            f"{r['max_stat_rel']:.2e}, {r['ms_per_call']:.2f} ms/call")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e1 = phase_e1(dev, cc, tc, scen_e1, x_e1)
+    log(f"[10] Galileo E1 receiver e2e: {len(E1_PRNS)} sats x {E1_S:g} s, "
+        f"RTF {e1['rtf']:.2f} ({e1['wall_s']:.2f} s), ephemerides "
+        f"{e1['ephemerides']} (max |sqrt_a err| {e1['max_sqrt_a_err']:.2e}), "
+        f"fixes {e1['fixes']}, median 3D error {e1['median_3d_m']:.2f} m, "
+        f"launches chunk_corr {e1['launches_chunk_corr']} track_chain "
+        f"{e1['launches_track_chain']} == chunks {e1['chunks']} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    CACHE.mkdir(exist_ok=True)
+    e1_file = CACHE / f"e1_{FS_E1:.0f}_{E1_S:.0f}.gr_complex"
+    x_e1.tofile(e1_file)
+    del x_e1
+    cli11 = phase_cli_galileo(cc, tc, scen_e1, e1_file)
+    for name, r in cli11.items():
+        log(f"[11] CLI, {name}: {r['summary']}")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
-    paths = (e2e, cli6, cli7)
+    paths = (e2e, cli6, cli7, e1, *cli11.values())
     src = "gnss_sdr_1_tpu_torch/csrc/"
     kernels = [{
         "name": "chunk_corr", "route": "cuda",
@@ -253,6 +326,8 @@ def main() -> None:
         "max_abs_err": cr["max_abs_err"], "ms": cr["ms"],
         "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
         "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
+        "e1_ms": e1c["ms"], "e1_bound_ms": e1c["bound_ms"],
+        "e1_plain_ms": e1c["plain_ms"], "e1_library_ms": e1c["library_ms"],
     }, {
         "name": "track_chain", "route": "cuda",
         "source": src + "track_chain.cu",
@@ -261,11 +336,14 @@ def main() -> None:
         "max_abs_err": ch["max_abs_err"], "ms": ch["ms"],
         "plain_ms": ch["plain_ms"], "bound_ms": ch["bound_ms"],
         "bound_by": ch["bound_by"], "library_ms": None,
+        "e1_ms": e1h["ms"], "e1_bound_ms": e1h["bound_ms"],
+        "e1_plain_ms": e1h["plain_ms"], "e1_library_ms": None,
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
               "e2e": e2e, "cli_passthrough": cli6, "cli_if": cli7,
-              "cli_kf": cli8, "total_s": time.perf_counter() - t_all}
+              "cli_kf": cli8, "acq_variants": acqv, "e1_e2e": e1,
+              "cli_galileo": cli11, "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1, default=float))
@@ -320,11 +398,28 @@ def ptxas_report(text: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _engine(dev, fs=FS):
-    """The engine benchmark's tracker: 12 channels, 16-epoch chunks."""
+def _e1_config(**kw):
+    """Phase 10's Galileo E1B receiver (tests/test_system_galileo.py's
+    configuration on 8 channels)."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    return ReceiverConfig(**{**dict(
+        fs_hz=FS_E1, signal_id="1B", n_channels=len(E1_PRNS),
+        prn_search=E1_PRNS, acq_dwells=3, pll_bw_hz=15.0, dll_bw_hz=2.0),
+        **kw})
+
+
+def _engine(dev, fs=FS, signal="1C"):
+    """The engine benchmark's tracker (12 channels, 16-epoch chunks), or
+    for signal '1B' the tracker of phase 10's Galileo E1B receiver at `fs`
+    (8 channels, 5 taps, 16-epoch chunks)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 
+    if signal == "1B":
+        from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+        return Receiver(_e1_config(fs_hz=fs), device=dev).trk
     codes = np.stack([gps_l1ca_code(p) for p in range(1, 13)])
     cfg = TrackConfig(fs_hz=fs, code_length_chips=1023,
                       chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
@@ -344,27 +439,53 @@ def _bench_sats(duration_s):
             for p in range(1, 13)]
 
 
+def _e1_sats(duration_s):
+    """8 Galileo E1B satellites for the kernel checks (seed 43; delays in
+    2.046 MHz sinBOC half-chips, one symbol per 4 ms)."""
+    from gnss_sdr_1_tpu_torch.siggen import SatParams
+
+    rng = np.random.default_rng(43)
+    return [SatParams(prn=p, doppler_hz=float(rng.uniform(-3500, 3500)),
+                      delay_chips=float(rng.uniform(0, 8184)), cn0_dbhz=48.0,
+                      nav_bits=rng.choice([-1.0, 1.0],
+                                          size=int(duration_s * 250) + 8))
+            for p in E1_PRNS]
+
+
 def _activate_all(eng, sats):
+    """Every channel at its satellite's true delay and Doppler (delays in
+    the replica's chips: 1.023 MHz for GPS, 2.046 MHz for E1 sinBOC)."""
     fs = eng.cfg.fs_hz
+    rate = eng.cfg.chip_rate_chips_s * eng.cfg.code_samples_per_chip
     st = eng.init_state()
     for ch, s in enumerate(sats):
-        st = eng.activate_channel(st, ch, ch, s.delay_chips / 1.023e6 * fs,
+        st = eng.activate_channel(st, ch, ch, s.delay_chips / rate * fs,
                                   s.doppler_hz, 0, 0)
     return st
 
 
-def _gen(sats, duration_s, key, fs=FS):
-    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
-    from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+def _gen(sats, duration_s, key, fs=FS, signal="1C"):
+    """A synthetic capture, cached in CACHE: GPS L1 C/A, or Galileo E1B
+    generated as the sinBOC 'virtual' code at 2.046 MHz with one I/NAV
+    symbol per 4 ms code period (tests/test_system_galileo.py)."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code, tracking_replica
+    from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B, GPS_L1_CA
     from gnss_sdr_1_tpu_torch.siggen import generate_baseband
 
     CACHE.mkdir(exist_ok=True)
     path = CACHE / f"{key}.npy"
     if path.exists():
         return np.load(path)
-    x = generate_baseband(GPS_L1_CA, sats,
-                          {s.prn: gps_l1ca_code(s.prn) for s in sats}, fs,
-                          duration_s, noise=True)
+    if signal == "1B":
+        spec = dataclasses.replace(GALILEO_E1B, code_rate_chips_s=2.046e6,
+                                   code_length_chips=2 * 4092,
+                                   bit_rate_bps=250.0)
+        codes = {s.prn: tracking_replica("1B", s.prn)[0] for s in sats}
+    else:
+        spec, codes = GPS_L1_CA, {s.prn: gps_l1ca_code(s.prn) for s in sats}
+    x = generate_baseband(spec, sats, codes, fs, duration_s, noise=True)
     np.save(path, x)
     return x
 
@@ -455,20 +576,28 @@ def _device_ms(fn, n):
     return us / n * 1e-3
 
 
-def _midtrack(dev, fs):
+def _midtrack(dev, fs, signal="1C"):
     """The engine at `fs` after 0.25 s of tracking on the engine benchmark's
-    scenario, and the inputs of its next chunk:
-    (engine, seg, rows, slot, sec_rows, fst, ist)."""
-    sats = _bench_sats(0.3)
-    x = _gen(sats, 0.3, f"kernel_chunk_{fs:.0f}_0.3s_v1", fs)
-    eng = _engine(dev, fs)
+    scenario (or, for '1B', on 8 Galileo E1B satellites), and the inputs of
+    its next chunk: (engine, seg, rows, slot, sec_rows, fst, ist).  The
+    sample limit ends inside the third chunk (GPS: 40 ms; E1: 160 ms)."""
+    if signal == "1B":
+        dur = 0.5
+        sats = _e1_sats(dur)
+    else:
+        dur = 0.3
+        sats = _bench_sats(dur)
+    x = _gen(sats, dur, f"kernel_chunk_{signal}_{fs:.0f}_{dur:g}s_v1", fs,
+             signal)
+    eng = _engine(dev, fs, signal)
     st = _activate_all(eng, sats)
     xd = torch.as_tensor(x, device=dev)
     span = int(fs * 0.25)
     st, _ = eng.track_capture(xd[: span + eng.cfg.epoch_samples_max], st,
                               span)
     seg = eng._pad_for_chunks(xd[span:])
-    fst, ist = eng._pack_rows(st, int(fs * 0.04))
+    chunk_s = eng.chain_spec.E * eng.cfg.code_period_s
+    fst, ist = eng._pack_rows(st, int(fs * (CAPTURE_CHUNKS - 0.5) * chunk_s))
     slot = st.prn_slot.to(torch.int32).contiguous()
     sec_rows = eng._sec[slot.long()].T.contiguous()
     return eng, seg, eng._rows, slot, sec_rows, fst, ist
@@ -476,9 +605,10 @@ def _midtrack(dev, fs):
 
 def _check_kernels(dev, cc, tc, inputs, g):
     """Both kernels against their plain versions on a mid-track chunk and
-    on random inputs (the chain on the correlator's mid-track output), and
-    the capture entry over CAPTURE_CHUNKS chunks in one call against the
-    plain chunk loop on the CPU.  Raises on any disagreement."""
+    on random inputs (the chain on the correlator's mid-track output; the
+    chain's plain version run on the CPU), and the capture entry over
+    CAPTURE_CHUNKS chunks in one call against the plain chunk loop on the
+    CPU.  Raises on any disagreement."""
     from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
 
     eng, seg, rows, slot, sec_rows, fst, ist = inputs
@@ -513,7 +643,11 @@ def _check_kernels(dev, cc, tc, inputs, g):
         torch.cuda.synchronize()
         if tc.launches != before + 1:
             raise AssertionError("chain wrapper did not launch the kernel")
-        want = tc.chain_plain(spec, *args)
+        # the plain version on the CPU divides as the kernel does (on CUDA
+        # tensors torch divides by a Python scalar as a multiply by the
+        # reciprocal: an ulp in the tap position that the steep sinBOC
+        # peak of the E1 shape turns into ~1e-4 of the prompt's scale)
+        want = tc.chain_plain(spec, *(t.cpu() for t in args))
         rows_diff[label] = []
         errs[label] = _chain_diff(tc, got, want, rows_diff[label])
 
@@ -538,34 +672,12 @@ def _check_kernels(dev, cc, tc, inputs, g):
             "capture_valid_epochs": n_valid_cap}
 
 
-def phase_kernels(dev, cc, tc):
-    g = torch.Generator(device="cpu").manual_seed(7)
-    # a real chunk taken mid-track at the main path's shapes
-    inputs = _midtrack(dev, FS)
+def _time_shape(cc, tc, inputs, track_args):
+    """Device ms per launch of both kernels at one shape (profiler over 200
+    launches), their times from the host, the plain versions' times, the
+    torch.bmm pair the correlator replaces, and each kernel's bound."""
     eng, seg, rows, slot, sec_rows, fst, ist = inputs
     spec, cspec = eng.chain_spec, eng.corr_spec
-    assert (spec.E, spec.LW, spec.C, spec.K, cspec.NW) == (
-        16, 68, 12, 3, 4136), (spec, cspec)
-    chk = _check_kernels(dev, cc, tc, inputs, g)
-    corr_err, corr_scale, errs = (chk["corr_err"], chk["corr_scale"],
-                                  chk["chain_err"])
-    track_args = chk["track_args"]
-
-    # the same checks, untimed, at the other rates the CLI phases run
-    other = []
-    for fs in CHECK_RATES:
-        inp = _midtrack(dev, fs)
-        c = _check_kernels(dev, cc, tc, inp, g)
-        other.append({
-            "fs": fs, "samples_per_chip": fs / 1.023e6,
-            "NW": inp[0].corr_spec.NW, "LW": inp[0].corr_spec.LW,
-            "corr_err": max(c["corr_err"].values()),
-            "corr_scale": max(c["corr_scale"].values()),
-            "chain_err": max(c["chain_err"]["random"],
-                             c["chain_err"]["track"]),
-            "capture_err": c["chain_err"]["capture"],
-            "capture_valid_epochs": c["capture_valid_epochs"]})
-
     wr, wi, _, _ = cc.windows_plain(cspec, seg, fst, ist)
     bank_t = cc.replica_bank(cspec, rows, slot)
 
@@ -591,24 +703,19 @@ def phase_kernels(dev, cc, tc):
                + (2 * C * E * LW + C * E + C) * 4)
     c_ops = 4 * LW * n_wiped + WIPE_OPS_PER_SAMPLE * n_wiped
     tb, to = c_bytes / PEAK_BYTES_S * 1e3, c_ops / PEAK_F32_S * 1e3
-    corr_rep = {
-        "err_random": corr_err["random"], "err_track": corr_err["track"],
-        "scale_random": corr_scale["random"],
-        "scale_track": corr_scale["track"],
-        "max_abs_err": max([*corr_err.values()]
-                           + [r["corr_err"] for r in other]),
+    corr = {
         "ms": corr_ms, "ms_host": corr_host,
         "plain_ms": corr_plain, "library_ms": bmm_ms,
         "library": "torch.bmm pair on the plain path's wiped windows (the "
                    "product alone)",
         "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
         else "operations", "bound_bytes": c_bytes, "bound_ops": c_ops,
-        "wiped_samples": n_wiped, "NW": cspec.NW}
+        "wiped_samples": n_wiped, "NW": cspec.NW,
+        "tiles": cc.corr_params(cspec).tiles}
 
     chain_ms = _device_ms(lambda: tc.chain_cuda(spec, *track_args), 200)
     chain_host = _time_cuda(lambda: tc.chain_cuda(spec, *track_args), 500)
     chain_plain = _time_cuda(lambda: tc.chain_plain(spec, *track_args), 5)
-
     # least time for the same work: bytes the function needs (the 2K lags
     # per plane each epoch reads, state and outputs once) vs operations
     K = spec.K
@@ -619,20 +726,81 @@ def phase_kernels(dev, cc, tc):
                    + E * (tc.N_OROWS + 2 + 2 * K) * C)  # per-epoch outputs
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = OPS_PER_EPOCH_CHANNEL * E * C / PEAK_F32_S * 1e3
+    chain = {
+        "ms": chain_ms, "ms_host": chain_host, "plain_ms": chain_plain,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes": n_bytes, "E": E, "LW": LW, "C": C, "K": K}
+    return corr, chain
+
+
+def _rate_summary(cc, fs, inp, c):
+    """One untimed kernel check at another shape, for the report."""
+    cspec = inp[0].corr_spec
+    return {"fs": fs, "NW": cspec.NW, "LW": cspec.LW, "K": inp[0].chain_spec.K,
+            "tiles": cc.corr_params(cspec).tiles,
+            "samples_per_chip": fs / 1.023e6,
+            "corr_err": max(c["corr_err"].values()),
+            "corr_scale": max(c["corr_scale"].values()),
+            "chain_err": max(c["chain_err"]["random"],
+                             c["chain_err"]["track"]),
+            "capture_err": c["chain_err"]["capture"],
+            "capture_valid_epochs": c["capture_valid_epochs"]}
+
+
+def phase_kernels(dev, cc, tc):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    # a real chunk taken mid-track at the main path's shapes
+    inputs = _midtrack(dev, FS)
+    eng = inputs[0]
+    spec, cspec = eng.chain_spec, eng.corr_spec
+    assert (spec.E, spec.LW, spec.C, spec.K, cspec.NW) == (
+        16, 68, 12, 3, 4136), (spec, cspec)
+    chk = _check_kernels(dev, cc, tc, inputs, g)
+    corr_err, corr_scale, errs = (chk["corr_err"], chk["corr_scale"],
+                                  chk["chain_err"])
+
+    # the same checks, untimed, at the other rates the CLI phases run
+    other = []
+    for fs in CHECK_RATES:
+        inp = _midtrack(dev, fs)
+        other.append(_rate_summary(cc, fs, inp,
+                                   _check_kernels(dev, cc, tc, inp, g)))
+    corr_t, chain_t = _time_shape(cc, tc, inputs, chk["track_args"])
+
+    # Galileo E1B: the 5-tap chain and the 4 ms window at phase 10's shape,
+    # timed; then the window walked in several tiles (untimed)
+    e1_in = _midtrack(dev, FS_E1, "1B")
+    e_spec, e_cspec = e1_in[0].chain_spec, e1_in[0].corr_spec
+    assert (e_spec.E, e_spec.LW, e_spec.C, e_spec.K, e_spec.prompt_index,
+            e_cspec.NW) == (16, 69, 8, 5, 2, 16045), (e_spec, e_cspec)
+    assert cc.corr_params(e_cspec).tiles == 1
+    e1_chk = _check_kernels(dev, cc, tc, e1_in, g)
+    e1_corr_t, e1_chain_t = _time_shape(cc, tc, e1_in, e1_chk["track_args"])
+    e1 = _rate_summary(cc, FS_E1, e1_in, e1_chk)
+    e1.update(corr=e1_corr_t, chain=e1_chain_t, rows=e1_chk["rows"])
+    tiled_in = _midtrack(dev, E1_TILED_RATE, "1B")
+    if not cc.corr_params(tiled_in[0].corr_spec).tiles > 1:
+        raise AssertionError("the tiled E1 check runs in one tile")
+    tiled = _rate_summary(cc, E1_TILED_RATE, tiled_in,
+                          _check_kernels(dev, cc, tc, tiled_in, g))
+
+    checks = other + [e1, tiled]
+    corr_rep = {
+        "err_random": corr_err["random"], "err_track": corr_err["track"],
+        "scale_random": corr_scale["random"],
+        "scale_track": corr_scale["track"],
+        "max_abs_err": max([*corr_err.values()]
+                           + [r["corr_err"] for r in checks]), **corr_t}
     chain_rep = {
         "err_random": errs["random"], "err_track": errs["track"],
         "err_capture": errs["capture"], "capture_chunks": CAPTURE_CHUNKS,
         "capture_valid_epochs": chk["capture_valid_epochs"],
         "max_abs_err": max([errs["random"], errs["track"]]
-                           + [r["chain_err"] for r in other]),
-        "ms": chain_ms,
-        "ms_host": chain_host,
-        "plain_ms": chain_plain, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes": n_bytes, "E": E, "LW": LW, "C": C, "K": K,
-        "rows": chk["rows"]}
+                           + [r["chain_err"] for r in checks]),
+        **chain_t, "rows": chk["rows"]}
     return {"chunk_corr": corr_rep, "track_chain": chain_rep,
-            "other_rates": other}
+            "other_rates": other, "e1": e1, "e1_tiled": tiled}
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1252,196 @@ def phase_cli_kf(dev, cc, tc, scen, capture):
                ms_per_epoch=rep["process_wall_s"] / steps["n"] * 1e3,
                profile=_kf_block_profile(dev, scen, capture))
     return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the acquisition strategies, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def _acq_pair(dev, cfg, head, n_calls=3):
+    """One strategy's acquisition, built by the Receiver from `cfg`, on the
+    card and on the CPU over `head`: (the card's result, the CPU's,
+    samples per code, the strategy the receiver ran, the card's ms per
+    call)."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    def run(rx):
+        if rx._acq_tong:
+            return rx.acq.acquire_tong(head, tong_init=cfg.tong_init,
+                                       tong_max=cfg.tong_max)
+        return rx.acq.acquire(head)
+
+    rx = Receiver(cfg, device=dev)
+    res = run(rx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        run(rx)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_calls * 1e3
+    ref = run(Receiver(cfg, device="cpu"))
+    return res, ref, rx.samples_per_code, rx.acq_strategy, ms
+
+
+def _hold_acq(what, res, ref, spc, doppler_atol=0.0):
+    """The acquisition bar (ROADMAP.md): the same detections, the same
+    Doppler bins (fine-Doppler: within `doppler_atol`, one fine bin),
+    delays within 1 sample (circular), statistics within 1e-4 relative."""
+    if not np.array_equal(res.positive, ref.positive):
+        raise AssertionError(f"{what}: detections differ from the CPU: "
+                             f"{res.positive} vs {ref.positive}")
+    dd_f = np.abs(np.ravel(res.doppler_hz) - np.ravel(ref.doppler_hz))
+    if not (dd_f <= doppler_atol).all():
+        raise AssertionError(f"{what}: Doppler differs from the CPU: "
+                             f"{res.doppler_hz} vs {ref.doppler_hz}")
+    dd = np.abs(np.ravel(res.delay_samples) - np.ravel(ref.delay_samples))
+    dd = np.minimum(dd % spc, spc - dd % spc)
+    if not (dd <= 1.0).all():
+        raise AssertionError(f"{what}: delays differ from the CPU by {dd}")
+    rel = np.abs(res.test_stat - ref.test_stat) / np.maximum(
+        np.abs(ref.test_stat), 1e-30)
+    if not (rel <= 1e-4).all():
+        raise AssertionError(f"{what}: statistics differ from the CPU by "
+                             f"{rel}")
+    return {"detected": int(np.sum(res.positive)),
+            "max_delay_diff": float(dd.max()),
+            "max_doppler_diff": float(dd_f.max()),
+            "max_stat_rel": float(rel.max())}
+
+
+def phase_acq_variants(dev, e1_head, gps_head):
+    """Every acquisition strategy the receivers dispatch, card against CPU:
+    on Galileo E1 (phase 10's configuration) PCPS with its two-period
+    window, QuickSync, CCCWSR, 8 ms and Tong; on GPS L1 C/A (phase 3's
+    PRNs at 4.092 Msps) Tong, fine-Doppler and QuickSync; and the E5a CAF
+    core on a seeded random input (no E5a receiver is ported yet)."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    rows = []
+    runs = [("E1 " + s, _e1_config(
+        acq_strategy=s, acq_threshold=E1_THRESHOLDS.get(s, 2.0)), e1_head)
+        for s in ("pcps", "quicksync", "cccwsr", "8ms", "tong")]
+    runs += [("GPS " + s, ReceiverConfig(
+        fs_hz=FS, n_channels=12, prn_search=tuple(range(1, 13)),
+        acq_strategy=s), gps_head)
+        for s in ("tong", "fine_doppler", "quicksync")]
+    for what, cfg, head in runs:
+        res, ref, spc, strat, ms = _acq_pair(dev, cfg, head)
+        if strat != cfg.acq_strategy:
+            raise AssertionError(f"{what}: the receiver ran {strat}")
+        # fine-Doppler refines on a zero-padded FFT: one bin of it
+        atol = (cfg.fs_hz / (10 * spc * 8)) if strat == "fine_doppler" \
+            else 0.0
+        rep = _hold_acq(what, res, ref, spc, atol)
+        if rep["detected"] < 6:
+            raise AssertionError(f"{what}: {rep['detected']} detections")
+        rows.append({"what": what, "ms_per_call": ms, **rep})
+    rows.append(_caf_check(dev))
+    return rows
+
+
+def _caf_check(dev):
+    """The E5a noncoherent I/Q CAF acquisition at an E5a-like shape (1 ms
+    of 10.23 Mcps I and Q codes at 20.46 Msps, 4 PRNs, a 2 kHz CAF window)
+    on a seeded random capture holding two of them: card against CPU."""
+    from gnss_sdr_1_tpu_torch.acquire import AcqConfig, CafAcquisition
+    from gnss_sdr_1_tpu_torch.codes import resample_code
+
+    fs, spc = 20.46e6, 20460
+    rng = np.random.default_rng(11)
+    chips = {p: (rng.choice([-1.0, 1.0], 10230), rng.choice([-1.0, 1.0],
+                                                            10230))
+             for p in (5, 9, 13, 21)}
+    di = {p: resample_code(c[0].astype(np.float32), fs, 10.23e6, spc)
+          for p, c in chips.items()}
+    dq = {p: resample_code(c[1].astype(np.float32), fs, 10.23e6, spc)
+          for p, c in chips.items()}
+    n = np.arange(2 * spc)
+    x = rng.normal(size=2 * spc) + 1j * rng.normal(size=2 * spc)
+    for p, delay, dop in ((5, 7001, 1320.0), (13, 15003, -2875.0)):
+        comp = np.tile(np.roll(di[p], delay) + 1j * np.roll(dq[p], delay), 2)
+        x = x + 0.5 * comp * np.exp(2j * np.pi * dop * n / fs)
+    x = x.astype(np.complex64)
+    cfg = AcqConfig(fs_hz=fs, samples_per_code=spc, samples_per_chip=2,
+                    doppler_max_hz=5000.0, doppler_step_hz=250.0,
+                    use_cfar=True, pfa=0.001)
+    accs = [CafAcquisition(cfg, di, dq, caf_window_hz=2000.0, device=d)
+            for d in (dev, "cpu")]
+    res = accs[0].acquire(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        accs[0].acquire(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    rep = _hold_acq("CAF", res, accs[1].acquire(x), spc)
+    if rep["detected"] < 2:
+        raise AssertionError(f"CAF: {rep['detected']} detections")
+    return {"what": "E5a-like CAF", "ms_per_call": ms, **rep}
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the Galileo E1B receiver and CLI
+# ---------------------------------------------------------------------------
+
+
+def e1_capture():
+    """Phase 10's scenario: 8 Galileo E1B satellites, 30 s at 4.0 Msps,
+    48 dB-Hz, I/NAV pages cycling words 5,1,2,3,4.  Returns (scenario,
+    samples, seconds spent making them)."""
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+
+    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+    scen = build_scenario(rx_ecef, list(E1_PRNS), t0_tow=345601.25,
+                          duration_s=E1_S, cn0_dbhz=48.0, chip_rate=2.046e6,
+                          signal="1B")
+    t0 = time.perf_counter()
+    x = _gen(scen.sats, E1_S, f"e1_{FS_E1:.0f}_{E1_S:.0f}_v1", FS_E1, "1B")
+    return scen, x, time.perf_counter() - t0
+
+
+def phase_e1(dev, cc, tc, scen, x):
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    rx = Receiver(_e1_config(), device=dev)
+    rx.preload(x)
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    _check_launches(cc, tc, counter["chunks"], "E1 e2e")
+    if rx.trk.chain_spec.K != 5:
+        raise AssertionError("E1 e2e: the chain does not run 5 taps")
+    eph_err = {p: abs(d.ephemeris.sqrt_a - scen.ephemerides[p].sqrt_a)
+               for p, d in rx.decoders.items() if d.ephemeris_complete}
+    if len(eph_err) < MIN_EPH_E1 or max(eph_err.values()) > 2e-5:
+        raise AssertionError(f"E1 e2e: ephemerides {eph_err}")
+    return {"rtf": E1_S / wall, "wall_s": wall,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, "E1 e2e",
+                         MIN_FIXES_E1),
+            "ephemerides": len(eph_err),
+            "max_sqrt_a_err": max(eph_err.values()),
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches,
+            "chunks": counter["chunks"], "channels": list(rx.channel_prn)}
+
+
+def phase_cli_galileo(cc, tc, scen, capture):
+    """Both Galileo E1 confs through the CLI on phase 10's capture."""
+    reps = {}
+    runs = (("galileo_e1_gr_complex.conf",
+             ["--fs", f"{FS_E1:.0f}", "--channels", str(len(E1_PRNS))]),
+            ("galileo_e1_quicksync.conf", []))
+    for name, extra in runs:
+        what = f"CLI {name}"
+        with _counting(cc, tc) as counter:
+            rep = _run_cli(["-c", str(ROOT / "conf" / name), "--signal_file",
+                            str(capture)] + extra, scen,
+                           CACHE / f"cli_{name[:-5]}", MIN_FIXES_E1, what)
+        reps[name] = _cli_launches(cc, tc, rep, counter, what)
+    return reps
 
 
 if __name__ == "__main__":

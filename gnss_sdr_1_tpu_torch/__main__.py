@@ -11,9 +11,10 @@ Usage:
     python -m gnss_sdr_1_tpu_torch --signal_file cap.dat --item_type ishort \\
         --fs 4e6 [--out_dir out/] [--device cpu]
 
-This port runs one GPS L1 C/A channel group (PCPS acquisition, DLL/PLL or
-KF tracking, single-point PVT); other confs and the flags of features not
-ported yet exit with an error naming the ROADMAP.md item that ports them.
+This port runs one GPS L1 C/A or Galileo E1B channel group (PCPS and its
+variants, DLL/PLL, VEML or, on GPS L1, KF tracking, single-point PVT);
+other confs and the flags of features not ported yet exit with an error
+naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def main(argv=None) -> int:
     ap.add_argument("--item_type", default=None,
                     help="ishort|ibyte|byte|short|gr_complex")
     ap.add_argument("--fs", type=float, default=None, help="sampling rate")
-    ap.add_argument("--signal", default=None, help="signal id (1C)")
+    ap.add_argument("--signal", default=None, help="signal id (1C, 1B)")
     ap.add_argument("--channels", type=int, default=None)
     ap.add_argument("--max_s", type=float, default=None,
                     help="process at most this many seconds")
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
     for flag, item in _UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             ap.error(f"--{flag} is not ported yet: {ROADMAP_ITEMS[item]}")
-    if args.signal and args.signal != "1C":
+    if args.signal and args.signal not in ("1C", "1B"):
         ap.error(str(not_ported(f"signal '{args.signal}'", "signals")))
     try:
         dev = resolve_device(args.device)
@@ -117,6 +118,8 @@ def main(argv=None) -> int:
         rcfg = ReceiverConfig()
         signal_file = args.signal_file
         item_type = args.item_type or "ishort"
+    if args.signal:
+        rcfg = type(rcfg)(**{**rcfg.__dict__, "signal_id": args.signal})
     if args.fs:
         rcfg = type(rcfg)(**{**rcfg.__dict__, "fs_hz": args.fs})
     if args.channels:
@@ -194,6 +197,8 @@ def main(argv=None) -> int:
             last, sorted(p for _, obs in rx.obs_epochs[-1:] for p in obs)))
         nmea.extend(printers.nmea_gsv(gsv_sats))
     (out / "position.nmea").write_text("\n".join(nmea) + "\n")
+    # RINEX 2.11 has no Galileo file types: Galileo keeps 3.02
+    file_ver = rinex_version if rcfg.signal_id == "1C" else 3
     if rx.obs_epochs:
         week = next((d.ephemeris.week for d in rx.decoders.values()
                      if d.ephemeris_complete), 0) + 2048
@@ -204,7 +209,7 @@ def main(argv=None) -> int:
             approx_xyz=last.rx_ecef_m,
             signals=(rcfg.signal_id,),
             glonass_slots=None,
-            version=rinex_version,
+            version=file_ver,
             time_first_obs=printers.gps_time_to_utc(week, tows[0], leap_s=0),
             interval_s=interval)]
         for tow, obs in rx.obs_epochs:
@@ -214,14 +219,21 @@ def main(argv=None) -> int:
                     "doppler_hz": o.doppler_hz,
                     "cn0_dbhz": o.cn0_dbhz}
                 for p, o in obs.items()}, signal=rcfg.signal_id,
-                version=rinex_version, signals=(rcfg.signal_id,)))
+                version=file_ver, signals=(rcfg.signal_id,)))
         (out / "observables.rnx").write_text("".join(obs_txt))
+    # nav records and RTCM ephemerides in each system's own broadcast
+    # model: the Galileo adapter hands the solver a Keplerian conversion,
+    # RINEX and RTCM take the I/NAV record
+    if rcfg.signal_id == "1B":
+        ephs = {p: d.raw.ephemeris for p, d in rx.decoders.items()
+                if d.ephemeris_complete}
     if ephs:
         iono = next((d.iono for d in rx.decoders.values()
-                     if getattr(d.iono, "valid", False)), None)
+                     if getattr(getattr(d, "iono", None), "valid", False)),
+                    None)
         nav = printers.rinex_nav_header(
-            iono=iono, version=rinex_version, system="G") + "".join(
-            printers.rinex_nav_record(e, version=rinex_version)
+            iono=iono, version=file_ver, system="G") + "".join(
+            printers.rinex_nav_record(e, version=file_ver)
             for e in ephs.values())
         (out / "brdc.rnx").write_text(nav)
     # RTCM 3.2 stream: station + ephemerides + MSM7 epochs
@@ -229,8 +241,9 @@ def main(argv=None) -> int:
     from .pvt import rtcm as rtcm_mod
     system = rtcm_mod.SYSTEM_OF_SIGNAL.get(rcfg.signal_id, "GPS")
     lam = 299792458.0 / rcfg.spec.carrier_freq_hz
-    frames = [rtcm_mod.encode_mt1005(1234, last.rx_ecef_m, gps=True,
-                                     glonass=False, galileo=False)]
+    frames = [rtcm_mod.encode_mt1005(1234, last.rx_ecef_m,
+                                     gps=system == "GPS", glonass=False,
+                                     galileo=system == "Galileo")]
     frames += [f for f in (rtcm_mod.encode_ephemeris(e)
                            for e in ephs.values()) if f]
     t_first = rx.obs_epochs[0][0] if rx.obs_epochs else 0.0

@@ -20,6 +20,8 @@ one batched complex64 tensor op — (C, D, F).  Numerical contracts:
 * Two-step refinement (:745+, acq_conf.h:46-48): a narrow per-PRN grid
   around the coarse Doppler with doppler_step2.
 * Non-coherent dwell accumulation (max_dwells): |corr|^2 grids summed.
+* Tong sequential detection (pcps_tong_acquisition_cc): a per-PRN counter
+  walked up or down by single-dwell threshold tests (`acquire_tong`).
 
 The grid maxima use torch.argmax, which returns the first maximal index —
 the same tie-break as a first-index scan.
@@ -194,6 +196,7 @@ class PcpsAcquisition:
         self.prns = sorted(codes_by_prn)
         F = cfg.fft_size
         sampled = []
+        periods = []
         for prn in self.prns:
             chips = codes_by_prn[prn]
             if fs_code_rate is not None:
@@ -208,7 +211,11 @@ class PcpsAcquisition:
             buf = np.zeros(F, dtype=np.complex64)
             buf[: len(rep)] = rep
             sampled.append(np.conj(np.fft.fft(buf)).astype(np.complex64))
+            periods.append(np.asarray(one_period, dtype=np.complex64))
         dev = self.device
+        # one-period time-domain replica bank (variants.FineDopplerAcquisition
+        # reuses it for the code wipe-off)
+        self._codes_time = torch.as_tensor(np.stack(periods), device=dev)
         self._code_fft_conj = torch.as_tensor(np.stack(sampled), device=dev)
         self._wipeoffs = torch.as_tensor(_doppler_wipeoffs(cfg), device=dev)
         self._threshold = (cfg.derived_threshold() if cfg.use_cfar
@@ -266,6 +273,55 @@ class PcpsAcquisition:
             test_stat=np.asarray(test_stat, dtype=np.float64),
             samplestamp=samplestamp,
         )
+
+    def acquire_tong(self, samples: np.ndarray, tong_init: int = 2,
+                     tong_max: int = 10, max_dwells: int = 30,
+                     samplestamp: int = 0) -> AcqResult:
+        """Tong sequential detector (pcps_tong_acquisition_cc analogue).
+
+        Per-PRN counter starts at `tong_init`; each single-dwell statistic
+        above threshold increments it, below decrements; reaching
+        `tong_max` declares the satellite present, reaching 0 absent.  One
+        packed [4, C] readback per dwell feeds the host-side counters."""
+        cfg = self.cfg
+        need = cfg.coherent_samples
+        C = len(self.prns)
+        counters = np.full(C, tong_init, dtype=np.int64)
+        decided = np.zeros(C, dtype=bool)
+        positive = np.zeros(C, dtype=bool)
+        best = {"delay": np.zeros(C), "doppler": np.zeros(C),
+                "stat": np.zeros(C)}
+        zero_grid = torch.zeros((C, cfg.num_doppler_bins, cfg.effective_size),
+                                dtype=_F32, device=self.device)
+        for dwell in range(max_dwells):
+            if dwell * need + 1 > len(samples):
+                break
+            _, stats = pcps_core(self._dwell_block(samples, dwell),
+                                 self._code_fft_conj, self._wipeoffs,
+                                 zero_grid, cfg.effective_size,
+                                 cfg.samples_per_code, cfg.samples_per_chip)
+            stat_cfar, stat_ratio, delay, d_idx, _ = stats
+            stat_cfar, stat_ratio, delay, didx_f = torch.stack(
+                [stat_cfar, stat_ratio, delay, d_idx.to(_F32)]).cpu().numpy()
+            stat = stat_cfar if cfg.use_cfar else stat_ratio
+            hit = stat > self._threshold
+            upd = ~decided
+            counters[upd & hit] += 1
+            counters[upd & ~hit] -= 1
+            better = upd & (stat > best["stat"])
+            best["stat"][better] = stat[better]
+            best["delay"][better] = delay[better]
+            best["doppler"][better] = self._doppler_bins[
+                didx_f.astype(np.int64)][better]
+            newly_pos = upd & (counters >= tong_max)
+            newly_neg = upd & (counters <= 0)
+            positive[newly_pos] = True
+            decided |= newly_pos | newly_neg
+            if decided.all():
+                break
+        return AcqResult(positive=positive, delay_samples=best["delay"],
+                         doppler_hz=best["doppler"], test_stat=best["stat"],
+                         samplestamp=samplestamp)
 
     @property
     def threshold(self) -> float:

@@ -1,9 +1,9 @@
-"""Per-signal GNSS constants (GPS L1 C/A).
+"""Per-signal GNSS constants (GPS L1 C/A, Galileo E1B).
 
-Reference parity: src/core/system_parameters/GPS_L1_CA.h,
-gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICD
-(IS-GPS-200).  Other signals and constellations are not carried by this
-package yet: `SIGNALS` holds GPS L1 C/A only.
+Reference parity: src/core/system_parameters/GPS_L1_CA.h, Galileo_E1.h,
+gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICDs
+(IS-GPS-200, Galileo OS SIS ICD).  Other signals and constellations are not
+carried by this package yet: `SIGNALS` holds GPS L1 C/A and Galileo E1B.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ SPEED_OF_LIGHT_M_S = 299_792_458.0
 GPS_GM = 3.986005e14           # WGS-84 Earth gravitational constant [m^3/s^2]
 GPS_OMEGA_EARTH_DOT = 7.2921151467e-5  # WGS-84 Earth rotation rate [rad/s]
 GPS_F_RELATIVISTIC = -4.442807633e-10  # s/sqrt(m), clock relativistic term
+GALILEO_GM = 3.986004418e14
+GALILEO_OMEGA_EARTH_DOT = 7.2921151467e-5
 GPS_PI = 3.1415926535898       # ICD value of pi used in ephemeris math
 
 # Start offset added to RX time when forming pseudoranges
@@ -24,6 +26,7 @@ GNSS_STARTOFFSET_MS = 60.0
 
 # --- carrier frequencies (gnss_frequencies.h) ---
 FREQ_L1 = 1575.42e6
+FREQ_E1 = 1575.42e6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +37,9 @@ class SignalSpec:
     (e.g. GPS_L1_CA.h: code rate 1.023e6, 1023 chips, 1 ms period).
     """
 
-    system: str              # 'GPS'
+    system: str              # 'GPS' | 'Galileo'
     name: str                # e.g. 'L1CA'
-    signal_id: str           # 2-char config id used by reference confs: '1C'
+    signal_id: str           # 2-char config id used by reference confs: '1C', '1B'
     carrier_freq_hz: float
     code_rate_chips_s: float
     code_length_chips: int
@@ -63,8 +66,17 @@ GPS_L1_CA = SignalSpec(
     symbol_rate_sps=50.0, bit_rate_bps=50.0,
 )
 
+GALILEO_E1B = SignalSpec(
+    system="Galileo", name="E1B", signal_id="1B",
+    carrier_freq_hz=FREQ_E1,
+    code_rate_chips_s=1.023e6, code_length_chips=4092, code_period_s=4e-3,
+    symbol_rate_sps=250.0, bit_rate_bps=125.0,  # I/NAV r=1/2 FEC
+    secondary_code_length=0, has_pilot=True,    # E1C pilot w/ CS25 secondary
+)
+
 # Registry keyed by the reference's 2-char signal ids
-SIGNALS: dict[str, SignalSpec] = {GPS_L1_CA.signal_id: GPS_L1_CA}
+SIGNALS: dict[str, SignalSpec] = {
+    s.signal_id: s for s in (GPS_L1_CA, GALILEO_E1B)}
 
 
 # --- GPS LNAV framing (GPS_L1_CA.h / IS-GPS-200) ---

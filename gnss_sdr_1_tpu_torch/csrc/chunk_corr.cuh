@@ -23,6 +23,12 @@
 //      new row value per sample: per sample 1 + 1 shared loads feed 2 TL
 //      fused multiply-adds;
 //   4. sums the slices' partial sums through shared memory.
+// Steps 1-3 run once per tile of the window: a window whose samples and
+// row stretch fit in shared memory is one tile (GPS L1 C/A at every rate
+// the receiver runs, Galileo E1 up to ~4.7 Msps); a longer one (E1's 4 ms
+// epochs at 8 Msps, NW ~ 32.8k) is walked in tiles of S * L samples, each
+// staging its own stretch of the row, and every thread carries its TL lag
+// sums in registers from tile to tile.
 //
 // What bounds it: at the main path's shape (E = 16, C = 12, LW = 68,
 // NW = 4136) the product is 2 x 12 x 16 x 68 x ~4092 multiply-adds
@@ -48,11 +54,11 @@
 // lags per thread (ops/chunk_corr.py TL; checked at launch)
 #define CC_TL 17
 
-// Mirror of ops/chunk_corr.py CorrParams; the block geometry (S, L, wbuf,
-// qs, smem_bytes) is computed there.
+// Mirror of ops/chunk_corr.py CorrParams; the block geometry (S, L, tiles,
+// wbuf, qs, smem_bytes) is computed there.
 struct CorrParams {
     int E, LW, NW, C, QW, t0_int, grid_pad, seg_len;
-    int tl, threads, padl, S, L, wbuf, qs, smem_bytes;
+    int tl, threads, padl, S, L, tiles, wbuf, qs, smem_bytes;
     float t0_frac, neg_t0, chip_rate, fs;
 };
 
@@ -103,19 +109,11 @@ chunk_corr_kernel(const float2* __restrict__ x, int n_samp,
     const int C = p.C;
     const int tid = threadIdx.x;
     const int nthr = blockDim.x;
-    const int SL = p.S * p.L;
+    const int SL = p.S * p.L;                          // samples per tile
     float2* w = reinterpret_cast<float2*>(cc_smem);    // [SL] wiped samples
     float* q = cc_smem + p.wbuf;                       // [qs] replica row
 
-    // ---- 1. replica row -> shared memory, behind PADL zeros ----
-    const float* qrow = rows + (size_t)slot[c] * p.QW;
-    for (int i = tid; i < p.QW / 4; i += nthr)
-        cp_async16(q + p.padl + 4 * i, qrow + 4 * i);
-    asm volatile("cp.async.commit_group;\n" ::);
-    for (int i = tid; i < p.padl; i += nthr) q[i] = 0.0f;
-    for (int i = p.padl + p.QW + tid; i < p.qs; i += nthr) q[i] = 0.0f;
-
-    // ---- 2. epoch geometry under the frozen code frequency ----
+    // ---- epoch geometry under the frozen code frequency ----
     const int start = ist[I_START * C + c];
     const int cur_len = ist[I_CURLEN * C + c];
     const float rem_code = fst[F_REM_CODE * C + c];
@@ -139,26 +137,9 @@ chunk_corr_kernel(const float2* __restrict__ x, int n_samp,
         s_reg_out[c * p.E + e] = s_reg;
         if (e == 0) step0_out[c] = step0;
     }
-
-    // ---- wipe-off into shared memory, zero outside the epoch ----
     const float2* xs = x + s_reg;
-    for (int n = tid; n < SL; n += nthr) {
-        float2 v = make_float2(0.0f, 0.0f);
-        if (n >= dp && n < dp + len_pred && n < p.NW) {
-            const float2 s = xs[n];
-            const float ph = phi + step0 * (float)n;
-            float sn, cs;
-            sincosf(ph, &sn, &cs);
-            // (re + j im) * (cos - j sin)
-            v.x = s.x * cs + s.y * sn;
-            v.y = s.y * cs - s.x * sn;
-        }
-        w[n] = v;
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-    __syncthreads();
+    const float* qrow = rows + (size_t)slot[c] * p.QW;
 
-    // ---- 3. lag correlation: TL lags x one n slice per thread ----
     const int NG = (p.LW + TL - 1) / TL;
     const bool worker = tid < NG * p.S;
     const int g = tid % NG;
@@ -166,30 +147,65 @@ chunk_corr_kernel(const float2* __restrict__ x, int n_samp,
     float ar[TL], ai[TL];
 #pragma unroll
     for (int j = 0; j < TL; ++j) { ar[j] = 0.0f; ai[j] = 0.0f; }
-    if (worker) {
-        const int l0 = g * TL;
-        int n0 = sl * p.L;
-        // row index of (n0, l0); lag l0 + j at sample n0 + u reads
-        // q[b + u - j]: hi[] holds q[b .. b+TL-1], lo[] q[b-TL+1 .. b-1]
-        int b = n0 - l0 + p.LW - 1 + p.padl;
-        float lo[TL - 1], hi[TL];
-#pragma unroll
-        for (int m = 0; m < TL - 1; ++m) lo[m] = q[b - (TL - 1) + m];
-        for (int blk = 0; blk < p.L / TL; ++blk, b += TL, n0 += TL) {
-#pragma unroll
-            for (int m = 0; m < TL; ++m) hi[m] = q[b + m];
-#pragma unroll
-            for (int u = 0; u < TL; ++u) {
-                const float2 s = w[n0 + u];
-#pragma unroll
-                for (int j = 0; j < TL; ++j) {
-                    const float r = (u >= j) ? hi[u - j] : lo[TL - 1 + u - j];
-                    ar[j] = fmaf(s.x, r, ar[j]);
-                    ai[j] = fmaf(s.y, r, ai[j]);
-                }
+
+    // the window in tiles of SL samples; each thread's lag sums carry over
+    for (int t = 0; t < p.tiles; ++t) {
+        const int nb = t * SL;
+        if (t > 0) __syncthreads();     // the last tile's reads are done
+        // ---- 1. the tile's stretch of the replica row, behind PADL zeros:
+        //      q[padl + i] = row[nb + i] (16-byte copies; nb % 4 == 0) ----
+        const int nq = min(p.QW - nb, p.qs - p.padl);
+        for (int i = tid; i < nq / 4; i += nthr)
+            cp_async16(q + p.padl + 4 * i, qrow + nb + 4 * i);
+        asm volatile("cp.async.commit_group;\n" ::);
+        for (int i = tid; i < p.padl; i += nthr) q[i] = 0.0f;
+        for (int i = p.padl + nq + tid; i < p.qs; i += nthr) q[i] = 0.0f;
+
+        // ---- 2. wipe-off into shared memory, zero outside the epoch ----
+        for (int u = tid; u < SL; u += nthr) {
+            const int n = nb + u;
+            float2 v = make_float2(0.0f, 0.0f);
+            if (n >= dp && n < dp + len_pred && n < p.NW) {
+                const float2 s = xs[n];
+                const float ph = phi + step0 * (float)n;
+                float sn, cs;
+                sincosf(ph, &sn, &cs);
+                // (re + j im) * (cos - j sin)
+                v.x = s.x * cs + s.y * sn;
+                v.y = s.y * cs - s.x * sn;
             }
+            w[u] = v;
+        }
+        asm volatile("cp.async.wait_all;\n" ::);
+        __syncthreads();
+
+        // ---- 3. lag correlation: TL lags x one n slice per thread ----
+        if (worker) {
+            const int l0 = g * TL;
+            int n0 = sl * p.L;
+            // row index of (n0, l0); lag l0 + j at sample n0 + u reads
+            // q[b + u - j]: hi[] holds q[b .. b+TL-1], lo[] q[b-TL+1 .. b-1]
+            int b = n0 - l0 + p.LW - 1 + p.padl;
+            float lo[TL - 1], hi[TL];
 #pragma unroll
-            for (int m = 0; m < TL - 1; ++m) lo[m] = hi[m + 1];
+            for (int m = 0; m < TL - 1; ++m) lo[m] = q[b - (TL - 1) + m];
+            for (int blk = 0; blk < p.L / TL; ++blk, b += TL, n0 += TL) {
+#pragma unroll
+                for (int m = 0; m < TL; ++m) hi[m] = q[b + m];
+#pragma unroll
+                for (int u = 0; u < TL; ++u) {
+                    const float2 s = w[n0 + u];
+#pragma unroll
+                    for (int j = 0; j < TL; ++j) {
+                        const float r = (u >= j) ? hi[u - j]
+                                                 : lo[TL - 1 + u - j];
+                        ar[j] = fmaf(s.x, r, ar[j]);
+                        ai[j] = fmaf(s.y, r, ai[j]);
+                    }
+                }
+#pragma unroll
+                for (int m = 0; m < TL - 1; ++m) lo[m] = hi[m + 1];
+            }
         }
     }
     __syncthreads();            // the partial sums reuse the samples buffer
@@ -233,7 +249,8 @@ static inline cudaError_t chunk_corr_enqueue(
 // The launch attribute for the block's dynamic shared memory (above the
 // default 48 KB a launch without it fails).
 static inline cudaError_t chunk_corr_prepare(const CorrParams& p) {
-    if (p.tl != CC_TL || p.threads < 1 || p.threads > 256)
+    if (p.tl != CC_TL || p.threads < 1 || p.threads > 256 || p.tiles < 1
+        || (p.tiles > 1 && (p.S * p.L) % 4 != 0))
         return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(chunk_corr_kernel<CC_TL>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -193,42 +193,95 @@ class CorrParams(ctypes.Structure):
         ("grid_pad", ctypes.c_int), ("seg_len", ctypes.c_int),
         ("tl", ctypes.c_int), ("threads", ctypes.c_int),
         ("padl", ctypes.c_int), ("S", ctypes.c_int), ("L", ctypes.c_int),
-        ("wbuf", ctypes.c_int), ("qs", ctypes.c_int),
+        ("tiles", ctypes.c_int), ("wbuf", ctypes.c_int), ("qs", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
         ("t0_frac", ctypes.c_float), ("neg_t0", ctypes.c_float),
         ("chip_rate", ctypes.c_float), ("fs", ctypes.c_float),
     ]
 
 
+def _smem_floats(S: int, L: int, NG: int, LW: int) -> tuple[int, int]:
+    """(wbuf, qs): floats of the wiped-sample buffer (reused for the
+    partial sums) and of the staged replica row for one tile of S * L
+    samples."""
+    SL = S * L
+    return (_round4(max(2 * SL, 2 * S * NG * TL)),
+            _round4(PADL + SL + LW - 1))
+
+
 @functools.lru_cache(maxsize=32)
-def corr_params(spec: CorrSpec) -> CorrParams:
+def corr_params(spec: CorrSpec, max_smem: int = MAX_SMEM) -> CorrParams:
     """The kernel's by-value constants and block geometry for one spec.
 
-    Threads own TL consecutive lags (NG lag groups cover LW) and split the
-    n range into S slices of L samples (L a multiple of TL).  Shared memory:
-    the wiped samples as (re, im) pairs over the S * L padded range, reused
-    for the per-slice partial sums, then the replica row after PADL zeros,
-    long enough for every index n - l + LW - 1 the slices read."""
+    Threads own TL consecutive lags (NG lag groups cover LW) and split each
+    tile of the n range into S slices of L samples (L a multiple of TL).
+    Shared memory: the tile's wiped samples as (re, im) pairs, reused for
+    the per-slice partial sums, then the tile's stretch of the replica row
+    after PADL zeros, long enough for every index n - l + LW - 1 the slices
+    read.  One tile covers the window when that fits in `max_smem` bytes;
+    otherwise the window is walked in `tiles` tiles of S * L samples (L a
+    multiple of 4 TL, so that every tile's row stretch starts 16-byte
+    aligned) and each thread carries its lag sums from tile to tile."""
     NG = -(-spec.LW // TL)
     S = THREADS // NG
     if S < 1:
         raise ValueError(f"lag window {spec.LW} too long for the correlator")
     L = -(-spec.NW // (S * TL)) * TL
-    SL = S * L
-    wbuf = _round4(max(2 * SL, 2 * S * NG * TL))
-    qs = _round4(PADL + max(spec.QW, SL + spec.LW - 1))
-    smem = 4 * (wbuf + qs)
-    if smem > MAX_SMEM:
-        raise ValueError(f"chunk correlator needs {smem} B of shared memory")
+    tiles = 1
+    if 4 * sum(_smem_floats(S, L, NG, spec.LW)) > max_smem:
+        step = 4 * TL
+        l_max = step
+        while 4 * sum(_smem_floats(S, l_max + step, NG, spec.LW)) <= max_smem:
+            l_max += step
+        if 4 * sum(_smem_floats(S, l_max, NG, spec.LW)) > max_smem:
+            raise ValueError(f"lag window {spec.LW} leaves no room for a "
+                             f"tile in {max_smem} B of shared memory")
+        tiles = -(-spec.NW // (S * l_max))
+        L = -(-spec.NW // (tiles * S * step)) * step
+    wbuf, qs = _smem_floats(S, L, NG, spec.LW)
     p = CorrParams()
     p.E, p.LW, p.NW, p.C, p.QW = spec.E, spec.LW, spec.NW, spec.C, spec.QW
     p.t0_int, p.grid_pad, p.seg_len = spec.t0_int, spec.grid_pad, spec.seg_len
     p.tl, p.threads, p.padl = TL, NG * S, PADL
-    p.S, p.L, p.wbuf, p.qs, p.smem_bytes = S, L, wbuf, qs, smem
+    p.S, p.L, p.tiles, p.wbuf, p.qs = S, L, tiles, wbuf, qs
+    p.smem_bytes = 4 * (wbuf + qs)
     p.t0_frac = _f32(spec.t0_frac)
     p.neg_t0 = _f32(-(np.float32(spec.t0_int) + np.float32(spec.t0_frac)))
     p.chip_rate, p.fs = _f32(spec.chip_rate), _f32(spec.fs)
     return p
+
+
+def correlate_tiles_plain(spec: CorrSpec, samples, rows, slot, fst, ist,
+                          p: CorrParams):
+    """The kernel's tile walk in plain torch ops: for each tile of S * L
+    samples, the replica stretch staged as the kernel stages it (PADL zeros,
+    the row from the tile's first sample, zeros past the row's end) and the
+    tile's lag sums added to the running ones.  Equal to chunk_corr_plain
+    up to the order of the sums; the tests hold the tiling to it."""
+    wr, wi, s_reg, step0 = windows_plain(spec, samples, fst, ist)
+    dev = samples.device
+    C, E, LW, NW = spec.C, spec.E, spec.LW, spec.NW
+    SL = p.S * p.L
+    q_rows = rows[slot.long()]                                 # [C, QW]
+    zr = torch.zeros((C, E, LW), dtype=torch.float32, device=dev)
+    zi = torch.zeros_like(zr)
+    nl = torch.arange(SL, device=dev)
+    idx = nl[:, None] - torch.arange(LW, device=dev)[None, :] \
+        + LW - 1 + p.padl                                      # [SL, LW]
+    for t in range(p.tiles):
+        n0 = t * SL
+        nq = min(spec.QW - n0, p.qs - p.padl)
+        q = torch.zeros((C, p.qs), dtype=torch.float32, device=dev)
+        q[:, p.padl:p.padl + nq] = q_rows[:, n0:n0 + nq]
+        bank = q[:, idx]                                       # [C, SL, LW]
+        w_r = torch.zeros((C, E, SL), dtype=torch.float32, device=dev)
+        w_i = torch.zeros_like(w_r)
+        n1 = min(NW, n0 + SL)
+        w_r[..., :n1 - n0] = wr[..., n0:n1]
+        w_i[..., :n1 - n0] = wi[..., n0:n1]
+        zr = zr + torch.bmm(w_r, bank)
+        zi = zi + torch.bmm(w_i, bank)
+    return zr, zi, s_reg, step0
 
 
 def check_inputs(spec: CorrSpec, samples, rows, slot, fst, ist, n_frows):

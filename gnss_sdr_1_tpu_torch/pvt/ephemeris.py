@@ -16,10 +16,13 @@ from ..telemetry.lnav import GpsEphemeris
 
 
 def _gm_omega(eph) -> tuple[float, float]:
-    """WGS-84 constants for GPS ephemerides; other constellations' orbit
-    constants (BeiDou CGCS2000) are not ported yet."""
-    if getattr(eph, "system", "G") != "G":
-        raise NotImplementedError("only GPS ephemerides are ported")
+    """WGS-84 constants for GPS and Galileo Keplerian ephemerides
+    (system 'G' or 'E'; Galileo's GM differs from GPS by only 1.5e-7
+    relative, and the reference's eph2pos uses one MU for both).  Other
+    constellations' orbit constants (BeiDou CGCS2000) are not ported yet."""
+    if getattr(eph, "system", "G") not in ("G", "E"):
+        raise NotImplementedError(
+            "only GPS and Galileo Keplerian ephemerides are ported")
     return GPS_GM, GPS_OMEGA_EARTH_DOT
 
 

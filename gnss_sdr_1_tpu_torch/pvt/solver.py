@@ -46,16 +46,19 @@ class PvtSolution:
 
 
 def sat_pos_vel(eph, t: float) -> tuple[np.ndarray, np.ndarray]:
-    """Ephemeris-type dispatch: Keplerian broadcast (GPS).  Precise
-    products and GLONASS state vectors are not ported yet."""
+    """Ephemeris-type dispatch: Keplerian broadcast (GPS, and Galileo
+    through telemetry.inav.to_keplerian).  Precise products and GLONASS
+    state vectors are not ported yet."""
     if hasattr(eph, "position_velocity") or hasattr(eph, "tb_s"):
-        raise NotImplementedError("only GPS broadcast ephemerides are ported")
+        raise NotImplementedError(
+            "only Keplerian broadcast ephemerides are ported")
     return satellite_position_velocity(eph, t)
 
 
 def sat_clock(eph, t: float) -> float:
     if hasattr(eph, "clock") or hasattr(eph, "tb_s"):
-        raise NotImplementedError("only GPS broadcast ephemerides are ported")
+        raise NotImplementedError(
+            "only Keplerian broadcast ephemerides are ported")
     return satellite_clock_correction(eph, t)
 
 

@@ -9,8 +9,9 @@ reference property names onto ReceiverConfig, and `build_frontend` realizes
 the SignalConditioner chain (DataTypeAdapter -> InputFilter -> Resampler,
 signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 
-This port carries one GPS L1 C/A ('1C') channel group with PCPS
-acquisition, DLL/PLL or KF tracking and single-point PVT.
+This port carries one GPS L1 C/A ('1C') or Galileo E1B ('1B') channel
+group with PCPS, Tong, QuickSync, CCCWSR, fine-Doppler or 8 ms acquisition,
+DLL/PLL (VEML on E1B) or, on GPS L1, KF tracking, and single-point PVT.
 `to_receiver_config` refuses everything else with NotImplementedError naming
 the ROADMAP.md item that ports it, so no conf maps quietly to an engine
 other than the one it names.
@@ -225,23 +226,25 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
         raise not_ported(f"a conf with {len(groups)} channel groups "
                          f"({'+'.join(groups)})", "multi_group")
     signal_id = groups[0]
-    if signal_id != "1C":
+    if signal_id not in ("1C", "1B"):
         raise not_ported(f"signal '{signal_id}'", "signals")
     fs = conf.property("GNSS-SDR.internal_fs_sps",
                        conf.property("GNSS-SDR.internal_fs_hz", 4_000_000.0))
     sig = f"_{signal_id}"
     acq_impl = str(conf.property(f"Acquisition{sig}.implementation", ""))
+    acq_strategy = "pcps"
     if acq_impl:
         info = factory.resolve(acq_impl)
         if info.status == "hardware":
             raise ValueError(
                 f"acquisition '{acq_impl}' needs hardware this build does "
                 f"not drive ({info.note})")
-        if (info.strategy or "pcps") != "pcps":
+        acq_strategy = info.strategy or "pcps"
+        if acq_strategy in ("assisted", "caf"):
+            # CAF is the Galileo E5a strategy
             raise not_ported(
-                f"acquisition '{acq_impl}' (strategy '{info.strategy}')",
-                "assistance" if info.strategy == "assisted"
-                else "acquisition")
+                f"acquisition '{acq_impl}' (strategy '{acq_strategy}')",
+                "assistance" if acq_strategy == "assisted" else "signals")
     trk_impl = str(conf.property(f"Tracking{sig}.implementation", ""))
     track_engine = "dll_pll"
     if trk_impl:
@@ -250,11 +253,13 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
             raise ValueError(
                 f"tracking '{trk_impl}' needs an external process/device "
                 f"({tinfo.note})")
-        if tinfo.strategy not in ("dll_pll", "kf"):
+        if tinfo.strategy not in ("dll_pll", "veml", "kf"):
             raise not_ported(
                 f"tracking '{trk_impl}' (strategy '{tinfo.strategy}')",
                 "gather" if tinfo.strategy == "tcp_connector" else "signals")
-        track_engine = tinfo.strategy
+        # VEML is the DLL/PLL engine at 5 taps (the receiver picks the
+        # taps by signal)
+        track_engine = "kf" if tinfo.strategy == "kf" else "dll_pll"
     positioning_mode = str(conf.property("PVT.positioning_mode", "Single"))
     if positioning_mode != "Single":
         raise not_ported(f"PVT.positioning_mode={positioning_mode}",
@@ -279,7 +284,14 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
         acq_threshold=float(conf.property(f"Acquisition{sig}.threshold", 2.0)),
         acq_use_cfar=conf.property(f"Acquisition{sig}.use_CFAR_algorithm", False),
         acq_dwells=int(conf.property(f"Acquisition{sig}.max_dwells", 2)),
-        acq_strategy="pcps",
+        acq_strategy=acq_strategy,
+        acq_tong=acq_strategy == "tong",
+        # the Tong counters (pcps_tong_acquisition_cc tong_init_val /
+        # tong_max_val) and the QuickSync folding factor
+        tong_init=int(conf.property(f"Acquisition{sig}.tong_init_val", 2)),
+        tong_max=int(conf.property(f"Acquisition{sig}.tong_max_val", 10)),
+        acq_folding_factor=int(conf.property(
+            f"Acquisition{sig}.folding_factor", 2)),
         track_engine=track_engine,
         pll_bw_hz=float(conf.property(f"Tracking{sig}.pll_bw_hz", 25.0)),
         dll_bw_hz=float(conf.property(f"Tracking{sig}.dll_bw_hz", 2.0)),
@@ -288,7 +300,8 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
         dll_bw_narrow_hz=float(
             conf.property(f"Tracking{sig}.dll_bw_narrow_hz", 0.75)),
         extend_correlation_symbols=int(conf.property(
-            f"Tracking{sig}.extend_correlation_symbols", 20)),
+            f"Tracking{sig}.extend_correlation_symbols",
+            20 if signal_id == "1C" else 0)),
         early_late_space_chips=float(conf.property(
             f"Tracking{sig}.early_late_space_chips", 0.5)),
         enable_fll_pull_in=bool(conf.property(f"Tracking{sig}.enable_fll_pull_in", False)),

@@ -18,9 +18,10 @@ it (the same kind, signal, strategy and status):
               'hardware' = requires an RF front-end / external device this
                            build does not drive (raises on use)
 
-`STRATEGY_IMPL` points only at the strategies this port carries (`pcps`,
-`dll_pll`, `kf`); runtime.config.to_receiver_config refuses the others with
-the ROADMAP.md item that ports them.  `resolve(name)` returns the
+`STRATEGY_IMPL` points only at the strategies this port carries (the
+acquisition strategies but `assisted`, and `dll_pll`, `veml`, `kf`
+tracking); runtime.config.to_receiver_config refuses the others with the
+ROADMAP.md item that ports them.  `resolve(name)` returns the
 descriptor; unknown names raise (the reference factory logs "Block ... not
 found" and returns nullptr, gnss_block_factory.cc:2290-2300).
 """
@@ -192,8 +193,22 @@ REGISTRY: dict[str, BlockInfo] = {b.name: b for b in _BLOCKS}
 STRATEGY_IMPL: dict[tuple[str, str], tuple[str, str]] = {
     ("acquisition", "pcps"): ("gnss_sdr_1_tpu_torch.acquire.pcps",
                               "PcpsAcquisition"),
+    ("acquisition", "tong"): ("gnss_sdr_1_tpu_torch.acquire.pcps",
+                              "PcpsAcquisition"),      # .acquire_tong
+    ("acquisition", "quicksync"): ("gnss_sdr_1_tpu_torch.acquire.variants",
+                                   "QuickSyncAcquisition"),
+    ("acquisition", "cccwsr"): ("gnss_sdr_1_tpu_torch.acquire.variants",
+                                "CccwsrAcquisition"),
+    ("acquisition", "fine_doppler"): (
+        "gnss_sdr_1_tpu_torch.acquire.variants", "FineDopplerAcquisition"),
+    ("acquisition", "8ms"): ("gnss_sdr_1_tpu_torch.acquire.variants",
+                             "Pcps8msAcquisition"),
+    ("acquisition", "caf"): ("gnss_sdr_1_tpu_torch.acquire.variants",
+                             "CafAcquisition"),
     ("tracking", "dll_pll"): ("gnss_sdr_1_tpu_torch.track.engine",
                               "TrackingEngine"),
+    ("tracking", "veml"): ("gnss_sdr_1_tpu_torch.track.engine",
+                           "TrackingEngine"),
     ("tracking", "kf"): ("gnss_sdr_1_tpu_torch.track.kf", "KfTrackingEngine"),
 }
 

@@ -1,4 +1,4 @@
-"""Segment-synchronous GPS L1 C/A receiver pipeline.
+"""Segment-synchronous GPS L1 C/A and Galileo E1B receiver pipeline.
 
 Reference parity: ControlThread::run (control_thread.cc:239) +
 GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
@@ -8,10 +8,15 @@ on the card (batched PCPS on torch.fft, the chunked tracking engine with
 its CUDA chain kernel); the lifecycle FSM stays on the host between
 capture segments.
 
-This package carries GPS L1 C/A ('1C') with PCPS acquisition and either
-the chunked DLL/PLL engine or the Kalman-filter tracker
+This package carries GPS L1 C/A ('1C', LNAV) and Galileo E1B ('1B': the
+sinBOC(1,1) replica, 5-tap VEML tracking, I/NAV) with PCPS, Tong,
+QuickSync, CCCWSR, fine-Doppler or 8 ms acquisition (the strategy
+dispatch of gnss_block_factory.cc:1552-1709), and either the chunked
+DLL/PLL engine or, on GPS L1, the Kalman-filter tracker
 (`track_engine="kf"`, track.kf).  Streaming, checkpoint/resume, monitors,
-assistance and FDMA are not ported yet: ReceiverConfig refuses them.
+assistance, FDMA, E5a (and with it the CAF acquisition) and the other
+signals are not ported yet: ReceiverConfig refuses them, naming the
+ROADMAP.md item that ports each.
 """
 
 from __future__ import annotations
@@ -23,13 +28,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..acquire import AcqConfig, PcpsAcquisition
-from ..codes import tracking_replica
+from ..acquire import (AcqConfig, CccwsrAcquisition, FineDopplerAcquisition,
+                       Pcps8msAcquisition, PcpsAcquisition,
+                       QuickSyncAcquisition)
+from ..codes import (galileo_e1_sinboc11, galileo_e1c_code, resample_code,
+                     tracking_replica)
 from ..condition.filters import to_device
 from ..constants import SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
 from ..pvt.solver import PvtSolution, solve_pvt
+from ..telemetry.channel_adapters import GalileoChannelDecoder
 from ..telemetry.decoder import LnavDecoder
 from ..track import TrackConfig, TrackingEngine, TrackOutputs
 from ..track.kf import KfTrackConfig, KfTrackingEngine
@@ -51,8 +60,15 @@ class ReceiverConfig:
     acq_dwells: int = 2
     acq_two_steps: bool = True
     acq_bit_transition: bool = False
-    acq_tong: bool = False
+    acq_tong: bool = False           # Tong sequential detector
+    tong_init: int = 2
+    tong_max: int = 10
+    # acquisition strategy from the conf implementation= name, routed
+    # through runtime.factory (gnss_block_factory.cc:1552-1709):
+    # pcps | tong | quicksync | cccwsr | fine_doppler | 8ms
     acq_strategy: str = "pcps"
+    # QuickSync folding factor (Acquisition_XX.folding_factor)
+    acq_folding_factor: int = 2
     # tracking engine from Tracking_1C.implementation: dll_pll | kf
     # (GPS_L1_CA_KF_Tracking -> track.kf.KfTrackingEngine)
     track_engine: str = "dll_pll"
@@ -102,29 +118,46 @@ class ReceiverConfig:
     symbol_readback: str = "auto"
 
     def __post_init__(self) -> None:
+        from .config import not_ported
+
+        # what each unported value waits for (runtime.config.ROADMAP_ITEMS)
         refused = {
-            "signal_id": (self.signal_id, ("1C",)),
-            "acq_strategy": (self.acq_strategy, ("pcps",)),
-            "track_engine": (self.track_engine, ("dll_pll", "kf")),
-            "positioning_mode": (self.positioning_mode, ("Single",)),
+            "signal_id": (self.signal_id, ("1C", "1B"), "signals"),
+            "acq_strategy": (self.acq_strategy, _ACQ_STRATEGIES,
+                             "assistance" if self.acq_strategy == "assisted"
+                             else "signals"),
+            "positioning_mode": (self.positioning_mode, ("Single",),
+                                 "ppp_rtk"),
         }
-        for name, (got, only) in refused.items():
+        for name, (got, only, item) in refused.items():
             if got not in only:
-                raise NotImplementedError(
-                    f"{name}={got!r} is not ported yet (only "
-                    f"{', '.join(map(repr, only))})")
-        for name in ("acq_tong", "fdma_k", "enable_monitor",
-                     "enable_pvt_monitor"):
+                raise not_ported(f"{name}={got!r}", item)
+        if self.track_engine not in ("dll_pll", "kf"):
+            raise NotImplementedError(
+                f"track_engine={self.track_engine!r} is not ported yet "
+                f"(only 'dll_pll', 'kf')")
+        if self.track_engine == "kf" and self.signal_id != "1C":
+            raise not_ported(f"the KF tracker on signal {self.signal_id!r}",
+                             "signals")
+        if self.fdma_k:
+            raise not_ported("fdma_k", "signals")
+        for name in ("enable_monitor", "enable_pvt_monitor"):
             if getattr(self, name):
-                raise NotImplementedError(f"{name} is not ported yet")
+                raise not_ported(name, "monitors")
 
     @property
     def spec(self) -> SignalSpec:
         return SIGNALS[self.signal_id]
 
 
+# acquisition strategies this package carries ('caf' is the E5a strategy,
+# 'assisted' needs the assistance sources)
+_ACQ_STRATEGIES = ("pcps", "tong", "quicksync", "cccwsr", "fine_doppler",
+                   "8ms")
+
+
 class Receiver:
-    """Single-constellation single-band receiver (GPS L1 C/A).
+    """Single-constellation single-band receiver (GPS L1 C/A, Galileo E1B).
 
     `device`: None runs the data plane on the card (and raises without
     one); the CPU only when asked for (`device="cpu"`)."""
@@ -135,10 +168,19 @@ class Receiver:
         spec = cfg.spec
         fs = cfg.fs_hz
         self.samples_per_code = int(round(fs * spec.code_period_s))
+        # the replica carries any BOC subcarrier (Galileo E1: sinBOC(1,1))
         replicas = {p: tracking_replica(cfg.signal_id, p)
                     for p in cfg.prn_search}
         self._codes = {p: r[0] for p, r in replicas.items()}
         virtual_rate, spc_code = next(iter(replicas.values()))[1:]
+        is_veml = cfg.signal_id == "1B"
+        # a symbol as short as the code (E1B: 4 ms) can flip the sign at
+        # every code-period boundary and smear the one-period correlation;
+        # the reference's cure is the two-period window
+        # (pcps_acquisition.cc set_local_code :239-273)
+        acq_bit_transition = cfg.acq_bit_transition or (
+            spec.secondary_code_length > 0
+            or spec.chips_per_symbol <= spec.code_length_chips)
         acq_cfg = AcqConfig(
             fs_hz=fs,
             samples_per_code=self.samples_per_code,
@@ -146,20 +188,27 @@ class Receiver:
             doppler_max_hz=cfg.doppler_max_hz,
             doppler_step_hz=cfg.doppler_step_hz,
             max_dwells=cfg.acq_dwells,
-            bit_transition_flag=cfg.acq_bit_transition,
+            bit_transition_flag=acq_bit_transition,
             use_cfar=cfg.acq_use_cfar,
             threshold=cfg.acq_threshold,
             make_two_steps=cfg.acq_two_steps,
             doppler_step2_hz=cfg.doppler_step2_hz,
             num_doppler_bins_step2=cfg.num_doppler_bins_step2,
         )
-        self.acq = PcpsAcquisition(
-            acq_cfg, self._codes,
-            fs_code_rate=(virtual_rate, spec.code_length_chips * spc_code),
-            device=self.device)
-        # bit period in epochs — the coherent-extension alignment grid
-        self._sec_period = 20
-        # tracking engine from Tracking_1C.implementation: the chunked
+        fs_code_rate = (virtual_rate, spec.code_length_chips * spc_code)
+        self.acq = PcpsAcquisition(acq_cfg, self._codes,
+                                   fs_code_rate=fs_code_rate,
+                                   device=self.device)
+        self.acq_strategy = strat = (
+            "tong" if cfg.acq_tong and cfg.acq_strategy == "pcps"
+            else cfg.acq_strategy)
+        self._acq_tong = strat == "tong"
+        self._make_acquisition(strat, acq_cfg, fs_code_rate, virtual_rate)
+        # bit period in epochs — the coherent-extension alignment grid; an
+        # E1B symbol is one epoch, so E1B has neither extension nor the
+        # symbol-grid readback
+        self._sec_period = {"1C": 20}.get(cfg.signal_id)
+        # tracking engine from Tracking_XX.implementation: the chunked
         # DLL/PLL engine, or the Kalman carrier tracker
         # (gps_l1_ca_kf_tracking_cc.h:76 — a drop-in channel tracking
         # implementation producing the same outputs)
@@ -187,15 +236,19 @@ class Receiver:
                     carrier_freq_hz=spec.carrier_freq_hz,
                     n_channels=cfg.n_channels,
                     code_samples_per_chip=spc_code,
+                    veml=is_veml,
                     pll_bw_hz=cfg.pll_bw_hz,
                     dll_bw_hz=cfg.dll_bw_hz,
                     pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
                     dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
                     extend_correlation_symbols=max(1, min(
-                        cfg.extend_correlation_symbols, self._sec_period)),
+                        cfg.extend_correlation_symbols,
+                        self._sec_period or 10 ** 9)),
                     enable_fll_pull_in=cfg.enable_fll_pull_in,
                     pull_in_time_s=cfg.pull_in_time_s,
-                    early_late_space_chips=cfg.early_late_space_chips,
+                    # the reference's E1 VEML E/L spacing
+                    early_late_space_chips=(
+                        0.15 if is_veml else cfg.early_late_space_chips),
                     very_early_late_space_chips=(
                         cfg.very_early_late_space_chips),
                     chunk_epochs=cfg.chunk_epochs,
@@ -240,6 +293,37 @@ class Receiver:
                 window=cfg.carrier_smoothing_epochs,
                 wavelength_m=SPEED_OF_LIGHT_M_S / spec.carrier_freq_hz)
 
+    def _make_acquisition(self, strat: str, acq_cfg: AcqConfig,
+                          fs_code_rate, virtual_rate: float) -> None:
+        """The strategy's acquisition object in place of the PCPS one
+        (conf implementation= names routed through runtime.factory;
+        gnss_block_factory.cc:1552-1709)."""
+        cfg, fs, dev = self.cfg, self.cfg.fs_hz, self.device
+        if strat in ("cccwsr", "8ms") and cfg.signal_id != "1B":
+            raise ValueError(f"{strat} acquisition is a Galileo E1 strategy")
+
+        def sampled(codes):
+            return {p: resample_code(np.asarray(codes[p], np.float32), fs,
+                                     virtual_rate, self.samples_per_code)
+                    for p in cfg.prn_search}
+
+        if strat == "fine_doppler":
+            self.acq = FineDopplerAcquisition(self.acq)
+        elif strat == "quicksync":
+            self.acq = QuickSyncAcquisition(
+                acq_cfg, self._codes, folding_factor=cfg.acq_folding_factor,
+                fs_code_rate=fs_code_rate, device=dev)
+        elif strat == "cccwsr":
+            # data (E1B) and pilot (E1C) components, both sinBOC(1,1)
+            pilots = {p: galileo_e1_sinboc11(galileo_e1c_code(p))
+                      for p in cfg.prn_search}
+            self.acq = CccwsrAcquisition(acq_cfg, sampled(self._codes),
+                                         sampled(pilots), device=dev)
+        elif strat == "8ms":
+            self.acq = Pcps8msAcquisition(
+                dataclasses.replace(acq_cfg, sampled_ms=2),
+                sampled(self._codes), device=dev)
+
     # ---------------- channel lifecycle ----------------
 
     def _acquire_and_assign(self, samples_abs_offset: int,
@@ -251,7 +335,12 @@ class Receiver:
         if not idle_channels:
             return
         assigned: list[tuple[int, int]] = []
-        res = self.acq.acquire(samples, samplestamp=samples_abs_offset)
+        if self._acq_tong:
+            res = self.acq.acquire_tong(
+                samples, tong_init=self.cfg.tong_init,
+                tong_max=self.cfg.tong_max, samplestamp=samples_abs_offset)
+        else:
+            res = self.acq.acquire(samples, samplestamp=samples_abs_offset)
         tracked = {p for p in self.channel_prn if p is not None}
         pins = self.cfg.channel_satellites
         order = np.argsort(-res.test_stat)
@@ -281,7 +370,10 @@ class Receiver:
                 self.state, ch, self._slot_of_prn[prn],
                 float(res.delay_samples[k]), float(dops[k]),
                 samples_abs_offset, self._pos, **step)
-            self.decoders[prn] = LnavDecoder(prn)
+            # telemetry decoders per signal: LNAV (1C), I/NAV (1B)
+            self.decoders[prn] = (LnavDecoder(prn)
+                                  if self.cfg.signal_id == "1C"
+                                  else GalileoChannelDecoder(prn))
             self._mode_host[ch] = 0
             self.histories[prn] = ChannelEpochHistory()
             self.sym_count[prn] = 0
@@ -463,16 +555,23 @@ class Receiver:
     # ---------------- symbol-grid harvest ----------
 
     def _pull_in_done(self) -> bool:
-        """True once every active channel reports bit sync — the
+        """True once every active channel is through pull-in — the
         steady-state criterion that lets the capture loop use its full
-        segment length."""
+        segment length: bit sync on GPS L1 C/A; an E1B decoder has no sync
+        notion (a symbol is one epoch), so its channel counts as pulled in
+        after 1,000 surviving epochs."""
         any_active = False
         for prn in self.channel_prn:
             if prn is None:
                 continue
             any_active = True
             dec = self.decoders.get(prn)
-            if dec is None or dec.bit_offset is None:
+            if dec is None:
+                return False
+            if hasattr(dec, "bit_offset"):
+                if dec.bit_offset is None:
+                    return False
+            elif self.sym_count.get(prn, 0) < 1000:
                 return False
         return any_active
 
@@ -480,7 +579,8 @@ class Receiver:
         """Per-channel symbol-boundary offsets (in [1, N]) for the
         symbol-grid capture reduction, or None while any active channel has
         no bit sync yet (and always for the KF tracker)."""
-        if self.cfg.symbol_readback != "auto" or self.trk_kind != "dll_pll":
+        if (self.cfg.symbol_readback != "auto" or self.trk_kind != "dll_pll"
+                or self.cfg.signal_id != "1C"):
             return None
         N = self._sec_period
         offs = np.full(self.cfg.n_channels, N, dtype=np.int32)
@@ -614,7 +714,7 @@ class Receiver:
             return          # the KF tracker has no extended/narrow states
         n = self.trk.cfg.extend_correlation_symbols
         period = self._sec_period
-        if n <= 1 or period % n != 0:
+        if n <= 1 or period is None or period % n != 0:
             return
         # state.mode is host-written only (activate_channel /
         # enable_extended) — the host shadow avoids a device sync

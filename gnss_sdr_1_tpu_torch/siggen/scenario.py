@@ -119,6 +119,23 @@ class Scenario:
         return self.rx_ecef + t_since_t0 * self.rx_vel_ecef
 
 
+def _gps_to_galileo(eph):
+    """Map the scenario's Keplerian truth onto the I/NAV broadcast fields."""
+    from ..telemetry.inav import GalileoEphemeris
+
+    return GalileoEphemeris(
+        prn=eph.prn, iod_nav=eph.iode,
+        toe=eph.toe, toc=eph.toc,
+        m0=eph.m0, e=eph.e, sqrt_a=eph.sqrt_a,
+        omega0=eph.omega0, i0=eph.i0, omega=eph.omega,
+        omega_dot=eph.omega_dot, idot=eph.idot, delta_n=eph.delta_n,
+        cuc=eph.cuc, cus=eph.cus, crc=eph.crc, crs=eph.crs,
+        cic=eph.cic, cis=eph.cis,
+        af0=eph.af0, af1=eph.af1, af2=eph.af2,
+        wn=eph.week,
+    )
+
+
 def build_scenario(
     rx_ecef: np.ndarray,
     prns: list[int],
@@ -137,20 +154,25 @@ def build_scenario(
     rx_ecef.  Orbit planes/anomalies default to a spread that puts the
     satellites above the horizon for a receiver near the prime meridian
     mid-latitudes; pass explicit raans/anomalies otherwise.  GPS L1 C/A
-    (LNAV) only: other signals' message streams are not ported yet."""
-    if signal != "1C":
+    (LNAV) and Galileo E1B (I/NAV) only: other signals' message streams are
+    not ported yet."""
+    if signal not in ("1C", "1B"):
         raise NotImplementedError(
-            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C' only)")
-    if chip_rate is None:
-        chip_rate = 1.023e6
-    if carrier_freq is None:
-        from ..constants import SIGNALS
+            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C' and "
+            f"Galileo E1B '1B' only)")
+    from ..constants import SIGNALS
 
+    if chip_rate is None:
+        # the delay<->chips conversion must use the rate the generator
+        # indexes the code table with (callers tracking at a virtual rate,
+        # e.g. E1 sinBOC 2.046e6, pass it explicitly)
+        chip_rate = float(SIGNALS[signal].code_rate_chips_s)
+    if carrier_freq is None:
         carrier_freq = float(SIGNALS[signal].carrier_freq_hz)
     toe = np.floor(t0_tow / 7200.0) * 7200.0   # ephemeris reference nearby
-    # bit stream starts at the last subframe boundary before the earliest
-    # possible transmit time (t0 - 0.1 s)
-    boundary = 6.0
+    # bit stream starts at the last subframe (LNAV, 6 s) or page (I/NAV,
+    # 2 s) boundary before the earliest possible transmit time (t0 - 0.1 s)
+    boundary = 6.0 if signal == "1C" else 2.0
     bits_tow0 = np.floor((t0_tow - 0.1) / boundary) * boundary
 
     sats: list[SatParams] = []
@@ -189,9 +211,23 @@ def build_scenario(
         stream_offset_s = t0_tow - bits_tow0
         delay_chips = (tau0 - stream_offset_s) * chip_rate
         # nav bits covering the run (+ margin)
-        n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
-        bits01 = encode_lnav_frame(eph, bits_tow0, n_subframes=n_sf,
-                                   subframe_cycle=subframe_cycle)
+        if signal == "1B":
+            # I/NAV pages (2 s each), word cycle 5,1,2,3,4 so ephemeris +
+            # GST complete within 10 s; GST TOW = even-part start time
+            from ..telemetry.inav import encode_page, encode_word
+
+            geph = _gps_to_galileo(eph)
+            n_pages = int(np.ceil((duration_s + 2.0) / 2.0)) + 2
+            cycle = (5, 1, 2, 3, 4)
+            pages = []
+            for k in range(n_pages):
+                geph.tow = bits_tow0 + 2.0 * k
+                pages.append(encode_page(encode_word(cycle[k % 5], geph)))
+            bits01 = np.concatenate(pages)
+        else:
+            n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
+            bits01 = encode_lnav_frame(eph, bits_tow0, n_subframes=n_sf,
+                                       subframe_cycle=subframe_cycle)
         nav_bits = (1.0 - 2.0 * bits01).astype(np.float64)
         sats.append(SatParams(
             prn=prn, doppler_hz=doppler, doppler_rate_hz_s=doppler_rate,

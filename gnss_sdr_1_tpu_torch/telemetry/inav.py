@@ -11,7 +11,9 @@ deinterleaver.  A page carries a 128-bit word (data_1[112] in the even part,
 data_2[16] in the odd) + OSNMA/SAR/spare + CRC-24Q over 196 bits.
 
 The encoder exists for the test fixtures (the reference leans on gnss-sim);
-the decoder is the product path.
+the decoder is the product path.  It differs from the JAX package's copy
+where that one fails: a re-sync after a broken sync word searches forward
+only, and a sync found on an odd part pairs from the next part on.
 """
 
 from __future__ import annotations
@@ -273,12 +275,17 @@ class InavDecoder:
     def push(self, prompt_i) -> None:
         self._soft.extend(np.asarray(prompt_i, dtype=np.float64))
         if not self.page_sync:
-            self._find_sync()
+            self._find_sync(self._decoded_until)
         if self.page_sync:
             self._decode_pages()
 
-    def _find_sync(self) -> None:
-        s = np.sign(np.asarray(self._soft))
+    def _find_sync(self, start: int = 0) -> None:
+        """Page sync: the first symbol at or after `start` where the sync
+        word repeats every part for two more parts, in either polarity.
+        A re-sync searches only from where decoding stopped: searching the
+        whole history again (the JAX package's decoder) finds the old sync,
+        re-decodes up to the same break and loops there for ever."""
+        s = np.sign(np.asarray(self._soft[start:]))
         if len(s) < 2 * PART_SYMBOLS + 10:
             return
         pat = 1.0 - 2.0 * INAV_SYNC
@@ -289,9 +296,9 @@ class InavDecoder:
                 later = hits[(hits > h) & ((hits - h) % PART_SYMBOLS == 0)]
                 if len(later) >= 2:
                     self.page_sync = True
-                    self._sync_offset = int(h)
+                    self._sync_offset = start + int(h)
                     self._polarity = pol
-                    self._decoded_until = int(h)
+                    self._decoded_until = start + int(h)
                     return
 
     def _decode_pages(self) -> None:
@@ -311,15 +318,19 @@ class InavDecoder:
                             0, 255)
                 parts.append(decode_part(s.astype(np.uint8)))
             if not ok:
-                # lost page lock: re-search
+                # lost page lock: re-search from here on
                 self.page_sync = False
-                self._find_sync()
+                self._find_sync(i + 1)
                 if not self.page_sync:
                     return
                 continue
             even, odd = parts
-            if even[0] == 1 and odd[0] == 0:
-                even, odd = odd, even
+            if even[0] == 1:
+                # synced on an odd part: these are the halves of two pages;
+                # pair from the next part on (the JAX package's decoder
+                # swaps them and never decodes)
+                self._decoded_until += PART_SYMBOLS
+                continue
             if check_page_crc(even, odd):
                 word = np.concatenate([even[2:114], odd[2:18]])
                 wtype = decode_word(word, self.ephemeris)

@@ -3,7 +3,9 @@ Pallas chain kernel run in interpret mode, on the same inputs: random lag
 windows around a correlation peak and the packed state of channels that the
 JAX engine tracked.  Covers PLL order 2 and 3, wide and narrow/extended
 mode, the in-loop secondary wipe, a lock-fail drop, a dead channel and the
-sample limit.
+sample limit, at 3 taps (GPS L1 C/A, EPL) and at 5 (Galileo E1B, VEML:
+the state of E1 channels the JAX engine tracked, with and without a
+secondary code).
 
 The inputs are made in the Pallas kernel's layout (lag windows [E, LW, C],
 slice origins [E, C], step0 [1, C]) and permuted into the port's
@@ -22,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
-from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code, tracking_replica
+from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B, GPS_L1_CA
 from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
@@ -35,18 +37,41 @@ C = 4
 E = 8
 KW = dict(fs_hz=FS, code_length_chips=1023, chip_rate_chips_s=1.023e6,
           carrier_freq_hz=1575.42e6, n_channels=C, chunk_epochs=E)
+# Galileo E1B at 4 Msps: the sinBOC(1,1) replica at 2 samples per chip,
+# 5 taps, 4 ms epochs
+FS_E1 = 4.0e6
+KW_E1 = dict(fs_hz=FS_E1, code_length_chips=4092, chip_rate_chips_s=1.023e6,
+             carrier_freq_hz=1575.42e6, n_channels=C, chunk_epochs=E,
+             code_samples_per_chip=2, veml=True, early_late_space_chips=0.15,
+             very_early_late_space_chips=0.6)
 
 
-def _capture():
+def _capture(veml=False):
+    """(satellites, replica table, capture, engine keywords, seconds to
+    track before the chain's inputs are taken)."""
     rng = np.random.default_rng(21)
+    if veml:
+        spec = dataclasses.replace(GALILEO_E1B, code_rate_chips_s=2.046e6,
+                                   code_length_chips=8184, bit_rate_bps=250.0)
+        span, fs, kw, head = 8184.0, FS_E1, KW_E1, 0.048
+        codes = np.stack([tracking_replica("1B", p)[0]
+                          for p in range(1, C + 1)])
+    else:
+        spec, span, fs, kw, head = GPS_L1_CA, 1023.0, FS, KW, 0.04
+        codes = np.stack([gps_l1ca_code(p) for p in range(1, C + 1)])
     sats = [SatParams(prn=p, doppler_hz=float(rng.uniform(-3000, 3000)),
-                      delay_chips=float(rng.uniform(0, 1023)), cn0_dbhz=45.0)
+                      delay_chips=float(rng.uniform(0, span)), cn0_dbhz=45.0)
             for p in range(1, C + 1)]
-    codes = np.stack([gps_l1ca_code(p) for p in range(1, C + 1)])
-    x = generate_baseband(GPS_L1_CA, sats, {p: codes[p - 1]
-                                            for p in range(1, C + 1)},
-                          FS, 0.05, noise=True)
-    return sats, codes, x
+    x = generate_baseband(spec, sats, {p: codes[p - 1]
+                                       for p in range(1, C + 1)},
+                          fs, head + 0.02, noise=True)
+    return sats, codes, x, kw, head
+
+
+def _delay_samples(s, kw):
+    return s.delay_chips / (kw["chip_rate_chips_s"]
+                            * kw.get("code_samples_per_chip", 1)) \
+        * kw["fs_hz"]
 
 
 @pytest.fixture(scope="module")
@@ -58,41 +83,68 @@ def jax_chain():
     return pallas_chain
 
 
-@pytest.fixture(scope="module")
-def tracked_state(jax_chain):
-    """Packed (fst, ist) rows of 4 channels after 40 ms of JAX tracking."""
+def _jax_tracked(veml):
+    """Packed (fst, ist) rows of 4 channels after 40 ms (GPS) or 48 ms
+    (E1) of JAX tracking."""
     import jax.numpy as jnp
 
     from gnss_sdr_1_tpu.track import TrackConfig as JTrackConfig
     from gnss_sdr_1_tpu.track import TrackingEngine as JEngine
     from gnss_sdr_1_tpu.utils.planar import to_planar
 
-    sats, codes, x = _capture()
-    ej = JEngine(JTrackConfig(correlator="mxu", **KW), codes)
+    sats, codes, x, kw, head = _capture(veml)
+    ej = JEngine(JTrackConfig(correlator="mxu", **kw), codes)
     st = ej.init_state()
     for ch, s in enumerate(sats):
-        st = ej.activate_channel(st, ch, ch, s.delay_chips / 1.023e6 * FS,
+        st = ej.activate_channel(st, ch, ch, _delay_samples(s, kw),
                                  s.doppler_hz, 0, 0)
-    st, _ = ej.track_capture(jnp.asarray(to_planar(x)), st, int(FS * 0.04))
+    st, _ = ej.track_capture(jnp.asarray(to_planar(x)), st,
+                             int(kw["fs_hz"] * head))
     leaves = {k: (tuple(np.asarray(a) for a in v) if isinstance(v, tuple)
                   else np.asarray(v)) for k, v in st._asdict().items()}
-    et = TrackingEngine(TrackConfig(**KW), codes, device="cpu")
+    et = TrackingEngine(TrackConfig(**kw), codes, device="cpu")
     fst, ist = et._pack_rows(state_from_numpy(leaves, "cpu"), 10 ** 6)
     return et.chain_spec, fst.numpy(), ist.numpy()
 
 
-@pytest.fixture(scope="module")
-def port_state():
-    """The same rows after 40 ms of tracking by the port's own engine."""
-    sats, codes, x = _capture()
-    et = TrackingEngine(TrackConfig(**KW), codes, device="cpu")
+def _port_tracked(veml):
+    """The same rows after the same tracking by the port's own engine."""
+    sats, codes, x, kw, head = _capture(veml)
+    et = TrackingEngine(TrackConfig(**kw), codes, device="cpu")
     st = et.init_state()
     for ch, s in enumerate(sats):
-        st = et.activate_channel(st, ch, ch, s.delay_chips / 1.023e6 * FS,
+        st = et.activate_channel(st, ch, ch, _delay_samples(s, kw),
                                  s.doppler_hz, 0, 0)
-    st, _ = et.track_capture(torch.from_numpy(x), st, int(FS * 0.04))
+    st, _ = et.track_capture(torch.from_numpy(x), st,
+                             int(kw["fs_hz"] * head))
     fst, ist = et._pack_rows(st, 10 ** 6)
     return et.chain_spec, fst.numpy(), ist.numpy()
+
+
+@pytest.fixture(scope="module")
+def tracked_state(jax_chain):
+    return _jax_tracked(False)
+
+
+@pytest.fixture(scope="module")
+def tracked_state_veml(jax_chain):
+    return _jax_tracked(True)
+
+
+@pytest.fixture(scope="module")
+def port_state():
+    return _port_tracked(False)
+
+
+@pytest.fixture(scope="module")
+def port_state_veml():
+    return _port_tracked(True)
+
+
+def _state(request, base, case):
+    """The tracked-state fixture `base` at the case's tap count."""
+    return request.getfixturevalue(base + ("_veml" if case.get("veml")
+                                           else ""))
 
 
 def _case(tracked_state, case, seed):
@@ -150,7 +202,7 @@ def _case(tracked_state, case, seed):
     if case.get("lockfail"):
         zr[..., 3] = rng.normal(size=(E, spec.LW)) * 10.0
         zi[..., 3] = rng.normal(size=(E, spec.LW)) * 10.0
-    step0 = (2 * np.pi * (fst[tc.F_DOPPLER] + 0.7) / FS)[None].astype(
+    step0 = (2 * np.pi * (fst[tc.F_DOPPLER] + 0.7) / spec.fs)[None].astype(
         np.float32)
     args = (zr, zi, s_reg, step0, sec, fst, ist)
     return dataclasses.replace(spec, C=C), args
@@ -169,6 +221,8 @@ CASES = {
     "wide_order2_limit": dict(order=2, limit=True),
     "narrow_sec_order3": dict(order=3, narrow=True, sec=True),
     "narrow_order2_lockfail": dict(order=2, narrow=True, lockfail=True),
+    "veml_order3": dict(veml=True, order=3, dead=True),
+    "veml_sec_order2_limit": dict(veml=True, order=2, sec=True, limit=True),
 }
 
 
@@ -193,11 +247,12 @@ def _compare(got, want, what):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_chain_plain_matches_pallas_interpret(jax_chain, tracked_state,
-                                              case):
+def test_chain_plain_matches_pallas_interpret(jax_chain, request, case):
     import jax.numpy as jnp
 
-    spec, args = _case(tracked_state, CASES[case], seed=len(case))
+    spec, args = _case(_state(request, "tracked_state", CASES[case]),
+                       CASES[case], seed=len(case))
+    assert spec.K == (5 if CASES[case].get("veml") else 3)
     jspec = jax_chain.ChainSpec(**dataclasses.asdict(spec))
     want = jax_chain.make_chain_call(jspec, interpret=True)(
         *(jnp.asarray(a) for a in args))
@@ -230,15 +285,20 @@ def test_chain_wrapper_counts_only_kernel_launches(port_state):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_chain_kernel_matches_plain_on_gpu(port_state, case):
+def test_chain_kernel_matches_plain_on_gpu(request, case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA chain kernel has no CPU "
                     "mode)")
-    spec, args = _case(port_state, CASES[case], seed=len(case))
-    dev = [t.cuda() for t in _port_args(args)]
+    spec, args = _case(_state(request, "port_state", CASES[case]),
+                       CASES[case], seed=len(case))
+    port = _port_args(args)
+    dev = [t.cuda() for t in port]
     before = tc.launches
     got = tc.chain(spec, *dev)
     torch.cuda.synchronize()
     assert tc.launches == before + 1
-    want = tc.chain_plain(spec, *dev)
-    _compare([t.cpu() for t in got], [t.cpu() for t in want], case)
+    # the plain version on the CPU divides as the kernel does (on CUDA
+    # tensors torch divides by a Python scalar as a multiply by the
+    # reciprocal)
+    want = tc.chain_plain(spec, *port)
+    _compare([t.cpu() for t in got], want, case)

@@ -7,7 +7,11 @@
   sum the products in another order), slice origins and step0 exact.
 - The Toeplitz replica-row table against the full bank `rep_rows_np`, bit
   for bit.
-- The kernel's block geometry keeps every shared-memory index in range.
+- The kernel's block geometry keeps every shared-memory index in range, at
+  GPS L1 C/A and Galileo E1 shapes, in one tile or in several (an epoch
+  window longer than shared memory holds); the tile walk in plain torch
+  ops at a forced small tile equals one pass (atol 1e-4 of max|z|: the
+  tiles sum in another order).
 - The build hash covers the headers the sources include.
 - On a GPU: the CUDA correlator against its plain version (lag windows at
   1e-4 of max|z|; slice origins and step0 bit for bit against the plain
@@ -22,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code, tracking_replica
 from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
 from gnss_sdr_1_tpu_torch.ops import _build
 from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
@@ -148,33 +152,122 @@ def test_replica_rows_bit_identical_to_bank(fs):
                                   et.rep_rows_np)
 
 
-def _engine_spec(fs, E_, C_):
-    codes = np.stack([gps_l1ca_code(p) for p in range(1, 3)])
-    cfg = TrackConfig(**dict(KW, fs_hz=fs, chunk_epochs=E_, n_channels=C_))
+def _engine_spec(fs, E_, C_, signal="1C"):
+    if signal == "1B":
+        # Galileo E1B: 4092 chips at 2 samples per chip, 4 ms epochs
+        codes = np.stack([tracking_replica("1B", p)[0] for p in range(1, 3)])
+        kw = dict(KW, code_length_chips=4092, code_samples_per_chip=2,
+                  veml=True, early_late_space_chips=0.15,
+                  very_early_late_space_chips=0.6)
+    else:
+        codes = np.stack([gps_l1ca_code(p) for p in range(1, 3)])
+        kw = KW
+    cfg = TrackConfig(**dict(kw, fs_hz=fs, chunk_epochs=E_, n_channels=C_))
     return TrackingEngine(cfg, codes, device="cpu").corr_spec
+
+
+def _check_geometry(spec, tiles):
+    """Every index the kernel's threads read: wiped samples in [0, S*L),
+    replica row entries in [0, qs) with each tile's staged stretch inside
+    it, the partial sums inside the samples buffer; one tile where the
+    window fits (the same geometry as before tiling), several where it
+    does not."""
+    p = cc.corr_params(spec)
+    NG = -(-spec.LW // p.tl)
+    SL = p.S * p.L
+    assert p.tiles == tiles
+    assert p.threads == NG * p.S <= cc.THREADS
+    assert p.L % p.tl == 0 and p.tiles * SL >= spec.NW
+    assert 2 * p.S * NG * p.tl <= p.wbuf and 2 * SL <= p.wbuf
+    assert p.wbuf % 4 == 0 and p.qs % 4 == 0      # 16-byte row copies
+    if tiles == 1:
+        assert p.padl + spec.QW <= p.qs
+        assert p.qs == cc._round4(cc.PADL + max(spec.QW, SL + spec.LW - 1))
+    else:
+        # every tile's stretch of the row starts 16-byte aligned
+        assert SL % 4 == 0 and p.L % (4 * p.tl) == 0
+        assert (p.tiles - 1) * SL < spec.NW
+    # q index of (n, l) is n - l + LW - 1 + padl, over n < S*L and every
+    # lag the groups compute, l < NG * TL
+    lo = 0 - (NG * p.tl - 1) + spec.LW - 1 + p.padl
+    hi = SL - 1 + spec.LW - 1 + p.padl
+    assert lo >= 0 and hi < p.qs
+    assert p.smem_bytes == 4 * (p.wbuf + p.qs) <= cc.MAX_SMEM
+    assert spec.seg_len == (spec.E - 1) * spec.t0_int + spec.NW
 
 
 @pytest.mark.parametrize("fs,E_,C_", [(4.092e6, 16, 12), (FS, E, C),
                                       (2.046e6, 16, 12), (8.184e6, 20, 8)])
 def test_corr_geometry_stays_in_shared_memory(fs, E_, C_):
-    """Every index the kernel's threads read: wiped samples in [0, S*L),
-    replica row entries in [0, qs) with the staged row inside it, the
-    partial sums inside the samples buffer."""
-    spec = _engine_spec(fs, E_, C_)
-    p = cc.corr_params(spec)
-    NG = -(-spec.LW // p.tl)
-    assert p.threads == NG * p.S <= cc.THREADS
-    assert p.L % p.tl == 0 and p.S * p.L >= spec.NW
-    assert 2 * p.S * NG * p.tl <= p.wbuf and 2 * p.S * p.L <= p.wbuf
-    assert p.wbuf % 4 == 0 and p.qs % 4 == 0      # 16-byte row copies
-    assert p.padl + spec.QW <= p.qs
-    # q index of (n, l) is n - l + LW - 1 + padl, over n < S*L and every
-    # lag the groups compute, l < NG * TL
-    lo = 0 - (NG * p.tl - 1) + spec.LW - 1 + p.padl
-    hi = p.S * p.L - 1 + spec.LW - 1 + p.padl
-    assert lo >= 0 and hi < p.qs
-    assert p.smem_bytes == 4 * (p.wbuf + p.qs) <= cc.MAX_SMEM
-    assert spec.seg_len == (spec.E - 1) * spec.t0_int + spec.NW
+    _check_geometry(_engine_spec(fs, E_, C_), 1)
+
+
+@pytest.mark.parametrize("fs,tiles", [(4.0e6, 1), (4.092e6, 1), (5.0e6, 2),
+                                      (8.184e6, 2)])
+def test_corr_geometry_galileo_e1(fs, tiles):
+    """Galileo E1's 4 ms epochs: one tile up to ~4.7 Msps, several above
+    (NW ~ 32.8k at 8.184 Msps)."""
+    _check_geometry(_engine_spec(fs, 16, 8, "1B"), tiles)
+
+
+@pytest.fixture(scope="module")
+def e1_activated():
+    """A Galileo E1 engine at 4 Msps (NW ~ 16k) with 4 channels activated
+    at the truth of a synthetic capture, and the capture padded for
+    chunks."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B
+
+    rng = np.random.default_rng(9)
+    prns = range(1, C + 1)
+    sats = [SatParams(prn=p, doppler_hz=float(rng.uniform(-3000, 3000)),
+                      delay_chips=float(rng.uniform(0, 8184)), cn0_dbhz=45.0)
+            for p in prns]
+    codes = np.stack([tracking_replica("1B", p)[0] for p in prns])
+    spec = dataclasses.replace(GALILEO_E1B, code_rate_chips_s=2.046e6,
+                               code_length_chips=8184, bit_rate_bps=250.0)
+    fs = 4.0e6
+    x = generate_baseband(spec, sats, {p: codes[p - 1] for p in prns}, fs,
+                          0.04, noise=True)
+    kw = dict(KW, fs_hz=fs, code_length_chips=4092, code_samples_per_chip=2,
+              veml=True, early_late_space_chips=0.15,
+              very_early_late_space_chips=0.6)
+    et = TrackingEngine(TrackConfig(**kw), codes, device="cpu")
+    st = et.init_state()
+    for ch, s in enumerate(sats):
+        st = et.activate_channel(st, ch, ch, s.delay_chips / 2.046e6 * fs,
+                                 s.doppler_hz, 0, 0)
+    return et, st, et._pad_for_chunks(torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("max_smem", [70000, 120000])
+def test_tile_walk_matches_one_pass(e1_activated, max_smem):
+    """The kernel's tile walk (correlate_tiles_plain) with the shared memory
+    cut to force several tiles, against the one-pass plain correlator on
+    the first chunk of Galileo E1 channels: slice origins and step0 exact,
+    lag windows at atol 1e-4 of max|z|."""
+    et, st, seg = e1_activated
+    fst, ist, slot = _port_rows(et, st)
+    spec = et.corr_spec
+    assert spec.NW > 16000
+    p = cc.corr_params(spec, max_smem)
+    assert p.tiles >= 2 and p.smem_bytes <= max_smem
+    got = cc.correlate_tiles_plain(spec, seg, et._rows, slot, fst, ist, p)
+    want = cc.chunk_corr_plain(spec, seg, et._rows, slot, fst, ist)
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    np.testing.assert_array_equal(got[3].numpy(), want[3].numpy())
+    scale = float(max(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 100.0
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * scale)
+    # one tile: the walk is the one pass
+    one = cc.correlate_tiles_plain(spec, seg, et._rows, slot, fst, ist,
+                                   cc.corr_params(spec))
+    for g, w in zip(one[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-4 * scale)
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):

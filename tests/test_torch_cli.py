@@ -1,7 +1,8 @@
 """The port's conf-file CLI and its configuration layer against the JAX
 package's: every conf in conf/ parses to the same items and frontend; the
-six GPS L1 C/A confs that need only what the port carries map to the same
-ReceiverConfig values and build a Receiver; every other conf, and every
+six GPS L1 C/A confs and the two Galileo E1 confs that need only what the
+port carries map to the same ReceiverConfig values and build a Receiver;
+every other conf, and every
 flag of a feature not ported yet, is refused with its ROADMAP.md item; the
 block registries agree; and both CLIs print the same lines on a short
 capture.  The slow case runs both CLIs to fixes on a 24 s capture."""
@@ -33,7 +34,8 @@ from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
-PORTED = ["gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
+PORTED = ["galileo_e1_gr_complex.conf", "galileo_e1_quicksync.conf",
+          "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
           "gps_l1_kalman.conf", "gps_l1_nsr.conf",
           "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf"]
 UNPORTED = [c for c in CONFS if c not in PORTED]
@@ -41,7 +43,7 @@ RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 
 
 def test_corpus_split():
-    assert len(CONFS) == 16 and len(UNPORTED) == 10
+    assert len(CONFS) == 16 and len(UNPORTED) == 8
     assert set(PORTED) <= set(CONFS)
 
 
@@ -59,9 +61,10 @@ def test_ported_conf_maps_like_jax(name):
     rj, rt = jrc(JConf(path)), trc(TConf(path))
     shared = ({f.name for f in dataclasses.fields(rt)}
               & {f.name for f in dataclasses.fields(rj)})
-    # every field but the port's own chunk length
+    # every field but the port's own chunk length and the QuickSync
+    # folding factor it reads from the conf (the JAX receiver fixes it at 2)
     assert {f.name for f in dataclasses.fields(rt)} - shared == {
-        "chunk_epochs"}
+        "chunk_epochs", "acq_folding_factor"}
     for f in sorted(shared):
         assert getattr(rt, f) == getattr(rj, f), f
     rx = Receiver(rt, device="cpu")
@@ -71,7 +74,56 @@ def test_ported_conf_maps_like_jax(name):
         # non-integer number of samples per chip included)
         p = cc.corr_params(rx.trk.corr_spec)
         assert p.smem_bytes <= cc.MAX_SMEM and p.L % cc.TL == 0
-        assert rx.trk.chain_spec.K == 3 and rx.trk.chain_spec.order in (2, 3)
+        # 5 taps (VE/E/P/L/VL) for Galileo E1B, 3 for GPS L1 C/A
+        assert rx.trk.chain_spec.K == (5 if rt.signal_id == "1B" else 3)
+        assert rx.trk.chain_spec.order in (2, 3)
+
+
+@pytest.mark.parametrize("name,strategy,channels,fs", [
+    ("galileo_e1_gr_complex.conf", "pcps", 8, 4.092e6),
+    ("galileo_e1_quicksync.conf", "quicksync", 6, 4.0e6)])
+def test_galileo_confs_map(name, strategy, channels, fs):
+    rt = trc(TConf(str(CONF_DIR / name)))
+    assert (rt.signal_id, rt.acq_strategy, rt.n_channels, rt.fs_hz) == (
+        "1B", strategy, channels, fs)
+    assert rt.acq_folding_factor == 2 and not rt.acq_tong
+    assert rt.track_engine == "dll_pll"
+    assert rt.extend_correlation_symbols == 0
+    rx = Receiver(rt, device="cpu")
+    assert type(rx.acq).__name__ == (
+        "QuickSyncAcquisition" if strategy == "quicksync"
+        else "PcpsAcquisition")
+    assert rx.trk.cfg.veml and rx.trk.cfg.early_late_space_chips == 0.15
+
+
+def test_galileo_tong_and_folding_keys_map(tmp_path):
+    """The Tong counters (tong_init_val, tong_max_val) and QuickSync's
+    folding factor come from the conf; the JAX package maps the Tong
+    implementation name alike and keeps its own defaults for the keys."""
+    base = (CONF_DIR / "galileo_e1_quicksync.conf").read_text()
+    tong = tmp_path / "tong.conf"
+    tong.write_text(base.replace(
+        "Galileo_E1_PCPS_QuickSync_Ambiguous_Acquisition",
+        "Galileo_E1_PCPS_Tong_Ambiguous_Acquisition")
+        + "Acquisition_1B.tong_init_val=3\nAcquisition_1B.tong_max_val=7\n")
+    rt, rj = trc(TConf(str(tong))), jrc(JConf(str(tong)))
+    assert (rt.acq_strategy, rt.acq_tong) == (rj.acq_strategy,
+                                              rj.acq_tong) == ("tong", True)
+    assert (rt.tong_init, rt.tong_max) == (3, 7)
+    assert Receiver(rt, device="cpu")._acq_tong
+    fold = tmp_path / "fold.conf"
+    fold.write_text(base.replace("folding_factor=2", "folding_factor=4"))
+    rx = Receiver(trc(TConf(str(fold))), device="cpu")
+    assert rx.acq.fold == 4
+
+
+@pytest.mark.parametrize("name,item", [
+    ("hybrid_ishort.conf", "item 2"),
+    ("multisource_hybrid_ishort.conf", "item 2"),
+    ("galileo_e5a.conf", "item 7")])
+def test_unported_conf_names_its_item(name, item):
+    with pytest.raises(NotImplementedError, match=item):
+        trc(TConf(str(CONF_DIR / name)))
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -99,7 +151,9 @@ def test_ported_conf_runs_through_cli(name, tmp_path, capsys):
     lines = _run(tcli, ["-c", str(CONF_DIR / name), "--signal_file",
                         str(cap), "--device", "cpu", "--channels", "2",
                         "--out_dir", str(tmp_path / "out")], capsys)
-    assert lines[0].startswith("Processing ") and "2 1C channels" in lines[0]
+    sid = trc(conf).signal_id
+    assert lines[0].startswith("Processing ") and f"2 {sid} channels" in \
+        lines[0]
     assert (lines[1].startswith("Conditioning: ")) == (not fe.is_passthrough)
     assert any(ln.startswith("Processed in ") for ln in lines)
     assert lines[-1] == "No position fix obtained."
@@ -120,7 +174,7 @@ def test_unported_conf_refused_with_roadmap_item(name, capsys):
     ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
     ("--supl", "localhost"), ("--telecommand_port", "2101"),
     ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111"),
-    ("--signal", "1B")])
+    ("--signal", "5X")])
 def test_unported_flag_refused(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
@@ -147,8 +201,10 @@ def test_registries_match():
             bj.kind, bj.signal, bj.strategy, bj.status), name
     with pytest.raises(KeyError):
         tfactory.resolve("No_Such_Block")
-    assert set(tfactory.STRATEGY_IMPL) == {
-        ("acquisition", "pcps"), ("tracking", "dll_pll"), ("tracking", "kf")}
+    # every strategy of the JAX package's but assisted acquisition (item 4)
+    # and the TCP-connector tracking (item 8)
+    assert set(tfactory.STRATEGY_IMPL) == set(jfactory.STRATEGY_IMPL) - {
+        ("acquisition", "assisted"), ("tracking", "tcp_connector")}
     for kind, strategy in tfactory.STRATEGY_IMPL:
         assert tfactory.strategy_impl(kind, strategy).__module__.startswith(
             "gnss_sdr_1_tpu_torch.")

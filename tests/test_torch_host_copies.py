@@ -359,6 +359,78 @@ def test_gnav_inav_dataclasses_identical(pair):
         assert dataclasses.asdict(kt) == dataclasses.asdict(kj)
 
 
+# ---------------------------------------------------------------------------
+# Galileo E1: constants, the 1B scenario and generator, the channel decoder
+# ---------------------------------------------------------------------------
+
+import gnss_sdr_1_tpu.constants as jconst  # noqa: E402
+import gnss_sdr_1_tpu.telemetry.channel_adapters as jadapt  # noqa: E402
+import gnss_sdr_1_tpu_torch.constants as tconst  # noqa: E402
+import gnss_sdr_1_tpu_torch.telemetry.channel_adapters as tadapt  # noqa: E402
+
+
+def test_galileo_constants_identical():
+    for name in ("GALILEO_GM", "GALILEO_OMEGA_EARTH_DOT", "FREQ_E1"):
+        assert getattr(tconst, name) == getattr(jconst, name), name
+    assert dataclasses.asdict(tconst.SIGNALS["1B"]) == \
+        dataclasses.asdict(jconst.SIGNALS["1B"])
+    assert tconst.SIGNALS["1B"].chips_per_symbol == \
+        jconst.SIGNALS["1B"].chips_per_symbol
+
+
+def _e1_scenarios(prns=(2, 4, 7)):
+    kw = dict(t0_tow=345601.25, duration_s=12.0, cn0_dbhz=48.0,
+              chip_rate=2.046e6, signal="1B")
+    return (jscen.build_scenario(RX, list(prns), **kw),
+            tscen.build_scenario(RX, list(prns), **kw))
+
+
+def test_e1_scenario_and_generator_identical():
+    from gnss_sdr_1_tpu.siggen.generator import generate_baseband as jgen
+    from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband as tgen
+
+    sj, st = _e1_scenarios()
+    assert sj.bits_tow0 == st.bits_tow0
+    for a, b in zip(sj.sats, st.sats):
+        assert (a.prn, a.doppler_hz, a.delay_chips, a.doppler_rate_hz_s) \
+            == (b.prn, b.doppler_hz, b.delay_chips, b.doppler_rate_hz_s)
+        np.testing.assert_array_equal(a.nav_bits, b.nav_bits)
+    spec_j = dataclasses.replace(jconst.GALILEO_E1B, code_rate_chips_s=2.046e6,
+                                 code_length_chips=8184, bit_rate_bps=250.0)
+    spec_t = dataclasses.replace(tconst.GALILEO_E1B, code_rate_chips_s=2.046e6,
+                                 code_length_chips=8184, bit_rate_bps=250.0)
+    codes = {s.prn: jcodes.tracking_replica("1B", s.prn)[0] for s in sj.sats}
+    np.testing.assert_array_equal(
+        tgen(spec_t, st.sats, codes, 4.0e6, 0.01, noise=True),
+        jgen(spec_j, sj.sats, codes, 4.0e6, 0.01, noise=True))
+
+
+def test_galileo_channel_decoder_identical():
+    """Both E1B channel decoders fed the same soft I/NAV symbols (a
+    scenario's pages, word cycle 5,1,2,3,4, with noise, starting in the odd
+    part of a page) agree on page sync, GST TOW, the I/NAV record and its
+    Keplerian conversion.  (Where the JAX decoder fails, the port's
+    differs: tests/test_torch_galileo.py test_inav_decoder_resyncs.)"""
+    sj, _ = _e1_scenarios((4,))
+    bits = np.asarray(sj.sats[0].nav_bits)
+    rng = np.random.default_rng(2)
+    prompts = (bits * 80.0 + rng.normal(size=len(bits)) * 10.0)[287:]
+    dj, dt = jadapt.GalileoChannelDecoder(4), tadapt.GalileoChannelDecoder(4)
+    for k in range(0, len(prompts), 250):
+        dj.push(prompts[k:k + 250])
+        dt.push(prompts[k:k + 250])
+    assert dj.ephemeris_complete and dt.ephemeris_complete
+    assert dt.raw.page_sync == dj.raw.page_sync
+    for s in (0, 1000, len(prompts) - 1):
+        assert dt.tow_at_symbol(s) == dj.tow_at_symbol(s)
+    assert dataclasses.asdict(dt.raw.ephemeris) == \
+        dataclasses.asdict(dj.raw.ephemeris)
+    assert dataclasses.asdict(dt.ephemeris) == \
+        dataclasses.asdict(dj.ephemeris)
+    assert dt.ephemeris.sqrt_a == pytest.approx(sj.ephemerides[4].sqrt_a,
+                                                abs=2e-5)
+
+
 def _port_sources():
     files = sorted((ROOT / "gnss_sdr_1_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_port.py"]
@@ -386,3 +458,8 @@ def test_port_imports_no_jax():
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
                                f"{name}")
     assert not bad, bad
+    # the data files the port reads are its own copies
+    from gnss_sdr_1_tpu_torch.codes import data as tdata
+
+    assert tdata._NPZ.is_file()
+    assert (ROOT / "gnss_sdr_1_tpu_torch") in tdata._NPZ.resolve().parents

@@ -46,14 +46,17 @@ def short_run():
 
 
 def test_receiver_refuses_unported_options():
-    with pytest.raises(NotImplementedError):
-        ReceiverConfig(signal_id="1B")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ReceiverConfig(signal_id="5X")
     with pytest.raises(NotImplementedError):
         ReceiverConfig(track_engine="veml")
     ReceiverConfig(track_engine="kf")         # ported: track/kf.py
-    with pytest.raises(NotImplementedError):
-        ReceiverConfig(acq_strategy="tong")
-    with pytest.raises(NotImplementedError):
+    for strategy in ("tong", "quicksync", "fine_doppler"):
+        ReceiverConfig(acq_strategy=strategy)  # ported: acquire/
+    ReceiverConfig(signal_id="1B", acq_strategy="cccwsr")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ReceiverConfig(acq_strategy="caf")
+    with pytest.raises(NotImplementedError, match="item 5"):
         ReceiverConfig(enable_monitor=True)
 
 
