@@ -20,7 +20,12 @@ Phases (one line each, with times):
      at the Galileo E1 receiver's shape (K=5 VEML taps, E=16, C=8,
      4.0 Msps: NW=16045, LW=69), timed like the first, and once more
      (untimed) at 8.184 Msps, where the correlator walks its 4 ms window
-     (NW=32783) in two shared-memory tiles;
+     (NW=32783) in two shared-memory tiles; and the same three checks,
+     timed, at the GPS L5 shape (12.5 Msps, C=6, NH10) and the Galileo E5a
+     shape (12 Msps, C=6, CS20) on chunks of real L5/E5a engines whose
+     channels wipe the secondary code from a non-zero code index (the
+     chain's secondary-code instances; over the capture entry's three
+     chunks the index crosses chunk seams);
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -54,9 +59,23 @@ Phases (one line each, with times):
  11. the CLI on both Galileo E1 confs over phase 10's capture written as
      a gr_complex file: conf/galileo_e1_gr_complex.conf with --fs and
      --channels set to the capture's 4.0 Msps and 8 satellites, and
-     conf/galileo_e1_quicksync.conf as written.
+     conf/galileo_e1_quicksync.conf as written;
+ 12. the GPS L5 receiver end to end: 6 satellites, 25 s at 12.5 Msps,
+     48 dB-Hz, CNAV with NH10 (tests/test_system_l5.py's scenario widened
+     from 5 to 6 satellites), the capture generated on the card (the
+     generator held to the numpy one on a noiseless 20 ms stretch) and
+     preloaded (RTF, CNAV ephemerides, fixes, median 3D error, each
+     kernel's launches == chunks, the chunks run with the NH10 wipe on);
+ 13. the Galileo E5a receiver with the CAF acquisition: 6 satellites, 55 s
+     at 12 Msps, F/NAV with CS20 (the same system test's E5a scenario,
+     widened), as phase 12;
+ 14. the CLI on conf/gps_l5.conf and conf/galileo_e5a.conf over those
+     captures written as gr_complex files (each file deleted after its
+     runs): the L5 conf as written; the E5a conf as written (its PCPS-scale
+     threshold acquires nothing under the CAF's statistic: exit 0 without a
+     fix) and with the threshold and the pull-in PLL the CAF needs.
 Then one JSON line describing every kernel (launches summed over phases
-5-7, 10 and 11, each read just after its run), the nvidia-smi line, and
+5-7 and 10-14, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -127,6 +146,26 @@ MIN_EPH_E1 = 6
 MIN_FIXES_E1 = 10
 # CCCWSR and 8 ms normalise their peak by F^2 times the input power
 E1_THRESHOLDS = {"cccwsr": 8e-4, "8ms": 8e-4}
+# phases 2 and 12-14: GPS L5I at conf/gps_l5.conf's rate and Galileo E5a-I
+# at conf/galileo_e5a.conf's, 6 satellites each (tests/test_system_l5.py
+# widened from 5 to 6 satellites; E5a 5 s longer than its 50 s, which
+# leave ~1 s of fixes after the four F/NAV pages)
+FS_L5 = 12.5e6
+L5_S = 25.0
+L5_PRNS = (1, 3, 5, 7, 9, 11)
+FS_E5A = 12.0e6
+E5A_S = 55.0
+E5A_PRNS = (11, 12, 13, 14, 15, 16)
+MIN_EPH_SEC = 4
+MIN_FIXES_SEC = 10
+# the CAF's statistic is its peak over F^2 times the input power (~1e-3 at
+# 48 dB-Hz, <= ~4e-4 on noise at the E5a shape), and its Doppler has no
+# second step (up to ~200 Hz off): a threshold on that scale and a wide
+# pull-in PLL (the narrow loop after secondary sync is the default 12 Hz)
+CAF_THRESHOLD = 5e-4
+CAF_PLL_BW_HZ = 45.0
+# seconds of signal per block of the generator on the card
+GEN_BLOCK_S = 1.0
 
 
 def log(msg: str) -> None:
@@ -145,6 +184,7 @@ def main() -> None:
     import gnss_sdr_1_tpu_torch  # noqa: F401  (sets TF32 off)
     from gnss_sdr_1_tpu_torch.ops import _build
     from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
+    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
     if torch.backends.cuda.matmul.allow_tf32 or \
@@ -209,6 +249,19 @@ def main() -> None:
         f"{e1c['bound_ms']:.2e} ms ({e1c['bound_by']}); track_chain "
         f"{e1h['ms']:.5f} ms/launch device, plain {e1h['plain_ms']:.3f} ms, "
         f"bound {e1h['bound_ms']:.2e} ms ({e1h['bound_by']})")
+    for sig, r in k_rep["sec"].items():
+        sc, sh = r["corr"], r["chain"]
+        log(f"    {sig} shape (K=3, E=16, C=6, sec_len={r['sec_len']}, "
+            f"sec_idx {r['sec_idx']}, NW={r['NW']}, LW={r['LW']}, "
+            f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
+            f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
+            f"{sc['ms']:.5f} ms/launch device, plain {sc['plain_ms']:.3f} ms, "
+            f"torch.bmm pair {sc['library_ms']:.5f} ms, bound "
+            f"{sc['bound_ms']:.2e} ms ({sc['bound_by']}); track_chain "
+            f"{r['chain_err']:.3e}, {sh['ms']:.5f} ms/launch device, plain "
+            f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.2e} ms "
+            f"({sh['bound_by']}); capture {r['capture_err']:.3e}, int rows "
+            f"exact")
     log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
@@ -314,9 +367,42 @@ def main() -> None:
         log(f"[11] CLI, {name}: {r['summary']}")
     log(f"    | {time.perf_counter() - t0:.1f} s")
 
+    # ---- 12-14. GPS L5 and Galileo E5a receivers and CLI ----
+    t0 = time.perf_counter()
+    twin = check_card_generator(dev)
+    log(f"    generator on the card vs numpy, noiseless {twin['s'] * 1e3:g} ms "
+        f"in {twin['block_s'] * 1e3:g} ms blocks: max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in twin["err"].items())
+        + f" of amplitude 1 | {time.perf_counter() - t0:.1f} s")
+    sec_runs, sec_caps, cli14 = {}, {}, {}
+    for sig in ("L5", "5X"):
+        scen_s, x_s, gen_s = sec_capture(dev, sig)
+        sec_caps[sig] = scen_s, x_s
+        fs, dur, prns = _SEC_CELLS[sig]
+        log(f"    {sig} capture made on the card ({len(prns)} sats x {dur:g} "
+            f"s at {fs / 1e6:g} Msps) | {gen_s:.2f} s")
+        t0 = time.perf_counter()
+        r = phase_sec(dev, cc, tc, tcap, scen_s, x_s, sig)
+        sec_runs[sig] = r
+        log(f"[{12 if sig == 'L5' else 13}] {sig} receiver e2e "
+            f"({r['strategy']}): {len(prns)} sats x {dur:g} s, RTF "
+            f"{r['rtf']:.2f} ({r['wall_s']:.2f} s), ephemerides "
+            f"{r['ephemerides']} (max |sqrt_a err| {r['max_sqrt_a_err']:.2e}"
+            f"{r['pages']}), fixes {r['fixes']}, median 3D error "
+            f"{r['median_3d_m']:.2f} m, launches chunk_corr "
+            f"{r['launches_chunk_corr']} track_chain "
+            f"{r['launches_track_chain']} == chunks {r['chunks']}, chain "
+            f"instances {r['instances']}, {r['sec_chunks']} chunks with the "
+            f"secondary wipe on | {time.perf_counter() - t0:.1f} s")
+    for sig in ("L5", "5X"):
+        t0 = time.perf_counter()
+        cli14.update(phase_cli_sec(cc, tc, *sec_caps.pop(sig), sig))
+        log(f"    | {time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
-    paths = (e2e, cli6, cli7, e1, *cli11.values())
+    paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
+             *cli14.values())
     src = "gnss_sdr_1_tpu_torch/csrc/"
     kernels = [{
         "name": "chunk_corr", "route": "cuda",
@@ -328,6 +414,7 @@ def main() -> None:
         "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
         "e1_ms": e1c["ms"], "e1_bound_ms": e1c["bound_ms"],
         "e1_plain_ms": e1c["plain_ms"], "e1_library_ms": e1c["library_ms"],
+        **_shape_keys(k_rep["sec"], "corr"),
     }, {
         "name": "track_chain", "route": "cuda",
         "source": src + "track_chain.cu",
@@ -338,12 +425,15 @@ def main() -> None:
         "bound_by": ch["bound_by"], "library_ms": None,
         "e1_ms": e1h["ms"], "e1_bound_ms": e1h["bound_ms"],
         "e1_plain_ms": e1h["plain_ms"], "e1_library_ms": None,
+        **_shape_keys(k_rep["sec"], "chain"),
+        "sec_launches": {sig: r["sec_chunks"] for sig, r in sec_runs.items()},
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
               "e2e": e2e, "cli_passthrough": cli6, "cli_if": cli7,
               "cli_kf": cli8, "acq_variants": acqv, "e1_e2e": e1,
-              "cli_galileo": cli11, "total_s": time.perf_counter() - t_all}
+              "cli_galileo": cli11, "generator": twin, "sec": sec_runs,
+              "cli_sec": cli14, "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1, default=float))
@@ -409,17 +499,37 @@ def _e1_config(**kw):
         **kw})
 
 
+def _sec_config(signal, **kw):
+    """Phases 12-13's receivers (tests/test_system_l5.py's configuration on
+    6 channels; E5a with the CAF acquisition at its threshold and pull-in
+    PLL)."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    fs, _, prns = _SEC_CELLS[signal]
+    base = dict(fs_hz=fs, signal_id=signal, n_channels=len(prns),
+                prn_search=prns, acq_dwells=2, pll_bw_hz=18.0, dll_bw_hz=2.0,
+                doppler_step2_hz=15.0, num_doppler_bins_step2=40,
+                iono_model="off")
+    if signal == "5X":
+        base.update(acq_strategy="caf", acq_threshold=CAF_THRESHOLD,
+                    pll_bw_hz=CAF_PLL_BW_HZ)
+    return ReceiverConfig(**{**base, **kw})
+
+
 def _engine(dev, fs=FS, signal="1C"):
     """The engine benchmark's tracker (12 channels, 16-epoch chunks), or
     for signal '1B' the tracker of phase 10's Galileo E1B receiver at `fs`
-    (8 channels, 5 taps, 16-epoch chunks)."""
+    (8 channels, 5 taps, 16-epoch chunks), or for 'L5' / '5X' the tracker
+    of phase 12 / 13's receiver (6 channels, the NH10 / CS20 secondary
+    rows, 16-epoch chunks)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 
     if signal == "1B":
-        from gnss_sdr_1_tpu_torch.runtime import Receiver
-
         return Receiver(_e1_config(fs_hz=fs), device=dev).trk
+    if signal in ("L5", "5X"):
+        return Receiver(_sec_config(signal, fs_hz=fs), device=dev).trk
     codes = np.stack([gps_l1ca_code(p) for p in range(1, 13)])
     cfg = TrackConfig(fs_hz=fs, code_length_chips=1023,
                       chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
@@ -452,6 +562,27 @@ def _e1_sats(duration_s):
             for p in E1_PRNS]
 
 
+def _sec_sats(signal, duration_s):
+    """6 satellites of `signal` for the kernel checks (seed 44 / 45;
+    delays in 10.23 MHz chips; the data symbols times the secondary code as
+    one 1 kbps stream, so epoch k of a channel activated at the truth
+    carries secondary chip k mod the code length)."""
+    from gnss_sdr_1_tpu_torch.codes import NH10
+    from gnss_sdr_1_tpu_torch.codes.galileo_e5 import galileo_e5ai_secondary
+    from gnss_sdr_1_tpu_torch.siggen import SatParams
+
+    sec = np.asarray(NH10 if signal == "L5" else galileo_e5ai_secondary(),
+                     np.float64)
+    n_sym = int(duration_s * 1000) // len(sec) + 2
+    rng = np.random.default_rng(44 if signal == "L5" else 45)
+    return [SatParams(prn=p, doppler_hz=float(rng.uniform(-3500, 3500)),
+                      delay_chips=float(rng.uniform(0, 10230)), cn0_dbhz=48.0,
+                      nav_bits=np.repeat(rng.choice([-1.0, 1.0], n_sym),
+                                         len(sec)) * np.tile(sec, n_sym),
+                      bit_rate_override_bps=1000.0)
+            for p in _SEC_CELLS[signal][2]]
+
+
 def _activate_all(eng, sats):
     """Every channel at its satellite's true delay and Doppler (delays in
     the replica's chips: 1.023 MHz for GPS, 2.046 MHz for E1 sinBOC)."""
@@ -467,11 +598,12 @@ def _activate_all(eng, sats):
 def _gen(sats, duration_s, key, fs=FS, signal="1C"):
     """A synthetic capture, cached in CACHE: GPS L1 C/A, or Galileo E1B
     generated as the sinBOC 'virtual' code at 2.046 MHz with one I/NAV
-    symbol per 4 ms code period (tests/test_system_galileo.py)."""
+    symbol per 4 ms code period (tests/test_system_galileo.py), or GPS L5 /
+    Galileo E5a with the secondary-coded symbols as a 1 kbps stream."""
     import dataclasses
 
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code, tracking_replica
-    from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B, GPS_L1_CA
+    from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B, GPS_L1_CA, SIGNALS
     from gnss_sdr_1_tpu_torch.siggen import generate_baseband
 
     CACHE.mkdir(exist_ok=True)
@@ -483,6 +615,9 @@ def _gen(sats, duration_s, key, fs=FS, signal="1C"):
                                    code_length_chips=2 * 4092,
                                    bit_rate_bps=250.0)
         codes = {s.prn: tracking_replica("1B", s.prn)[0] for s in sats}
+    elif signal in ("L5", "5X"):
+        spec = dataclasses.replace(SIGNALS[signal], bit_rate_bps=1000.0)
+        codes = {s.prn: tracking_replica(signal, s.prn)[0] for s in sats}
     else:
         spec, codes = GPS_L1_CA, {s.prn: gps_l1ca_code(s.prn) for s in sats}
     x = generate_baseband(spec, sats, codes, fs, duration_s, noise=True)
@@ -578,12 +713,19 @@ def _device_ms(fn, n):
 
 def _midtrack(dev, fs, signal="1C"):
     """The engine at `fs` after 0.25 s of tracking on the engine benchmark's
-    scenario (or, for '1B', on 8 Galileo E1B satellites), and the inputs of
-    its next chunk: (engine, seg, rows, slot, sec_rows, fst, ist).  The
-    sample limit ends inside the third chunk (GPS: 40 ms; E1: 160 ms)."""
+    scenario (or, for '1B', on 8 Galileo E1B satellites; for 'L5' / '5X',
+    0.253 s on 6 satellites, then every channel switched to the extended
+    mode with the secondary wipe at its true code index, which is not 0),
+    and the inputs of its next chunk: (engine, seg, rows, slot, sec_rows,
+    fst, ist).  The sample limit ends inside the third chunk (GPS, L5,
+    E5a: 40 ms; E1: 160 ms)."""
+    head = 0.25
     if signal == "1B":
         dur = 0.5
         sats = _e1_sats(dur)
+    elif signal in ("L5", "5X"):
+        dur, head = 0.3, 0.253
+        sats = _sec_sats(signal, dur)
     else:
         dur = 0.3
         sats = _bench_sats(dur)
@@ -592,9 +734,18 @@ def _midtrack(dev, fs, signal="1C"):
     eng = _engine(dev, fs, signal)
     st = _activate_all(eng, sats)
     xd = torch.as_tensor(x, device=dev)
-    span = int(fs * 0.25)
+    span = int(fs * head)
     st, _ = eng.track_capture(xd[: span + eng.cfg.epoch_samples_max], st,
                               span)
+    if signal in ("L5", "5X"):
+        n = eng.chain_spec.sec_len
+        phases = st.epochs_in_track.cpu().numpy() % n
+        if not (phases > 0).all() or not bool(st.active.all()):
+            raise AssertionError(f"{signal} kernel check: secondary phases "
+                                 f"{phases}, active {st.active}")
+        for ch, ph in enumerate(phases):
+            st = eng.enable_extended(st, ch, (n - int(ph)) % n,
+                                     sec_phase=int(ph))
     seg = eng._pad_for_chunks(xd[span:])
     chunk_s = eng.chain_spec.E * eng.cfg.code_period_s
     fst, ist = eng._pack_rows(st, int(fs * (CAPTURE_CHUNKS - 0.5) * chunk_s))
@@ -739,7 +890,7 @@ def _rate_summary(cc, fs, inp, c):
     cspec = inp[0].corr_spec
     return {"fs": fs, "NW": cspec.NW, "LW": cspec.LW, "K": inp[0].chain_spec.K,
             "tiles": cc.corr_params(cspec).tiles,
-            "samples_per_chip": fs / 1.023e6,
+            "samples_per_chip": fs / inp[0].cfg.chip_rate_chips_s,
             "corr_err": max(c["corr_err"].values()),
             "corr_scale": max(c["corr_scale"].values()),
             "chain_err": max(c["chain_err"]["random"],
@@ -785,7 +936,27 @@ def phase_kernels(dev, cc, tc):
     tiled = _rate_summary(cc, E1_TILED_RATE, tiled_in,
                           _check_kernels(dev, cc, tc, tiled_in, g))
 
-    checks = other + [e1, tiled]
+    # GPS L5 and Galileo E5a: the secondary-code instances of the chain
+    # (NH10, CS20), timed
+    sec = {}
+    for signal, fs in (("L5", FS_L5), ("5X", FS_E5A)):
+        s_in = _midtrack(dev, fs, signal)
+        s_spec = s_in[0].chain_spec
+        n = {"L5": 10, "5X": 20}[signal]
+        if (s_spec.E, s_spec.C, s_spec.K, s_spec.sec_len, s_spec.sec_data) \
+                != (16, 6, 3, n, True):
+            raise AssertionError(f"{signal} kernel check at {s_spec}")
+        ist = s_in[6]
+        if not bool((ist[tc.I_SEC_ON] > 0).all()):
+            raise AssertionError(f"{signal} kernel check without the wipe")
+        s_chk = _check_kernels(dev, cc, tc, s_in, g)
+        s_corr, s_chain = _time_shape(cc, tc, s_in, s_chk["track_args"])
+        sec[signal] = _rate_summary(cc, fs, s_in, s_chk)
+        sec[signal].update(corr=s_corr, chain=s_chain, rows=s_chk["rows"],
+                           sec_len=n,
+                           sec_idx=ist[tc.I_SEC_IDX].cpu().tolist())
+
+    checks = other + [e1, tiled, *sec.values()]
     corr_rep = {
         "err_random": corr_err["random"], "err_track": corr_err["track"],
         "scale_random": corr_scale["random"],
@@ -800,7 +971,7 @@ def phase_kernels(dev, cc, tc):
                            + [r["chain_err"] for r in checks]),
         **chain_t, "rows": chk["rows"]}
     return {"chunk_corr": corr_rep, "track_chain": chain_rep,
-            "other_rates": other, "e1": e1, "e1_tiled": tiled}
+            "other_rates": other, "e1": e1, "e1_tiled": tiled, "sec": sec}
 
 
 # ---------------------------------------------------------------------------
@@ -878,20 +1049,27 @@ def phase_acquisition(dev, sats, x):
 
 @contextlib.contextmanager
 def _counting(cc, tc):
-    """Set both kernels' launch counters to 0 and count the chunks that
-    every TrackingEngine capture call runs inside the block
-    (ceil(n_epochs / E) per call), independently of the counters."""
+    """Set both kernels' launch counters (and the capture entry's count per
+    chain instance) to 0 and count the chunks that every TrackingEngine
+    capture call runs inside the block (ceil(n_epochs / E) per call),
+    independently of the counters; for an engine with a secondary code,
+    also the chunks of calls that start with the wipe on in a channel."""
+    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
-    counter = {"chunks": 0}
+    counter = {"chunks": 0, "sec_chunks": 0}
     run = TrackingEngine._run_capture
 
     def counted(self, samples, state, limit, n_epochs):
-        counter["chunks"] += -(-n_epochs // self.chain_spec.E)
+        chunks = -(-n_epochs // self.chain_spec.E)
+        counter["chunks"] += chunks
+        if self.chain_spec.sec_len > 1 and bool(state.sec_on.any()):
+            counter["sec_chunks"] += chunks
         return run(self, samples, state, limit, n_epochs)
 
     TrackingEngine._run_capture = counted
     cc.launches = tc.launches = 0
+    tcap.launches_by_instance.clear()
     try:
         yield counter
     finally:
@@ -960,15 +1138,17 @@ def e2e_capture():
     return scen, x, time.perf_counter() - t0
 
 
-def _errors_3d(ecef, scen, what, min_fixes):
+def _errors_3d(ecef, scen, what, min_fixes, max_median_m=5.0):
     """Fix count and 3D errors against the scenario truth; raises below
-    `min_fixes` fixes or at a median 3D error of 5 m or more."""
+    `min_fixes` fixes, on a non-finite error, or at a median 3D error of
+    `max_median_m` or more (None: no median bar)."""
     ecef = np.asarray(ecef, np.float64).reshape(-1, 3)
     if len(ecef) < min_fixes:
         raise AssertionError(f"{what}: {len(ecef)} fixes (< {min_fixes})")
     e3d = np.linalg.norm(ecef - scen.rx_ecef, axis=1)
     med = float(np.median(e3d))
-    if not np.isfinite(e3d).all() or not med < 5.0:
+    if not np.isfinite(e3d).all() or (max_median_m is not None
+                                      and not med < max_median_m):
         raise AssertionError(f"{what}: median 3D error {med:.2f} m")
     return {"fixes": len(ecef), "median_3d_m": med,
             "max_3d_m": float(e3d.max())}
@@ -1052,7 +1232,7 @@ def _write_conf(name, capture, tracking, fs_internal=FS, **extra):
     return path
 
 
-def _run_cli(argv, scen, out_dir, min_fixes, what):
+def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0):
     """`python -m gnss_sdr_1_tpu_torch argv` in this process, on the card
     (no --device).  Checks the exit code, the seven output files and the
     fixes in position.geojson against the scenario truth."""
@@ -1108,7 +1288,7 @@ def _run_cli(argv, scen, out_dir, min_fixes, what):
     if len(ecef) != int(m.group(1)):
         raise AssertionError(f"{what}: {len(ecef)} positions in the GeoJSON "
                              f"for {m.group(1)} fixes")
-    rep = _errors_3d(ecef, scen, what, min_fixes)
+    rep = _errors_3d(ecef, scen, what, min_fixes, max_median_m)
     rep.update(process_wall_s=seen["wall"], signal_s=seen["signal_s"],
                process_rtf=seen["signal_s"] / seen["wall"], cli_wall_s=wall,
                cli_rtf=seen["signal_s"] / wall,
@@ -1441,6 +1621,256 @@ def phase_cli_galileo(cc, tc, scen, capture):
                             str(capture)] + extra, scen,
                            CACHE / f"cli_{name[:-5]}", MIN_FIXES_E1, what)
         reps[name] = _cli_launches(cc, tc, rep, counter, what)
+    return reps
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: the GPS L5 and Galileo E5a receivers and CLI
+# ---------------------------------------------------------------------------
+
+# signal -> (sampling rate, seconds, PRNs) of phases 12-14
+_SEC_CELLS = {"L5": (FS_L5, L5_S, L5_PRNS), "5X": (FS_E5A, E5A_S, E5A_PRNS)}
+
+
+def _shape_keys(sec, which):
+    """The L5 and E5a shapes' times and bound of one kernel, for the
+    kernels line."""
+    out = {}
+    for sig, r in sec.items():
+        k = {"L5": "l5", "5X": "e5a"}[sig]
+        t = r[which]
+        out.update({f"{k}_ms": t["ms"], f"{k}_bound_ms": t["bound_ms"],
+                    f"{k}_plain_ms": t["plain_ms"],
+                    f"{k}_library_ms": t.get("library_ms")})
+    return out
+
+
+def generate_on_card(spec, sats, codes_by_prn, fs_hz, duration_s, dev,
+                     noise=True, seed=1234, block_s=GEN_BLOCK_S):
+    """The port's siggen.generate_baseband computed on the card: the same
+    signal model and the same float64 phase and code index, evaluated in
+    blocks of `block_s` seconds, with unit-variance complex noise from a
+    seeded torch.Generator on the card (not numpy's numbers).  Returns the
+    capture as a complex64 tensor on `dev`."""
+    n = int(round(fs_hz * duration_s))
+    out = torch.empty(n, dtype=torch.complex64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    two_pi = 2.0 * np.pi
+    fc = spec.carrier_freq_hz
+    sat_data = []
+    for sat in sats:
+        code = torch.as_tensor(np.asarray(codes_by_prn[sat.prn], np.float64),
+                               device=dev)
+        bits = None if sat.nav_bits is None else torch.as_tensor(
+            np.asarray(sat.nav_bits, np.float64), device=dev)
+        chips_per_bit = spec.code_rate_chips_s / (
+            sat.bit_rate_override_bps or spec.bit_rate_bps)
+        amp = np.sqrt(10.0 ** (sat.cn0_dbhz / 10.0) / fs_hz) if noise \
+            else 1.0
+        sat_data.append((sat, code, bits, chips_per_bit, amp))
+    step = max(1, int(fs_hz * block_s))
+    for a in range(0, n, step):
+        m = min(step, n - a)
+        t = torch.arange(a, a + m, dtype=torch.float64, device=dev) / fs_hz
+        re = torch.zeros(m, dtype=torch.float64, device=dev)
+        im = torch.zeros(m, dtype=torch.float64, device=dev)
+        for sat, code, bits, chips_per_bit, amp in sat_data:
+            dil = (sat.doppler_hz * t + 0.5 * sat.doppler_rate_hz_s * t * t
+                   + sat.doppler_rate2_hz_s2 * t * t * t / 6.0) / fc
+            chips = spec.code_rate_chips_s * (t + dil) - sat.delay_chips
+            c = code[torch.remainder(torch.floor(chips).long(),
+                                     code.shape[0])]
+            if bits is not None:
+                bit_idx = torch.floor(chips / chips_per_bit).long()
+                d = bits[bit_idx.clamp(0, bits.shape[0] - 1)]
+                c = c * torch.where(bit_idx < 0, torch.ones_like(d), d)
+            env = (amp * c).float()
+            phase = (two_pi * ((sat.doppler_hz + sat.carrier_offset_hz) * t
+                               + 0.5 * sat.doppler_rate_hz_s * t * t
+                               + sat.doppler_rate2_hz_s2 * t * t * t / 6.0)
+                     + sat.phase_rad)
+            ph32 = torch.remainder(phase, two_pi).float()
+            re += env * torch.cos(ph32)
+            im += env * torch.sin(ph32)
+        if noise:
+            w = torch.randn((m, 2), generator=gen, dtype=torch.float64,
+                            device=dev) * np.sqrt(0.5)
+            re += w[:, 0]
+            im += w[:, 1]
+        out[a:a + m] = torch.complex(re.float(), im.float())
+    return out
+
+
+def _sec_scenario(signal):
+    """Phase 12 / 13's scenario, generation spec and replicas."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import tracking_replica
+    from gnss_sdr_1_tpu_torch.constants import SIGNALS
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+
+    _, dur, prns = _SEC_CELLS[signal]
+    spec = SIGNALS[signal]
+    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+    scen = build_scenario(rx_ecef, list(prns), t0_tow=345601.25,
+                          duration_s=dur, cn0_dbhz=48.0, chip_rate=10.23e6,
+                          carrier_freq=spec.carrier_freq_hz, signal=signal)
+    codes = {p: tracking_replica(signal, p)[0] for p in prns}
+    return scen, dataclasses.replace(spec, bit_rate_bps=1000.0), codes
+
+
+def check_card_generator(dev, check_s=0.02, block_s=0.007):
+    """The generator on the card against the port's numpy generator on a
+    noiseless stretch of both scenarios (blocks shorter than the stretch,
+    so block seams are inside it): within 1e-5 of the unit amplitude."""
+    from gnss_sdr_1_tpu_torch.siggen import generate_baseband
+
+    err = {}
+    for sig in ("L5", "5X"):
+        scen, spec, codes = _sec_scenario(sig)
+        fs = _SEC_CELLS[sig][0]
+        got = generate_on_card(spec, scen.sats, codes, fs, check_s, dev,
+                               noise=False, block_s=block_s).cpu().numpy()
+        want = generate_baseband(spec, scen.sats, codes, fs, check_s,
+                                 noise=False)
+        if got.shape != want.shape:
+            raise AssertionError(f"generator shapes {got.shape} {want.shape}")
+        err[sig] = float(np.abs(got - want).max())
+        if not err[sig] <= 1e-5:
+            raise AssertionError(f"{sig} generator on the card differs from "
+                                 f"numpy by {err[sig]:.3e}")
+    return {"err": err, "s": check_s, "block_s": block_s}
+
+
+def sec_capture(dev, signal):
+    """Phase 12 / 13's capture, made on the card and copied to the host
+    once (the receiver's acquisition and the CLI's file read take host
+    samples; `preload` puts it back on the card).  Returns (scenario,
+    samples, seconds spent making them on the card)."""
+    scen, spec, codes = _sec_scenario(signal)
+    fs, dur, _ = _SEC_CELLS[signal]
+    t0 = time.perf_counter()
+    x = generate_on_card(spec, scen.sats, codes, fs, dur, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    xh = x.cpu().numpy()
+    del x
+    return scen, xh, gen_s
+
+
+def _eph_check(rx, scen, what, pages):
+    """At least MIN_EPH_SEC complete ephemerides with sqrt_a within 1e-3
+    of the truth (and, on F/NAV, pages 1-4 decoded)."""
+    errs = {}
+    for p, d in rx.decoders.items():
+        if not d.ephemeris_complete:
+            continue
+        if pages and not {1, 2, 3, 4} <= d.raw.pages:
+            raise AssertionError(f"{what}: PRN {p} pages {d.raw.pages}")
+        errs[p] = abs(d.ephemeris.sqrt_a - scen.ephemerides[p].sqrt_a)
+    if len(errs) < MIN_EPH_SEC or max(errs.values()) > 1e-3:
+        raise AssertionError(f"{what}: ephemerides {errs}")
+    return errs
+
+
+def phase_sec(dev, cc, tc, tcap, scen, x, signal):
+    """Phase 12 (L5) / 13 (E5a with the CAF): the receiver over the
+    preloaded capture, each kernel's launches == chunks, every chain launch
+    on the secondary-code instance, and chunks run with the wipe on."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    what = f"{signal} e2e"
+    rx = Receiver(_sec_config(signal), device=dev)
+    rx.preload(x)
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    chunks = counter["chunks"]
+    _check_launches(cc, tc, chunks, what)
+    spec = rx.trk.chain_spec
+    key = (spec.K, spec.order, spec.sec_data, spec.sec_len)
+    inst = dict(tcap.launches_by_instance)
+    if spec.sec_len != rx._sec_period or inst != {key: chunks}:
+        raise AssertionError(f"{what}: chain instances {inst} for {chunks} "
+                             f"chunks of sec_len {spec.sec_len}")
+    if not counter["sec_chunks"] > 0:
+        raise AssertionError(f"{what}: no chunk ran with the secondary wipe")
+    eph = _eph_check(rx, scen, what, pages=signal == "5X")
+    return {"rtf": _SEC_CELLS[signal][1] / wall, "wall_s": wall,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, what,
+                         MIN_FIXES_SEC),
+            "strategy": rx.acq_strategy, "ephemerides": len(eph),
+            "max_sqrt_a_err": max(eph.values()),
+            "pages": ", F/NAV pages 1-4" if signal == "5X" else "",
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches, "chunks": chunks,
+            "sec_chunks": counter["sec_chunks"],
+            "instances": {"<" + ",".join(str(int(v)) for v in k) + ">": n
+                          for k, n in inst.items()},
+            "channels": list(rx.channel_prn),
+            "modes": rx._mode_host.tolist()}
+
+
+def _list_outputs(out_dir):
+    return {p.name: p.stat().st_size for p in sorted(out_dir.iterdir())}
+
+
+def phase_cli_sec(cc, tc, scen, x, signal):
+    """Phase 14: the signal's conf through the CLI over the capture written
+    as a gr_complex file (deleted after the runs).  The L5 conf as written;
+    the E5a conf as written, which must exit 0 (its threshold, 2.0, is on
+    PCPS's scale and the CAF's statistic stays ~1e-3, so nothing is
+    acquired), then with the CAF's threshold and pull-in PLL."""
+    from gnss_sdr_1_tpu_torch.__main__ import main as cli_main
+
+    CACHE.mkdir(exist_ok=True)
+    path = CACHE / f"{signal}_{_SEC_CELLS[signal][0]:.0f}.gr_complex"
+    x.tofile(path)
+    reps = {}
+    try:
+        if signal == "L5":
+            runs = [("gps_l5.conf", ROOT / "conf" / "gps_l5.conf")]
+        else:
+            conf = ROOT / "conf" / "galileo_e5a.conf"
+            buf = io.StringIO()
+            out_dir = CACHE / "cli_galileo_e5a_as_written"
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["-c", str(conf), "--signal_file", str(path),
+                               "--out_dir", str(out_dir)])
+            lines = buf.getvalue().splitlines()
+            for ln in lines:
+                log(f"    | {ln}")
+            if rc != 0 or lines[-1] != "No position fix obtained.":
+                raise AssertionError(f"galileo_e5a.conf as written: exit {rc}"
+                                     f", last line {lines[-1]!r}")
+            log("[14] CLI, galileo_e5a.conf as written: exit 0, no fix (the "
+                "conf's PCPS-scale threshold 2.0 against the CAF statistic)")
+            text = conf.read_text()
+            for key, value in (("Acquisition_5X.threshold=", CAF_THRESHOLD),
+                               ("Tracking_5X.pll_bw_hz=", CAF_PLL_BW_HZ)):
+                text, n = re.subn(f"^{re.escape(key)}.*$", f"{key}{value}",
+                                  text, flags=re.M)
+                if n != 1:
+                    raise AssertionError(f"galileo_e5a.conf has no {key}")
+            caf = CACHE / "galileo_e5a_caf.conf"
+            caf.write_text(text)
+            runs = [("galileo_e5a.conf, CAF threshold and pull-in PLL", caf)]
+        for name, conf in runs:
+            what = f"CLI {name}"
+            out_dir = CACHE / f"cli_{signal}"
+            with _counting(cc, tc) as counter:
+                rep = _run_cli(["-c", str(conf), "--signal_file", str(path)],
+                               scen, out_dir, 1, what, max_median_m=None)
+            reps[name] = _cli_launches(cc, tc, rep, counter, what)
+            rep["outputs"] = _list_outputs(out_dir)
+            log(f"[14] CLI, {name}: {rep['summary']}, median 3D error "
+                f"{rep['median_3d_m']:.2f} m (no bar), outputs "
+                + ", ".join(f"{k} ({v} B)" for k, v in rep["outputs"].items()))
+    finally:
+        path.unlink(missing_ok=True)
     return reps
 
 

@@ -11,8 +11,9 @@ Usage:
     python -m gnss_sdr_1_tpu_torch --signal_file cap.dat --item_type ishort \\
         --fs 4e6 [--out_dir out/] [--device cpu]
 
-This port runs one GPS L1 C/A or Galileo E1B channel group (PCPS and its
-variants, DLL/PLL, VEML or, on GPS L1, KF tracking, single-point PVT);
+This port runs one GPS L1 C/A, GPS L5, Galileo E1B or Galileo E5a channel
+group (PCPS and its variants, CAF on E5a, DLL/PLL, VEML or, on GPS L1, KF
+tracking, single-point PVT);
 other confs and the flags of features not ported yet exit with an error
 naming the ROADMAP.md item that ports them.
 """
@@ -46,7 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--item_type", default=None,
                     help="ishort|ibyte|byte|short|gr_complex")
     ap.add_argument("--fs", type=float, default=None, help="sampling rate")
-    ap.add_argument("--signal", default=None, help="signal id (1C, 1B)")
+    ap.add_argument("--signal", default=None,
+                    help="signal id (1C, L5, 1B, 5X)")
     ap.add_argument("--channels", type=int, default=None)
     ap.add_argument("--max_s", type=float, default=None,
                     help="process at most this many seconds")
@@ -87,7 +89,7 @@ def main(argv=None) -> int:
     for flag, item in _UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             ap.error(f"--{flag} is not ported yet: {ROADMAP_ITEMS[item]}")
-    if args.signal and args.signal not in ("1C", "1B"):
+    if args.signal and args.signal not in ("1C", "L5", "1B", "5X"):
         ap.error(str(not_ported(f"signal '{args.signal}'", "signals")))
     try:
         dev = resolve_device(args.device)
@@ -98,7 +100,7 @@ def main(argv=None) -> int:
     rinex_version = 3
     if args.config_file:
         conf = FileConfiguration(args.config_file)
-        # one GPS L1 C/A group; multi-group, PPP/RTK and unported blocks
+        # one channel group; multi-group, PPP/RTK and unported blocks
         # raise with their ROADMAP.md item
         try:
             rcfg = to_receiver_config(conf)
@@ -198,7 +200,7 @@ def main(argv=None) -> int:
         nmea.extend(printers.nmea_gsv(gsv_sats))
     (out / "position.nmea").write_text("\n".join(nmea) + "\n")
     # RINEX 2.11 has no Galileo file types: Galileo keeps 3.02
-    file_ver = rinex_version if rcfg.signal_id == "1C" else 3
+    file_ver = rinex_version if rcfg.signal_id in ("1C", "L5") else 3
     if rx.obs_epochs:
         week = next((d.ephemeris.week for d in rx.decoders.values()
                      if d.ephemeris_complete), 0) + 2048

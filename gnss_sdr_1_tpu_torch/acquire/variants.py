@@ -413,8 +413,8 @@ def caf_iq_core(x, fft_i, fft_q, wipeoffs, caf_half: int, eff: int):
 
 class CafAcquisition:
     """Galileo_E5a_Noncoherent_IQ_Acquisition_CAF analogue (E5a-I data and
-    E5a-Q pilot codes pre-sampled at fs).  The receiver does not dispatch
-    it until Galileo E5a is ported."""
+    E5a-Q pilot codes pre-sampled at fs); the E5a receiver's 'caf'
+    strategy."""
 
     def __init__(self, cfg: AcqConfig,
                  data_codes_by_prn: dict[int, np.ndarray],

@@ -1,9 +1,10 @@
-"""Per-signal GNSS constants (GPS L1 C/A, Galileo E1B).
+"""Per-signal GNSS constants (GPS L1 C/A and L5, Galileo E1B and E5a).
 
-Reference parity: src/core/system_parameters/GPS_L1_CA.h, Galileo_E1.h,
-gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICDs
-(IS-GPS-200, Galileo OS SIS ICD).  Other signals and constellations are not
-carried by this package yet: `SIGNALS` holds GPS L1 C/A and Galileo E1B.
+Reference parity: src/core/system_parameters/GPS_L1_CA.h, GPS_L5.h,
+Galileo_E1.h, Galileo_E5a.h, gnss_frequencies.h, MATH_CONSTANTS.h.  Values
+are from the public ICDs (IS-GPS-200/705, Galileo OS SIS ICD).  Other
+signals and constellations are not carried by this package yet: `SIGNALS`
+holds GPS L1 C/A, GPS L5I, Galileo E1B and Galileo E5a-I.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ GNSS_STARTOFFSET_MS = 60.0
 
 # --- carrier frequencies (gnss_frequencies.h) ---
 FREQ_L1 = 1575.42e6
+FREQ_L5 = 1176.45e6
 FREQ_E1 = 1575.42e6
+FREQ_E5A = 1176.45e6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +42,7 @@ class SignalSpec:
 
     system: str              # 'GPS' | 'Galileo'
     name: str                # e.g. 'L1CA'
-    signal_id: str           # 2-char config id used by reference confs: '1C', '1B'
+    signal_id: str           # 2-char config id used by reference confs: '1C', ...
     carrier_freq_hz: float
     code_rate_chips_s: float
     code_length_chips: int
@@ -66,6 +69,14 @@ GPS_L1_CA = SignalSpec(
     symbol_rate_sps=50.0, bit_rate_bps=50.0,
 )
 
+GPS_L5 = SignalSpec(
+    system="GPS", name="L5I", signal_id="L5",
+    carrier_freq_hz=FREQ_L5,
+    code_rate_chips_s=10.23e6, code_length_chips=10230, code_period_s=1e-3,
+    symbol_rate_sps=100.0, bit_rate_bps=50.0,  # CNAV r=1/2 FEC
+    secondary_code_length=10, has_pilot=True,  # NH10 on I, NH20 on Q
+)
+
 GALILEO_E1B = SignalSpec(
     system="Galileo", name="E1B", signal_id="1B",
     carrier_freq_hz=FREQ_E1,
@@ -74,9 +85,17 @@ GALILEO_E1B = SignalSpec(
     secondary_code_length=0, has_pilot=True,    # E1C pilot w/ CS25 secondary
 )
 
+GALILEO_E5A = SignalSpec(
+    system="Galileo", name="E5aI", signal_id="5X",
+    carrier_freq_hz=FREQ_E5A,
+    code_rate_chips_s=10.23e6, code_length_chips=10230, code_period_s=1e-3,
+    symbol_rate_sps=50.0, bit_rate_bps=25.0,    # F/NAV r=1/2 FEC
+    secondary_code_length=20, has_pilot=True,   # CS20 data / CS100 pilot
+)
+
 # Registry keyed by the reference's 2-char signal ids
 SIGNALS: dict[str, SignalSpec] = {
-    s.signal_id: s for s in (GPS_L1_CA, GALILEO_E1B)}
+    s.signal_id: s for s in (GPS_L1_CA, GPS_L5, GALILEO_E1B, GALILEO_E5A)}
 
 
 # --- GPS LNAV framing (GPS_L1_CA.h / IS-GPS-200) ---

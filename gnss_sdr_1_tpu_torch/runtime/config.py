@@ -9,9 +9,10 @@ reference property names onto ReceiverConfig, and `build_frontend` realizes
 the SignalConditioner chain (DataTypeAdapter -> InputFilter -> Resampler,
 signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 
-This port carries one GPS L1 C/A ('1C') or Galileo E1B ('1B') channel
-group with PCPS, Tong, QuickSync, CCCWSR, fine-Doppler or 8 ms acquisition,
-DLL/PLL (VEML on E1B) or, on GPS L1, KF tracking, and single-point PVT.
+This port carries one GPS L1 C/A ('1C'), GPS L5 ('L5'), Galileo E1B ('1B')
+or Galileo E5a ('5X') channel group with PCPS, Tong, QuickSync, CCCWSR,
+fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B) or,
+on GPS L1, KF tracking, and single-point PVT.
 `to_receiver_config` refuses everything else with NotImplementedError naming
 the ROADMAP.md item that ports it, so no conf maps quietly to an engine
 other than the one it names.
@@ -226,7 +227,7 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
         raise not_ported(f"a conf with {len(groups)} channel groups "
                          f"({'+'.join(groups)})", "multi_group")
     signal_id = groups[0]
-    if signal_id not in ("1C", "1B"):
+    if signal_id not in ("1C", "L5", "1B", "5X"):
         raise not_ported(f"signal '{signal_id}'", "signals")
     fs = conf.property("GNSS-SDR.internal_fs_sps",
                        conf.property("GNSS-SDR.internal_fs_hz", 4_000_000.0))
@@ -240,11 +241,10 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
                 f"acquisition '{acq_impl}' needs hardware this build does "
                 f"not drive ({info.note})")
         acq_strategy = info.strategy or "pcps"
-        if acq_strategy in ("assisted", "caf"):
-            # CAF is the Galileo E5a strategy
+        if acq_strategy == "assisted":
             raise not_ported(
                 f"acquisition '{acq_impl}' (strategy '{acq_strategy}')",
-                "assistance" if acq_strategy == "assisted" else "signals")
+                "assistance")
     trk_impl = str(conf.property(f"Tracking{sig}.implementation", ""))
     track_engine = "dll_pll"
     if trk_impl:

@@ -1,4 +1,5 @@
-"""Segment-synchronous GPS L1 C/A and Galileo E1B receiver pipeline.
+"""Segment-synchronous GPS L1 C/A and L5, Galileo E1B and E5a receiver
+pipeline.
 
 Reference parity: ControlThread::run (control_thread.cc:239) +
 GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
@@ -8,15 +9,18 @@ on the card (batched PCPS on torch.fft, the chunked tracking engine with
 its CUDA chain kernel); the lifecycle FSM stays on the host between
 capture segments.
 
-This package carries GPS L1 C/A ('1C', LNAV) and Galileo E1B ('1B': the
-sinBOC(1,1) replica, 5-tap VEML tracking, I/NAV) with PCPS, Tong,
-QuickSync, CCCWSR, fine-Doppler or 8 ms acquisition (the strategy
-dispatch of gnss_block_factory.cc:1552-1709), and either the chunked
-DLL/PLL engine or, on GPS L1, the Kalman-filter tracker
-(`track_engine="kf"`, track.kf).  Streaming, checkpoint/resume, monitors,
-assistance, FDMA, E5a (and with it the CAF acquisition) and the other
-signals are not ported yet: ReceiverConfig refuses them, naming the
-ROADMAP.md item that ports each.
+This package carries GPS L1 C/A ('1C', LNAV), GPS L5I ('L5': NH10
+secondary, CNAV), Galileo E1B ('1B': the sinBOC(1,1) replica, 5-tap VEML
+tracking, I/NAV) and Galileo E5a-I ('5X': CS20 secondary, F/NAV) with
+PCPS, Tong, QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the
+noncoherent I/Q CAF acquisition (the strategy dispatch of
+gnss_block_factory.cc:1552-1709), and either the chunked DLL/PLL engine
+or, on GPS L1, the Kalman-filter tracker (`track_engine="kf"`, track.kf).
+On L5 and E5a the chain wipes the secondary code in the loop once
+telemetry reports secondary sync (`_maybe_extend`).  Streaming,
+checkpoint/resume, monitors, assistance, FDMA and the other signals are
+not ported yet: ReceiverConfig refuses them, naming the ROADMAP.md item
+that ports each.
 """
 
 from __future__ import annotations
@@ -28,17 +32,20 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..acquire import (AcqConfig, CccwsrAcquisition, FineDopplerAcquisition,
-                       Pcps8msAcquisition, PcpsAcquisition,
-                       QuickSyncAcquisition)
-from ..codes import (galileo_e1_sinboc11, galileo_e1c_code, resample_code,
-                     tracking_replica)
+from ..acquire import (AcqConfig, CafAcquisition, CccwsrAcquisition,
+                       FineDopplerAcquisition, Pcps8msAcquisition,
+                       PcpsAcquisition, QuickSyncAcquisition)
+from ..codes import (NH10, galileo_e1_sinboc11, galileo_e1c_code,
+                     galileo_e5aq_code, resample_code, tracking_replica)
+from ..codes.galileo_e5 import galileo_e5ai_secondary
 from ..condition.filters import to_device
 from ..constants import SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
 from ..pvt.solver import PvtSolution, solve_pvt
-from ..telemetry.channel_adapters import GalileoChannelDecoder
+from ..telemetry.channel_adapters import (GalileoChannelDecoder,
+                                          GalileoE5aChannelDecoder,
+                                          GpsL5ChannelDecoder)
 from ..telemetry.decoder import LnavDecoder
 from ..track import TrackConfig, TrackingEngine, TrackOutputs
 from ..track.kf import KfTrackConfig, KfTrackingEngine
@@ -65,7 +72,7 @@ class ReceiverConfig:
     tong_max: int = 10
     # acquisition strategy from the conf implementation= name, routed
     # through runtime.factory (gnss_block_factory.cc:1552-1709):
-    # pcps | tong | quicksync | cccwsr | fine_doppler | 8ms
+    # pcps | tong | quicksync | cccwsr | fine_doppler | 8ms | caf
     acq_strategy: str = "pcps"
     # QuickSync folding factor (Acquisition_XX.folding_factor)
     acq_folding_factor: int = 2
@@ -122,7 +129,8 @@ class ReceiverConfig:
 
         # what each unported value waits for (runtime.config.ROADMAP_ITEMS)
         refused = {
-            "signal_id": (self.signal_id, ("1C", "1B"), "signals"),
+            "signal_id": (self.signal_id, ("1C", "L5", "1B", "5X"),
+                          "signals"),
             "acq_strategy": (self.acq_strategy, _ACQ_STRATEGIES,
                              "assistance" if self.acq_strategy == "assisted"
                              else "signals"),
@@ -136,6 +144,10 @@ class ReceiverConfig:
             raise NotImplementedError(
                 f"track_engine={self.track_engine!r} is not ported yet "
                 f"(only 'dll_pll', 'kf')")
+        if self.acq_strategy == "caf" and self.signal_id != "5X":
+            raise not_ported(f"acq_strategy='caf' on signal "
+                             f"{self.signal_id!r} (the CAF acquisition is "
+                             f"Galileo E5a's)", "signals")
         if self.track_engine == "kf" and self.signal_id != "1C":
             raise not_ported(f"the KF tracker on signal {self.signal_id!r}",
                              "signals")
@@ -150,14 +162,15 @@ class ReceiverConfig:
         return SIGNALS[self.signal_id]
 
 
-# acquisition strategies this package carries ('caf' is the E5a strategy,
+# acquisition strategies this package carries ('caf' is the E5a strategy;
 # 'assisted' needs the assistance sources)
 _ACQ_STRATEGIES = ("pcps", "tong", "quicksync", "cccwsr", "fine_doppler",
-                   "8ms")
+                   "8ms", "caf")
 
 
 class Receiver:
-    """Single-constellation single-band receiver (GPS L1 C/A, Galileo E1B).
+    """Single-constellation single-band receiver (GPS L1 C/A and L5,
+    Galileo E1B and E5a).
 
     `device`: None runs the data plane on the card (and raises without
     one); the CPU only when asked for (`device="cpu"`)."""
@@ -204,10 +217,19 @@ class Receiver:
             else cfg.acq_strategy)
         self._acq_tong = strat == "tong"
         self._make_acquisition(strat, acq_cfg, fs_code_rate, virtual_rate)
-        # bit period in epochs — the coherent-extension alignment grid; an
-        # E1B symbol is one epoch, so E1B has neither extension nor the
+        # bit / secondary-code period in epochs — the coherent-extension
+        # alignment grid (20 ms GPS bit, NH10 on L5, CS20 on E5a); an E1B
+        # symbol is one epoch, so E1B has neither extension nor the
         # symbol-grid readback
-        self._sec_period = {"1C": 20}.get(cfg.signal_id)
+        self._sec_period = {"1C": 20, "L5": 10, "5X": 20}.get(cfg.signal_id)
+        # in-loop secondary wipe-off tables (dll_pll_veml_tracking.cc:549-660
+        # start_tracking secondary setup), one row per slot: NH10 for GPS
+        # L5I, CS20 for Galileo E5a-I — both data-carrying, so the Costas
+        # discriminator stays active (sec_data)
+        sec_code = {"L5": NH10, "5X": galileo_e5ai_secondary()}.get(
+            cfg.signal_id)
+        sec_codes = None if sec_code is None else np.tile(
+            np.asarray(sec_code, dtype=np.float32), (len(self.acq.prns), 1))
         # tracking engine from Tracking_XX.implementation: the chunked
         # DLL/PLL engine, or the Kalman carrier tracker
         # (gps_l1_ca_kf_tracking_cc.h:76 — a drop-in channel tracking
@@ -252,8 +274,9 @@ class Receiver:
                     very_early_late_space_chips=(
                         cfg.very_early_late_space_chips),
                     chunk_epochs=cfg.chunk_epochs,
+                    sec_data=sec_codes is not None,
                 ),
-                codes, device=self.device)
+                codes, sec_codes=sec_codes, device=self.device)
         self._slot_of_prn = {p: i for i, p in enumerate(self.acq.prns)}
 
         self.state = self.trk.init_state()
@@ -301,6 +324,9 @@ class Receiver:
         cfg, fs, dev = self.cfg, self.cfg.fs_hz, self.device
         if strat in ("cccwsr", "8ms") and cfg.signal_id != "1B":
             raise ValueError(f"{strat} acquisition is a Galileo E1 strategy")
+        if strat == "caf" and cfg.signal_id != "5X":
+            raise ValueError("noncoherent-IQ CAF acquisition is a Galileo "
+                             "E5a strategy")
 
         def sampled(codes):
             return {p: resample_code(np.asarray(codes[p], np.float32), fs,
@@ -323,6 +349,15 @@ class Receiver:
             self.acq = Pcps8msAcquisition(
                 dataclasses.replace(acq_cfg, sampled_ms=2),
                 sampled(self._codes), device=dev)
+        elif strat == "caf":
+            # data (E5a-I) and pilot (E5a-Q) codes at 10.23 Mcps, the CAF
+            # window eight Doppler steps wide
+            pilots = {p: resample_code(
+                np.asarray(galileo_e5aq_code(p), np.float32), fs, 10.23e6,
+                self.samples_per_code) for p in cfg.prn_search}
+            self.acq = CafAcquisition(
+                acq_cfg, sampled(self._codes), pilots,
+                caf_window_hz=8.0 * cfg.doppler_step_hz, device=dev)
 
     # ---------------- channel lifecycle ----------------
 
@@ -370,10 +405,9 @@ class Receiver:
                 self.state, ch, self._slot_of_prn[prn],
                 float(res.delay_samples[k]), float(dops[k]),
                 samples_abs_offset, self._pos, **step)
-            # telemetry decoders per signal: LNAV (1C), I/NAV (1B)
-            self.decoders[prn] = (LnavDecoder(prn)
-                                  if self.cfg.signal_id == "1C"
-                                  else GalileoChannelDecoder(prn))
+            # telemetry decoders per signal: LNAV (1C), CNAV (L5), I/NAV
+            # (1B), F/NAV (5X)
+            self.decoders[prn] = _DECODERS[self.cfg.signal_id](prn)
             self._mode_host[ch] = 0
             self.histories[prn] = ChannelEpochHistory()
             self.sym_count[prn] = 0
@@ -557,9 +591,9 @@ class Receiver:
     def _pull_in_done(self) -> bool:
         """True once every active channel is through pull-in — the
         steady-state criterion that lets the capture loop use its full
-        segment length: bit sync on GPS L1 C/A; an E1B decoder has no sync
-        notion (a symbol is one epoch), so its channel counts as pulled in
-        after 1,000 surviving epochs."""
+        segment length: bit sync on GPS L1 C/A, secondary-code sync on L5
+        and E5a; an E1B decoder has no sync notion (a symbol is one epoch),
+        so its channel counts as pulled in after 1,000 surviving epochs."""
         any_active = False
         for prn in self.channel_prn:
             if prn is None:
@@ -568,8 +602,9 @@ class Receiver:
             dec = self.decoders.get(prn)
             if dec is None:
                 return False
-            if hasattr(dec, "bit_offset"):
-                if dec.bit_offset is None:
+            if hasattr(dec, "bit_offset") or hasattr(dec, "sec_sync_offset"):
+                if getattr(dec, "bit_offset", None) is None \
+                        and getattr(dec, "sec_sync_offset", None) is None:
                     return False
             elif self.sym_count.get(prn, 0) < 1000:
                 return False
@@ -706,10 +741,12 @@ class Receiver:
                 self._release(ch, prn, "lost lock")
 
     def _maybe_extend(self) -> None:
-        """State 2 -> 3/4 switch once telemetry reports bit sync: coherent
-        extension over extend_correlation_symbols epochs aligned to each
-        channel's bit grid, with the narrow loop bandwidths
-        (dll_pll_veml_tracking.cc:1774-1900)."""
+        """State 2 -> 3/4 switch once telemetry reports bit / secondary
+        sync: coherent extension over extend_correlation_symbols epochs
+        aligned to each channel's bit grid, with the narrow loop bandwidths
+        (dll_pll_veml_tracking.cc:1774-1900).  On L5 (NH10) and E5a (CS20)
+        the switch also enables the chain's in-loop secondary wipe-off at
+        the host-synced code phase."""
         if self.trk_kind != "dll_pll":
             return          # the KF tracker has no extended/narrow states
         n = self.trk.cfg.extend_correlation_symbols
@@ -722,11 +759,20 @@ class Receiver:
             if prn is None or self._mode_host[ch] != 0:
                 continue
             dec = self.decoders.get(prn)
-            bit0 = getattr(dec, "bit_offset", None)
+            sec_phase = None
+            if self.cfg.signal_id == "1C":
+                bit0 = getattr(dec, "bit_offset", None)
+            else:
+                bit0 = getattr(dec, "sec_sync_offset", None)
+                if bit0 is not None:
+                    # secondary-chip index of the next epoch the card
+                    # processes (harvested epochs == sym_count)
+                    sec_phase = (self.sym_count[prn] - bit0) % period
             if bit0 is None:
                 continue
             e = (bit0 - self.sym_count[prn]) % period
-            self.state = self.trk.enable_extended(self.state, ch, e)
+            self.state = self.trk.enable_extended(self.state, ch, e,
+                                                  sec_phase=sec_phase)
             self._mode_host[ch] = 1
             log.info("ch %d PRN %d -> extended coherent (%d ms, boundary in "
                      "%d epochs)", ch, prn, n, e)
@@ -913,3 +959,8 @@ class Receiver:
             self._pos += span
             self._blocks_done += n_blocks
         return self.solutions
+
+
+# the telemetry decoder of each signal's channels
+_DECODERS = {"1C": LnavDecoder, "L5": GpsL5ChannelDecoder,
+             "1B": GalileoChannelDecoder, "5X": GalileoE5aChannelDecoder}

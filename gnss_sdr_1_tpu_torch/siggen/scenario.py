@@ -136,6 +136,25 @@ def _gps_to_galileo(eph):
     )
 
 
+def _gps_to_cnav(eph):
+    """Map the scenario's Keplerian truth onto CNAV broadcast fields
+    (delta terms vs the A_REF/OMEGA_DOT_REF constants of IS-GPS-200
+    30.3.3.1.1 — the inverse of CnavEphemeris.to_keplerian)."""
+    from ..telemetry.cnav import A_REF_M, OMEGA_DOT_REF_SC, CnavEphemeris
+
+    return CnavEphemeris(
+        prn=eph.prn, wn=eph.week, top=eph.toe, toe=eph.toe, toc=eph.toc,
+        delta_a=eph.sqrt_a**2 - A_REF_M, a_dot=0.0,
+        delta_n0=eph.delta_n, delta_n0_dot=0.0,
+        m0=eph.m0, e=eph.e, omega=eph.omega, omega0=eph.omega0,
+        i0=eph.i0, delta_omega_dot=eph.omega_dot - OMEGA_DOT_REF_SC,
+        i0_dot=eph.idot,
+        cis=eph.cis, cic=eph.cic, crs=eph.crs, crc=eph.crc,
+        cus=eph.cus, cuc=eph.cuc,
+        af0=eph.af0, af1=eph.af1, af2=eph.af2, tgd=eph.tgd,
+    )
+
+
 def build_scenario(
     rx_ecef: np.ndarray,
     prns: list[int],
@@ -154,12 +173,12 @@ def build_scenario(
     rx_ecef.  Orbit planes/anomalies default to a spread that puts the
     satellites above the horizon for a receiver near the prime meridian
     mid-latitudes; pass explicit raans/anomalies otherwise.  GPS L1 C/A
-    (LNAV) and Galileo E1B (I/NAV) only: other signals' message streams are
-    not ported yet."""
-    if signal not in ("1C", "1B"):
+    (LNAV), GPS L5I (CNAV), Galileo E1B (I/NAV) and Galileo E5a-I (F/NAV)
+    only: other signals' message streams are not ported yet."""
+    if signal not in ("1C", "L5", "1B", "5X"):
         raise NotImplementedError(
-            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C' and "
-            f"Galileo E1B '1B' only)")
+            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C', GPS L5 "
+            f"'L5', Galileo E1B '1B' and E5a '5X' only)")
     from ..constants import SIGNALS
 
     if chip_rate is None:
@@ -170,9 +189,10 @@ def build_scenario(
     if carrier_freq is None:
         carrier_freq = float(SIGNALS[signal].carrier_freq_hz)
     toe = np.floor(t0_tow / 7200.0) * 7200.0   # ephemeris reference nearby
-    # bit stream starts at the last subframe (LNAV, 6 s) or page (I/NAV,
-    # 2 s) boundary before the earliest possible transmit time (t0 - 0.1 s)
-    boundary = 6.0 if signal == "1C" else 2.0
+    # bit stream starts at the last subframe (LNAV, 6 s), CNAV message
+    # (L5, 6 s) or page (I/NAV and F/NAV streams, 2 s) boundary before the
+    # earliest possible transmit time (t0 - 0.1 s)
+    boundary = {"1C": 6.0, "L5": 6.0}.get(signal, 2.0)
     bits_tow0 = np.floor((t0_tow - 0.1) / boundary) * boundary
 
     sats: list[SatParams] = []
@@ -211,6 +231,7 @@ def build_scenario(
         stream_offset_s = t0_tow - bits_tow0
         delay_chips = (tau0 - stream_offset_s) * chip_rate
         # nav bits covering the run (+ margin)
+        bit_rate_override = None
         if signal == "1B":
             # I/NAV pages (2 s each), word cycle 5,1,2,3,4 so ephemeris +
             # GST complete within 10 s; GST TOW = even-part start time
@@ -224,6 +245,53 @@ def build_scenario(
                 geph.tow = bits_tow0 + 2.0 * k
                 pages.append(encode_page(encode_word(cycle[k % 5], geph)))
             bits01 = np.concatenate(pages)
+        elif signal == "L5":
+            # CNAV message stream (types 10, 11, 30 cycling; 6 s per message
+            # at 100 sps), K=7 r=1/2 FEC.  L5I additionally carries NH10 per
+            # 1 ms code period — expand symbols x10 against NH10 into an
+            # effective 1 kbps stream.
+            from ..codes.gps_l5 import NH10
+            from ..telemetry.cnav import encode_message
+            from ..utils.native import conv27_encode
+
+            ceph = _gps_to_cnav(eph)
+            msg_s = 6.0
+            n_msgs = int(np.ceil((duration_s + 2.0) / msg_s)) + 2
+            cyc = (10, 11, 30)
+            msgs = [encode_message(cyc[k % 3], ceph,
+                                   bits_tow0 + (k + 1) * msg_s)
+                    for k in range(n_msgs)]
+            syms01 = conv27_encode(np.concatenate(msgs))
+            d = np.repeat(1.0 - 2.0 * syms01, 10)
+            nh = np.tile(np.asarray(NH10, dtype=np.float64), len(syms01))
+            bits01 = (1.0 - d * nh) / 2.0     # back to 0/1 for the
+            bit_rate_override = 1000.0        # common conversion below
+        elif signal == "5X":
+            # E5a-I F/NAV: 10 s pages at 50 sps, page types 1-4 cycling so
+            # the ephemeris (+GST) completes in 40 s
+            # (galileo_e5a ICD 4.2; telemetry/fnav.py encode_page).  Each
+            # 20 ms symbol spans 20 primary code periods modulated by the
+            # CS20 secondary — expand to an effective 1 kbps stream like
+            # the L5I NH10 branch above.
+            from ..codes.galileo_e5 import galileo_e5ai_secondary
+            from ..telemetry.fnav import encode_page
+
+            geph5 = _gps_to_galileo(eph)
+            n_pages = int(np.ceil((duration_s + 2.0) / 10.0)) + 2
+            # page order override via subframe_cycle (e.g. (4,1,2,3) lets a
+            # receiver starting mid-page-0 complete pages 1-4 by t+40 s)
+            cyc5 = tuple(t for t in subframe_cycle
+                         if 1 <= t <= 4) or (1, 2, 3, 4)
+            pages = []
+            for k in range(n_pages):
+                geph5.tow = bits_tow0 + 10.0 * k
+                pages.append(encode_page(cyc5[k % 4], geph5))
+            syms01 = np.concatenate(pages)
+            d = np.repeat(1.0 - 2.0 * syms01, 20)
+            cs = np.tile(np.asarray(galileo_e5ai_secondary(),
+                                    dtype=np.float64), len(syms01))
+            bits01 = (1.0 - d * cs) / 2.0
+            bit_rate_override = 1000.0
         else:
             n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
             bits01 = encode_lnav_frame(eph, bits_tow0, n_subframes=n_sf,
@@ -235,6 +303,7 @@ def build_scenario(
             delay_chips=delay_chips, cn0_dbhz=cn0_dbhz,
             phase_rad=float(2.0 * np.pi * ((i * 0.37) % 1.0)),
             nav_bits=nav_bits,
+            bit_rate_override_bps=bit_rate_override,
         ))
         truth[prn] = {
             "delay_s": tau0, "doppler_hz": doppler,

@@ -5,8 +5,9 @@ The receiver expects every telemetry decoder to expose
   ephemeris_complete
 (the Gnss_Synchro TOW-stamping contract of the reference's telemetry
 blocks).  LnavDecoder implements it natively; these adapters wrap the other
-constellations' decoders.  This package carries the Galileo E1B (I/NAV)
-adapter; the others wait for their signals' decoders.
+signals' decoders.  This package carries the GPS L5I (CNAV), Galileo E1B
+(I/NAV) and Galileo E5a-I (F/NAV) adapters; the others wait for their
+signals' decoders.
 """
 
 from __future__ import annotations
@@ -45,4 +46,169 @@ class GalileoChannelDecoder:
 
     @property
     def raw(self) -> InavDecoder:
+        return self._dec
+
+
+class GpsL5ChannelDecoder:
+    """L5I (CNAV) channel: prompts arrive per 1 ms code period, modulated by
+    the NH10 secondary code; one 10 ms CNAV symbol per NH10 period
+    (100 sps).  Mirrors gps_l5_telemetry_decoder_gs.cc with the NH sync
+    host-side like the BeiDou NH20 adapter."""
+
+    def __init__(self, prn: int):
+        from ..codes.gps_l5 import NH10
+        from .cnav import CnavDecoder
+
+        self.prn = prn
+        self._nh = np.asarray(NH10, dtype=np.float64)
+        self._dec = CnavDecoder(prn)
+        self._dec.symbol_period_s = 0.01
+        self._buf: list[float] = []
+        self._offset: int | None = None
+        self._sym_epoch0: int | None = None
+
+    def push(self, prompt_i, start_samples=None) -> None:
+        self._buf.extend(np.asarray(prompt_i, dtype=np.float64))
+        if self._offset is None:
+            self._sync_secondary()
+        if self._offset is None:
+            return
+        p = np.asarray(self._buf)
+        usable = (len(p) - self._offset) // 10
+        if usable <= 0:
+            return
+        seg = p[self._offset : self._offset + usable * 10]
+        syms = (seg.reshape(usable, 10) * self._nh[None, :]).sum(axis=1)
+        self._dec.push(syms)
+        self._offset += usable * 10
+
+    def _sync_secondary(self) -> None:
+        p = np.asarray(self._buf)
+        if len(p) < 40:
+            return
+        s = np.sign(p)
+        best, best_off = 0.0, None
+        for off in range(10):
+            n = (len(p) - off) // 10
+            if n < 3:
+                continue
+            w = s[off : off + n * 10].reshape(n, 10)
+            c = np.abs((w * self._nh[None, :]).sum(axis=1)).mean()
+            if c > best:
+                best, best_off = c, off
+        if best_off is not None and best > 8.0:
+            self._offset = best_off
+            self._sym_epoch0 = best_off
+
+    @property
+    def sec_sync_offset(self) -> int | None:
+        """Epoch index (mod 10) of the NH10 boundary once synced."""
+        return None if self._sym_epoch0 is None else self._sym_epoch0 % 10
+
+    def tow_at_symbol(self, symbol_idx: int):
+        """TOW at a 1 ms epoch index (symbols advance 10 ms each)."""
+        if self._sym_epoch0 is None:
+            return None
+        sym_idx = (symbol_idx - self._sym_epoch0) / 10.0
+        tow = self._dec.tow_at_symbol(int(np.floor(sym_idx)))
+        if tow is None:
+            return None
+        return tow + 0.01 * (sym_idx - np.floor(sym_idx))
+
+    @property
+    def iono(self):
+        return self._dec.iono
+
+    @property
+    def ephemeris(self):
+        return self._dec.ephemeris.to_keplerian()
+
+    @property
+    def ephemeris_complete(self) -> bool:
+        return self._dec.ephemeris_complete
+
+    @property
+    def raw(self):
+        return self._dec
+
+
+class GalileoE5aChannelDecoder:
+    """E5a-I (F/NAV) channel: prompts arrive per 1 ms primary-code period,
+    modulated by the 20-chip CS20 secondary code (one 20 ms F/NAV symbol
+    per CS20 period, 50 symbols/s).
+
+    Mirrors the reference's E5a handling (dll_pll_veml_tracking secondary-
+    code sync + galileo_telemetry_decoder_gs F/NAV branch) with the
+    secondary wipe done host-side like the BeiDou NH20 adapter.
+    """
+
+    def __init__(self, prn: int):
+        from ..codes.galileo_e5 import galileo_e5ai_secondary
+        from .fnav import FnavDecoder
+
+        self.prn = prn
+        self._cs20 = np.asarray(galileo_e5ai_secondary(), dtype=np.float64)
+        self._dec = FnavDecoder(prn)
+        self._buf: list[float] = []
+        self._offset: int | None = None
+        self._sym_epoch0: int | None = None
+
+    def push(self, prompt_i, start_samples=None) -> None:
+        self._buf.extend(np.asarray(prompt_i, dtype=np.float64))
+        if self._offset is None:
+            self._sync_secondary()
+        if self._offset is None:
+            return
+        p = np.asarray(self._buf)
+        usable = (len(p) - self._offset) // 20
+        if usable <= 0:
+            return
+        seg = p[self._offset : self._offset + usable * 20]
+        syms = (seg.reshape(usable, 20) * self._cs20[None, :]).sum(axis=1)
+        self._dec.push(syms)
+        self._offset += usable * 20
+
+    def _sync_secondary(self) -> None:
+        p = np.asarray(self._buf)
+        if len(p) < 80:
+            return
+        s = np.sign(p)
+        best, best_off = 0.0, None
+        for off in range(20):
+            n = (len(p) - off) // 20
+            if n < 3:
+                continue
+            w = s[off : off + n * 20].reshape(n, 20)
+            c = np.abs((w * self._cs20[None, :]).sum(axis=1)).mean()
+            if c > best:
+                best, best_off = c, off
+        if best_off is not None and best > 16.0:
+            self._offset = best_off
+            self._sym_epoch0 = best_off
+
+    @property
+    def sec_sync_offset(self) -> int | None:
+        """Epoch index (mod 20) of the CS20 boundary once synced."""
+        return None if self._sym_epoch0 is None else self._sym_epoch0 % 20
+
+    def tow_at_symbol(self, symbol_idx: int):
+        """GST TOW at a 1 ms epoch index (symbols advance 20 ms each)."""
+        if self._sym_epoch0 is None:
+            return None
+        sym_idx = (symbol_idx - self._sym_epoch0) / 20.0
+        tow = self._dec.tow_at_symbol(int(np.floor(sym_idx)))
+        if tow is None:
+            return None
+        return tow + 0.02 * (sym_idx - np.floor(sym_idx))
+
+    @property
+    def ephemeris(self):
+        return to_keplerian(self._dec.ephemeris)
+
+    @property
+    def ephemeris_complete(self) -> bool:
+        return self._dec.ephemeris_complete
+
+    @property
+    def raw(self):
         return self._dec

@@ -5,7 +5,10 @@ JAX engine tracked.  Covers PLL order 2 and 3, wide and narrow/extended
 mode, the in-loop secondary wipe, a lock-fail drop, a dead channel and the
 sample limit, at 3 taps (GPS L1 C/A, EPL) and at 5 (Galileo E1B, VEML:
 the state of E1 channels the JAX engine tracked, with and without a
-secondary code).
+secondary code); and the real data-channel secondary codes of GPS L5I
+(NH10, which does not divide the 16 epochs of a chunk) and Galileo E5a-I
+(CS20) over consecutive chunks, each implementation carrying its own state
+across the seams.
 
 The inputs are made in the Pallas kernel's layout (lag windows [E, LW, C],
 slice origins [E, C], step0 [1, C]) and permuted into the port's
@@ -226,7 +229,9 @@ CASES = {
 }
 
 
-def _compare(got, want, what):
+def _compare(got, want, what, pairs=None):
+    """`pairs` maps an output's name to (real row, imaginary row) pairs
+    that share one scale, the larger of the two rows' maxima."""
     names = ("out_f", "out_i", "out_corr", "fst", "ist")
     for name, g, w in zip(names, got, want):
         g = np.asarray(g)
@@ -236,12 +241,17 @@ def _compare(got, want, what):
             np.testing.assert_array_equal(g, w, err_msg=f"{what} {name}")
             continue
         rows = g.shape[-2]
+        partner = {}
+        for a, b in (pairs or {}).get(name, ()):
+            partner[a], partner[b] = b, a
         for r in range(rows):
             gr, wr = g[..., r, :], w[..., r, :]
             if name == "out_f" and r in (tc.O_VALID, tc.O_ACTIVE):
                 np.testing.assert_array_equal(gr, wr, err_msg=f"{what} {r}")
                 continue
             scale = max(1.0, float(np.abs(wr).max()))
+            if r in partner:
+                scale = max(scale, float(np.abs(w[..., partner[r], :]).max()))
             np.testing.assert_allclose(gr, wr, rtol=0, atol=1e-4 * scale,
                                        err_msg=f"{what} {name} row {r}")
 
@@ -273,6 +283,124 @@ def test_chain_plain_matches_pallas_interpret(jax_chain, request, case):
         assert ist_out[tc.I_PUSH, 1] > args[6][tc.I_PUSH, 1]
 
 
+# the data-channel secondary codes the chain wipes on GPS L5I and Galileo
+# E5a-I, over SEC_CHUNKS consecutive 16-epoch chunks
+SEC_CODES = ("nh10", "cs20")
+SEC_CHUNKS = 3
+
+
+def _sec_code(name):
+    from gnss_sdr_1_tpu_torch.codes import NH10
+    from gnss_sdr_1_tpu_torch.codes.galileo_e5 import galileo_e5ai_secondary
+
+    return np.asarray(NH10 if name == "nh10" else galileo_e5ai_secondary(),
+                      np.float32)
+
+
+def _sec_setup(tracked_state, name):
+    """The chain of a 16-epoch engine that wipes `name` (extension window
+    = the code's length, Costas discriminator), the tracked state with the
+    wipe on at several code indices (ch0 and ch1 in the extended mode, the
+    window closing inside the first chunk on ch0; ch2 wide; ch3 without
+    the wipe), and the per-channel secondary rows [sec_len, C]."""
+    sec = _sec_code(name)
+    n = len(sec)
+    codes = np.stack([gps_l1ca_code(p) for p in range(1, C + 1)])
+    eng = TrackingEngine(TrackConfig(**{
+        **KW, "chunk_epochs": 16, "extend_correlation_symbols": n,
+        "sec_data": True}), codes, sec_codes=np.tile(sec, (C, 1)),
+        device="cpu")
+    spec = eng.chain_spec
+    assert (spec.E, spec.sec_len, spec.ext_n, spec.sec_data) == (
+        16, n, n, True)
+    _, fst, ist = tracked_state
+    fst, ist = fst.copy(), ist.copy()
+    ist[tc.I_SEC_ON, :3] = 1
+    ist[tc.I_SEC_IDX, :3] = (n - 1, 3, 0)
+    ist[tc.I_MODE, :2] = 1
+    ist[tc.I_EXTCNT, :2] = (n - 2, 4)
+    return spec, fst, ist, np.ascontiguousarray(np.tile(sec[:, None],
+                                                        (1, C)))
+
+
+def _complex_pairs(K):
+    """The I and Q rows of each complex quantity: the taps, the coherent
+    accumulators, the previous prompt, the half-window prompt, and the
+    CN0 window's I and Q power sums.  Over a 16-epoch chunk the
+    frozen-vs-true phase ledger carries ~1e-5 rad of float32 rounding that
+    differs between the implementations, so a rotated tap differs by
+    ~1e-5 of its magnitude in I and Q alike, and the smaller component of
+    an accumulator (or of its power) can miss 1e-4 of its own row's
+    maximum while both hold 1e-4 of the complex value's scale."""
+    acc = tuple((tc.F_ACC_R0 + k, tc.F_ACC_R0 + K + k) for k in range(K))
+    return {"out_corr": tuple((k, K + k) for k in range(K)),
+            "fst": acc + ((tc.F_PREV_R, tc.F_PREV_I),
+                          (tc.F_ACCH_R, tc.F_ACCH_I),
+                          (tc.F_SI2, tc.F_SQ2))}
+
+
+def _sec_chunk(spec, fst, ist, sec, rng):
+    """One chunk's lag windows around the correlation peak whose sign
+    follows each channel's secondary chip epoch by epoch (the code phase
+    the state carries), in the Pallas layout."""
+    E16, n = spec.E, spec.sec_len
+    start = ist[tc.I_START].astype(np.int64)
+    s_reg = (start[None, :] - (E16 + 4)
+             + np.arange(E16)[:, None] * spec.t0_int).astype(np.int32)
+    lag = np.arange(spec.LW)[None, :, None]
+    pk = (spec.lag_margin + (E16 + 4) + fst[tc.F_REM_CODE])[None, None, :]
+    tri = np.maximum(0.0, 1.0 - np.abs(lag - pk) / spec.spc_samples)
+    chip = sec[(ist[tc.I_SEC_IDX][None, :] + np.arange(E16)[:, None]) % n, 0]
+    amp = (rng.normal(size=(E16, 1, C)) * 20.0 + 300.0) * chip[:, None, :]
+    ph = rng.uniform(-0.3, 0.3, size=(E16, 1, C))
+    zr = (amp * np.cos(ph) * tri
+          + rng.normal(size=(E16, spec.LW, C)) * 10.0).astype(np.float32)
+    zi = (amp * np.sin(ph) * tri
+          + rng.normal(size=(E16, spec.LW, C)) * 10.0).astype(np.float32)
+    step0 = (2 * np.pi * (fst[tc.F_DOPPLER] + 0.7) / spec.fs)[None].astype(
+        np.float32)
+    return zr, zi, s_reg, step0
+
+
+@pytest.mark.parametrize("name", SEC_CODES)
+def test_chain_secondary_code_over_chunks_matches_pallas_interpret(
+        jax_chain, tracked_state, name):
+    """The wipe's index clamp and its advance modulo the code length
+    (pallas_chain.py:230, :460) across chunk seams: each implementation
+    carries its own state from chunk to chunk, and every chunk's outputs
+    and state agree."""
+    import jax.numpy as jnp
+
+    spec, fst, ist, sec = _sec_setup(tracked_state, name)
+    n = spec.sec_len
+    call = jax_chain.make_chain_call(
+        jax_chain.ChainSpec(**dataclasses.asdict(spec)), interpret=True)
+    rng = np.random.default_rng(n)
+    fj, ij, ft, it = fst, ist, torch.from_numpy(fst), torch.from_numpy(ist)
+    pushes = ist[tc.I_PUSH].copy()
+    for k in range(SEC_CHUNKS):
+        zr, zi, s_reg, step0 = _sec_chunk(spec, fj, ij, sec, rng)
+        want = call(*(jnp.asarray(a) for a in (zr, zi, s_reg, step0, sec,
+                                               fj, ij)))
+        got = tc.chain(spec, *_port_args((zr, zi, s_reg, step0, sec,
+                                          ft.numpy(), it.numpy())))
+        _compare(got, want, f"{name} chunk {k}", _complex_pairs(spec.K))
+        n_valid = np.asarray(got[0])[:, tc.O_VALID].sum(axis=0).astype(int)
+        assert (n_valid == spec.E).all()
+        # the index advanced once per epoch, modulo the code length; the
+        # channel without the wipe keeps advancing it too
+        np.testing.assert_array_equal(np.asarray(got[4])[tc.I_SEC_IDX],
+                                      (ij[tc.I_SEC_IDX] + spec.E) % n)
+        fj, ij = np.asarray(want[3]), np.asarray(want[4])
+        ft, it = got[3], got[4]
+    # the extended channels closed their windows on the code's grid: one
+    # loop update per n epochs (ch0 first after 2 epochs)
+    done = np.asarray(it)[tc.I_PUSH] - pushes
+    assert done[0] == 1 + (SEC_CHUNKS * spec.E - 2) // n
+    assert done[1] == (SEC_CHUNKS * spec.E + 4) // n
+    assert done[2] == done[3] == SEC_CHUNKS * spec.E
+
+
 def test_chain_wrapper_counts_only_kernel_launches(port_state):
     spec, args = _case(port_state, CASES["wide_order3"], seed=3)
     port = _port_args(args)
@@ -302,3 +430,30 @@ def test_chain_kernel_matches_plain_on_gpu(request, case):
     # reciprocal)
     want = tc.chain_plain(spec, *port)
     _compare([t.cpu() for t in got], want, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SEC_CODES)
+def test_chain_secondary_code_over_chunks_kernel_matches_plain_on_gpu(
+        port_state, name):
+    """The kernel's `<3, 3, true, true>` instance against the plain version
+    on the CPU over consecutive chunks, each carrying its own state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA chain kernel has no CPU "
+                    "mode)")
+    spec, fst, ist, sec = _sec_setup(port_state, name)
+    rng = np.random.default_rng(spec.sec_len)
+    fp, ip, fk, ik = fst, ist, fst, ist
+    for k in range(SEC_CHUNKS):
+        zr, zi, s_reg, step0 = _sec_chunk(spec, fp, ip, sec, rng)
+        want = tc.chain_plain(spec, *_port_args((zr, zi, s_reg, step0, sec,
+                                                 fp, ip)))
+        before = tc.launches
+        got = tc.chain(spec, *(t.cuda() for t in _port_args(
+            (zr, zi, s_reg, step0, sec, fk, ik))))
+        torch.cuda.synchronize()
+        assert tc.launches == before + 1
+        _compare([t.cpu() for t in got], want, f"{name} chunk {k}",
+                 _complex_pairs(spec.K))
+        fp, ip = want[3].numpy(), want[4].numpy()
+        fk, ik = got[3].cpu().numpy(), got[4].cpu().numpy()

@@ -1,7 +1,8 @@
 """The port's conf-file CLI and its configuration layer against the JAX
 package's: every conf in conf/ parses to the same items and frontend; the
-six GPS L1 C/A confs and the two Galileo E1 confs that need only what the
-port carries map to the same ReceiverConfig values and build a Receiver;
+six GPS L1 C/A confs, the two Galileo E1 confs, the GPS L5 conf and the
+Galileo E5a (CAF) conf that need only what the port carries map to the
+same ReceiverConfig values and build a Receiver;
 every other conf, and every
 flag of a feature not ported yet, is refused with its ROADMAP.md item; the
 block registries agree; and both CLIs print the same lines on a short
@@ -35,15 +36,15 @@ from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
 PORTED = ["galileo_e1_gr_complex.conf", "galileo_e1_quicksync.conf",
-          "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
+          "galileo_e5a.conf", "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
           "gps_l1_kalman.conf", "gps_l1_nsr.conf",
-          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf"]
+          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf", "gps_l5.conf"]
 UNPORTED = [c for c in CONFS if c not in PORTED]
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 
 
 def test_corpus_split():
-    assert len(CONFS) == 16 and len(UNPORTED) == 8
+    assert len(CONFS) == 16 and len(UNPORTED) == 6
     assert set(PORTED) <= set(CONFS)
 
 
@@ -74,7 +75,8 @@ def test_ported_conf_maps_like_jax(name):
         # non-integer number of samples per chip included)
         p = cc.corr_params(rx.trk.corr_spec)
         assert p.smem_bytes <= cc.MAX_SMEM and p.L % cc.TL == 0
-        # 5 taps (VE/E/P/L/VL) for Galileo E1B, 3 for GPS L1 C/A
+        # 5 taps (VE/E/P/L/VL) for Galileo E1B, 3 for GPS L1 C/A, L5
+        # and Galileo E5a
         assert rx.trk.chain_spec.K == (5 if rt.signal_id == "1B" else 3)
         assert rx.trk.chain_spec.order in (2, 3)
 
@@ -94,6 +96,33 @@ def test_galileo_confs_map(name, strategy, channels, fs):
         "QuickSyncAcquisition" if strategy == "quicksync"
         else "PcpsAcquisition")
     assert rx.trk.cfg.veml and rx.trk.cfg.early_late_space_chips == 0.15
+
+
+@pytest.mark.parametrize("name,signal,strategy,fs,sec_len", [
+    ("gps_l5.conf", "L5", "pcps", 12.5e6, 10),
+    ("galileo_e5a.conf", "5X", "caf", 12.0e6, 20)])
+def test_l5_e5a_confs_map(name, signal, strategy, fs, sec_len, capsys):
+    """Both confs map to their signal, strategy, rate and 6 channels; the
+    receiver carries the secondary code in the chain (NH10 / CS20) and the
+    conf's extension default (none off GPS L1 C/A) as the JAX package's
+    does, and the CLI accepts the signal."""
+    rt = trc(TConf(str(CONF_DIR / name)))
+    assert (rt.signal_id, rt.acq_strategy, rt.n_channels, rt.fs_hz) == (
+        signal, strategy, 6, fs)
+    assert rt.extend_correlation_symbols == 0
+    rx = Receiver(rt, device="cpu")
+    assert type(rx.acq).__name__ == (
+        "CafAcquisition" if strategy == "caf" else "PcpsAcquisition")
+    assert rx._sec_period == sec_len
+    spec = rx.trk.chain_spec
+    assert (spec.K, spec.sec_len, spec.sec_data, spec.ext_n) == (
+        3, sec_len, True, 1)
+    # the flag passes; the run stops at the missing file
+    with pytest.raises(SystemExit):
+        tcli.main(["--signal_file", "missing.dat", "--device", "cpu",
+                   "--signal", signal])
+    err = capsys.readouterr().err
+    assert "signal file not found" in err and "ROADMAP" not in err
 
 
 def test_galileo_tong_and_folding_keys_map(tmp_path):
@@ -120,7 +149,7 @@ def test_galileo_tong_and_folding_keys_map(tmp_path):
 @pytest.mark.parametrize("name,item", [
     ("hybrid_ishort.conf", "item 2"),
     ("multisource_hybrid_ishort.conf", "item 2"),
-    ("galileo_e5a.conf", "item 7")])
+    ("gps_l2c_ibyte.conf", "item 7")])
 def test_unported_conf_names_its_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         trc(TConf(str(CONF_DIR / name)))
@@ -174,7 +203,7 @@ def test_unported_conf_refused_with_roadmap_item(name, capsys):
     ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
     ("--supl", "localhost"), ("--telecommand_port", "2101"),
     ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111"),
-    ("--signal", "5X")])
+    ("--signal", "2S")])
 def test_unported_flag_refused(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])

@@ -304,10 +304,15 @@ def test_caf_and_unported_refused():
 
     with pytest.raises(NotImplementedError, match="item 7"):
         ReceiverConfig(signal_id="1B", acq_strategy="caf")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="5X")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="1B", track_engine="kf")
+    # L5 and E5a are ported; GPS L2C, GLONASS and BeiDou and the KF
+    # tracker off GPS L1 C/A are not
+    for sid in ("2S", "1G", "B1"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            ReceiverConfig(signal_id=sid)
+    ReceiverConfig(signal_id="5X", acq_strategy="caf")
+    for sid in ("1B", "L5", "5X"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            ReceiverConfig(signal_id=sid, track_engine="kf")
     with pytest.raises(NotImplementedError, match="item 4"):
         ReceiverConfig(signal_id="1B", acq_strategy="assisted")
     assert "item 7" in ROADMAP_ITEMS["signals"]

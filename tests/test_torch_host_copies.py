@@ -431,6 +431,74 @@ def test_galileo_channel_decoder_identical():
                                                 abs=2e-5)
 
 
+# ---------------------------------------------------------------------------
+# GPS L5 and Galileo E5a: CNAV, F/NAV, the channel adapters, the scenario
+# ---------------------------------------------------------------------------
+
+import inspect  # noqa: E402
+
+import gnss_sdr_1_tpu.telemetry.cnav as jcnav  # noqa: E402
+import gnss_sdr_1_tpu.telemetry.fnav as jfnav  # noqa: E402
+import gnss_sdr_1_tpu_torch.telemetry.cnav as tcnav  # noqa: E402
+import gnss_sdr_1_tpu_torch.telemetry.fnav as tfnav  # noqa: E402
+
+
+@pytest.mark.parametrize("pair", [(tcnav, jcnav), (tfnav, jfnav)],
+                         ids=["cnav", "fnav"])
+def test_cnav_fnav_identical(pair):
+    """The dataclasses, the encoders and the decoders of both message
+    formats agree, from the scenario's broadcast conversions (the F/NAV
+    copy uses the port's I/NAV helpers, which the port's decoder repair
+    left as they were)."""
+    tmod, jmod = pair
+    names = [n for n, v in vars(jmod).items()
+             if dataclasses.is_dataclass(v) and v.__module__ == jmod.__name__]
+    assert names
+    for n in names:
+        ft = [(f.name, f.default) for f in dataclasses.fields(getattr(tmod, n))]
+        fj = [(f.name, f.default) for f in dataclasses.fields(getattr(jmod, n))]
+        assert ft == fj, n
+    for n in ("_get", "_put", "_q", "_fec_encode"):
+        assert inspect.getsource(getattr(tinav, n)) == inspect.getsource(
+            getattr(jinav, n)), n
+    sj, _ = _scenarios()
+    eph = sj.ephemerides[5]
+    if tmod is tcnav:
+        ej, et = jscen._gps_to_cnav(eph), tscen._gps_to_cnav(eph)
+        assert dataclasses.asdict(et) == dataclasses.asdict(ej)
+        iono = _iono(jlnav)
+        for mt in (10, 11, 30):
+            bt = tcnav.encode_message(mt, et, 345606.0, iono=_iono(tlnav))
+            np.testing.assert_array_equal(
+                bt, jcnav.encode_message(mt, ej, 345606.0, iono=iono))
+            assert tcnav.crc_check(bt) and jcnav.crc_check(bt)
+        kt, kj = et.to_keplerian(), ej.to_keplerian()
+        assert dataclasses.asdict(kt) == dataclasses.asdict(kj)
+        assert kt.sqrt_a == pytest.approx(eph.sqrt_a, abs=1e-3)
+    else:
+        gj, gt = jscen._gps_to_galileo(eph), tscen._gps_to_galileo(eph)
+        gj.tow = gt.tow = 345610.0
+        for ptype in (1, 2, 3, 4):
+            st = tfnav.encode_page(ptype, gt)
+            np.testing.assert_array_equal(st, jfnav.encode_page(ptype, gj))
+            soft = np.where(st[12:] > 0, 255, 0).astype(np.uint8)
+            bt = tfnav.decode_symbols(soft)
+            np.testing.assert_array_equal(bt, jfnav.decode_symbols(soft))
+            dt, dj = tinav.GalileoEphemeris(), jinav.GalileoEphemeris()
+            assert tfnav.decode_page_bits(bt, dt) == jfnav.decode_page_bits(
+                bt, dj) == ptype
+            assert dataclasses.asdict(dt) == dataclasses.asdict(dj)
+
+
+@pytest.mark.parametrize("name", ["GpsL5ChannelDecoder",
+                                  "GalileoE5aChannelDecoder"])
+def test_l5_e5a_adapters_are_copies(name):
+    """The port's L5 and E5a channel adapters are the JAX package's, line
+    for line (tests/test_torch_l5_e5a.py feeds both the same prompts)."""
+    assert inspect.getsource(getattr(tadapt, name)) == inspect.getsource(
+        getattr(jadapt, name))
+
+
 def _port_sources():
     files = sorted((ROOT / "gnss_sdr_1_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_port.py"]

@@ -47,7 +47,7 @@ def short_run():
 
 def test_receiver_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="5X")
+        ReceiverConfig(signal_id="2S")
     with pytest.raises(NotImplementedError):
         ReceiverConfig(track_engine="veml")
     ReceiverConfig(track_engine="kf")         # ported: track/kf.py
