@@ -2,6 +2,12 @@
 """Smoke run of the PyTorch/CUDA receiver on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --e2e-seeds 1234,1,2 --e2e-cpu card:1234,numpy:1
+
+The second form runs phase 5's receiver alone over the e2e capture made
+with other noise (the card's and numpy's, one capture per seed; on the CPU
+too for the captures named), prints fixes, first-fix time and median 3D
+error a run, holds no bar, and ends without the lines below.
 
 Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
@@ -25,11 +31,20 @@ Phases (one line each, with times):
      shape (12 Msps, C=6, CS20) on chunks of real L5/E5a engines whose
      channels wipe the secondary code from a non-zero code index (the
      chain's secondary-code instances; over the capture entry's three
-     chunks the index crosses chunk seams);
+     chunks the index crosses chunk seams); the same three checks, timed,
+     at a GLONASS L1 shape (6.625 Msps, C=5, the FDMA carrier bias of
+     k = -5, -2, 0, 1, 5 in both kernels: |k| = 5 is 2.81 MHz) and at the
+     GPS L2C shape (3 Msps, C=6, the 20 ms window of ~60,000 samples
+     walked in 4 tiles); and each of the chain's 16 template instances
+     <K, ORDER, SEC_DATA, HAS_SEC> on the E1 (K=5) and L5 (K=3) chunks,
+     one line each;
+     then the generator on the card held to the numpy one on a noiseless
+     20 ms stretch of every capture the script makes on the card;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
-     (RTF, valid epochs, each kernel's launches == chunks);
+     (made on the card, as the captures of phases 5, 10 and 12-18 are;
+     RTF, valid epochs, each kernel's launches == chunks);
   5. the receiver end to end — the main path: 12 satellites, 30 s, live
      LNAV, PVT every 100 ms, the capture preloaded to the card (e2e RTF,
      fixes, median 3D error against the scenario truth, each kernel's
@@ -73,14 +88,36 @@ Phases (one line each, with times):
      captures written as gr_complex files (each file deleted after its
      runs): the L5 conf as written; the E5a conf as written (its PCPS-scale
      threshold acquires nothing under the CAF's statistic: exit 0 without a
-     fix) and with the threshold and the pull-in PLL the CAF needs.
+     fix) and with the threshold and the pull-in PLL the CAF needs;
+ 15. the GLONASS L1 receiver with FDMA: tests/test_system_glonass.py's 5
+     slots (k = -2..2), 20 s at 4.092 Msps, at its bars (tracked slots,
+     GNAV ephemerides equal to the broadcast truth, fixes, median 3D
+     error), each kernel's launches == chunks, the chunks run with a
+     non-zero FDMA bias; then with 5 s segments (what the pull-in rule
+     costs: segments and RTF);
+ 16. MultiReceiver, GPS L1 C/A + Galileo E1B groups on one stream
+     (tests/test_system_mixed.py: 4 + 3 satellites, 30 s at 4 Msps) with
+     one joint PVT at that test's bars; launches == chunks per group (the
+     K=3 and K=5 chain instances over one capture);
+ 17. MultiReceiver, GPS L1 + L2C groups on two streams (the same test's
+     dual-band case: 4 satellites, 55 s at 2.046 Msps) at its bars;
+     launches == chunks per group; the L2C group alone at 1 s and 5 s
+     segments (what the pull-in rule costs);
+ 18. the CLI on hybrid_ishort.conf and multisource_hybrid_ishort.conf
+     (phase 16's capture as an ishort file), glonass_l1_gps_l1_ibyte.conf
+     (GPS and a GLONASS slot at k = 0, 6.625 Msps ibyte) and
+     gps_l2c_ibyte.conf (3 Msps ibyte) as written, each file deleted after
+     its run (the joint runs: the `Mixed-constellation run:` line, joint
+     fixes on both systems, four position files; the hybrid confs at
+     phase 16's bars; the GLONASS conf's R measurements all the capture's
+     one satellite, which its k = 0 channels track under several PRNs).
 Then one JSON line describing every kernel (launches summed over phases
-5-7 and 10-14, each read just after its run), the nvidia-smi line, and
+5-7 and 10-18, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
-once.  Synthetic captures are cached in chip_smoke_cache/ (git-ignored);
-the full report (per-row kernel diffs, per-PRN acquisition results) goes to
+once.  The short captures of phase 2's kernel checks are cached in
+chip_smoke_cache/ (git-ignored); the full report (per-row kernel diffs, per-PRN acquisition results) goes to
 `--out` (default chip_smoke_cache/) as chip_smoke_report.json.
 """
 
@@ -88,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import pathlib
@@ -166,6 +204,47 @@ CAF_THRESHOLD = 5e-4
 CAF_PLL_BW_HZ = 45.0
 # seconds of signal per block of the generator on the card
 GEN_BLOCK_S = 1.0
+# the captures of phases 3-5 and 10, made on the card with the numpy
+# generator's noise (seed 1234): the captures their bars were set on
+NUMPY_NOISE_CELLS = ("engine", "e2e", "E1")
+# phase 2: the GLONASS shape (one slot at |k| = 5 at 6.625 Msps, 2.81 MHz
+# against the +-3.31 MHz band) and the L2C shape (gps_l2c_ibyte.conf's
+# 3 Msps, a 20 ms epoch of ~60,000 samples)
+FS_GLO_HI = 6.625e6
+GLO_CHECK_KS = {1: -5, 2: -2, 3: 0, 4: 1, 5: 5}
+FS_L2C = 3.0e6
+# phase 15: tests/test_system_glonass.py's scenario and bars
+FS_GLO = 4.092e6
+GLO_S = 20.0
+GLO_T0 = 35995.0            # 25 s into a 30 s GNAV frame
+GLO_KS = {1: -2, 2: -1, 3: 0, 4: 1, 5: 2}
+MIN_TRACKED_GLO = 4
+MIN_EPH_GLO = 4
+MIN_FIXES_GLO = 10
+MAX_MEDIAN_GLO = 15.0
+# phase 16: tests/test_system_mixed.py's GPS L1 + Galileo E1B scenario
+FS_MIX = 4.0e6
+MIX_S = 30.0
+MIX_GPS = (1, 2, 3, 4)
+MIX_GAL = (11, 12, 13)
+MIN_FIXES_MIX = 10
+MAX_MEDIAN_MIX = 5.0
+# phase 17: the same test's GPS L1 + L2C dual-band case
+FS_DUAL = 2.046e6
+DUAL_S = 55.0
+DUAL_PRNS = (1, 2, 3, 4)
+MIN_EPH_L2C = 3
+# phase 18: the GLONASS + GPS conf's capture (GPS and one GLONASS slot at
+# k = 0, the frequency channel the conf's group runs every slot at; time
+# of day within the first day of the GPS week, where the scenario's
+# GLONASS time of day equals GPS TOW) and the L2C conf's, written as ibyte
+# files at this scale
+GLO_CONF_S = 30.0
+GLO_CONF_GPS = (1, 2, 3, 4, 5, 6)
+GLO_CONF_SLOT = 7
+L2C_CONF_S = 55.0
+L2C_CONF_PRNS = (1, 2, 3, 4, 5, 6)
+IBYTE_SCALE = 30.0
 
 
 def log(msg: str) -> None:
@@ -176,6 +255,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=CACHE,
                     help="directory for chip_smoke_report.json")
+    ap.add_argument("--e2e-seeds", default=None, metavar="S,S,...",
+                    help="in place of the smoke run: phase 5's receiver on "
+                    "the card over the e2e capture made with each seed's "
+                    "card noise and with its numpy noise (fixes, first-fix "
+                    "time, median 3D error; no bar), into e2e_seeds.json")
+    ap.add_argument("--e2e-cpu", default="", metavar="card:S,numpy:S,...",
+                    help="with --e2e-seeds: also run the port on the CPU "
+                    "over these captures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -192,6 +279,12 @@ def main() -> None:
         raise RuntimeError("TF32 must be off for the float32 correlations")
     dev = torch.device("cuda")
     t_all = time.perf_counter()
+    if args.e2e_seeds:
+        _build.library()
+        e2e_seeds(dev, [int(v) for v in args.e2e_seeds.split(",")],
+                  [tuple(v.split(":")) for v in args.e2e_cpu.split(",")
+                   if v], args.out)
+        return
 
     # ---- 1. card + kernel build ----
     smi = subprocess.run(
@@ -262,15 +355,39 @@ def main() -> None:
             f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.2e} ms "
             f"({sh['bound_by']}); capture {r['capture_err']:.3e}, int rows "
             f"exact")
+    for sig, r in (("GLONASS", k_rep["glo"]), ("L2C", k_rep["l2c"])):
+        sc, sh = r["corr"], r["chain"]
+        log(f"    {sig} shape (K=3, E=16, C={len(r['offsets_hz'])}, "
+            f"{r['fs'] / 1e6:g} Msps, NW={r['NW']}, LW={r['LW']}, "
+            f"{r['tiles']} tile(s), FDMA biases "
+            f"{[round(v) for v in r['offsets_hz']]} Hz): chunk_corr max "
+            f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
+            f"{sc['ms']:.5f} ms/launch device, plain {sc['plain_ms']:.3f} ms, "
+            f"torch.bmm pair {sc['library_ms']:.5f} ms, bound "
+            f"{sc['bound_ms']:.2e} ms ({sc['bound_by']}); track_chain "
+            f"{r['chain_err']:.3e}, {sh['ms']:.5f} ms/launch device, plain "
+            f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.2e} ms "
+            f"({sh['bound_by']}); capture {r['capture_err']:.3e}, int rows "
+            f"exact")
+    for r in k_rep["instances"]:
+        log(f"    track_chain instance {r['instance']} vs plain on the CPU: "
+            f"max |diff| {r['err']:.3e}, int rows exact, "
+            f"{r['valid_epochs']} valid epochs")
     log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
                              f"the torch.bmm pair {cr['library_ms']:.5f} ms")
 
-    # ---- 3. acquisition ----
+    # ---- the generator on the card, held to numpy on every capture ----
     t0 = time.perf_counter()
-    sats, x_eng = engine_capture()
-    gen_s = time.perf_counter() - t0
+    twin = check_card_generator(dev)
+    log(f"    generator on the card vs numpy, noiseless {twin['s'] * 1e3:g} ms "
+        f"in {twin['block_s'] * 1e3:g} ms blocks: max |diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in twin["err"].items())
+        + f" of amplitude 1 | {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3. acquisition ----
+    sats, x_eng, gen_s = engine_capture(dev)
     t0 = time.perf_counter()
     acq = phase_acquisition(dev, sats, x_eng)
     gps_head = x_eng[: int(FS * 0.1)].copy()      # phase 9's GPS samples
@@ -295,7 +412,7 @@ def main() -> None:
 
     # ---- 5. receiver end to end (the main path) ----
     t0 = time.perf_counter()
-    scen, x_e2e, gen_s = e2e_capture()
+    scen, x_e2e, gen_s = e2e_capture(dev)
     e2e = phase_e2e(dev, cc, tc, scen, x_e2e)
     log(f"[5] receiver e2e: 12 sats x {E2E_S:g} s, RTF {e2e['rtf']:.2f} "
         f"({e2e['wall_s']:.2f} s), fixes {e2e['fixes']}, median 3D error "
@@ -335,9 +452,9 @@ def main() -> None:
 
     # ---- 9-11. acquisition strategies, Galileo E1 receiver and CLI ----
     t0 = time.perf_counter()
-    scen_e1, x_e1, gen_s = e1_capture()
-    log(f"    Galileo E1 capture made ({len(E1_PRNS)} sats x {E1_S:g} s at "
-        f"{FS_E1 / 1e6:g} Msps) | {gen_s:.1f} s")
+    scen_e1, x_e1, gen_s = e1_capture(dev)
+    log(f"    Galileo E1 capture made on the card ({len(E1_PRNS)} sats x "
+        f"{E1_S:g} s at {FS_E1 / 1e6:g} Msps) | {gen_s:.2f} s")
     t0 = time.perf_counter()
     acqv = phase_acq_variants(dev, x_e1[: int(FS_E1 * 0.3)], gps_head)
     log("[9] acquisition strategies, card vs CPU (same detections and "
@@ -368,12 +485,6 @@ def main() -> None:
     log(f"    | {time.perf_counter() - t0:.1f} s")
 
     # ---- 12-14. GPS L5 and Galileo E5a receivers and CLI ----
-    t0 = time.perf_counter()
-    twin = check_card_generator(dev)
-    log(f"    generator on the card vs numpy, noiseless {twin['s'] * 1e3:g} ms "
-        f"in {twin['block_s'] * 1e3:g} ms blocks: max |diff| "
-        + ", ".join(f"{k} {v:.2e}" for k, v in twin["err"].items())
-        + f" of amplitude 1 | {time.perf_counter() - t0:.1f} s")
     sec_runs, sec_caps, cli14 = {}, {}, {}
     for sig in ("L5", "5X"):
         scen_s, x_s, gen_s = sec_capture(dev, sig)
@@ -399,11 +510,76 @@ def main() -> None:
         cli14.update(phase_cli_sec(cc, tc, *sec_caps.pop(sig), sig))
         log(f"    | {time.perf_counter() - t0:.1f} s")
 
+    # ---- 15. GLONASS L1 receiver with FDMA ----
+    scen_glo = _cells()["1G"][0]
+    x_glo, gen_s = card_capture(dev, ["1G"], 106)
+    t0 = time.perf_counter()
+    glo = phase_glonass(dev, cc, tc, tcap, scen_glo, x_glo)
+    del x_glo
+    ls = glo["long_segments"]
+    log(f"[15] GLONASS L1 receiver e2e (FDMA k {sorted(GLO_KS.values())}): "
+        f"{len(GLO_KS)} slots x {GLO_S:g} s at {FS_GLO / 1e6:g} Msps, RTF "
+        f"{glo['rtf']:.2f} ({glo['wall_s']:.2f} s), {glo['tracked']} slots "
+        f"tracked > 10,000 epochs, GNAV ephemerides {glo['ephemerides']} "
+        f"(equal to the broadcast truth), fixes {glo['fixes']}, median 3D "
+        f"error {glo['median_3d_m']:.2f} m, launches chunk_corr "
+        f"{glo['launches_chunk_corr']} track_chain "
+        f"{glo['launches_track_chain']} == chunks {glo['chunks']} on "
+        f"<3,3,false,false>, {glo['offset_chunks']} chunks with a non-zero "
+        f"FDMA bias, {glo['segments']} segments; with 5 s segments "
+        f"{ls['segments']} segments, RTF {ls['rtf']:.2f}, {ls['fixes']} "
+        f"fixes | {time.perf_counter() - t0:.1f} s (capture made on the "
+        f"card in {gen_s:.2f} s)")
+
+    # ---- 16. GPS L1 + Galileo E1B on one stream, joint PVT ----
+    x_mix, gen_s = card_capture(dev, ["mixed 1C", "mixed 1B"], 107)
+    t0 = time.perf_counter()
+    mix = phase_mixed(dev, cc, tc, x_mix)
+    log(f"[16] MultiReceiver GPS L1 C/A + Galileo E1B on one stream: "
+        f"{len(MIX_GPS)} + {len(MIX_GAL)} sats x {MIX_S:g} s at "
+        f"{FS_MIX / 1e6:g} Msps, RTF {mix['rtf']:.2f} ({mix['wall_s']:.2f} "
+        f"s), ephemerides GPS {mix['ephemerides_gps']} E1 "
+        f"{mix['ephemerides_e1']}, joint fixes {mix['fixes']} (every one "
+        f"on G and E; none from the Galileo group alone), median 3D error "
+        f"{mix['median_3d_m']:.2f} m, per group launches == chunks "
+        + ", ".join(f"{g['signal']} {g['chunks']} on "
+                    f"{list(g['instances'])}" for g in mix["groups"])
+        + f" | {time.perf_counter() - t0:.1f} s (capture made on the card "
+        f"in {gen_s:.2f} s)")
+
+    # ---- 17. GPS L1 + L2C on two streams, joint PVT ----
+    x1, g1 = card_capture(dev, ["dual 1C"], 108)
+    x2, g2 = card_capture(dev, ["dual 2S"], 109)
+    t0 = time.perf_counter()
+    dual = phase_dual(dev, cc, tc, x1, x2)
+    dual["l2c_segments"] = _l2c_segments(dev, cc, tc, x2)
+    del x1, x2
+    seg = dual["l2c_segments"]
+    log(f"[17] MultiReceiver GPS L1 + L2C on two streams: "
+        f"{len(DUAL_PRNS)} sats x {DUAL_S:g} s at {FS_DUAL / 1e6:g} Msps, "
+        f"RTF {dual['rtf']:.2f} ({dual['wall_s']:.2f} s), CNAV ephemerides "
+        f"{dual['cnav_ephemerides']}, joint fixes {dual['fixes']}, median 3D "
+        f"error {dual['median_3d_m']:.2f} m (converged half "
+        f"{dual['median_3d_converged_half_m']:.2f} m), per group launches "
+        f"== chunks " + ", ".join(f"{g['signal']} {g['chunks']}"
+                                  for g in dual["groups"])
+        + f"; the L2C group alone: {seg[25]['segments']} segments (RTF "
+        f"{seg[25]['rtf']:.2f}) at 1 s, {seg[125]['segments']} (RTF "
+        f"{seg[125]['rtf']:.2f}) at 5 s | {time.perf_counter() - t0:.1f} s "
+        f"(captures made on the card in {g1 + g2:.2f} s)")
+
+    # ---- 18. the CLI on the four confs this slice ports ----
+    t0 = time.perf_counter()
+    cli18 = phase_cli_multi(dev, cc, tc, x_mix)
+    del x_mix
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
-             *cli14.values())
+             *cli14.values(), glo, mix, dual, *cli18.values())
     src = "gnss_sdr_1_tpu_torch/csrc/"
+    shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
         "name": "chunk_corr", "route": "cuda",
         "source": src + "chunk_corr.cuh",
@@ -414,7 +590,7 @@ def main() -> None:
         "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
         "e1_ms": e1c["ms"], "e1_bound_ms": e1c["bound_ms"],
         "e1_plain_ms": e1c["plain_ms"], "e1_library_ms": e1c["library_ms"],
-        **_shape_keys(k_rep["sec"], "corr"),
+        **_shape_keys(shapes, "corr"),
     }, {
         "name": "track_chain", "route": "cuda",
         "source": src + "track_chain.cu",
@@ -425,15 +601,19 @@ def main() -> None:
         "bound_by": ch["bound_by"], "library_ms": None,
         "e1_ms": e1h["ms"], "e1_bound_ms": e1h["bound_ms"],
         "e1_plain_ms": e1h["plain_ms"], "e1_library_ms": None,
-        **_shape_keys(k_rep["sec"], "chain"),
+        **_shape_keys(shapes, "chain"),
         "sec_launches": {sig: r["sec_chunks"] for sig, r in sec_runs.items()},
+        "fdma_launches": glo["offset_chunks"],
+        "instances_checked": len(k_rep["instances"]),
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
               "e2e": e2e, "cli_passthrough": cli6, "cli_if": cli7,
               "cli_kf": cli8, "acq_variants": acqv, "e1_e2e": e1,
               "cli_galileo": cli11, "generator": twin, "sec": sec_runs,
-              "cli_sec": cli14, "total_s": time.perf_counter() - t_all}
+              "cli_sec": cli14, "glonass": glo, "mixed": mix, "dual": dual,
+              "cli_multi": cli18,
+              "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
         json.dumps(report, indent=1, default=float))
@@ -521,15 +701,27 @@ def _engine(dev, fs=FS, signal="1C"):
     for signal '1B' the tracker of phase 10's Galileo E1B receiver at `fs`
     (8 channels, 5 taps, 16-epoch chunks), or for 'L5' / '5X' the tracker
     of phase 12 / 13's receiver (6 channels, the NH10 / CS20 secondary
-    rows, 16-epoch chunks)."""
+    rows, 16-epoch chunks), or for '1G' a GLONASS L1 tracker (5 channels,
+    the FDMA slots of GLO_CHECK_KS), or for '2S' a GPS L2CM tracker (6
+    channels, 20 ms epochs)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
-    from gnss_sdr_1_tpu_torch.runtime import Receiver
+    from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 
     if signal == "1B":
         return Receiver(_e1_config(fs_hz=fs), device=dev).trk
     if signal in ("L5", "5X"):
         return Receiver(_sec_config(signal, fs_hz=fs), device=dev).trk
+    if signal == "1G":
+        return Receiver(ReceiverConfig(
+            fs_hz=fs, signal_id="1G", n_channels=len(GLO_CHECK_KS),
+            prn_search=tuple(GLO_CHECK_KS),
+            fdma_k=tuple(GLO_CHECK_KS.items())), device=dev).trk
+    if signal == "2S":
+        return Receiver(ReceiverConfig(
+            fs_hz=fs, signal_id="2S", n_channels=6,
+            prn_search=tuple(range(1, 7)), pll_bw_hz=4.0, dll_bw_hz=0.4),
+            device=dev).trk
     codes = np.stack([gps_l1ca_code(p) for p in range(1, 13)])
     cfg = TrackConfig(fs_hz=fs, code_length_chips=1023,
                       chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
@@ -585,14 +777,46 @@ def _sec_sats(signal, duration_s):
 
 def _activate_all(eng, sats):
     """Every channel at its satellite's true delay and Doppler (delays in
-    the replica's chips: 1.023 MHz for GPS, 2.046 MHz for E1 sinBOC)."""
+    the replica's chips: 1.023 MHz for GPS, 2.046 MHz for E1 sinBOC), with
+    its FDMA carrier offset as the NCO bias."""
     fs = eng.cfg.fs_hz
     rate = eng.cfg.chip_rate_chips_s * eng.cfg.code_samples_per_chip
     st = eng.init_state()
     for ch, s in enumerate(sats):
         st = eng.activate_channel(st, ch, ch, s.delay_chips / rate * fs,
-                                  s.doppler_hz, 0, 0)
+                                  s.doppler_hz, 0, 0,
+                                  carr_offset_hz=s.carrier_offset_hz)
     return st
+
+
+def _glo_sats(duration_s):
+    """Five GLONASS slots on the FDMA carriers of GLO_CHECK_KS for the
+    kernel checks (seed 46; 100 sps meander symbols)."""
+    from gnss_sdr_1_tpu_torch.siggen import SatParams
+
+    rng = np.random.default_rng(46)
+    return [SatParams(prn=p, doppler_hz=float(rng.uniform(-3500, 3500)),
+                      delay_chips=float(rng.uniform(0, 511)), cn0_dbhz=47.0,
+                      nav_bits=rng.choice([-1.0, 1.0],
+                                          int(duration_s * 100) + 8),
+                      carrier_offset_hz=562.5e3 * k,
+                      bit_rate_override_bps=100.0)
+            for p, k in GLO_CHECK_KS.items()]
+
+
+def _l2c_sats(duration_s):
+    """Six GPS L2CM satellites for the kernel checks (seed 47; one CNAV
+    symbol per 20 ms code period)."""
+    from gnss_sdr_1_tpu_torch.siggen import SatParams
+
+    rng = np.random.default_rng(47)
+    return [SatParams(prn=p, doppler_hz=float(rng.uniform(-2500, 2500)),
+                      delay_chips=float(rng.uniform(0, 10230)),
+                      cn0_dbhz=47.0,
+                      nav_bits=rng.choice([-1.0, 1.0],
+                                          int(duration_s * 50) + 8),
+                      bit_rate_override_bps=50.0)
+            for p in range(1, 7)]
 
 
 def _gen(sats, duration_s, key, fs=FS, signal="1C"):
@@ -715,10 +939,12 @@ def _midtrack(dev, fs, signal="1C"):
     """The engine at `fs` after 0.25 s of tracking on the engine benchmark's
     scenario (or, for '1B', on 8 Galileo E1B satellites; for 'L5' / '5X',
     0.253 s on 6 satellites, then every channel switched to the extended
-    mode with the secondary wipe at its true code index, which is not 0),
-    and the inputs of its next chunk: (engine, seg, rows, slot, sec_rows,
-    fst, ist).  The sample limit ends inside the third chunk (GPS, L5,
-    E5a: 40 ms; E1: 160 ms)."""
+    mode with the secondary wipe at its true code index, which is not 0;
+    for '1G', on 5 GLONASS slots on their FDMA carriers; for '2S', on 6
+    L2CM satellites, made on the card), and the inputs of its next chunk:
+    (engine, seg, rows, slot, sec_rows, fst, ist).  The sample limit ends
+    inside the third chunk (GPS, L5, E5a, GLONASS: 40 ms; E1: 160 ms;
+    L2C: 800 ms)."""
     head = 0.25
     if signal == "1B":
         dur = 0.5
@@ -726,14 +952,25 @@ def _midtrack(dev, fs, signal="1C"):
     elif signal in ("L5", "5X"):
         dur, head = 0.3, 0.253
         sats = _sec_sats(signal, dur)
+    elif signal in ("1G", "2S"):
+        dur = 0.3 if signal == "1G" else 1.25
+        sats = (_glo_sats if signal == "1G" else _l2c_sats)(dur)
     else:
         dur = 0.3
         sats = _bench_sats(dur)
-    x = _gen(sats, dur, f"kernel_chunk_{signal}_{fs:.0f}_{dur:g}s_v1", fs,
-             signal)
+    if signal in ("1G", "2S"):
+        from gnss_sdr_1_tpu_torch.codes import tracking_replica
+        from gnss_sdr_1_tpu_torch.constants import SIGNALS
+
+        xd = generate_on_card(SIGNALS[signal], sats, {
+            s.prn: tracking_replica(signal, s.prn)[0] for s in sats}, fs,
+            dur, dev, seed=48)
+    else:
+        xd = torch.as_tensor(_gen(
+            sats, dur, f"kernel_chunk_{signal}_{fs:.0f}_{dur:g}s_v1", fs,
+            signal), device=dev)
     eng = _engine(dev, fs, signal)
     st = _activate_all(eng, sats)
-    xd = torch.as_tensor(x, device=dev)
     span = int(fs * head)
     st, _ = eng.track_capture(xd[: span + eng.cfg.epoch_samples_max], st,
                               span)
@@ -938,7 +1175,7 @@ def phase_kernels(dev, cc, tc):
 
     # GPS L5 and Galileo E5a: the secondary-code instances of the chain
     # (NH10, CS20), timed
-    sec = {}
+    sec, sec_inputs = {}, {}
     for signal, fs in (("L5", FS_L5), ("5X", FS_E5A)):
         s_in = _midtrack(dev, fs, signal)
         s_spec = s_in[0].chain_spec
@@ -955,8 +1192,40 @@ def phase_kernels(dev, cc, tc):
         sec[signal].update(corr=s_corr, chain=s_chain, rows=s_chk["rows"],
                            sec_len=n,
                            sec_idx=ist[tc.I_SEC_IDX].cpu().tolist())
+        sec_inputs[signal] = s_in, s_chk
 
-    checks = other + [e1, tiled, *sec.values()]
+    # GLONASS L1 at 6.625 Msps: both kernels' first non-zero carrier bias
+    # (F_CARR_OFF, one slot at |k| = 5: 2.81 MHz against the +-3.31 MHz
+    # band), and GPS L2C at 3 Msps: the 20 ms window of ~60,000 samples
+    # walked in 4 tiles; each timed
+    new = {}
+    for signal, fs in (("1G", FS_GLO_HI), ("2S", FS_L2C)):
+        n_in = _midtrack(dev, fs, signal)
+        n_spec, n_cspec = n_in[0].chain_spec, n_in[0].corr_spec
+        tiles = cc.corr_params(n_cspec).tiles
+        offs = n_in[5][tc.F_CARR_OFF].cpu().numpy()
+        if (n_spec.K, n_spec.sec_len, n_spec.sec_data) != (3, 1, False):
+            raise AssertionError(f"{signal} kernel check at {n_spec}")
+        if signal == "1G" and not (np.abs(offs).max() == 562.5e3 * 5
+                                   and (offs != 0).sum() == 4):
+            raise AssertionError(f"GLONASS kernel check offsets {offs}")
+        if signal == "2S" and not (tiles == 4 and n_cspec.NW > 60000):
+            raise AssertionError(f"L2C kernel check in {tiles} tiles, "
+                                 f"NW={n_cspec.NW}")
+        n_chk = _check_kernels(dev, cc, tc, n_in, g)
+        n_corr, n_chain = _time_shape(cc, tc, n_in, n_chk["track_args"])
+        new[signal] = _rate_summary(cc, fs, n_in, n_chk)
+        new[signal].update(corr=n_corr, chain=n_chain, rows=n_chk["rows"],
+                           offsets_hz=offs.tolist())
+
+    # every template instance the chain can run, on the E1 (K=5) and L5
+    # (K=3) mid-track chunks
+    inst = _check_instances(dev, tc, {
+        5: (e1_in[0].chain_spec, e1_chk["track_args"]),
+        3: (sec_inputs["L5"][0][0].chain_spec,
+            sec_inputs["L5"][1]["track_args"])}, g)
+
+    checks = other + [e1, tiled, *sec.values(), *new.values()]
     corr_rep = {
         "err_random": corr_err["random"], "err_track": corr_err["track"],
         "scale_random": corr_scale["random"],
@@ -968,10 +1237,83 @@ def phase_kernels(dev, cc, tc):
         "err_capture": errs["capture"], "capture_chunks": CAPTURE_CHUNKS,
         "capture_valid_epochs": chk["capture_valid_epochs"],
         "max_abs_err": max([errs["random"], errs["track"]]
-                           + [r["chain_err"] for r in checks]),
+                           + [r["chain_err"] for r in checks]
+                           + [r["err"] for r in inst]),
         **chain_t, "rows": chk["rows"]}
     return {"chunk_corr": corr_rep, "track_chain": chain_rep,
-            "other_rates": other, "e1": e1, "e1_tiled": tiled, "sec": sec}
+            "other_rates": other, "e1": e1, "e1_tiled": tiled, "sec": sec,
+            "glo": new["1G"], "l2c": new["2S"], "instances": inst}
+
+
+def _check_instances(dev, tc, bases, g):
+    """Each of the 16 template instances <K, ORDER, SEC_DATA, HAS_SEC> that
+    chain_kernel_for (csrc/track_chain.cu) can return, launched through the
+    chain wrapper on a mid-track chunk and on random lag windows, against
+    chain_plain on the CPU (_chain_diff's bars).  `bases`: K -> (chain spec,
+    the mid-track chain inputs).  ORDER=2 takes the order-2 loop
+    coefficients with the integrator seeded from the Doppler; HAS_SEC runs
+    a secondary code (the chunk's own NH10 rows, or a random 20-chip code)
+    with the wipe on in every other channel from a non-zero index;
+    SEC_DATA switches the Costas discriminator."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.track.loop_filter import fll_pll_coefficients
+
+    w2 = fll_pll_coefficients(35.0, 25.0, 2)
+    n2 = fll_pll_coefficients(8.0, 12.0, 2)
+    coef = lambda c: (c.w0p, c.w0p2, c.w0p3, c.w0f, c.w0f2, c.a2, c.a3,
+                      c.b3)                                     # noqa: E731
+    rows = []
+    for K, (spec0, args0) in sorted(bases.items()):
+        zr, zi, s_reg, step0, sec0, fst0, ist0 = (t.cpu() for t in args0)
+        C = spec0.C
+        rand = (torch.randn(zr.shape, generator=g) * 100.0,
+                torch.randn(zi.shape, generator=g) * 100.0)
+        for order in (2, 3):
+            for sec_data in (False, True):
+                for has_sec in (False, True):
+                    spec = dataclasses.replace(spec0, sec_data=sec_data)
+                    fst, ist = fst0.clone(), ist0.clone()
+                    if order == 2:
+                        spec = dataclasses.replace(
+                            spec, order=2, wide=coef(w2), narrow=coef(n2))
+                        fst[tc.F_CARR_W] = fst[tc.F_DOPPLER]
+                        fst[tc.F_CARR_X] = 0.0
+                    elif spec.order != 3:
+                        raise AssertionError(f"base spec order {spec.order}")
+                    if has_sec:
+                        sec = sec0 if sec0.shape[0] > 1 else torch.where(
+                            torch.rand((20, C), generator=g) < 0.5, -1.0,
+                            1.0).to(torch.float32)
+                        spec = dataclasses.replace(spec, sec_len=sec.shape[0])
+                        ist[tc.I_SEC_ON] = (torch.arange(C) % 2 == 0).to(
+                            torch.int32)
+                        ist[tc.I_SEC_IDX] = (torch.arange(C, dtype=torch.int32)
+                                             * 7 + 3) % sec.shape[0]
+                    else:
+                        spec = dataclasses.replace(spec, sec_len=1)
+                        sec = torch.ones((1, C), dtype=torch.float32)
+                        ist[tc.I_SEC_ON] = 0
+                        ist[tc.I_SEC_IDX] = 0
+                    name = (f"<{K},{order},{str(sec_data).lower()},"
+                            f"{str(has_sec).lower()}>")
+                    err = 0.0
+                    for z in ((zr, zi), rand):
+                        args = (*z, s_reg, step0, sec.contiguous(), fst, ist)
+                        before = tc.launches
+                        got = tc.chain(spec, *(t.to(dev) for t in args))
+                        torch.cuda.synchronize()
+                        if tc.launches != before + 1:
+                            raise AssertionError(f"{name}: the chain wrapper "
+                                                 f"did not launch")
+                        want = tc.chain_plain(spec, *args)
+                        err = max(err, _chain_diff(tc, got, want))
+                    n_valid = int(want[0][:, tc.O_VALID].sum())
+                    rows.append({"instance": name, "err": err,
+                                 "valid_epochs": n_valid})
+    if len({r["instance"] for r in rows}) != 16:
+        raise AssertionError(f"{len(rows)} chain instances checked")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -979,9 +1321,13 @@ def phase_kernels(dev, cc, tc):
 # ---------------------------------------------------------------------------
 
 
-def engine_capture():
-    sats = _bench_sats(ENGINE_S)
-    return sats, _gen(sats, ENGINE_S, f"engine_{ENGINE_S:g}s_v1")
+def engine_capture(dev):
+    """Phases 3-4's capture (the engine benchmark's 12 satellites, 15 s at
+    4.092 Msps), made on the card with the numpy generator's noise (seed
+    1234): the capture the earlier numpy runs made.  Returns (satellites,
+    samples, seconds spent making them)."""
+    return (_cells()["engine"][2],
+            *card_capture(dev, ["engine"], 1234, numpy_noise=True))
 
 
 def phase_acquisition(dev, sats, x):
@@ -1052,19 +1398,25 @@ def _counting(cc, tc):
     """Set both kernels' launch counters (and the capture entry's count per
     chain instance) to 0 and count the chunks that every TrackingEngine
     capture call runs inside the block (ceil(n_epochs / E) per call),
-    independently of the counters; for an engine with a secondary code,
-    also the chunks of calls that start with the wipe on in a channel."""
+    independently of the counters, and the calls (capture segments); for
+    an engine with a secondary code, also the chunks of calls that start
+    with the wipe on in a channel, and the chunks of calls that start with
+    an active channel on a non-zero FDMA carrier bias."""
     from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
-    counter = {"chunks": 0, "sec_chunks": 0}
+    counter = {"chunks": 0, "sec_chunks": 0, "offset_chunks": 0,
+               "calls": 0}
     run = TrackingEngine._run_capture
 
     def counted(self, samples, state, limit, n_epochs):
         chunks = -(-n_epochs // self.chain_spec.E)
         counter["chunks"] += chunks
+        counter["calls"] += 1
         if self.chain_spec.sec_len > 1 and bool(state.sec_on.any()):
             counter["sec_chunks"] += chunks
+        if bool(((state.carr_offset_hz != 0) & state.active).any()):
+            counter["offset_chunks"] += chunks
         return run(self, samples, state, limit, n_epochs)
 
     TrackingEngine._run_capture = counted
@@ -1122,20 +1474,13 @@ def phase_engine(dev, cc, tc, sats, x):
 # ---------------------------------------------------------------------------
 
 
-def e2e_capture():
+def e2e_capture(dev):
     """The e2e scenario (bench.py:294-348): 12 satellites, 30 s at
-    4.092 Msps, live LNAV at 47 dB-Hz.  Returns (scenario, samples, seconds
-    spent making them)."""
-    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
-    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
-
-    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
-    scen = build_scenario(rx_ecef, list(range(1, 13)), t0_tow=345601.25,
-                          duration_s=E2E_S, cn0_dbhz=47.0,
-                          subframe_cycle=(1, 2, 3))
-    t0 = time.perf_counter()
-    x = _gen(scen.sats, E2E_S, f"e2e_{FS:.0f}_{E2E_S:.0f}_v1")
-    return scen, x, time.perf_counter() - t0
+    4.092 Msps, live LNAV at 47 dB-Hz, made on the card with the numpy
+    generator's noise (seed 1234), as engine_capture.  Returns (scenario,
+    samples, seconds spent making them)."""
+    return (_cells()["e2e"][0],
+            *card_capture(dev, ["e2e"], 1234, numpy_noise=True))
 
 
 def _errors_3d(ecef, scen, what, min_fixes, max_median_m=5.0):
@@ -1174,6 +1519,56 @@ def phase_e2e(dev, cc, tc, scen, x):
             "launches_chunk_corr": cc.launches,
             "launches_track_chain": tc.launches,
             "chunks": counter["chunks"], "channels": list(rx.channel_prn)}
+
+
+def e2e_seeds(dev, seeds, cpu_runs, out):
+    """Phase 5's receiver over the e2e scenario with other noise: for each
+    seed the capture with the card's noise and with numpy's, on the card,
+    and on the CPU for the (noise, seed) pairs of `cpu_runs`.  Prints one
+    line a run (fixes, first-fix time into the capture, median 3D error)
+    and writes them to `out`/e2e_seeds.json.  Holds no bar: it measures
+    how the fix count spreads over noise realisations."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
+
+    scen = _cells()["e2e"][0]
+    prns = [s.prn for s in scen.sats]
+    cpu = {(kind, int(seed)) for kind, seed in cpu_runs}
+    rows = []
+    for kind in ("card", "numpy"):
+        for seed in seeds:
+            x, gen_s = card_capture(dev, ["e2e"], seed,
+                                    numpy_noise=kind == "numpy")
+            for where in ("cuda", "cpu"):
+                if where == "cpu" and (kind, seed) not in cpu:
+                    continue
+                rx = Receiver(ReceiverConfig(
+                    fs_hz=FS, signal_id="1C", n_channels=len(prns),
+                    prn_search=tuple(prns), reacq_interval_blocks=125,
+                    pvt_output_rate_ms=100), device=where)
+                rx.preload(x)
+                t0 = time.perf_counter()
+                sols = rx.process(x)
+                wall = time.perf_counter() - t0
+                e3d = (np.linalg.norm(np.stack([q.rx_ecef_m for q in sols])
+                                      - scen.rx_ecef, axis=1)
+                       if sols else np.array([np.nan]))
+                row = {"noise": kind, "seed": seed, "device": where,
+                       "fixes": len(sols),
+                       "first_fix_s": (sols[0].rx_time_tow_s - scen.t0_tow
+                                       if sols else None),
+                       "median_3d_m": float(np.median(e3d)),
+                       "channels": list(rx.channel_prn), "wall_s": wall,
+                       "capture_s": gen_s}
+                rows.append(row)
+                first = ("none" if row["first_fix_s"] is None
+                         else f"{row['first_fix_s']:.2f} s")
+                log(f"[e2e seeds] {kind} noise, seed {seed}, on the "
+                    f"{'card' if where == 'cuda' else 'CPU'}: fixes {row['fixes']}, first fix {first} into "
+                    f"the capture, median 3D error {row['median_3d_m']:.2f} "
+                    f"m | {wall:.1f} s")
+            del x
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "e2e_seeds.json").write_text(json.dumps(rows, indent=1))
 
 
 # ---------------------------------------------------------------------------
@@ -1232,10 +1627,13 @@ def _write_conf(name, capture, tracking, fs_internal=FS, **extra):
     return path
 
 
-def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0):
+def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0,
+             joint=False, receivers=None):
     """`python -m gnss_sdr_1_tpu_torch argv` in this process, on the card
-    (no --device).  Checks the exit code, the seven output files and the
-    fixes in position.geojson against the scenario truth."""
+    (no --device).  Checks the exit code, the seven output files (a
+    multi-group conf's joint run, `joint`: its four position files) and the
+    fixes in position.geojson against the scenario truth.  Each Receiver
+    the CLI ran is appended to the list `receivers`, where one is given."""
     from gnss_sdr_1_tpu_torch.__main__ import main as cli_main
     from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
     from gnss_sdr_1_tpu_torch.runtime.config import FrontEnd
@@ -1246,11 +1644,14 @@ def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0):
     proc, cond, seen = Receiver.process, FrontEnd.process, {}
 
     def timed_process(self, samples):
+        # a multi-group conf runs one Receiver.process per group: their sum
         t = time.perf_counter()
+        if receivers is not None:
+            receivers.append(self)
         try:
             return proc(self, samples)
         finally:
-            seen.update(wall=time.perf_counter() - t,
+            seen.update(wall=seen.get("wall", 0.0) + time.perf_counter() - t,
                         signal_s=len(samples) / self.cfg.fs_hz)
 
     def timed_condition(self, x, device=None):
@@ -1274,11 +1675,25 @@ def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0):
         log(f"    | {ln}")
     if rc != 0:
         raise AssertionError(f"{what}: the CLI exited with {rc}")
-    m = re.search(r"Processed in \S+ s \(RTF \S+x\); (\d+) PVT fixes",
-                  buf.getvalue())
+    m = re.search(r"Processed in \S+ s \(RTF \S+x\); (\d+) "
+                  + ("joint " if joint else "") + "PVT fixes", buf.getvalue())
     if m is None:
         raise AssertionError(f"{what}: no 'Processed in' line")
-    missing = [n for n in OUTPUT_FILES if not (out_dir / n).is_file()]
+    files = OUTPUT_FILES[:4] if joint else OUTPUT_FILES
+    if int(m.group(1)) == 0 and min_fixes == 0:
+        # a run without a fix (no bar on fixes): it says so, writes nothing
+        if lines[-1] != ("No joint position fix obtained." if joint
+                         else "No position fix obtained."):
+            raise AssertionError(f"{what}: last line {lines[-1]!r}")
+        rep = {"fixes": 0, "median_3d_m": float("nan"),
+               "process_wall_s": seen["wall"], "signal_s": seen["signal_s"],
+               "process_rtf": seen["signal_s"] / seen["wall"],
+               "cli_wall_s": wall, "cli_rtf": seen["signal_s"] / wall,
+               "condition_s": seen.get("condition_s"), "lines": lines}
+        rep["summary"] = (f"exit 0, RTF {rep['process_rtf']:.2f} of "
+                          f"Receiver.process, no fix")
+        return rep
+    missing = [n for n in files if not (out_dir / n).is_file()]
     if missing:
         raise AssertionError(f"{what}: output files missing: {missing}")
     coords = json.loads((out_dir / "position.geojson").read_text())[
@@ -1298,7 +1713,7 @@ def _run_cli(argv, scen, out_dir, min_fixes, what, max_median_m=5.0):
         f"({seen['wall']:.2f} s; {rep['cli_rtf']:.2f} for the whole CLI, "
         f"{wall:.2f} s), "
         f"fixes {rep['fixes']}, median 3D error {rep['median_3d_m']:.2f} m, "
-        f"{len(OUTPUT_FILES)} output files")
+        f"{len(files)} output files")
     return rep
 
 
@@ -1566,20 +1981,13 @@ def _caf_check(dev):
 # ---------------------------------------------------------------------------
 
 
-def e1_capture():
+def e1_capture(dev):
     """Phase 10's scenario: 8 Galileo E1B satellites, 30 s at 4.0 Msps,
-    48 dB-Hz, I/NAV pages cycling words 5,1,2,3,4.  Returns (scenario,
-    samples, seconds spent making them)."""
-    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
-    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
-
-    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
-    scen = build_scenario(rx_ecef, list(E1_PRNS), t0_tow=345601.25,
-                          duration_s=E1_S, cn0_dbhz=48.0, chip_rate=2.046e6,
-                          signal="1B")
-    t0 = time.perf_counter()
-    x = _gen(scen.sats, E1_S, f"e1_{FS_E1:.0f}_{E1_S:.0f}_v1", FS_E1, "1B")
-    return scen, x, time.perf_counter() - t0
+    48 dB-Hz, I/NAV pages cycling words 5,1,2,3,4, made on the card with
+    the numpy generator's noise (seed 1234), as engine_capture.  Returns
+    (scenario, samples, seconds spent making them)."""
+    return (_cells()["E1"][0],
+            *card_capture(dev, ["E1"], 1234, numpy_noise=True))
 
 
 def phase_e1(dev, cc, tc, scen, x):
@@ -1633,11 +2041,11 @@ _SEC_CELLS = {"L5": (FS_L5, L5_S, L5_PRNS), "5X": (FS_E5A, E5A_S, E5A_PRNS)}
 
 
 def _shape_keys(sec, which):
-    """The L5 and E5a shapes' times and bound of one kernel, for the
-    kernels line."""
+    """The L5, E5a, GLONASS and L2C shapes' times and bound of one kernel,
+    for the kernels line."""
     out = {}
     for sig, r in sec.items():
-        k = {"L5": "l5", "5X": "e5a"}[sig]
+        k = {"L5": "l5", "5X": "e5a", "1G": "glo", "2S": "l2c"}[sig]
         t = r[which]
         out.update({f"{k}_ms": t["ms"], f"{k}_bound_ms": t["bound_ms"],
                     f"{k}_plain_ms": t["plain_ms"],
@@ -1646,16 +2054,26 @@ def _shape_keys(sec, which):
 
 
 def generate_on_card(spec, sats, codes_by_prn, fs_hz, duration_s, dev,
-                     noise=True, seed=1234, block_s=GEN_BLOCK_S):
+                     noise=True, seed=1234, block_s=GEN_BLOCK_S,
+                     numpy_noise=False, cn0_amplitude=None):
     """The port's siggen.generate_baseband computed on the card: the same
     signal model and the same float64 phase and code index, evaluated in
     blocks of `block_s` seconds, with unit-variance complex noise from a
-    seeded torch.Generator on the card (not numpy's numbers).  Returns the
-    capture as a complex64 tensor on `dev`."""
+    seeded torch.Generator on the card, or (`numpy_noise`) numpy's own
+    normals of generate_baseband(..., seed=seed), drawn on the host and
+    copied block by block, so that the capture is numpy's to within
+    float32 rounding.  Each satellite's amplitude follows its C/N0 against
+    that noise, or is 1 without noise, as numpy's (`cn0_amplitude` True:
+    the C/N0 amplitude without the noise, for a signal added to another
+    capture's noise).  Returns the capture as a complex64 tensor on
+    `dev`."""
     n = int(round(fs_hz * duration_s))
     out = torch.empty(n, dtype=torch.complex64, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if noise and numpy_noise:
+        rng = np.random.default_rng(seed)
+        host_re, host_im = rng.standard_normal(n), rng.standard_normal(n)
     two_pi = 2.0 * np.pi
     fc = spec.carrier_freq_hz
     sat_data = []
@@ -1666,8 +2084,8 @@ def generate_on_card(spec, sats, codes_by_prn, fs_hz, duration_s, dev,
             np.asarray(sat.nav_bits, np.float64), device=dev)
         chips_per_bit = spec.code_rate_chips_s / (
             sat.bit_rate_override_bps or spec.bit_rate_bps)
-        amp = np.sqrt(10.0 ** (sat.cn0_dbhz / 10.0) / fs_hz) if noise \
-            else 1.0
+        amp = np.sqrt(10.0 ** (sat.cn0_dbhz / 10.0) / fs_hz) \
+            if (noise if cn0_amplitude is None else cn0_amplitude) else 1.0
         sat_data.append((sat, code, bits, chips_per_bit, amp))
     step = max(1, int(fs_hz * block_s))
     for a in range(0, n, step):
@@ -1693,7 +2111,12 @@ def generate_on_card(spec, sats, codes_by_prn, fs_hz, duration_s, dev,
             ph32 = torch.remainder(phase, two_pi).float()
             re += env * torch.cos(ph32)
             im += env * torch.sin(ph32)
-        if noise:
+        if noise and numpy_noise:
+            re += torch.as_tensor(host_re[a:a + m], device=dev) \
+                * np.sqrt(0.5)
+            im += torch.as_tensor(host_im[a:a + m], device=dev) \
+                * np.sqrt(0.5)
+        elif noise:
             w = torch.randn((m, 2), generator=gen, dtype=torch.float64,
                             device=dev) * np.sqrt(0.5)
             re += w[:, 0]
@@ -1723,25 +2146,127 @@ def _sec_scenario(signal):
 
 def check_card_generator(dev, check_s=0.02, block_s=0.007):
     """The generator on the card against the port's numpy generator on a
-    noiseless stretch of both scenarios (blocks shorter than the stretch,
-    so block seams are inside it): within 1e-5 of the unit amplitude."""
+    noiseless stretch of every capture the script makes on the card, and
+    with the numpy noise on the captures that take it (blocks shorter than
+    the stretch, so block seams are inside it): within 1e-5 of the unit
+    amplitude."""
     from gnss_sdr_1_tpu_torch.siggen import generate_baseband
 
     err = {}
-    for sig in ("L5", "5X"):
-        scen, spec, codes = _sec_scenario(sig)
-        fs = _SEC_CELLS[sig][0]
-        got = generate_on_card(spec, scen.sats, codes, fs, check_s, dev,
-                               noise=False, block_s=block_s).cpu().numpy()
-        want = generate_baseband(spec, scen.sats, codes, fs, check_s,
-                                 noise=False)
+    checks = [(name, False) for name in _cells()] + [
+        (name, True) for name in NUMPY_NOISE_CELLS]
+    for name, noisy in checks:
+        _, spec, sats, codes, fs, _ = _cells()[name]
+        got = generate_on_card(spec, sats, codes, fs, check_s, dev,
+                               noise=noisy, block_s=block_s,
+                               numpy_noise=noisy).cpu().numpy()
+        want = generate_baseband(spec, sats, codes, fs, check_s,
+                                 noise=noisy)
         if got.shape != want.shape:
             raise AssertionError(f"generator shapes {got.shape} {want.shape}")
-        err[sig] = float(np.abs(got - want).max())
-        if not err[sig] <= 1e-5:
-            raise AssertionError(f"{sig} generator on the card differs from "
-                                 f"numpy by {err[sig]:.3e}")
+        key = name + (" with noise" if noisy else "")
+        err[key] = float(np.abs(got - want).max())
+        if not err[key] <= 1e-5:
+            raise AssertionError(f"{key}: the generator on the card differs "
+                                 f"from numpy by {err[key]:.3e}")
     return {"err": err, "s": check_s, "block_s": block_s}
+
+
+@functools.lru_cache(maxsize=1)
+def _cells():
+    """Every capture the script makes on the card: name -> (scenario or
+    None, generation spec, satellites, replicas by PRN, fs, seconds)."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import (glonass_ca_code, gps_l1ca_code,
+                                            tracking_replica)
+    from gnss_sdr_1_tpu_torch.constants import (FREQ_G1_GLO, GALILEO_E1B,
+                                                GLONASS_L1_CA, GPS_L1_CA,
+                                                GPS_L2C)
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+
+    rx = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+    rx_glo = llh_to_ecef(np.radians(55.75), np.radians(37.62), 180.0)
+    e1_spec = dataclasses.replace(GALILEO_E1B, code_rate_chips_s=2.046e6,
+                                  code_length_chips=2 * 4092,
+                                  bit_rate_bps=250.0)
+    t0 = 345601.25
+
+    def cell(scen, spec, signal, fs, dur):
+        codes = {s.prn: (gps_l1ca_code(s.prn) if signal == "1C"
+                         else glonass_ca_code() if signal == "1G"
+                         else tracking_replica(signal, s.prn)[0])
+                 for s in scen.sats}
+        return scen, spec, scen.sats, codes, fs, dur
+
+    def gps(prns, dur, t0_tow=t0, at=rx):
+        return build_scenario(at, list(prns), t0_tow=t0_tow, duration_s=dur,
+                              cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
+
+    def glo(ks, dur):
+        return build_scenario(rx_glo, sorted(ks), t0_tow=GLO_T0,
+                              duration_s=dur, cn0_dbhz=47.0,
+                              chip_rate=0.511e6, carrier_freq=FREQ_G1_GLO,
+                              signal="1G", fdma_ks=ks)
+
+    bench = _bench_sats(ENGINE_S)
+    cells = {"engine": (None, GPS_L1_CA, bench,
+                        {s.prn: gps_l1ca_code(s.prn) for s in bench}, FS,
+                        ENGINE_S),
+             "e2e": cell(gps(range(1, 13), E2E_S), GPS_L1_CA, "1C", FS,
+                         E2E_S),
+             "E1": cell(build_scenario(
+                 rx, list(E1_PRNS), t0_tow=t0, duration_s=E1_S,
+                 cn0_dbhz=48.0, chip_rate=2.046e6, signal="1B"),
+                 e1_spec, "1B", FS_E1, E1_S)}
+    for sig in ("L5", "5X"):
+        scen, spec, codes = _sec_scenario(sig)
+        fs, dur, _ = _SEC_CELLS[sig]
+        cells[sig] = (scen, spec, scen.sats, codes, fs, dur)
+    cells["1G"] = cell(glo(GLO_KS, GLO_S), GLONASS_L1_CA, "1G", FS_GLO,
+                       GLO_S)
+    cells["mixed 1C"] = cell(gps(MIX_GPS, MIX_S), GPS_L1_CA, "1C", FS_MIX,
+                             MIX_S)
+    cells["mixed 1B"] = cell(build_scenario(
+        rx, list(MIX_GAL), t0_tow=t0, duration_s=MIX_S, cn0_dbhz=48.0,
+        chip_rate=2.046e6, signal="1B"), e1_spec, "1B", FS_MIX, MIX_S)
+    cells["dual 1C"] = cell(gps(DUAL_PRNS, DUAL_S), GPS_L1_CA, "1C",
+                            FS_DUAL, DUAL_S)
+    cells["dual 2S"] = cell(build_scenario(
+        rx, list(DUAL_PRNS), t0_tow=t0, duration_s=DUAL_S, cn0_dbhz=47.0,
+        signal="2S"), GPS_L2C, "2S", FS_DUAL, DUAL_S)
+    cells["conf 1C"] = cell(gps(GLO_CONF_GPS, GLO_CONF_S, GLO_T0, rx_glo),
+                            GPS_L1_CA, "1C", FS_GLO_HI, GLO_CONF_S)
+    cells["conf 1G"] = cell(glo({GLO_CONF_SLOT: 0}, GLO_CONF_S),
+                            GLONASS_L1_CA, "1G", FS_GLO_HI, GLO_CONF_S)
+    cells["conf 2S"] = cell(build_scenario(
+        rx, list(L2C_CONF_PRNS), t0_tow=t0, duration_s=L2C_CONF_S,
+        cn0_dbhz=47.0, signal="2S"), GPS_L2C, "2S", FS_L2C, L2C_CONF_S)
+    return cells
+
+
+def card_capture(dev, names, seed, numpy_noise=False, cn0_all=False):
+    """The sum of the named cells' signals made on the card (one noise
+    term, from `seed`, with the first; `numpy_noise`: numpy's normals),
+    copied to the host once.  The later cells come at amplitude 1, as
+    tests/test_system_mixed.py adds its Galileo signal, or (`cn0_all`) at
+    their own C/N0 against the first cell's noise.  Returns (samples,
+    seconds spent making them)."""
+    t0 = time.perf_counter()
+    x = None
+    for k, name in enumerate(names):
+        _, spec, sats, codes, fs, dur = _cells()[name]
+        part = generate_on_card(spec, sats, codes, fs, dur, dev,
+                                noise=k == 0, seed=seed,
+                                numpy_noise=numpy_noise,
+                                cn0_amplitude=True if cn0_all else None)
+        x = part if x is None else x + part
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    xh = x.cpu().numpy()
+    del x
+    return xh, gen_s
 
 
 def sec_capture(dev, signal):
@@ -1749,15 +2274,7 @@ def sec_capture(dev, signal):
     once (the receiver's acquisition and the CLI's file read take host
     samples; `preload` puts it back on the card).  Returns (scenario,
     samples, seconds spent making them on the card)."""
-    scen, spec, codes = _sec_scenario(signal)
-    fs, dur, _ = _SEC_CELLS[signal]
-    t0 = time.perf_counter()
-    x = generate_on_card(spec, scen.sats, codes, fs, dur, dev)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    xh = x.cpu().numpy()
-    del x
-    return scen, xh, gen_s
+    return (_cells()[signal][0], *card_capture(dev, [signal], 1234))
 
 
 def _eph_check(rx, scen, what, pages):
@@ -1871,6 +2388,426 @@ def phase_cli_sec(cc, tc, scen, x, signal):
                 + ", ".join(f"{k} ({v} B)" for k, v in rep["outputs"].items()))
     finally:
         path.unlink(missing_ok=True)
+    return reps
+
+
+# ---------------------------------------------------------------------------
+# phases 15-18: GLONASS FDMA, the multi-group receivers and their confs
+# ---------------------------------------------------------------------------
+
+
+def _glonass_config(**kw):
+    """tests/test_system_glonass.py's receiver: 5 slots on their FDMA
+    channels, 3 dwells, 25 Hz PLL."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    return ReceiverConfig(**{**dict(
+        fs_hz=FS_GLO, signal_id="1G", n_channels=len(GLO_KS),
+        prn_search=tuple(GLO_KS), fdma_k=tuple(GLO_KS.items()),
+        acq_dwells=3, pll_bw_hz=25.0, dll_bw_hz=2.0), **kw})
+
+
+def phase_glonass(dev, cc, tc, tcap, scen, x):
+    """Phase 15: the GLONASS L1 receiver over the preloaded capture, at
+    tests/test_system_glonass.py's bars; each kernel's launches == chunks,
+    all on the <3,3,false,false> instance, chunks run with a non-zero FDMA
+    bias counted.  Then the same receiver with 5 s segments
+    (reacq_interval_blocks=125) for what the pull-in rule (1,000 surviving
+    epochs per channel) costs."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    what = "GLONASS e2e"
+    rx = Receiver(_glonass_config(), device=dev)
+    rx.preload(x)
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    chunks = counter["chunks"]
+    _check_launches(cc, tc, chunks, what)
+    spec = rx.trk.chain_spec
+    inst = dict(tcap.launches_by_instance)
+    if inst != {(3, spec.order, False, 1): chunks}:
+        raise AssertionError(f"{what}: chain instances {inst}")
+    if not counter["offset_chunks"] > 0:
+        raise AssertionError(f"{what}: no chunk ran with an FDMA bias")
+    offs = rx.state.carr_offset_hz.cpu().numpy()
+    tracked = {p: n for p, n in rx.sym_count.items() if n > 10_000}
+    if len(tracked) < MIN_TRACKED_GLO:
+        raise AssertionError(f"{what}: tracked {rx.sym_count}")
+    eph = {}
+    for slot, dec in rx.decoders.items():
+        if not dec.ephemeris_complete:
+            continue
+        g, t = dec.ephemeris, scen.ephemerides[slot]
+        if not (abs(g.x_km - t.x_km) <= 1e-9 and abs(g.vz_kms - t.vz_kms)
+                <= 1e-12 and g.tb_s == t.tb_s):
+            raise AssertionError(f"{what}: slot {slot} ephemeris {g}")
+        eph[slot] = abs(g.x_km - t.x_km)
+    if len(eph) < MIN_EPH_GLO:
+        raise AssertionError(f"{what}: {len(eph)} GNAV ephemerides")
+    rep = {"rtf": GLO_S / wall, "wall_s": wall,
+           **_errors_3d([s.rx_ecef_m for s in sols], scen, what,
+                        MIN_FIXES_GLO, MAX_MEDIAN_GLO),
+           "tracked": len(tracked), "ephemerides": len(eph),
+           "launches_chunk_corr": cc.launches,
+           "launches_track_chain": tc.launches, "chunks": chunks,
+           "offset_chunks": counter["offset_chunks"],
+           "segments": counter["calls"], "channels": list(rx.channel_prn),
+           "offsets_hz": offs.tolist()}
+    rx5 = Receiver(_glonass_config(reacq_interval_blocks=125), device=dev)
+    rx5.preload(x)
+    with _counting(cc, tc) as c5:
+        t0 = time.perf_counter()
+        sols5 = rx5.process(x)
+        wall5 = time.perf_counter() - t0
+    _check_launches(cc, tc, c5["chunks"], what + " (5 s segments)")
+    rep["long_segments"] = {"segments": c5["calls"], "rtf": GLO_S / wall5,
+                            "fixes": len(sols5)}
+    return rep
+
+
+def _group_counting(cc, tc):
+    """Per-group launch and chunk counts of a MultiReceiver run: wraps
+    Receiver.process so that each group's run is counted on its own (the
+    counters of `_counting` read just before and just after it)."""
+    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
+    from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver
+
+    groups, proc = [], Receiver.process
+
+    @contextlib.contextmanager
+    def ctx(counter):
+        def counted(self, samples):
+            before = (cc.launches, tc.launches, counter["chunks"],
+                      dict(tcap.launches_by_instance))
+            t0 = time.perf_counter()
+            try:
+                return proc(self, samples)
+            finally:
+                inst = {"<" + ",".join(str(int(v)) for v in k) + ">":
+                        n - before[3].get(k, 0)
+                        for k, n in tcap.launches_by_instance.items()
+                        if n - before[3].get(k, 0)}
+                groups.append({
+                    "signal": self.cfg.signal_id,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches_chunk_corr": cc.launches - before[0],
+                    "launches_track_chain": tc.launches - before[1],
+                    "chunks": counter["chunks"] - before[2],
+                    "instances": inst, "K": self.trk.chain_spec.K,
+                    "fixes_alone": len(self.solutions)})
+
+        Receiver.process = counted
+        try:
+            yield groups
+        finally:
+            Receiver.process = proc
+
+    return ctx
+
+
+def _check_groups(groups, what):
+    for g in groups:
+        n = g["chunks"]
+        if not n > 0 or g["launches_chunk_corr"] != n or \
+                g["launches_track_chain"] != n or \
+                sum(g["instances"].values()) != n or \
+                any(k[1] != str(g["K"]) for k in g["instances"]):
+            raise AssertionError(f"{what}: group {g['signal']} launches {g}")
+
+
+def _mixed_configs():
+    """tests/test_system_mixed.py's groups, from its in-memory conf through
+    the port's to_receiver_configs."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.runtime.config import (InMemoryConfiguration,
+                                                     to_receiver_configs)
+
+    cfgs = to_receiver_configs(InMemoryConfiguration({
+        "GNSS-SDR.internal_fs_sps": str(FS_MIX),
+        "Channels_1C.count": str(len(MIX_GPS)),
+        "Channels_1B.count": str(len(MIX_GAL)),
+        "Acquisition_1C.implementation": "GPS_L1_CA_PCPS_Acquisition",
+        "Acquisition_1B.implementation":
+            "Galileo_E1_PCPS_Ambiguous_Acquisition",
+        "Tracking_1C.implementation": "GPS_L1_CA_DLL_PLL_Tracking",
+        "Tracking_1B.implementation": "Galileo_E1_DLL_PLL_VEML_Tracking",
+    }))
+    if [c.signal_id for c in cfgs] != ["1C", "1B"]:
+        raise AssertionError(f"mixed conf groups {cfgs}")
+    return [dataclasses.replace(cfgs[0], prn_search=MIX_GPS),
+            dataclasses.replace(cfgs[1], prn_search=MIX_GAL, acq_dwells=3,
+                                pll_bw_hz=15.0, dll_bw_hz=2.0)]
+
+
+def _joint_errors(joint, rx_ecef, what, min_fixes, max_median_m=None,
+                  converged_half=False):
+    ecef = np.stack([j.solution.rx_ecef_m for j in joint]) if joint \
+        else np.zeros((0, 3))
+    if len(ecef) < min_fixes:
+        raise AssertionError(f"{what}: {len(ecef)} joint fixes "
+                             f"(< {min_fixes})")
+    e3d = np.linalg.norm(ecef - rx_ecef, axis=1)
+    med = float(np.median(e3d))
+    tail = float(np.median(e3d[len(e3d) // 2:]))
+    bar = tail if converged_half else med
+    if not np.isfinite(e3d).all() or (max_median_m is not None
+                                      and not bar < max_median_m):
+        raise AssertionError(f"{what}: median 3D error {med:.2f} m "
+                             f"(converged half {tail:.2f} m)")
+    return {"fixes": len(ecef), "median_3d_m": med,
+            "median_3d_converged_half_m": tail, "max_3d_m": float(e3d.max())}
+
+
+def phase_mixed(dev, cc, tc, x):
+    """Phase 16: GPS L1 C/A + Galileo E1B groups on one stream with one
+    joint PVT (an inter-system-bias column for Galileo's 3 satellites), at
+    tests/test_system_mixed.py's bars; per group, launches == chunks on
+    its own chain instance (K=3, then K=5)."""
+    from gnss_sdr_1_tpu_torch.runtime.multi_receiver import MultiReceiver
+
+    what = "mixed e2e"
+    scen_e = _cells()["mixed 1B"][0]
+    mrx = MultiReceiver(_mixed_configs(), device=dev)
+    with _counting(cc, tc) as counter, \
+            _group_counting(cc, tc)(counter) as groups:
+        t0 = time.perf_counter()
+        joint = mrx.process(x)
+        wall = time.perf_counter() - t0
+    _check_groups(groups, what)
+    if [g["K"] for g in groups] != [3, 5]:
+        raise AssertionError(f"{what}: groups {groups}")
+    if mrx.receivers[1].solutions:
+        raise AssertionError(f"{what}: the Galileo group fixed alone")
+    for j in joint:
+        ps = j.per_system_prns
+        if set(ps) != {"G", "E"} or len(ps["G"]) < 3 or len(ps["E"]) < 2:
+            raise AssertionError(f"{what}: a fix with {ps}")
+    eph = {p: abs(d.ephemeris.sqrt_a - scen_e.ephemerides[p].sqrt_a)
+           for p, d in mrx.receivers[1].decoders.items()
+           if d.ephemeris_complete}
+    n_gps = sum(d.ephemeris_complete
+                for d in mrx.receivers[0].decoders.values())
+    if len(eph) < 2 or max(eph.values()) > 2e-5 or n_gps < 3:
+        raise AssertionError(f"{what}: ephemerides GPS {n_gps}, E1 {eph}")
+    return {"rtf": MIX_S / wall, "wall_s": wall,
+            **_joint_errors(joint, scen_e.rx_ecef, what, MIN_FIXES_MIX,
+                            MAX_MEDIAN_MIX),
+            "groups": groups, "ephemerides_e1": len(eph),
+            "ephemerides_gps": n_gps,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches,
+            "chunks": counter["chunks"]}
+
+
+def phase_dual(dev, cc, tc, x1, x2):
+    """Phase 17: GPS L1 + L2C groups on two streams (the same satellites
+    on two bands, a clock column per group), at tests/test_system_mixed.py's
+    dual-band bars; per group, launches == chunks."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+    from gnss_sdr_1_tpu_torch.runtime.multi_receiver import MultiReceiver
+    from gnss_sdr_1_tpu_torch.telemetry.channel_adapters import \
+        GpsL2ChannelDecoder
+
+    what = "dual-band e2e"
+    scen = _cells()["dual 2S"][0]
+    cfg1 = ReceiverConfig(fs_hz=FS_DUAL, signal_id="1C", n_channels=4,
+                          prn_search=DUAL_PRNS,
+                          carrier_smoothing_epochs=200)
+    mrx = MultiReceiver([cfg1, _l2c_config(carrier_smoothing_epochs=200)],
+                        device=dev)
+    with _counting(cc, tc) as counter, \
+            _group_counting(cc, tc)(counter) as groups:
+        t0 = time.perf_counter()
+        joint = mrx.process([x1, x2])
+        wall = time.perf_counter() - t0
+    _check_groups(groups, what)
+    rx2 = mrx.receivers[1]
+    if not all(isinstance(d, GpsL2ChannelDecoder)
+               for d in rx2.decoders.values()):
+        raise AssertionError(f"{what}: L2 decoders {rx2.decoders}")
+    n2 = sum(d.ephemeris_complete for d in rx2.decoders.values())
+    if n2 < MIN_EPH_L2C:
+        raise AssertionError(f"{what}: {n2} CNAV ephemerides")
+    rep = _joint_errors(joint, scen.rx_ecef, what, 10, 5.0,
+                        converged_half=True)
+    if not rep["median_3d_m"] < 20.0:
+        raise AssertionError(f"{what}: median 3D {rep['median_3d_m']:.2f} m")
+    if not any(len(j.per_system_prns.get("G", [])) > 4 for j in joint):
+        raise AssertionError(f"{what}: no fix with the L2 band")
+    return {"rtf": DUAL_S / wall, "wall_s": wall, **rep,
+            "cnav_ephemerides": n2, "groups": groups,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches,
+            "chunks": counter["chunks"]}
+
+
+def _l2c_config(**kw):
+    """The L2C group of tests/test_system_mixed.py's dual-band case: a
+    ~1/(2T) Doppler grid for the 20 ms coherent window and a 4 Hz second
+    step that keeps the handoff inside the 4 Hz PLL's pull-in range."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    return ReceiverConfig(**{**dict(
+        fs_hz=FS_DUAL, signal_id="2S", n_channels=4, prn_search=DUAL_PRNS,
+        pll_bw_hz=4.0, dll_bw_hz=0.4, doppler_max_hz=3000.0,
+        doppler_step_hz=50.0, acq_threshold=1.6, doppler_step2_hz=4.0,
+        num_doppler_bins_step2=50), **kw})
+
+
+def _l2c_segments(dev, cc, tc, x):
+    """What the pull-in rule costs the L2CM group alone (it counts 1,000
+    symbols, 20 s of 20 ms epochs): segments and RTF at the default 1 s
+    segments and at 5 s (reacq_interval_blocks=125)."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    out = {}
+    for blocks in (25, 125):
+        rx = Receiver(_l2c_config(reacq_interval_blocks=blocks), device=dev)
+        rx.preload(x)
+        with _counting(cc, tc) as c:
+            t0 = time.perf_counter()
+            rx.process(x)
+            wall = time.perf_counter() - t0
+        _check_launches(cc, tc, c["chunks"], f"L2C alone, {blocks} blocks")
+        out[blocks] = {"segments": c["calls"], "rtf": DUAL_S / wall}
+    return out
+
+
+def _write_capture(x, path, item_type, scale):
+    """Interleaved I/Q integers (int16 for ishort, int8 for ibyte)."""
+    dt = np.int16 if item_type == "ishort" else np.int8
+    lim = np.iinfo(dt).max
+    step = 1 << 22
+    with open(path, "wb") as f:
+        for a in range(0, len(x), step):
+            y = x[a:a + step]
+            iq = np.empty(2 * len(y), dtype=dt)
+            iq[0::2] = np.clip(np.round(y.real * scale), -lim, lim)
+            iq[1::2] = np.clip(np.round(y.imag * scale), -lim, lim)
+            iq.tofile(f)
+
+
+def _glonass_duplicates(rxs, used, what):
+    """The GLONASS satellites behind glonass_l1_gps_l1_ibyte.conf's joint
+    fixes.  The conf maps no FDMA slot, so every 1G channel runs at k = 0,
+    and on a capture with one slot at k = 0 every channel that locks
+    tracks that one satellite under its own PRN key: the R count of the
+    last fix is that satellite counted once per channel.  Distinct
+    satellites are counted by their decoded state vectors (strings 1-3),
+    the slot from string 4 where it was decoded; raises unless the count
+    is one satellite, the capture's slot, behind every R measurement."""
+    (glo,) = [r for r in rxs if r.cfg.signal_id == "1G"]
+    done = [d for d in glo.decoders.values() if d.ephemeris_complete]
+    sats = {(e.tb_s, e.x_km, e.y_km, e.z_km)
+            for e in (d.ephemeris for d in done)}
+    slots = sorted({d.ephemeris.slot for d in done if 4 in d.raw.strings})
+    n_r = int(re.search(r"R:(\d+)", used).group(1))
+    if len(sats) != 1 or slots not in ([], [GLO_CONF_SLOT]) \
+            or n_r > len(done):
+        raise AssertionError(
+            f"{what}: {len(sats)} GLONASS state vectors, decoded slots "
+            f"{slots}, R:{n_r} in the last fix over {len(done)} complete "
+            f"ephemerides; the capture holds slot {GLO_CONF_SLOT} alone")
+    return {"in_last_fix": n_r, "satellites": len(sats),
+            "slots": slots or "not decoded", "channels": len(done)}
+
+
+def phase_cli_multi(dev, cc, tc, x_mix):
+    """Phase 18: the CLI on the four confs this slice ports, each over a
+    capture written in its item type and deleted after its runs:
+    hybrid_ishort.conf and multisource_hybrid_ishort.conf on phase 16's
+    capture (ishort, --signal_file), glonass_l1_gps_l1_ibyte.conf on GPS +
+    a GLONASS slot at k = 0 at 6.625 Msps (ibyte), all as written; and
+    gps_l2c_ibyte.conf on a 3 Msps L2CM capture (ibyte) as written (its
+    second acquisition step, 40 Hz apart, leaves up to 20 Hz of Doppler
+    error, and the 20 ms Costas loop locks +-25 Hz off on such channels:
+    no fix bar) and with Acquisition_2S.doppler_step=20 (the first step
+    then within 10 Hz)."""
+    CACHE.mkdir(exist_ok=True)
+    reps = {}
+    scen_mix = _cells()["mixed 1B"][0]
+    # the hybrid confs search 32 PRNs per group on 6 + 4 channels, at
+    # phase 16's bars
+    runs = [("hybrid_ishort.conf", None, "ishort", ISHORT_SCALE, scen_mix,
+             "1C+1B (6/4 channels)", MIN_FIXES_MIX, MAX_MEDIAN_MIX),
+            ("multisource_hybrid_ishort.conf", None, "ishort", ISHORT_SCALE,
+             scen_mix, "1C+1B (6/4 channels)", MIN_FIXES_MIX,
+             MAX_MEDIAN_MIX),
+            ("glonass_l1_gps_l1_ibyte.conf", None, "ibyte", IBYTE_SCALE,
+             _cells()["conf 1G"][0], "1C+1G (6/4 channels)", MIN_FIXES_GLO,
+             MAX_MEDIAN_GLO),
+            ("gps_l2c_ibyte.conf", None, "ibyte", IBYTE_SCALE,
+             _cells()["conf 2S"][0], None, 0, None),
+            ("gps_l2c_ibyte.conf", ("Acquisition_2S.doppler_step=", 20),
+             "ibyte", IBYTE_SCALE, _cells()["conf 2S"][0], None, 10, None)]
+    path = None
+    for name, edit, item_type, scale, scen, mixed, min_fixes, max_med \
+            in runs:
+        t0 = time.perf_counter()
+        gen_s = 0.0
+        if path is None or not path.name.startswith(f"cli_{name[:-5]}."):
+            if path is not None:
+                path.unlink(missing_ok=True)
+            if name.startswith("glonass"):
+                x, gen_s = card_capture(dev, ["conf 1C", "conf 1G"], 104,
+                                        cn0_all=True)
+            elif name.startswith("gps_l2c"):
+                x, gen_s = card_capture(dev, ["conf 2S"], 105)
+            else:
+                x = x_mix
+            path = CACHE / f"cli_{name[:-5]}.{item_type}"
+            _write_capture(x, path, item_type, scale)
+            del x
+        write_s = time.perf_counter() - t0
+        conf = ROOT / "conf" / name
+        if edit is not None:
+            key, value = edit
+            text, n = re.subn(f"^{re.escape(key)}.*$", f"{key}{value}",
+                              conf.read_text(), flags=re.M)
+            if n != 1:
+                raise AssertionError(f"{name} has no {key}")
+            conf = CACHE / f"{name[:-5]}_edited.conf"
+            conf.write_text(text)
+            name = f"{name}, {key}{value}"
+        what = f"CLI {name}"
+        rxs = []
+        try:
+            with _counting(cc, tc) as counter:
+                rep = _run_cli(["-c", str(conf), "--signal_file", str(path)],
+                               scen, CACHE / f"cli_{name[:12]}", min_fixes,
+                               what, max_median_m=max_med,
+                               joint=mixed is not None, receivers=rxs)
+        except BaseException:
+            path.unlink(missing_ok=True)
+            raise
+        rep = _cli_launches(cc, tc, rep, counter, what)
+        if mixed is not None:
+            line = f"Mixed-constellation run: {mixed}"
+            if line not in rep["lines"]:
+                raise AssertionError(f"{what}: no '{line}' line")
+            final = [ln for ln in rep["lines"]
+                     if ln.startswith("Final joint fix:")]
+            used = final[0] if final else ""
+            want = "R:" if "1G" in mixed else "E:"
+            if want not in used:
+                raise AssertionError(f"{what}: the last joint fix does not "
+                                     f"use {want[0]}: {used!r}")
+            if "1G" in mixed:
+                rep["glonass"] = _glonass_duplicates(rxs, used, what)
+                rep["summary"] += (
+                    f", the last fix's R:{rep['glonass']['in_last_fix']} "
+                    f"is {rep['glonass']['satellites']} GLONASS satellite "
+                    f"(slot {rep['glonass']['slots']}) on "
+                    f"{rep['glonass']['channels']} channels at k = 0")
+        rep.update(capture_s=gen_s, write_s=write_s)
+        reps[name] = rep
+        log(f"[18] CLI, {name}: {rep['summary']}"
+            + (" (no median bar)" if max_med is None else "")
+            + f" | capture {gen_s:.2f} s + file {write_s - gen_s:.1f} s")
+    path.unlink(missing_ok=True)
     return reps
 
 

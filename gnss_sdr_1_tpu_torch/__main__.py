@@ -11,11 +11,12 @@ Usage:
     python -m gnss_sdr_1_tpu_torch --signal_file cap.dat --item_type ishort \\
         --fs 4e6 [--out_dir out/] [--device cpu]
 
-This port runs one GPS L1 C/A, GPS L5, Galileo E1B or Galileo E5a channel
-group (PCPS and its variants, CAF on E5a, DLL/PLL, VEML or, on GPS L1, KF
-tracking, single-point PVT);
-other confs and the flags of features not ported yet exit with an error
-naming the ROADMAP.md item that ports them.
+This port runs GPS L1 C/A, L2C and L5, Galileo E1B and E5a and GLONASS
+L1/L2 C/A channel groups (PCPS and its variants, CAF on E5a, DLL/PLL, VEML
+or, on GPS L1, KF tracking, single-point PVT); a conf with several groups
+runs them together with one joint PVT (runtime.multi_receiver).  Other
+confs and the flags of features not ported yet exit with an error naming
+the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def main(argv=None) -> int:
                     help="ishort|ibyte|byte|short|gr_complex")
     ap.add_argument("--fs", type=float, default=None, help="sampling rate")
     ap.add_argument("--signal", default=None,
-                    help="signal id (1C, L5, 1B, 5X)")
+                    help="signal id (1C, 2S, L5, 1B, 5X, 1G, 2G)")
     ap.add_argument("--channels", type=int, default=None)
     ap.add_argument("--max_s", type=float, default=None,
                     help="process at most this many seconds")
@@ -82,14 +83,15 @@ def main(argv=None) -> int:
     from .io.formats import FORMATS
     from .pvt import printers
     from .runtime import Receiver, ReceiverConfig
-    from .runtime.config import (ROADMAP_ITEMS, FileConfiguration,
-                                 build_frontend, not_ported,
-                                 to_receiver_config)
+    from .runtime.config import (PORTED_SIGNALS, ROADMAP_ITEMS,
+                                 FileConfiguration, build_frontend,
+                                 conf_signal_groups, not_ported,
+                                 to_receiver_config, to_receiver_configs)
 
     for flag, item in _UNPORTED_FLAGS.items():
         if getattr(args, flag) is not None:
             ap.error(f"--{flag} is not ported yet: {ROADMAP_ITEMS[item]}")
-    if args.signal and args.signal not in ("1C", "L5", "1B", "5X"):
+    if args.signal and args.signal not in PORTED_SIGNALS:
         ap.error(str(not_ported(f"signal '{args.signal}'", "signals")))
     try:
         dev = resolve_device(args.device)
@@ -98,12 +100,17 @@ def main(argv=None) -> int:
 
     frontend = None
     rinex_version = 3
+    multi_cfgs = None
     if args.config_file:
         conf = FileConfiguration(args.config_file)
-        # one channel group; multi-group, PPP/RTK and unported blocks
-        # raise with their ROADMAP.md item
+        # PPP/RTK, unported signals and blocks raise with their ROADMAP.md
+        # item; multi-constellation confs (Channels_1C.count +
+        # Channels_1B.count style) run concurrent channel groups with one
+        # joint ISB PVT (gnss_flowgraph.cc:1722 set_signals_list)
         try:
             rcfg = to_receiver_config(conf)
+            if len(conf_signal_groups(conf)) > 1:
+                multi_cfgs = to_receiver_configs(conf)
         except NotImplementedError as e:
             ap.error(f"{args.config_file}: {e}")
         # PVT.rinex_version (rinex_printer.cc:106 d_version): 2 -> 2.11
@@ -152,6 +159,10 @@ def main(argv=None) -> int:
               f"resampler {frontend.resampler_impl}")
         samples = frontend.process(samples, device=dev)
 
+    if multi_cfgs is not None:
+        return _run_multi(multi_cfgs, samples, src.n_samples / source_fs,
+                          pathlib.Path(args.out_dir), dev)
+
     rx = Receiver(rcfg, device=dev)
     rx.preload(samples)
     t0 = time.time()
@@ -199,22 +210,29 @@ def main(argv=None) -> int:
             last, sorted(p for _, obs in rx.obs_epochs[-1:] for p in obs)))
         nmea.extend(printers.nmea_gsv(gsv_sats))
     (out / "position.nmea").write_text("\n".join(nmea) + "\n")
-    # RINEX 2.11 has no Galileo file types: Galileo keeps 3.02
-    file_ver = rinex_version if rcfg.signal_id in ("1C", "L5") else 3
+    # RINEX 2.11 has file types for GPS and GLONASS only: Galileo keeps
+    # 3.02
+    file_ver = rinex_version if rcfg.signal_id in (
+        "1C", "2S", "L5", "1G", "2G") else 3
+    glonass = rcfg.signal_id in ("1G", "2G")
+    # epochs in GPS time: a GLONASS group's receiver time is the GLONASS
+    # time of day, dated by its ephemerides' day number (the JAX CLI raises
+    # AttributeError here on a GLONASS group)
+    week, tow_shift = (_glonass_gps_week(ephs) if glonass else (next(
+        (d.ephemeris.week for d in rx.decoders.values()
+         if d.ephemeris_complete), 0) + 2048, 0.0))
     if rx.obs_epochs:
-        week = next((d.ephemeris.week for d in rx.decoders.values()
-                     if d.ephemeris_complete), 0) + 2048
-        tows = [tow for tow, _ in rx.obs_epochs]
+        tows = [tow + tow_shift for tow, _ in rx.obs_epochs]
         interval = (round(np.median(np.diff(tows)), 3)
                     if len(tows) > 1 else None)
         obs_txt = [printers.rinex_obs_header(
             approx_xyz=last.rx_ecef_m,
             signals=(rcfg.signal_id,),
-            glonass_slots=None,
+            glonass_slots=dict(rcfg.fdma_k) or None,
             version=file_ver,
             time_first_obs=printers.gps_time_to_utc(week, tows[0], leap_s=0),
             interval_s=interval)]
-        for tow, obs in rx.obs_epochs:
+        for tow, (_, obs) in zip(tows, rx.obs_epochs):
             obs_txt.append(printers.rinex_obs_epoch(week, tow, {
                 p: {"pseudorange_m": o.pseudorange_m,
                     "carrier_phase_cycles": o.carrier_phase_cycles,
@@ -234,7 +252,8 @@ def main(argv=None) -> int:
                      if getattr(getattr(d, "iono", None), "valid", False)),
                     None)
         nav = printers.rinex_nav_header(
-            iono=iono, version=file_ver, system="G") + "".join(
+            iono=iono, version=file_ver,
+            system="R" if glonass else "G") + "".join(
             printers.rinex_nav_record(e, version=file_ver)
             for e in ephs.values())
         (out / "brdc.rnx").write_text(nav)
@@ -244,7 +263,8 @@ def main(argv=None) -> int:
     system = rtcm_mod.SYSTEM_OF_SIGNAL.get(rcfg.signal_id, "GPS")
     lam = 299792458.0 / rcfg.spec.carrier_freq_hz
     frames = [rtcm_mod.encode_mt1005(1234, last.rx_ecef_m,
-                                     gps=system == "GPS", glonass=False,
+                                     gps=system == "GPS",
+                                     glonass=system == "GLONASS",
                                      galileo=system == "Galileo")]
     frames += [f for f in (rtcm_mod.encode_ephemeris(e)
                            for e in ephs.values()) if f]
@@ -269,9 +289,66 @@ def main(argv=None) -> int:
             wavelength_m=lam)
             for p, o in obs.items()]
         if msm_obs:
-            frames.append(rtcm_mod.encode_msm(
-                system, 7, 1234, int(tow * 1e3) % 604800000, msm_obs))
+            tow_ms = int((tow + tow_shift) * 1e3) % 604800000
+            epoch = (rtcm_mod.glonass_msm_epoch(tow_ms)
+                     if system == "GLONASS" else tow_ms)
+            frames.append(rtcm_mod.encode_msm(system, 7, 1234, epoch,
+                                              msm_obs))
     (out / "observables.rtcm").write_bytes(b"".join(frames))
+    print(f"Outputs written to {out}/")
+    return 0
+
+
+def _glonass_gps_week(ephs) -> tuple[int, float]:
+    """GPS week, and GPS seconds into it, of 00:00 GLONASS time on the day
+    that the GLONASS ephemerides' NT names, counted from 1996 as the nav
+    records date their state vectors.  GLONASS time is UTC(SU) + 3 h, GPS
+    time UTC + 18 s."""
+    import datetime
+
+    from .pvt import printers
+
+    nt = next(int(e.nt_days) for e in ephs.values())
+    day = printers._GLO_NT_EPOCH + datetime.timedelta(
+        days=max(nt - 1, 0), hours=-3, seconds=18)
+    week, sow = divmod((day - printers._GPS_EPOCH).total_seconds(), 604800.0)
+    return int(week), sow
+
+
+def _run_multi(cfgs, samples, dur: float, out: pathlib.Path, dev) -> int:
+    """Several channel groups over one stream with one joint PVT, printing
+    the JAX CLI's lines and writing its KML/GPX/GeoJSON/NMEA outputs."""
+    from .pvt import printers
+    from .runtime.multi_receiver import MultiReceiver
+
+    names = "+".join(c.signal_id for c in cfgs)
+    print(f"Mixed-constellation run: {names} "
+          f"({'/'.join(str(c.n_channels) for c in cfgs)} channels)")
+    mrx = MultiReceiver(cfgs, device=dev)
+    t0 = time.time()
+    joint = mrx.process(samples)
+    dt = time.time() - t0
+    print(f"Processed in {dt:.1f} s (RTF {dur / dt:.2f}x); "
+          f"{len(joint)} joint PVT fixes")
+    out.mkdir(parents=True, exist_ok=True)
+    if not joint:
+        print("No joint position fix obtained.")
+        return 0
+    sols = [j.solution for j in joint]
+    last = sols[-1]
+    used = ", ".join(f"{sysl}:{len(p)}" for sysl, p in
+                     sorted(joint[-1].per_system_prns.items()))
+    print(f"Final joint fix: lat {last.lat_deg:.6f} lon {last.lon_deg:.6f} "
+          f"h {last.height_m:.1f} m ({used})")
+    (out / "position.kml").write_text(printers.kml_document(sols))
+    (out / "position.gpx").write_text(printers.gpx_document(sols))
+    (out / "position.geojson").write_text(printers.geojson_document(sols))
+    nmea = []
+    for s in sols:
+        utc = printers.gps_time_to_utc(2240, s.rx_time_tow_s)
+        nmea.append(printers.nmea_gga(s, utc))
+        nmea.append(printers.nmea_rmc(s, utc))
+    (out / "position.nmea").write_text("\n".join(nmea) + "\n")
     print(f"Outputs written to {out}/")
     return 0
 

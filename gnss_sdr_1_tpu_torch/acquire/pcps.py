@@ -22,6 +22,9 @@ one batched complex64 tensor op — (C, D, F).  Numerical contracts:
 * Non-coherent dwell accumulation (max_dwells): |corr|^2 grids summed.
 * Tong sequential detection (pcps_tong_acquisition_cc): a per-PRN counter
   walked up or down by single-dwell threshold tests (`acquire_tong`).
+* FDMA (GLONASS, is_fdma() :277-283): each PRN's constant carrier offset
+  is folded into its stored replica, so one batched grid searches every
+  slot's own band (`freq_offsets_by_prn`).
 
 The grid maxima use torch.argmax, which returns the first maximal index —
 the same tie-break as a first-index scan.
@@ -184,16 +187,24 @@ class PcpsAcquisition:
 
     def __init__(self, cfg: AcqConfig, codes_by_prn: dict[int, np.ndarray],
                  fs_code_rate: tuple[float, int] | None = None,
+                 freq_offsets_by_prn: dict[int, float] | None = None,
                  device=None):
         """`codes_by_prn`: PRN -> +-1 chip array (1 sample/chip).
         `fs_code_rate`: (code_rate_chips_s, code_length_chips) used to
         resample chips to fs; if None, codes are pre-sampled at fs with
-        exactly cfg.samples_per_code samples."""
+        exactly cfg.samples_per_code samples.
+        `freq_offsets_by_prn`: per-PRN constant carrier offset (GLONASS
+        FDMA k * DFRQ) folded into the stored replica as
+        exp(+j 2 pi f0 n / fs); the reported Doppler stays the residual
+        against the slot's carrier."""
         from ..codes.sampling import resample_code
 
         self.cfg = cfg
         self.device = resolve_device(device)
         self.prns = sorted(codes_by_prn)
+        self.freq_offsets = {
+            p: float((freq_offsets_by_prn or {}).get(p, 0.0))
+            for p in self.prns}
         F = cfg.fft_size
         sampled = []
         periods = []
@@ -208,6 +219,10 @@ class PcpsAcquisition:
                 if len(one_period) != cfg.samples_per_code:
                     raise ValueError("pre-sampled code length mismatch")
             rep = np.tile(one_period, cfg.sampled_ms).astype(np.complex128)
+            f0 = self.freq_offsets[prn]
+            if f0:
+                n = np.arange(len(rep), dtype=np.float64)
+                rep = rep * np.exp(2j * np.pi * f0 * n / cfg.fs_hz)
             buf = np.zeros(F, dtype=np.complex64)
             buf[: len(rep)] = rep
             sampled.append(np.conj(np.fft.fft(buf)).astype(np.complex64))

@@ -1,10 +1,12 @@
-"""Per-signal GNSS constants (GPS L1 C/A and L5, Galileo E1B and E5a).
+"""Per-signal GNSS constants (GPS L1 C/A, L2C and L5, Galileo E1B and E5a,
+GLONASS L1/L2 C/A).
 
-Reference parity: src/core/system_parameters/GPS_L1_CA.h, GPS_L5.h,
-Galileo_E1.h, Galileo_E5a.h, gnss_frequencies.h, MATH_CONSTANTS.h.  Values
-are from the public ICDs (IS-GPS-200/705, Galileo OS SIS ICD).  Other
-signals and constellations are not carried by this package yet: `SIGNALS`
-holds GPS L1 C/A, GPS L5I, Galileo E1B and Galileo E5a-I.
+Reference parity: src/core/system_parameters/GPS_L1_CA.h, GPS_L2C.h,
+GPS_L5.h, Galileo_E1.h, Galileo_E5a.h, GLONASS_L1_L2_CA.h,
+gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICDs
+(IS-GPS-200/705, Galileo OS SIS ICD, GLONASS ICD).  BeiDou is not carried
+by this package yet: `SIGNALS` holds GPS L1 C/A, L2CM and L5I, Galileo E1B
+and E5a-I, and GLONASS L1/L2 C/A.
 """
 
 from __future__ import annotations
@@ -27,9 +29,15 @@ GNSS_STARTOFFSET_MS = 60.0
 
 # --- carrier frequencies (gnss_frequencies.h) ---
 FREQ_L1 = 1575.42e6
+FREQ_L2 = 1227.60e6
 FREQ_L5 = 1176.45e6
 FREQ_E1 = 1575.42e6
 FREQ_E5A = 1176.45e6
+# GLONASS FDMA: f = f0 + k * df per channel number k in [-7, 6]
+FREQ_G1_GLO = 1602.0e6
+DFRQ1_GLO = 0.5625e6
+FREQ_G2_GLO = 1246.0e6
+DFRQ2_GLO = 0.4375e6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +48,7 @@ class SignalSpec:
     (e.g. GPS_L1_CA.h: code rate 1.023e6, 1023 chips, 1 ms period).
     """
 
-    system: str              # 'GPS' | 'Galileo'
+    system: str              # 'GPS' | 'Galileo' | 'GLONASS'
     name: str                # e.g. 'L1CA'
     signal_id: str           # 2-char config id used by reference confs: '1C', ...
     carrier_freq_hz: float
@@ -69,6 +77,14 @@ GPS_L1_CA = SignalSpec(
     symbol_rate_sps=50.0, bit_rate_bps=50.0,
 )
 
+GPS_L2C = SignalSpec(
+    system="GPS", name="L2CM", signal_id="2S",
+    carrier_freq_hz=FREQ_L2,
+    # L2CM: 10230 chips at 511.5 kchip/s chip-interleaved with L2CL -> 20 ms
+    code_rate_chips_s=0.5115e6, code_length_chips=10230, code_period_s=20e-3,
+    symbol_rate_sps=50.0, bit_rate_bps=25.0,   # CNAV r=1/2 FEC
+)
+
 GPS_L5 = SignalSpec(
     system="GPS", name="L5I", signal_id="L5",
     carrier_freq_hz=FREQ_L5,
@@ -93,9 +109,38 @@ GALILEO_E5A = SignalSpec(
     secondary_code_length=20, has_pilot=True,   # CS20 data / CS100 pilot
 )
 
+GLONASS_L1_CA = SignalSpec(
+    system="GLONASS", name="L1CA", signal_id="1G",
+    carrier_freq_hz=FREQ_G1_GLO,   # per-satellite FDMA offset applied at runtime
+    code_rate_chips_s=0.511e6, code_length_chips=511, code_period_s=1e-3,
+    symbol_rate_sps=100.0, bit_rate_bps=50.0,   # meander 100 sps
+)
+
+GLONASS_L2_CA = SignalSpec(
+    system="GLONASS", name="L2CA", signal_id="2G",
+    carrier_freq_hz=FREQ_G2_GLO,
+    code_rate_chips_s=0.511e6, code_length_chips=511, code_period_s=1e-3,
+    symbol_rate_sps=100.0, bit_rate_bps=50.0,
+)
+
 # Registry keyed by the reference's 2-char signal ids
 SIGNALS: dict[str, SignalSpec] = {
-    s.signal_id: s for s in (GPS_L1_CA, GPS_L5, GALILEO_E1B, GALILEO_E5A)}
+    s.signal_id: s
+    for s in (GPS_L1_CA, GPS_L2C, GPS_L5, GALILEO_E1B, GALILEO_E5A,
+              GLONASS_L1_CA, GLONASS_L2_CA)}
+
+
+def glonass_fdma_offset_hz(signal_id: str, freq_channel: int) -> float:
+    """GLONASS FDMA carrier offset for frequency channel number k in [-7, 6].
+
+    Ref behavior: pcps_acquisition.cc is_fdma() offsets the Doppler grid by
+    DFRQ{1,2}_GLO * k for signals '1G'/'2G'.
+    """
+    if signal_id == "1G":
+        return DFRQ1_GLO * freq_channel
+    if signal_id == "2G":
+        return DFRQ2_GLO * freq_channel
+    return 0.0
 
 
 # --- GPS LNAV framing (GPS_L1_CA.h / IS-GPS-200) ---

@@ -47,18 +47,27 @@ class PvtSolution:
 
 def sat_pos_vel(eph, t: float) -> tuple[np.ndarray, np.ndarray]:
     """Ephemeris-type dispatch: Keplerian broadcast (GPS, and Galileo
-    through telemetry.inav.to_keplerian).  Precise products and GLONASS
-    state vectors are not ported yet."""
-    if hasattr(eph, "position_velocity") or hasattr(eph, "tb_s"):
+    through telemetry.inav.to_keplerian) vs GLONASS state-vector + RK4
+    (rtklib ephpos geph branch, rtklib_ephemeris.cc geph2pos).  Precise
+    products are not ported yet."""
+    if hasattr(eph, "position_velocity"):
         raise NotImplementedError(
-            "only Keplerian broadcast ephemerides are ported")
+            "precise ephemerides are not ported yet")
+    if hasattr(eph, "tb_s"):
+        from .glonass_orbits import glonass_satpos
+
+        return glonass_satpos(eph, t)
     return satellite_position_velocity(eph, t)
 
 
 def sat_clock(eph, t: float) -> float:
-    if hasattr(eph, "clock") or hasattr(eph, "tb_s"):
+    if hasattr(eph, "clock"):
         raise NotImplementedError(
-            "only Keplerian broadcast ephemerides are ported")
+            "precise ephemerides are not ported yet")
+    if hasattr(eph, "tb_s"):
+        from .glonass_orbits import glonass_clock_correction
+
+        return glonass_clock_correction(eph, t)
     return satellite_clock_correction(eph, t)
 
 

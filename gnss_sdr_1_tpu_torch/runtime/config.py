@@ -9,27 +9,28 @@ reference property names onto ReceiverConfig, and `build_frontend` realizes
 the SignalConditioner chain (DataTypeAdapter -> InputFilter -> Resampler,
 signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 
-This port carries one GPS L1 C/A ('1C'), GPS L5 ('L5'), Galileo E1B ('1B')
-or Galileo E5a ('5X') channel group with PCPS, Tong, QuickSync, CCCWSR,
-fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B) or,
-on GPS L1, KF tracking, and single-point PVT.
+This port carries GPS L1 C/A ('1C'), L2CM ('2S') and L5 ('L5'), Galileo
+E1B ('1B') and E5a ('5X') and GLONASS L1/L2 C/A ('1G'/'2G') channel groups
+with PCPS, Tong, QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) CAF
+acquisition, DLL/PLL (VEML on E1B) or, on GPS L1, KF tracking, and
+single-point PVT; a conf with several groups maps to one ReceiverConfig
+per group (`to_receiver_configs`, run by runtime.multi_receiver).
 `to_receiver_config` refuses everything else with NotImplementedError naming
 the ROADMAP.md item that ports it, so no conf maps quietly to an engine
-other than the one it names.
+other than the one it names.  As in the JAX package, no conf key maps to
+`fdma_k`: a conf's GLONASS group runs every slot at k = 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from .receiver import ReceiverConfig
+from .receiver import _DECODERS, ReceiverConfig
 
 # ROADMAP.md §1, "What later slices port": the item that ports each part a
 # conf or a CLI flag may ask for
 ROADMAP_ITEMS = {
     "acquisition": "ROADMAP.md §1 item 1 (acquisition variants and Tong)",
-    "multi_group": "ROADMAP.md §1 item 2 (multi-group confs and "
-                   "MultiReceiver)",
     "ppp_rtk": "ROADMAP.md §1 item 3 (PPP, RTK and --base_obs)",
     "assistance": "ROADMAP.md §1 item 4 (SUPL and assistance)",
     "monitors": "ROADMAP.md §1 item 5 (telecommand, monitors, streaming "
@@ -210,25 +211,31 @@ def build_frontend(conf: InMemoryConfiguration) -> FrontEnd:
     )
 
 
-def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
-    """Map reference property names (conf/gnss-sdr_GPS_L1_ishort.conf
-    conventions) onto a ReceiverConfig for the conf's one channel group.
+# the signal groups this port carries (those the receiver has a decoder
+# for)
+PORTED_SIGNALS = tuple(_DECODERS)
 
-    The Acquisition_1C/Tracking_1C `implementation=` names are routed
-    through runtime.factory: an unknown name raises KeyError (the reference
-    factory logs 'Block ... not found' and aborts the flowgraph), a
-    hardware block raises ValueError, and a strategy, signal, group count
-    or positioning mode this port does not carry raises
+
+def to_receiver_config(conf: InMemoryConfiguration,
+                       signal_id: str | None = None) -> ReceiverConfig:
+    """Map reference property names (conf/gnss-sdr_GPS_L1_ishort.conf
+    conventions) onto a ReceiverConfig for ONE channel group.
+
+    `signal_id` selects the group in multi-constellation confs (default:
+    the first configured group).  The Acquisition_XX/Tracking_XX
+    `implementation=` names are routed through runtime.factory: an unknown
+    name raises KeyError (the reference factory logs 'Block ... not found'
+    and aborts the flowgraph), a hardware block raises ValueError, and a
+    strategy, signal or positioning mode this port does not carry raises
     NotImplementedError naming its ROADMAP.md item."""
     from . import factory
 
     groups = conf_signal_groups(conf)
-    if len(groups) > 1:
-        raise not_ported(f"a conf with {len(groups)} channel groups "
-                         f"({'+'.join(groups)})", "multi_group")
-    signal_id = groups[0]
-    if signal_id not in ("1C", "L5", "1B", "5X"):
-        raise not_ported(f"signal '{signal_id}'", "signals")
+    if signal_id is None:
+        signal_id = groups[0]
+    for sid in groups:
+        if sid not in PORTED_SIGNALS:
+            raise not_ported(f"signal '{sid}'", "signals")
     fs = conf.property("GNSS-SDR.internal_fs_sps",
                        conf.property("GNSS-SDR.internal_fs_hz", 4_000_000.0))
     sig = f"_{signal_id}"
@@ -318,3 +325,11 @@ def to_receiver_config(conf: InMemoryConfiguration) -> ReceiverConfig:
         # PVT.output_rate_ms (rtklib_pvt_gs output cadence); 0 = every tick
         pvt_output_rate_ms=int(conf.property("PVT.output_rate_ms", 0)),
     )
+
+
+def to_receiver_configs(conf: InMemoryConfiguration) -> list[ReceiverConfig]:
+    """One ReceiverConfig per configured channel group — the
+    multi-constellation conf contract (Channels_1C.count=8 +
+    Channels_1B.count=8 run GPS L1 and Galileo E1 groups concurrently with
+    one mixed PVT, gnss_flowgraph.cc:1722 set_signals_list)."""
+    return [to_receiver_config(conf, sid) for sid in conf_signal_groups(conf)]

@@ -1,5 +1,5 @@
-"""Segment-synchronous GPS L1 C/A and L5, Galileo E1B and E5a receiver
-pipeline.
+"""Segment-synchronous GPS L1 C/A, L2C and L5, Galileo E1B and E5a and
+GLONASS L1/L2 C/A receiver pipeline.
 
 Reference parity: ControlThread::run (control_thread.cc:239) +
 GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
@@ -9,18 +9,21 @@ on the card (batched PCPS on torch.fft, the chunked tracking engine with
 its CUDA chain kernel); the lifecycle FSM stays on the host between
 capture segments.
 
-This package carries GPS L1 C/A ('1C', LNAV), GPS L5I ('L5': NH10
-secondary, CNAV), Galileo E1B ('1B': the sinBOC(1,1) replica, 5-tap VEML
-tracking, I/NAV) and Galileo E5a-I ('5X': CS20 secondary, F/NAV) with
-PCPS, Tong, QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the
-noncoherent I/Q CAF acquisition (the strategy dispatch of
-gnss_block_factory.cc:1552-1709), and either the chunked DLL/PLL engine
-or, on GPS L1, the Kalman-filter tracker (`track_engine="kf"`, track.kf).
-On L5 and E5a the chain wipes the secondary code in the loop once
-telemetry reports secondary sync (`_maybe_extend`).  Streaming,
-checkpoint/resume, monitors, assistance, FDMA and the other signals are
-not ported yet: ReceiverConfig refuses them, naming the ROADMAP.md item
-that ports each.
+This package carries GPS L1 C/A ('1C', LNAV), GPS L2CM ('2S': the 20 ms
+code is the CNAV symbol), GPS L5I ('L5': NH10 secondary, CNAV), Galileo
+E1B ('1B': the sinBOC(1,1) replica, 5-tap VEML tracking, I/NAV), Galileo
+E5a-I ('5X': CS20 secondary, F/NAV) and GLONASS L1/L2 C/A ('1G'/'2G':
+each slot's FDMA carrier offset `fdma_k` folded into its acquisition
+replica and carried as the channel's NCO bias, GNAV) with PCPS, Tong,
+QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the noncoherent I/Q CAF
+acquisition (the strategy dispatch of gnss_block_factory.cc:1552-1709),
+and either the chunked DLL/PLL engine or, on GPS L1, the Kalman-filter
+tracker (`track_engine="kf"`, track.kf).  On L5 and E5a the chain wipes
+the secondary code in the loop once telemetry reports secondary sync
+(`_maybe_extend`).  One Receiver runs one signal group; MultiReceiver
+(runtime/multi_receiver.py) joins several.  Streaming, checkpoint/resume,
+monitors, assistance and BeiDou are not ported yet: ReceiverConfig
+refuses them, naming the ROADMAP.md item that ports each.
 """
 
 from __future__ import annotations
@@ -39,12 +42,15 @@ from ..codes import (NH10, galileo_e1_sinboc11, galileo_e1c_code,
                      galileo_e5aq_code, resample_code, tracking_replica)
 from ..codes.galileo_e5 import galileo_e5ai_secondary
 from ..condition.filters import to_device
-from ..constants import SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec
+from ..constants import (SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec,
+                         glonass_fdma_offset_hz)
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
 from ..pvt.solver import PvtSolution, solve_pvt
 from ..telemetry.channel_adapters import (GalileoChannelDecoder,
                                           GalileoE5aChannelDecoder,
+                                          GlonassChannelDecoder,
+                                          GpsL2ChannelDecoder,
                                           GpsL5ChannelDecoder)
 from ..telemetry.decoder import LnavDecoder
 from ..track import TrackConfig, TrackingEngine, TrackOutputs
@@ -98,6 +104,8 @@ class ReceiverConfig:
     # per-channel satellite pinning (ChannelN.satellite=PRN,
     # gnss_flowgraph.cc:1076-1090); empty = dynamic
     channel_satellites: tuple = ()
+    # GLONASS FDMA frequency channel per slot: ((slot, k), ...), k in
+    # [-7, 6]; slots not listed run at k = 0
     fdma_k: tuple = ()
     # pipeline
     block_ms: int = 40
@@ -129,8 +137,7 @@ class ReceiverConfig:
 
         # what each unported value waits for (runtime.config.ROADMAP_ITEMS)
         refused = {
-            "signal_id": (self.signal_id, ("1C", "L5", "1B", "5X"),
-                          "signals"),
+            "signal_id": (self.signal_id, tuple(_DECODERS), "signals"),
             "acq_strategy": (self.acq_strategy, _ACQ_STRATEGIES,
                              "assistance" if self.acq_strategy == "assisted"
                              else "signals"),
@@ -151,8 +158,6 @@ class ReceiverConfig:
         if self.track_engine == "kf" and self.signal_id != "1C":
             raise not_ported(f"the KF tracker on signal {self.signal_id!r}",
                              "signals")
-        if self.fdma_k:
-            raise not_ported("fdma_k", "signals")
         for name in ("enable_monitor", "enable_pvt_monitor"):
             if getattr(self, name):
                 raise not_ported(name, "monitors")
@@ -169,8 +174,8 @@ _ACQ_STRATEGIES = ("pcps", "tong", "quicksync", "cccwsr", "fine_doppler",
 
 
 class Receiver:
-    """Single-constellation single-band receiver (GPS L1 C/A and L5,
-    Galileo E1B and E5a).
+    """Single-constellation single-band receiver (GPS L1 C/A, L2C and L5,
+    Galileo E1B and E5a, GLONASS L1/L2 C/A).
 
     `device`: None runs the data plane on the card (and raises without
     one); the CPU only when asked for (`device="cpu"`)."""
@@ -187,12 +192,25 @@ class Receiver:
         self._codes = {p: r[0] for p, r in replicas.items()}
         virtual_rate, spc_code = next(iter(replicas.values()))[1:]
         is_veml = cfg.signal_id == "1B"
-        # a symbol as short as the code (E1B: 4 ms) can flip the sign at
-        # every code-period boundary and smear the one-period correlation;
-        # the reference's cure is the two-period window
+        # FDMA slot carrier offsets (GLONASS): per-PRN replica modulation in
+        # acquisition + per-channel NCO bias in tracking
+        self._fdma_offsets = {
+            prn: glonass_fdma_offset_hz(cfg.signal_id, k)
+            for prn, k in dict(cfg.fdma_k).items()
+        } if cfg.fdma_k else {}
+        # an FDMA offset that is not a whole number of carrier cycles per
+        # one-period window (k * 562.5 kHz * 1 ms: half-integer for odd k)
+        # leaves a phase jump at the circular-correlation wrap and splits
+        # the peak into +-500 Hz sidebands; a secondary code or a symbol as
+        # short as the code (E1B 4 ms, L2CM 20 ms) can flip the sign at
+        # every code-period boundary and smear the one-period correlation.
+        # The reference's cure for both is the two-period window
         # (pcps_acquisition.cc set_local_code :239-273)
-        acq_bit_transition = cfg.acq_bit_transition or (
-            spec.secondary_code_length > 0
+        acq_bit_transition = (
+            cfg.acq_bit_transition
+            or any(abs(f) % (fs / self.samples_per_code) > 1e-6
+                   for f in self._fdma_offsets.values())
+            or spec.secondary_code_length > 0
             or spec.chips_per_symbol <= spec.code_length_chips)
         acq_cfg = AcqConfig(
             fs_hz=fs,
@@ -211,6 +229,7 @@ class Receiver:
         fs_code_rate = (virtual_rate, spec.code_length_chips * spc_code)
         self.acq = PcpsAcquisition(acq_cfg, self._codes,
                                    fs_code_rate=fs_code_rate,
+                                   freq_offsets_by_prn=self._fdma_offsets,
                                    device=self.device)
         self.acq_strategy = strat = (
             "tong" if cfg.acq_tong and cfg.acq_strategy == "pcps"
@@ -219,8 +238,8 @@ class Receiver:
         self._make_acquisition(strat, acq_cfg, fs_code_rate, virtual_rate)
         # bit / secondary-code period in epochs — the coherent-extension
         # alignment grid (20 ms GPS bit, NH10 on L5, CS20 on E5a); an E1B
-        # symbol is one epoch, so E1B has neither extension nor the
-        # symbol-grid readback
+        # or L2CM symbol is one epoch and GLONASS has no secondary code, so
+        # those signals have neither extension nor the symbol-grid readback
         self._sec_period = {"1C": 20, "L5": 10, "5X": 20}.get(cfg.signal_id)
         # in-loop secondary wipe-off tables (dll_pll_veml_tracking.cc:549-660
         # start_tracking secondary setup), one row per slot: NH10 for GPS
@@ -398,15 +417,17 @@ class Receiver:
             idle_channels.remove(ch)
             self.channel_prn[ch] = prn
             # the KF seeds its Doppler prior from the acq grid step
-            # (gps_l1_ca_kf_tracking_cc.cc:276-279)
-            step = ({"doppler_step_hz": self.cfg.doppler_step_hz}
-                    if self.trk_kind == "kf" else {})
+            # (gps_l1_ca_kf_tracking_cc.cc:276-279); the DLL/PLL engine
+            # carries the slot's FDMA offset as a constant NCO bias
+            extra = ({"doppler_step_hz": self.cfg.doppler_step_hz}
+                     if self.trk_kind == "kf" else
+                     {"carr_offset_hz": self._fdma_offsets.get(prn, 0.0)})
             self.state = self.trk.activate_channel(
                 self.state, ch, self._slot_of_prn[prn],
                 float(res.delay_samples[k]), float(dops[k]),
-                samples_abs_offset, self._pos, **step)
-            # telemetry decoders per signal: LNAV (1C), CNAV (L5), I/NAV
-            # (1B), F/NAV (5X)
+                samples_abs_offset, self._pos, **extra)
+            # telemetry decoders per signal: LNAV (1C), CNAV (2S, L5),
+            # I/NAV (1B), F/NAV (5X), GNAV (1G, 2G)
             self.decoders[prn] = _DECODERS[self.cfg.signal_id](prn)
             self._mode_host[ch] = 0
             self.histories[prn] = ChannelEpochHistory()
@@ -961,6 +982,9 @@ class Receiver:
         return self.solutions
 
 
-# the telemetry decoder of each signal's channels
-_DECODERS = {"1C": LnavDecoder, "L5": GpsL5ChannelDecoder,
-             "1B": GalileoChannelDecoder, "5X": GalileoE5aChannelDecoder}
+# the telemetry decoder of each signal's channels (the signals this package
+# carries)
+_DECODERS = {"1C": LnavDecoder, "2S": GpsL2ChannelDecoder,
+             "L5": GpsL5ChannelDecoder, "1B": GalileoChannelDecoder,
+             "5X": GalileoE5aChannelDecoder, "1G": GlonassChannelDecoder,
+             "2G": GlonassChannelDecoder}

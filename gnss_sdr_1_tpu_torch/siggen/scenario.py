@@ -167,18 +167,20 @@ def build_scenario(
     anomalies: list[float] | None = None,
     subframe_cycle: tuple[int, ...] = (1, 2, 3, 4, 5),
     signal: str = "1C",
+    fdma_ks: dict[int, int] | None = None,
     rx_vel_ecef: np.ndarray | None = None,
 ) -> Scenario:
     """Build consistent SatParams + ephemerides for `prns` visible from
     rx_ecef.  Orbit planes/anomalies default to a spread that puts the
     satellites above the horizon for a receiver near the prime meridian
     mid-latitudes; pass explicit raans/anomalies otherwise.  GPS L1 C/A
-    (LNAV), GPS L5I (CNAV), Galileo E1B (I/NAV) and Galileo E5a-I (F/NAV)
-    only: other signals' message streams are not ported yet."""
-    if signal not in ("1C", "L5", "1B", "5X"):
+    (LNAV), GPS L2CM and L5I (CNAV), Galileo E1B (I/NAV), Galileo E5a-I
+    (F/NAV) and GLONASS L1 C/A (GNAV, each slot on its FDMA carrier
+    `fdma_ks[slot]`) only: BeiDou's message stream is not ported yet."""
+    if signal not in ("1C", "2S", "L5", "1B", "5X", "1G"):
         raise NotImplementedError(
-            f"signal {signal!r} is not ported yet (GPS L1 C/A '1C', GPS L5 "
-            f"'L5', Galileo E1B '1B' and E5a '5X' only)")
+            f"signal {signal!r} is not ported yet (GPS '1C', '2S', 'L5', "
+            f"Galileo '1B', '5X' and GLONASS '1G' only)")
     from ..constants import SIGNALS
 
     if chip_rate is None:
@@ -190,9 +192,11 @@ def build_scenario(
         carrier_freq = float(SIGNALS[signal].carrier_freq_hz)
     toe = np.floor(t0_tow / 7200.0) * 7200.0   # ephemeris reference nearby
     # bit stream starts at the last subframe (LNAV, 6 s), CNAV message
-    # (L5, 6 s) or page (I/NAV and F/NAV streams, 2 s) boundary before the
-    # earliest possible transmit time (t0 - 0.1 s)
-    boundary = {"1C": 6.0, "L5": 6.0}.get(signal, 2.0)
+    # (L5 6 s, L2CM 12 s), GNAV frame (30 s) or page (I/NAV and F/NAV
+    # streams, 2 s) boundary before the earliest possible transmit time
+    # (t0 - 0.1 s)
+    boundary = {"1C": 6.0, "1G": 30.0,
+                "L5": 6.0, "2S": 12.0}.get(signal, 2.0)
     bits_tow0 = np.floor((t0_tow - 0.1) / boundary) * boundary
 
     sats: list[SatParams] = []
@@ -211,18 +215,59 @@ def build_scenario(
         anom = anomalies[i]
         eph = make_test_ephemeris(prn, toe, plane_raan_deg=raan,
                                   anomaly_deg=anom, af0=2e-5 * ((i % 3) - 1))
-        ephs[prn] = eph
+        carrier_offset = 0.0
+        if signal == "1G":
+            # GLONASS: broadcast is a state vector at tb (multiple of 900 s)
+            # propagated by RK4; the truth delays use the SAME quantized
+            # broadcast + RK4 model the receiver will, so geometry is exact
+            # (glonass_gnav_ephemeris.cc simplified_satellite_position)
+            from ..pvt.glonass_orbits import (
+                glonass_clock_correction, glonass_satpos)
+            from ..telemetry.gnav import (
+                GlonassEphemeris, decode_string, encode_string)
 
-        def observed(t_rx, _e=eph):
-            return observed_delay_s(_e, _rx_at(t_rx), t_rx)
+            k_fdma = (fdma_ks or {}).get(prn, 0)
+            carrier_offset = 0.5625e6 * k_fdma
+            tb = np.round((t0_tow + duration_s / 2.0) / 900.0) * 900.0
+            pos_tb, vel_tb = satellite_position_velocity(eph, tb)
+            g0 = GlonassEphemeris(
+                slot=prn, freq_channel=k_fdma, tb_s=tb % 86400.0,
+                x_km=pos_tb[0] / 1e3, y_km=pos_tb[1] / 1e3,
+                z_km=pos_tb[2] / 1e3,
+                vx_kms=vel_tb[0] / 1e3, vy_kms=vel_tb[1] / 1e3,
+                vz_kms=vel_tb[2] / 1e3,
+                tau_n_s=-eph.af0, nt_days=100 + prn)
+            geph = GlonassEphemeris(slot=prn)
+            for sid in (1, 2, 3, 4):       # broadcast-quantized round trip
+                decode_string(encode_string(sid, g0), geph)
+            geph.tk_s = 0.0                # tk comes per-frame below
+            ephs[prn] = geph
+
+            def observed(t_rx, _g=geph):
+                tau = 0.07
+                for _ in range(4):
+                    p, _v = glonass_satpos(_g, t_rx - tau)
+                    th = GPS_OMEGA_EARTH_DOT * tau
+                    c, s = np.cos(th), np.sin(th)
+                    pr = np.array([c * p[0] + s * p[1],
+                                   -s * p[0] + c * p[1], p[2]])
+                    tau = np.linalg.norm(
+                        pr - _rx_at(t_rx)) / SPEED_OF_LIGHT_M_S
+                return tau - glonass_clock_correction(_g, t_rx - tau)
+        else:
+            ephs[prn] = eph
+
+            def observed(t_rx, _e=eph):
+                return observed_delay_s(_e, _rx_at(t_rx), t_rx)
         # cubic fit of observed delay over the run (the quadratic residual
         # of a MEO pass over 24 s is meters; cubic leaves centimeters)
         ts = np.linspace(0.0, duration_s, 5)
         taus = np.array([observed(t0_tow + dt) for dt in ts])
         coef = np.polyfit(ts, taus, 3)     # tau(t) ~ c3 t^3 + ... + c0
         tau0, tau_dot = coef[3], coef[2]
-        doppler = -carrier_freq * tau_dot
-        doppler_rate = -carrier_freq * 2.0 * coef[1]
+        fc_i = carrier_freq + carrier_offset   # FDMA: the slot's own carrier
+        doppler = -fc_i * tau_dot
+        doppler_rate = -fc_i * 2.0 * coef[1]
         doppler_rate2 = -carrier_freq * 6.0 * coef[0]
         # delay of the bit/code stream relative to the bits_tow0 origin:
         # stream time at rx t is (t0_tow + t - tau(t)) - bits_tow0, so the
@@ -245,27 +290,33 @@ def build_scenario(
                 geph.tow = bits_tow0 + 2.0 * k
                 pages.append(encode_page(encode_word(cycle[k % 5], geph)))
             bits01 = np.concatenate(pages)
-        elif signal == "L5":
+        elif signal in ("L5", "2S"):
             # CNAV message stream (types 10, 11, 30 cycling; 6 s per message
-            # at 100 sps), K=7 r=1/2 FEC.  L5I additionally carries NH10 per
-            # 1 ms code period — expand symbols x10 against NH10 into an
-            # effective 1 kbps stream.
-            from ..codes.gps_l5 import NH10
+            # on L5 at 100 sps, 12 s on L2CM at 50 sps), K=7 r=1/2 FEC.
+            # L5I additionally carries NH10 per 1 ms code period — expand
+            # symbols x10 against NH10 into an effective 1 kbps stream.
             from ..telemetry.cnav import encode_message
             from ..utils.native import conv27_encode
 
             ceph = _gps_to_cnav(eph)
-            msg_s = 6.0
+            msg_s = 6.0 if signal == "L5" else 12.0
             n_msgs = int(np.ceil((duration_s + 2.0) / msg_s)) + 2
             cyc = (10, 11, 30)
             msgs = [encode_message(cyc[k % 3], ceph,
                                    bits_tow0 + (k + 1) * msg_s)
                     for k in range(n_msgs)]
             syms01 = conv27_encode(np.concatenate(msgs))
-            d = np.repeat(1.0 - 2.0 * syms01, 10)
-            nh = np.tile(np.asarray(NH10, dtype=np.float64), len(syms01))
-            bits01 = (1.0 - d * nh) / 2.0     # back to 0/1 for the
-            bit_rate_override = 1000.0        # common conversion below
+            if signal == "L5":
+                from ..codes.gps_l5 import NH10
+
+                d = np.repeat(1.0 - 2.0 * syms01, 10)
+                nh = np.tile(np.asarray(NH10, dtype=np.float64),
+                             len(syms01))
+                bits01 = (1.0 - d * nh) / 2.0     # back to 0/1 for the
+                bit_rate_override = 1000.0        # common conversion below
+            else:
+                bits01 = syms01
+                bit_rate_override = 50.0
         elif signal == "5X":
             # E5a-I F/NAV: 10 s pages at 50 sps, page types 1-4 cycling so
             # the ephemeris (+GST) completes in 40 s
@@ -292,6 +343,24 @@ def build_scenario(
                                     dtype=np.float64), len(syms01))
             bits01 = (1.0 - d * cs) / 2.0
             bit_rate_override = 1000.0
+        elif signal == "1G":
+            # GNAV 30 s frames of 15 strings (2 s each): strings 1-4 carry
+            # the ephemeris, 5-15 are filler (almanac slots); string 1
+            # starts each frame and its tk anchors time-of-day at the frame
+            # boundary.  The stream is the 100-sps meander SYMBOL sequence
+            # (bit_rate_override below), not 50 bps bits.
+            from ..telemetry.gnav import encode_string, string_to_symbols
+
+            g_tx = ephs[prn]
+            n_frames = int(np.ceil((duration_s + 2.0) / 30.0)) + 1
+            syms = []
+            for f in range(n_frames):
+                g_tx.tk_s = (bits_tow0 + 30.0 * f) % 86400.0
+                for sid in list(range(1, 16)):
+                    syms.append(string_to_symbols(
+                        encode_string(min(sid, 15), g_tx)))
+            bits01 = np.concatenate(syms)
+            bit_rate_override = 100.0
         else:
             n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
             bits01 = encode_lnav_frame(eph, bits_tow0, n_subframes=n_sf,
@@ -303,6 +372,7 @@ def build_scenario(
             delay_chips=delay_chips, cn0_dbhz=cn0_dbhz,
             phase_rad=float(2.0 * np.pi * ((i * 0.37) % 1.0)),
             nav_bits=nav_bits,
+            carrier_offset_hz=carrier_offset,
             bit_rate_override_bps=bit_rate_override,
         ))
         truth[prn] = {

@@ -5,9 +5,9 @@ The receiver expects every telemetry decoder to expose
   ephemeris_complete
 (the Gnss_Synchro TOW-stamping contract of the reference's telemetry
 blocks).  LnavDecoder implements it natively; these adapters wrap the other
-signals' decoders.  This package carries the GPS L5I (CNAV), Galileo E1B
-(I/NAV) and Galileo E5a-I (F/NAV) adapters; the others wait for their
-signals' decoders.
+signals' decoders.  This package carries the GPS L2CM and L5I (CNAV),
+GLONASS L1/L2 C/A (GNAV), Galileo E1B (I/NAV) and Galileo E5a-I (F/NAV)
+adapters; BeiDou's waits for its decoder.
 """
 
 from __future__ import annotations
@@ -15,6 +15,109 @@ from __future__ import annotations
 import numpy as np
 
 from .inav import InavDecoder, to_keplerian
+
+
+class GpsL2ChannelDecoder:
+    """L2CM (CNAV) channel: the 20 ms code period IS the CNAV symbol, so
+    prompts feed the Viterbi/message hunter directly
+    (gps_l2c_telemetry_decoder_gs.cc symbol path).  Exposes the Keplerian
+    conversion so the common PVT plane consumes the CNAV orbit."""
+
+    def __init__(self, prn: int):
+        from .cnav import CnavDecoder
+
+        self.prn = prn
+        self._dec = CnavDecoder(prn)
+
+    def push(self, prompt_i, start_samples=None) -> None:
+        self._dec.push(np.asarray(prompt_i, dtype=np.float64))
+
+    def tow_at_symbol(self, symbol_idx: int):
+        return self._dec.tow_at_symbol(symbol_idx)
+
+    @property
+    def iono(self):
+        return self._dec.iono
+
+    @property
+    def ephemeris(self):
+        return self._dec.ephemeris.to_keplerian()
+
+    @property
+    def ephemeris_complete(self) -> bool:
+        return self._dec.ephemeris_complete
+
+    @property
+    def raw(self):
+        return self._dec
+
+
+class GlonassChannelDecoder:
+    """GLONASS L1/L2 C/A channel: prompts per 1 ms code period; GNAV
+    symbols are 10 ms meander half-bits, so 10-epoch sums feed GnavDecoder.
+    The 10 ms boundary phase is found by maximizing sign stability."""
+
+    def __init__(self, slot: int):
+        self.slot = slot
+        from .gnav import GnavDecoder
+
+        self._dec = GnavDecoder(slot)
+        self._buf: list[float] = []
+        self._phase: int | None = None   # consume pointer (advances by 10s)
+        self._phase0: int | None = None  # 10 ms boundary offset at sync
+
+    def push(self, prompt_i, start_samples=None) -> None:
+        self._buf.extend(np.asarray(prompt_i, dtype=np.float64))
+        if self._phase is None:
+            self._sync_phase()
+        if self._phase is None:
+            return
+        p = np.asarray(self._buf)
+        usable = (len(p) - self._phase) // 10
+        if usable <= 0:
+            return
+        seg = p[self._phase : self._phase + usable * 10]
+        self._dec.push(seg.reshape(usable, 10).sum(axis=1))
+        self._phase += usable * 10
+
+    def _sync_phase(self) -> None:
+        p = np.asarray(self._buf)
+        if len(p) < 200:
+            return
+        s = np.sign(p)
+        flips = np.nonzero(s[1:] * s[:-1] < 0)[0] + 1
+        if len(flips) < 8:
+            return
+        hist = np.bincount(flips % 10, minlength=10)
+        best = int(np.argmax(hist))
+        if hist[best] >= 0.6 * len(flips):
+            self._phase = best
+            self._phase0 = best
+
+    def tow_at_symbol(self, symbol_idx: int):
+        """GLONASS tod at a 1 ms epoch index.  Uses the sync-time boundary
+        offset (_phase0) — _phase itself advances as the consume pointer,
+        and the GnavDecoder's symbol counter starts at the first consumed
+        10 ms sum."""
+        if self._phase0 is None:
+            return None
+        sym10 = (symbol_idx - self._phase0) / 10.0
+        tod = self._dec.tod_at_symbol(int(np.floor(sym10)))
+        if tod is None:
+            return None
+        return tod + 0.01 * (sym10 - np.floor(sym10))
+
+    @property
+    def ephemeris(self):
+        return self._dec.ephemeris
+
+    @property
+    def ephemeris_complete(self) -> bool:
+        return self._dec.ephemeris_complete
+
+    @property
+    def raw(self):
+        return self._dec
 
 
 class GalileoChannelDecoder:

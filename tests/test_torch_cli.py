@@ -1,12 +1,14 @@
 """The port's conf-file CLI and its configuration layer against the JAX
 package's: every conf in conf/ parses to the same items and frontend; the
-six GPS L1 C/A confs, the two Galileo E1 confs, the GPS L5 conf and the
-Galileo E5a (CAF) conf that need only what the port carries map to the
-same ReceiverConfig values and build a Receiver;
-every other conf, and every
-flag of a feature not ported yet, is refused with its ROADMAP.md item; the
-block registries agree; and both CLIs print the same lines on a short
-capture.  The slow case runs both CLIs to fixes on a 24 s capture."""
+six GPS L1 C/A confs, the two Galileo E1 confs, the GPS L5 and L2C confs,
+the Galileo E5a (CAF) conf and the three multi-group confs (GPS L1 +
+Galileo E1 on one or two sources, GPS L1 + GLONASS L1) that need only
+what the port carries map to the same ReceiverConfig values and build a
+Receiver; the multi-group ones run through the mixed-constellation branch;
+every other conf, and every flag of a feature not ported yet, is refused
+with its ROADMAP.md item; the block registries agree; and both CLIs print
+the same lines on a short capture.  The slow case runs both CLIs to fixes
+on a 24 s capture."""
 
 import dataclasses
 import json
@@ -36,15 +38,20 @@ from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
 PORTED = ["galileo_e1_gr_complex.conf", "galileo_e1_quicksync.conf",
-          "galileo_e5a.conf", "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
+          "galileo_e5a.conf", "glonass_l1_gps_l1_ibyte.conf",
+          "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
           "gps_l1_kalman.conf", "gps_l1_nsr.conf",
-          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf", "gps_l5.conf"]
+          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf",
+          "gps_l2c_ibyte.conf", "gps_l5.conf", "hybrid_ishort.conf",
+          "multisource_hybrid_ishort.conf"]
+MULTI_GROUP = ["glonass_l1_gps_l1_ibyte.conf", "hybrid_ishort.conf",
+               "multisource_hybrid_ishort.conf"]
 UNPORTED = [c for c in CONFS if c not in PORTED]
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 
 
 def test_corpus_split():
-    assert len(CONFS) == 16 and len(UNPORTED) == 6
+    assert len(CONFS) == 16 and len(UNPORTED) == 2
     assert set(PORTED) <= set(CONFS)
 
 
@@ -147,9 +154,8 @@ def test_galileo_tong_and_folding_keys_map(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("hybrid_ishort.conf", "item 2"),
-    ("multisource_hybrid_ishort.conf", "item 2"),
-    ("gps_l2c_ibyte.conf", "item 7")])
+    ("bds_b1i_ibyte.conf", "item 7"),
+    ("gps_l1_supl_assisted.conf", "item 4")])
 def test_unported_conf_names_its_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         trc(TConf(str(CONF_DIR / name)))
@@ -185,7 +191,24 @@ def test_ported_conf_runs_through_cli(name, tmp_path, capsys):
         lines[0]
     assert (lines[1].startswith("Conditioning: ")) == (not fe.is_passthrough)
     assert any(ln.startswith("Processed in ") for ln in lines)
-    assert lines[-1] == "No position fix obtained."
+    if name in MULTI_GROUP:
+        # the groups run at the conf's channel counts, as the JAX CLI runs
+        # them (--channels sets the first group's configuration only)
+        assert _mixed_line(name) in lines
+        assert lines[-1] == "No joint position fix obtained."
+    else:
+        assert lines[-1] == "No position fix obtained."
+
+
+def _mixed_line(name):
+    """The JAX CLI's `Mixed-constellation run:` line for a multi-group
+    conf, from the JAX package's own group configurations."""
+    from gnss_sdr_1_tpu.runtime.config import to_receiver_configs as jrcs
+
+    cfgs = jrcs(JConf(str(CONF_DIR / name)))
+    return (f"Mixed-constellation run: "
+            f"{'+'.join(c.signal_id for c in cfgs)} "
+            f"({'/'.join(str(c.n_channels) for c in cfgs)} channels)")
 
 
 @pytest.mark.parametrize("name", UNPORTED)
@@ -203,7 +226,7 @@ def test_unported_conf_refused_with_roadmap_item(name, capsys):
     ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
     ("--supl", "localhost"), ("--telecommand_port", "2101"),
     ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111"),
-    ("--signal", "2S")])
+    ("--signal", "B1")])
 def test_unported_flag_refused(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
@@ -330,3 +353,88 @@ def test_cli_fixes_match_jax_on_24s_capture(tmp_path, capsys):
     assert pj.shape == pt.shape
     assert np.linalg.norm(pt - pj, axis=1).max() < 0.5
     assert np.median(np.linalg.norm(pt - scen.rx_ecef, axis=1)) < 5.0
+
+
+def _glonass_receiver_stub(mod):
+    """A Receiver stand-in for package `mod` that has tracked one GLONASS
+    slot: its decoder holds a broadcast state vector, one observables
+    epoch and one fix near the scenario's receiver."""
+    from types import SimpleNamespace
+
+    from gnss_sdr_1_tpu_torch.observables import Observation
+    from gnss_sdr_1_tpu_torch.pvt.solver import PvtSolution
+
+    rx_ecef = llh_to_ecef(np.radians(55.75), np.radians(37.62), 180.0)
+    scen = build_scenario(rx_ecef, [4], t0_tow=35995.0, duration_s=10.0,
+                          chip_rate=0.511e6, signal="1G", fdma_ks={4: 1})
+    eph = scen.ephemerides[4]
+    tow = 36000.0
+    obs = {4: Observation(prn=4, pseudorange_m=2.1e7, tow_s=tow - 0.07,
+                          doppler_hz=-1234.5, carrier_phase_cycles=-1.1e8,
+                          cn0_dbhz=44.0)}
+    sol = PvtSolution(True, rx_ecef, 1e-4, np.zeros(3), 0.0, tow,
+                      lat_deg=55.75, lon_deg=37.62, height_m=180.0,
+                      dops={"pdop": 2.0, "hdop": 1.0, "vdop": 1.5,
+                            "gdop": 2.4, "tdop": 1.1}, n_sats=5)
+
+    class Stub:
+        def __init__(self, cfg, device=None):
+            self.cfg = cfg
+            self.decoders = {4: SimpleNamespace(
+                ephemeris=eph, raw=SimpleNamespace(ephemeris=eph),
+                ephemeris_complete=True, iono=None)}
+            self.obs_epochs = [(tow, obs)]
+
+        def preload(self, samples):
+            pass
+
+        def process(self, samples):
+            return [sol]
+
+    return Stub
+
+
+def test_glonass_group_writes_rinex_and_rtcm(tmp_path, capsys, monkeypatch):
+    """A GLONASS ('1G') group's outputs through the CLI, with the receiver
+    stubbed to one tracked slot: RINEX obs and nav for system R and an RTCM
+    stream with the MT1005 GLONASS flag, the GLONASS ephemeris and MSM7.
+    The receiver's time is the GLONASS time of day (10:00 here); the
+    ephemeris' day number (NT 104: 13 April 1996, as the nav record dates
+    it) dates the observation epochs (07:00 UTC) and the MSM7 epoch (day
+    of week 6, 10:00 GLONASS time).  The JAX CLI raises AttributeError on
+    the same run, reading a GPS week off a GLONASS ephemeris (which has
+    none)."""
+    import gnss_sdr_1_tpu.runtime as jrt
+    import gnss_sdr_1_tpu_torch.runtime as trt
+    from gnss_sdr_1_tpu_torch.pvt import rtcm
+
+    cap = tmp_path / "glo.ishort"
+    np.zeros(2 * 41000, np.int16).tofile(cap)
+    argv = ["--signal_file", str(cap), "--item_type", "ishort", "--fs",
+            "4.092e6", "--signal", "1G", "--channels", "1"]
+    monkeypatch.setattr(trt, "Receiver", _glonass_receiver_stub("port"))
+    lines = _run(tcli, argv + ["--device", "cpu", "--out_dir",
+                               str(tmp_path / "t")], capsys)
+    assert lines[-1] == f"Outputs written to {tmp_path / 't'}/"
+    out = tmp_path / "t"
+    nav = (out / "brdc.rnx").read_text().splitlines()
+    assert "N: GNSS NAV DATA" in nav[0]
+    assert any(ln.startswith("R04") for ln in nav)     # the state vector
+    assert any(ln.startswith("R04 1996 04 13 10 00 00") for ln in nav)
+    obs = (out / "observables.rnx").read_text()
+    assert "R04" in obs
+    assert "> 1996 04 13 07 00  0.0000000" in obs
+    frames = (out / "observables.rtcm").read_bytes()
+    msgs = []
+    while frames:
+        n = 3 + (((frames[1] & 0x03) << 8) | frames[2]) + 3
+        msgs.append(rtcm.deframe(frames[:n]))
+        frames = frames[n:]
+    assert msgs[0][0] == 1005
+    assert {1020, 1087} <= {m[0] for m in msgs}
+    msm = rtcm.decode_msm(next(p for n, p in msgs if n == 1087))
+    assert (msm["glonass_dow"], msm["glonass_tod_ms"]) == (6, 36_000_000)
+    monkeypatch.setattr(jrt, "Receiver", _glonass_receiver_stub("jax"))
+    with pytest.raises(AttributeError, match="week"):
+        jcli.main(argv + ["--platform", "cpu", "--out_dir",
+                          str(tmp_path / "j")])

@@ -304,11 +304,13 @@ def test_caf_and_unported_refused():
 
     with pytest.raises(NotImplementedError, match="item 7"):
         ReceiverConfig(signal_id="1B", acq_strategy="caf")
-    # L5 and E5a are ported; GPS L2C, GLONASS and BeiDou and the KF
-    # tracker off GPS L1 C/A are not
-    for sid in ("2S", "1G", "B1"):
+    # L5, E5a, GPS L2C and GLONASS are ported; BeiDou and the KF tracker
+    # off GPS L1 C/A are not
+    for sid in ("B1", "B3"):
         with pytest.raises(NotImplementedError, match="item 7"):
             ReceiverConfig(signal_id=sid)
+    for sid in ("2S", "1G", "2G"):
+        ReceiverConfig(signal_id=sid)
     ReceiverConfig(signal_id="5X", acq_strategy="caf")
     for sid in ("1B", "L5", "5X"):
         with pytest.raises(NotImplementedError, match="item 7"):

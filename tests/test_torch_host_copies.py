@@ -531,3 +531,78 @@ def test_port_imports_no_jax():
 
     assert tdata._NPZ.is_file()
     assert (ROOT / "gnss_sdr_1_tpu_torch") in tdata._NPZ.resolve().parents
+
+
+# ---------------------------------------------------------------------------
+# GPS L2C and GLONASS: constants, codes, orbits, the adapters, the scenario
+# ---------------------------------------------------------------------------
+
+
+def test_l2c_glonass_constants_identical():
+    for name in ("FREQ_L2", "FREQ_G1_GLO", "DFRQ1_GLO", "FREQ_G2_GLO",
+                 "DFRQ2_GLO"):
+        assert getattr(tconst, name) == getattr(jconst, name), name
+    for sid in ("2S", "1G", "2G"):
+        assert dataclasses.asdict(tconst.SIGNALS[sid]) == \
+            dataclasses.asdict(jconst.SIGNALS[sid])
+    assert sorted(tconst.SIGNALS) == sorted(
+        s for s in jconst.SIGNALS if s not in ("B1", "B3"))
+    for sid in ("1G", "2G", "1C"):
+        for k in range(-7, 7):
+            assert tconst.glonass_fdma_offset_hz(sid, k) == \
+                jconst.glonass_fdma_offset_hz(sid, k)
+
+
+@pytest.mark.parametrize("rel", ["codes/glonass.py", "codes/gps_l2c.py",
+                                 "pvt/glonass_orbits.py"])
+def test_l2c_glonass_modules_are_copies(rel):
+    """The L2CM and GLONASS code generators and the GLONASS RK4 orbit are
+    the JAX package's modules, byte for byte."""
+    assert (ROOT / "gnss_sdr_1_tpu_torch" / rel).read_text() == \
+        (ROOT / "gnss_sdr_1_tpu" / rel).read_text()
+
+
+def test_l2_glonass_adapters_are_copies():
+    """GpsL2ChannelDecoder line for line; GlonassChannelDecoder but for
+    the import of its GNAV decoder (the port's own copy)."""
+    assert inspect.getsource(tadapt.GpsL2ChannelDecoder) == \
+        inspect.getsource(jadapt.GpsL2ChannelDecoder)
+    src_t = inspect.getsource(tadapt.GlonassChannelDecoder)
+    src_j = inspect.getsource(jadapt.GlonassChannelDecoder)
+    assert src_t.replace(
+        "from .gnav import GnavDecoder\n\n        self._dec = "
+        "GnavDecoder(slot)",
+        "self._dec = __import__(\n            \"gnss_sdr_1_tpu.telemetry.gnav\""
+        ",\n            fromlist=[\"GnavDecoder\"]).GnavDecoder(slot)") == src_j
+    assert tadapt.GlonassChannelDecoder(3).raw.__module__ == \
+        "gnss_sdr_1_tpu_torch.telemetry.gnav"
+
+
+@pytest.mark.parametrize("signal", ["1G", "2S"])
+def test_l2c_glonass_scenario_and_generator_identical(signal):
+    from gnss_sdr_1_tpu.siggen.generator import generate_baseband as jgen
+    from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband as tgen
+
+    if signal == "1G":
+        rx = llh_to_ecef(np.radians(55.75), np.radians(37.62), 180.0)
+        kw = dict(t0_tow=35995.0, chip_rate=0.511e6,
+                  fdma_ks={1: -3, 2: 0, 3: 5})
+    else:
+        rx, kw = RX, dict(t0_tow=345601.25)
+    sj = jscen.build_scenario(rx, [1, 2, 3], duration_s=20.0,
+                              cn0_dbhz=47.0, signal=signal, **kw)
+    st = tscen.build_scenario(rx, [1, 2, 3], duration_s=20.0,
+                              cn0_dbhz=47.0, signal=signal, **kw)
+    assert sj.bits_tow0 == st.bits_tow0
+    for a, b in zip(sj.sats, st.sats):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        np.testing.assert_array_equal(da.pop("nav_bits"), db.pop("nav_bits"))
+        assert da == db
+    for p in (1, 2, 3):
+        assert dataclasses.asdict(sj.ephemerides[p]) == \
+            dataclasses.asdict(st.ephemerides[p])
+    codes = {p: jcodes.tracking_replica(signal, p)[0] for p in (1, 2, 3)}
+    spec_j, spec_t = jconst.SIGNALS[signal], tconst.SIGNALS[signal]
+    np.testing.assert_array_equal(
+        tgen(spec_t, st.sats, codes, 4.092e6, 0.01, noise=True),
+        jgen(spec_j, sj.sats, codes, 4.092e6, 0.01, noise=True))

@@ -271,3 +271,45 @@ def test_kf_receiver_matches_jax():
         np.testing.assert_array_equal(
             np.sign(pt[b0:b0 + 20 * n].reshape(n, 20).sum(axis=1)),
             np.sign(pj[b0:b0 + 20 * n].reshape(n, 20).sum(axis=1)))
+
+
+@pytest.mark.slow
+def test_kf_first_fix_timing_matches_jax():
+    """The KF receiver of the CLI's KF run (12 satellites, 30 s at
+    4.092 Msps, live LNAV, PVT every 100 ms, 12 channels, 32 PRNs
+    searched) in both packages on the CPU: the same channel assignments
+    and symbol counts, the same first-fix time and fix count, positions
+    inside the 5 m bar.  Both fix first ~22.5 s into the capture."""
+    from test_torch_capture_cache import cached_capture
+
+    from gnss_sdr_1_tpu.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu.runtime.receiver import Receiver as JReceiver
+    from gnss_sdr_1_tpu.runtime.receiver import ReceiverConfig as JCfg
+    from gnss_sdr_1_tpu.siggen.scenario import build_scenario
+    from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver as TReceiver
+    from gnss_sdr_1_tpu_torch.runtime.receiver import \
+        ReceiverConfig as TCfg
+
+    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+    prns = list(range(1, 13))
+    scen = build_scenario(rx_ecef, prns, t0_tow=345601.25, duration_s=30.0,
+                          cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
+    x = cached_capture(
+        "kf_e2e_4092000_30_v1",
+        lambda: generate_baseband(GPS_L1_CA, scen.sats,
+                                  {p: gps_l1ca_code(p) for p in prns}, FS,
+                                  30.0, noise=True))
+    kw = dict(fs_hz=FS, signal_id="1C", n_channels=12, track_engine="kf",
+              pvt_output_rate_ms=100)
+    rj = JReceiver(JCfg(**kw))
+    sj = rj.process(x)
+    rt = TReceiver(TCfg(**kw), device="cpu")
+    st = rt.process(x)
+    assert rt.channel_prn == rj.channel_prn
+    assert rt.sym_count == rj.sym_count
+    assert len(st) == len(sj) >= 10
+    assert st[0].rx_time_tow_s == pytest.approx(sj[0].rx_time_tow_s,
+                                                abs=1e-6)
+    e3d = np.linalg.norm(np.stack([s.rx_ecef_m for s in st]) - rx_ecef,
+                         axis=1)
+    assert np.median(e3d) < 5.0

@@ -21,12 +21,12 @@ FS = 2.046e6
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 
 
-def _run_both(prns, duration, t0_tow=345601.25, **cfg_kw):
+def _run_both(prns, duration, t0_tow=345601.25, seed=1234, **cfg_kw):
     scen = build_scenario(RX, prns, t0_tow=t0_tow, duration_s=duration,
                           cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
     x = generate_baseband(GPS_L1_CA, scen.sats,
                           {p: gps_l1ca_code(p) for p in prns}, FS, duration,
-                          noise=True)
+                          noise=True, seed=seed)
     kw = dict(fs_hz=FS, n_channels=len(prns), prn_search=tuple(prns),
               **cfg_kw)
     rj = JReceiver(JReceiverConfig(correlator="mxu", **kw))
@@ -47,7 +47,9 @@ def short_run():
 
 def test_receiver_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="2S")
+        ReceiverConfig(signal_id="B1")
+    ReceiverConfig(signal_id="2S")            # ported: GPS L2C
+    ReceiverConfig(signal_id="1G", fdma_k=((1, -7), (2, 6)))  # GLONASS
     with pytest.raises(NotImplementedError):
         ReceiverConfig(track_engine="veml")
     ReceiverConfig(track_engine="kf")         # ported: track/kf.py
@@ -100,3 +102,27 @@ def test_fixes_match_on_24s_capture():
         e3d = np.linalg.norm(np.stack([s.rx_ecef_m for s in rx.solutions])
                              - scen.rx_ecef, axis=1)
         assert np.median(e3d) < 5.0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fixes_match_on_24s_capture_other_noise(seed):
+    """The 24 s case on other noise realisations: the port's fixes are the
+    JAX package's, the same count from the same output epoch, positions
+    within 0.5 m of each other.  The 5 m median bar belongs to the seed
+    above: on seed 1 both packages' median is ~8 m."""
+    scen, rj, rt = _run_both([1, 2, 3, 4, 5, 6], 24.0, seed=seed)
+    pj, pt = (np.stack([s.rx_ecef_m for s in rx.solutions])
+              for rx in (rj, rt))
+    print(f"seed {seed}: {len(pj)} fixes (JAX), {len(pt)} (port), the "
+          f"first {rj.solutions[0].rx_time_tow_s - scen.t0_tow:.2f} s into "
+          f"the capture; median 3D error "
+          f"{np.median(np.linalg.norm(pj - scen.rx_ecef, axis=1)):.2f} m "
+          f"(JAX), {np.median(np.linalg.norm(pt - scen.rx_ecef, axis=1)):.2f}"
+          f" m (port); max distance between them "
+          f"{np.abs(pt - pj).max() if len(pt) == len(pj) else np.nan:.3e} m")
+    assert len(pt) == len(pj) > 0
+    # the same output epoch (PVT every 100 ms)
+    assert rt.solutions[0].rx_time_tow_s == pytest.approx(
+        rj.solutions[0].rx_time_tow_s, abs=1e-3)
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=0.5)
