@@ -27,8 +27,10 @@ Phases (one line each, with times):
      4.0 Msps: NW=16045, LW=69), timed like the first, and once more
      (untimed) at 8.184 Msps, where the correlator walks its 4 ms window
      (NW=32783) in two shared-memory tiles; and the same three checks,
-     timed, at the GPS L5 shape (12.5 Msps, C=6, NH10) and the Galileo E5a
-     shape (12 Msps, C=6, CS20) on chunks of real L5/E5a engines whose
+     timed, at the GPS L5 shape (12.5 Msps, C=6, NH10), the Galileo E5a
+     shape (12 Msps, C=6, CS20), the BeiDou B1I shape (5 Msps, C=8, the
+     0.2-chip correlator, NH20) and the B3I shape (12.5 Msps, C=6, NH20)
+     on chunks of real L5/E5a/B1I/B3I engines whose
      channels wipe the secondary code from a non-zero code index (the
      chain's secondary-code instances; over the capture entry's three
      chunks the index crosses chunk seams); the same three checks, timed,
@@ -111,8 +113,20 @@ Phases (one line each, with times):
      fixes on both systems, four position files; the hybrid confs at
      phase 16's bars; the GLONASS conf's R measurements all the capture's
      one satellite, which its k = 0 channels track under several PRNs).
+ 19. the BeiDou B1I receiver end to end: 8 D1 satellites (PRNs 6-13),
+     30 s at 5 Msps (bds_b1i_ibyte.conf's rate), 48 dB-Hz, NH20 on every
+     1 ms code period (tests/test_system_beidou.py's scenario widened from
+     5 satellites), at that test's bars (ephemerides of system C with
+     sqrt_a within 2e-5 of the truth, fixes, median 3D error and mean-bias
+     norm under 5 m), each kernel's launches == chunks, the chunks run with
+     the NH20 wipe on;
+ 20. the CLI on conf/bds_b1i_ibyte.conf as written over phase 19's
+     capture written as an ibyte file, at phase 19's bars, and the RINEX
+     C rows it writes;
+ 21. the BeiDou B3I receiver: 6 D1 satellites, 30 s at 12.5 Msps, as
+     phase 19.
 Then one JSON line describing every kernel (launches summed over phases
-5-7 and 10-18, each read just after its run), the nvidia-smi line, and
+5-7 and 10-21, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -245,6 +259,21 @@ GLO_CONF_SLOT = 7
 L2C_CONF_S = 55.0
 L2C_CONF_PRNS = (1, 2, 3, 4, 5, 6)
 IBYTE_SCALE = 30.0
+# phases 2 and 19-21: BeiDou B1I at bds_b1i_ibyte.conf's rate and 8 D1
+# satellites (tests/test_system_beidou.py widened from 5), and B3I at
+# 12.5 Msps on 6, with that test's bars: ephemerides with sqrt_a within
+# 2e-5 of the truth, fixes, the median 3D error and the mean bias
+FS_B1I = 5.0e6
+B1I_S = 30.0
+B1I_PRNS = tuple(range(6, 14))
+FS_B3I = 12.5e6
+B3I_S = 30.0
+B3I_PRNS = tuple(range(6, 12))
+MIN_EPH_BDS = 4
+MAX_SQRT_A_ERR_BDS = 2e-5
+MIN_FIXES_BDS = 10
+MAX_MEDIAN_BDS = 5.0
+MAX_BIAS_BDS = 5.0
 
 
 def log(msg: str) -> None:
@@ -344,7 +373,8 @@ def main() -> None:
         f"bound {e1h['bound_ms']:.2e} ms ({e1h['bound_by']})")
     for sig, r in k_rep["sec"].items():
         sc, sh = r["corr"], r["chain"]
-        log(f"    {sig} shape (K=3, E=16, C=6, sec_len={r['sec_len']}, "
+        log(f"    {sig} shape (K=3, E=16, C={r['C']}, "
+            f"{r['fs'] / 1e6:g} Msps, sec_len={r['sec_len']}, "
             f"sec_idx {r['sec_idx']}, NW={r['NW']}, LW={r['LW']}, "
             f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
             f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
@@ -574,10 +604,38 @@ def main() -> None:
     del x_mix
     log(f"    | {time.perf_counter() - t0:.1f} s")
 
+    # ---- 19-21. BeiDou B1I and B3I receivers, bds_b1i_ibyte.conf ----
+    bds = {}
+    for sig, seed in (("B1", 110), ("B3", 111)):
+        fs, dur, prns = _BDS_CELLS[sig]
+        x_b, gen_s = card_capture(dev, [sig], seed)
+        t0 = time.perf_counter()
+        r = phase_bds(dev, cc, tc, tcap, _cells()[sig][0], x_b, sig)
+        bds[sig] = r
+        log(f"[{19 if sig == 'B1' else 21}] BeiDou {sig}I receiver e2e: "
+            f"{len(prns)} D1 sats x {dur:g} s at {fs / 1e6:g} Msps, RTF "
+            f"{r['rtf']:.2f} ({r['wall_s']:.2f} s), ephemerides "
+            f"{r['ephemerides']} (system {r['systems']}, max |sqrt_a err| "
+            f"{r['max_sqrt_a_err']:.2e}), fixes {r['fixes']}, median 3D "
+            f"error {r['median_3d_m']:.2f} m, mean-bias norm "
+            f"{r['bias_norm_m']:.2f} m, launches chunk_corr "
+            f"{r['launches_chunk_corr']} track_chain "
+            f"{r['launches_track_chain']} == chunks {r['chunks']} on "
+            f"{list(r['instances'])}, {r['sec_chunks']} chunks with the "
+            f"NH20 wipe on, {r['segments']} segments | "
+            f"{time.perf_counter() - t0:.1f} s (capture made on the card in "
+            f"{gen_s:.2f} s)")
+        if sig == "B1":
+            t0 = time.perf_counter()
+            cli20 = phase_cli_bds(cc, tc, _cells()[sig][0], x_b)
+            log(f"    | {time.perf_counter() - t0:.1f} s")
+        del x_b
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
-             *cli14.values(), glo, mix, dual, *cli18.values())
+             *cli14.values(), glo, mix, dual, *cli18.values(),
+             *bds.values(), *cli20.values())
     src = "gnss_sdr_1_tpu_torch/csrc/"
     shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
@@ -602,7 +660,8 @@ def main() -> None:
         "e1_ms": e1h["ms"], "e1_bound_ms": e1h["bound_ms"],
         "e1_plain_ms": e1h["plain_ms"], "e1_library_ms": None,
         **_shape_keys(shapes, "chain"),
-        "sec_launches": {sig: r["sec_chunks"] for sig, r in sec_runs.items()},
+        "sec_launches": {sig: r["sec_chunks"] for sig, r in
+                         {**sec_runs, **bds}.items()},
         "fdma_launches": glo["offset_chunks"],
         "instances_checked": len(k_rep["instances"]),
     }]
@@ -612,7 +671,7 @@ def main() -> None:
               "cli_kf": cli8, "acq_variants": acqv, "e1_e2e": e1,
               "cli_galileo": cli11, "generator": twin, "sec": sec_runs,
               "cli_sec": cli14, "glonass": glo, "mixed": mix, "dual": dual,
-              "cli_multi": cli18,
+              "cli_multi": cli18, "beidou": bds, "cli_beidou": cli20,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -696,14 +755,30 @@ def _sec_config(signal, **kw):
     return ReceiverConfig(**{**base, **kw})
 
 
+def _bds_config(signal, **kw):
+    """Phases 19 and 21's receivers: tests/test_system_beidou.py's
+    configuration (three dwells, the two-period window, an 18 Hz PLL, the
+    0.2-chip correlator, the 15 Hz second Doppler step over 40 bins) on one
+    channel per satellite."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    fs, _, prns = _BDS_CELLS[signal]
+    return ReceiverConfig(**{**dict(
+        fs_hz=fs, signal_id=signal, n_channels=len(prns), prn_search=prns,
+        acq_dwells=3, acq_bit_transition=True, pll_bw_hz=18.0,
+        dll_bw_hz=2.0, early_late_space_chips=0.2, doppler_step2_hz=15.0,
+        num_doppler_bins_step2=40), **kw})
+
+
 def _engine(dev, fs=FS, signal="1C"):
     """The engine benchmark's tracker (12 channels, 16-epoch chunks), or
     for signal '1B' the tracker of phase 10's Galileo E1B receiver at `fs`
     (8 channels, 5 taps, 16-epoch chunks), or for 'L5' / '5X' the tracker
     of phase 12 / 13's receiver (6 channels, the NH10 / CS20 secondary
-    rows, 16-epoch chunks), or for '1G' a GLONASS L1 tracker (5 channels,
-    the FDMA slots of GLO_CHECK_KS), or for '2S' a GPS L2CM tracker (6
-    channels, 20 ms epochs)."""
+    rows, 16-epoch chunks), or for 'B1' / 'B3' the tracker of phase 19 / 21's
+    receiver (8 / 6 channels, the NH20 rows), or for '1G' a GLONASS L1
+    tracker (5 channels, the FDMA slots of GLO_CHECK_KS), or for '2S' a GPS
+    L2CM tracker (6 channels, 20 ms epochs)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
@@ -712,6 +787,8 @@ def _engine(dev, fs=FS, signal="1C"):
         return Receiver(_e1_config(fs_hz=fs), device=dev).trk
     if signal in ("L5", "5X"):
         return Receiver(_sec_config(signal, fs_hz=fs), device=dev).trk
+    if signal in ("B1", "B3"):
+        return Receiver(_bds_config(signal, fs_hz=fs), device=dev).trk
     if signal == "1G":
         return Receiver(ReceiverConfig(
             fs_hz=fs, signal_id="1G", n_channels=len(GLO_CHECK_KS),
@@ -755,24 +832,31 @@ def _e1_sats(duration_s):
 
 
 def _sec_sats(signal, duration_s):
-    """6 satellites of `signal` for the kernel checks (seed 44 / 45;
-    delays in 10.23 MHz chips; the data symbols times the secondary code as
-    one 1 kbps stream, so epoch k of a channel activated at the truth
-    carries secondary chip k mod the code length)."""
-    from gnss_sdr_1_tpu_torch.codes import NH10
+    """The satellites of `signal` for the kernel checks: 6 of L5 / E5a
+    (seed 44 / 45), 8 of B1I or 6 of B3I (seed 49 / 50); delays in the
+    signal's chips; the data symbols times the secondary code (NH10, CS20,
+    NH20) as one 1 kbps stream, so epoch k of a channel activated at the
+    truth carries secondary chip k mod the code length."""
+    from gnss_sdr_1_tpu_torch.codes import BEIDOU_NH20, NH10
     from gnss_sdr_1_tpu_torch.codes.galileo_e5 import galileo_e5ai_secondary
+    from gnss_sdr_1_tpu_torch.constants import SIGNALS
     from gnss_sdr_1_tpu_torch.siggen import SatParams
 
-    sec = np.asarray(NH10 if signal == "L5" else galileo_e5ai_secondary(),
+    sec = np.asarray({"L5": NH10, "5X": galileo_e5ai_secondary(),
+                      "B1": BEIDOU_NH20, "B3": BEIDOU_NH20}[signal],
                      np.float64)
     n_sym = int(duration_s * 1000) // len(sec) + 2
-    rng = np.random.default_rng(44 if signal == "L5" else 45)
+    rng = np.random.default_rng({"L5": 44, "5X": 45, "B1": 49,
+                                 "B3": 50}[signal])
+    prns = {**_SEC_CELLS, **_BDS_CELLS}[signal][2]
+    n_chips = SIGNALS[signal].code_length_chips
     return [SatParams(prn=p, doppler_hz=float(rng.uniform(-3500, 3500)),
-                      delay_chips=float(rng.uniform(0, 10230)), cn0_dbhz=48.0,
+                      delay_chips=float(rng.uniform(0, n_chips)),
+                      cn0_dbhz=48.0,
                       nav_bits=np.repeat(rng.choice([-1.0, 1.0], n_sym),
                                          len(sec)) * np.tile(sec, n_sym),
                       bit_rate_override_bps=1000.0)
-            for p in _SEC_CELLS[signal][2]]
+            for p in prns]
 
 
 def _activate_all(eng, sats):
@@ -823,7 +907,8 @@ def _gen(sats, duration_s, key, fs=FS, signal="1C"):
     """A synthetic capture, cached in CACHE: GPS L1 C/A, or Galileo E1B
     generated as the sinBOC 'virtual' code at 2.046 MHz with one I/NAV
     symbol per 4 ms code period (tests/test_system_galileo.py), or GPS L5 /
-    Galileo E5a with the secondary-coded symbols as a 1 kbps stream."""
+    Galileo E5a / BeiDou B1I / B3I with the secondary-coded symbols as a
+    1 kbps stream."""
     import dataclasses
 
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code, tracking_replica
@@ -839,7 +924,7 @@ def _gen(sats, duration_s, key, fs=FS, signal="1C"):
                                    code_length_chips=2 * 4092,
                                    bit_rate_bps=250.0)
         codes = {s.prn: tracking_replica("1B", s.prn)[0] for s in sats}
-    elif signal in ("L5", "5X"):
+    elif signal in ("L5", "5X", "B1", "B3"):
         spec = dataclasses.replace(SIGNALS[signal], bit_rate_bps=1000.0)
         codes = {s.prn: tracking_replica(signal, s.prn)[0] for s in sats}
     else:
@@ -937,19 +1022,20 @@ def _device_ms(fn, n):
 
 def _midtrack(dev, fs, signal="1C"):
     """The engine at `fs` after 0.25 s of tracking on the engine benchmark's
-    scenario (or, for '1B', on 8 Galileo E1B satellites; for 'L5' / '5X',
-    0.253 s on 6 satellites, then every channel switched to the extended
-    mode with the secondary wipe at its true code index, which is not 0;
+    scenario (or, for '1B', on 8 Galileo E1B satellites; for 'L5' / '5X' /
+    'B1' / 'B3', 0.253 s on 6 (B1I: 8) satellites, then every channel
+    switched to the extended mode with the secondary wipe at its true code
+    index, which is not 0;
     for '1G', on 5 GLONASS slots on their FDMA carriers; for '2S', on 6
     L2CM satellites, made on the card), and the inputs of its next chunk:
     (engine, seg, rows, slot, sec_rows, fst, ist).  The sample limit ends
-    inside the third chunk (GPS, L5, E5a, GLONASS: 40 ms; E1: 160 ms;
-    L2C: 800 ms)."""
+    inside the third chunk (GPS, L5, E5a, B1I, B3I, GLONASS: 40 ms; E1:
+    160 ms; L2C: 800 ms)."""
     head = 0.25
     if signal == "1B":
         dur = 0.5
         sats = _e1_sats(dur)
-    elif signal in ("L5", "5X"):
+    elif signal in ("L5", "5X", "B1", "B3"):
         dur, head = 0.3, 0.253
         sats = _sec_sats(signal, dur)
     elif signal in ("1G", "2S"):
@@ -974,7 +1060,7 @@ def _midtrack(dev, fs, signal="1C"):
     span = int(fs * head)
     st, _ = eng.track_capture(xd[: span + eng.cfg.epoch_samples_max], st,
                               span)
-    if signal in ("L5", "5X"):
+    if signal in ("L5", "5X", "B1", "B3"):
         n = eng.chain_spec.sec_len
         phases = st.epochs_in_track.cpu().numpy() % n
         if not (phases > 0).all() or not bool(st.active.all()):
@@ -1173,16 +1259,21 @@ def phase_kernels(dev, cc, tc):
     tiled = _rate_summary(cc, E1_TILED_RATE, tiled_in,
                           _check_kernels(dev, cc, tc, tiled_in, g))
 
-    # GPS L5 and Galileo E5a: the secondary-code instances of the chain
-    # (NH10, CS20), timed
+    # GPS L5, Galileo E5a, BeiDou B1I (bds_b1i_ibyte.conf's 5 Msps, 8
+    # channels, the 0.2-chip correlator) and B3I (12.5 Msps): the
+    # secondary-code instances of the chain (NH10, CS20, NH20), timed
     sec, sec_inputs = {}, {}
-    for signal, fs in (("L5", FS_L5), ("5X", FS_E5A)):
+    for signal, fs in (("L5", FS_L5), ("5X", FS_E5A), ("B1", FS_B1I),
+                       ("B3", FS_B3I)):
         s_in = _midtrack(dev, fs, signal)
         s_spec = s_in[0].chain_spec
-        n = {"L5": 10, "5X": 20}[signal]
+        n = {"L5": 10, "5X": 20, "B1": 20, "B3": 20}[signal]
+        n_ch = 8 if signal == "B1" else 6
         if (s_spec.E, s_spec.C, s_spec.K, s_spec.sec_len, s_spec.sec_data) \
-                != (16, 6, 3, n, True):
+                != (16, n_ch, 3, n, True):
             raise AssertionError(f"{signal} kernel check at {s_spec}")
+        if signal == "B1" and s_spec.shifts_chips != (-0.2, 0.0, 0.2):
+            raise AssertionError(f"B1I kernel check at {s_spec}")
         ist = s_in[6]
         if not bool((ist[tc.I_SEC_ON] > 0).all()):
             raise AssertionError(f"{signal} kernel check without the wipe")
@@ -1190,7 +1281,7 @@ def phase_kernels(dev, cc, tc):
         s_corr, s_chain = _time_shape(cc, tc, s_in, s_chk["track_args"])
         sec[signal] = _rate_summary(cc, fs, s_in, s_chk)
         sec[signal].update(corr=s_corr, chain=s_chain, rows=s_chk["rows"],
-                           sec_len=n,
+                           sec_len=n, C=n_ch,
                            sec_idx=ist[tc.I_SEC_IDX].cpu().tolist())
         sec_inputs[signal] = s_in, s_chk
 
@@ -2038,14 +2129,16 @@ def phase_cli_galileo(cc, tc, scen, capture):
 
 # signal -> (sampling rate, seconds, PRNs) of phases 12-14
 _SEC_CELLS = {"L5": (FS_L5, L5_S, L5_PRNS), "5X": (FS_E5A, E5A_S, E5A_PRNS)}
+_BDS_CELLS = {"B1": (FS_B1I, B1I_S, B1I_PRNS), "B3": (FS_B3I, B3I_S, B3I_PRNS)}
 
 
 def _shape_keys(sec, which):
-    """The L5, E5a, GLONASS and L2C shapes' times and bound of one kernel,
-    for the kernels line."""
+    """The L5, E5a, B1I, B3I, GLONASS and L2C shapes' times and bound of
+    one kernel, for the kernels line."""
     out = {}
     for sig, r in sec.items():
-        k = {"L5": "l5", "5X": "e5a", "1G": "glo", "2S": "l2c"}[sig]
+        k = {"L5": "l5", "5X": "e5a", "B1": "b1i", "B3": "b3i", "1G": "glo",
+             "2S": "l2c"}[sig]
         t = r[which]
         out.update({f"{k}_ms": t["ms"], f"{k}_bound_ms": t["bound_ms"],
                     f"{k}_plain_ms": t["plain_ms"],
@@ -2144,6 +2237,33 @@ def _sec_scenario(signal):
     return scen, dataclasses.replace(spec, bit_rate_bps=1000.0), codes
 
 
+def _bds_scenario(signal):
+    """Phase 19 / 21's scenario: tests/test_system_beidou.py's D1
+    constellation at 48 dB-Hz (B3I: the same D1 stream and CGCS2000 orbits
+    at B3I's chip rate and carrier), each 50 bps bit repeated 20 times
+    under NH20 as one 1 kbps stream; with the generation spec and the
+    replicas."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import BEIDOU_NH20, tracking_replica
+    from gnss_sdr_1_tpu_torch.constants import SIGNALS
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+
+    _, dur, prns = _BDS_CELLS[signal]
+    spec = SIGNALS[signal]
+    rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+    scen = build_scenario(rx_ecef, list(prns), t0_tow=345601.25,
+                          duration_s=dur, cn0_dbhz=48.0,
+                          chip_rate=spec.code_rate_chips_s,
+                          carrier_freq=spec.carrier_freq_hz, signal="B1")
+    nh = np.asarray(BEIDOU_NH20, np.float64)
+    for s in scen.sats:
+        s.nav_bits = np.repeat(s.nav_bits, 20) * np.tile(nh, len(s.nav_bits))
+    codes = {p: tracking_replica(signal, p)[0] for p in prns}
+    return scen, dataclasses.replace(spec, bit_rate_bps=1000.0), codes
+
+
 def check_card_generator(dev, check_s=0.02, block_s=0.007):
     """The generator on the card against the port's numpy generator on a
     noiseless stretch of every capture the script makes on the card, and
@@ -2220,9 +2340,10 @@ def _cells():
                  rx, list(E1_PRNS), t0_tow=t0, duration_s=E1_S,
                  cn0_dbhz=48.0, chip_rate=2.046e6, signal="1B"),
                  e1_spec, "1B", FS_E1, E1_S)}
-    for sig in ("L5", "5X"):
-        scen, spec, codes = _sec_scenario(sig)
-        fs, dur, _ = _SEC_CELLS[sig]
+    for sig in ("L5", "5X", "B1", "B3"):
+        scen, spec, codes = (_sec_scenario if sig in _SEC_CELLS
+                             else _bds_scenario)(sig)
+        fs, dur, _ = {**_SEC_CELLS, **_BDS_CELLS}[sig]
         cells[sig] = (scen, spec, scen.sats, codes, fs, dur)
     cells["1G"] = cell(glo(GLO_KS, GLO_S), GLONASS_L1_CA, "1G", FS_GLO,
                        GLO_S)
@@ -2389,6 +2510,147 @@ def phase_cli_sec(cc, tc, scen, x, signal):
     finally:
         path.unlink(missing_ok=True)
     return reps
+
+
+# ---------------------------------------------------------------------------
+# phases 19-21: BeiDou B1I and B3I receivers and bds_b1i_ibyte.conf
+# ---------------------------------------------------------------------------
+
+
+def _bds_bars(ephs, ecef, scen, what):
+    """tests/test_system_beidou.py's bars: at least MIN_EPH_BDS complete
+    ephemerides, each of system 'C' with sqrt_a within MAX_SQRT_A_ERR_BDS
+    of the truth; at least MIN_FIXES_BDS fixes, a median 3D error and a
+    mean-bias norm under MAX_MEDIAN_BDS and MAX_BIAS_BDS.  Returns the
+    numbers and the bars that failed (empty when all hold)."""
+    errs = {p: abs(e.sqrt_a - scen.ephemerides[p].sqrt_a)
+            for p, e in ephs.items()}
+    ecef = np.asarray(ecef, np.float64).reshape(-1, 3)
+    d = ecef - scen.rx_ecef
+    e3d = np.linalg.norm(d, axis=1)
+    rep = {"ephemerides": len(errs),
+           "max_sqrt_a_err": max(errs.values(), default=float("nan")),
+           "systems": sorted({e.system for e in ephs.values()}),
+           "fixes": len(ecef),
+           "median_3d_m": float(np.median(e3d)) if len(e3d) else np.nan,
+           "bias_norm_m": float(np.linalg.norm(d.mean(axis=0)))
+           if len(e3d) else np.nan}
+    failed = []
+    if len(errs) < MIN_EPH_BDS or rep["systems"] != ["C"] \
+            or not rep["max_sqrt_a_err"] <= MAX_SQRT_A_ERR_BDS:
+        failed.append(f"ephemerides {errs} systems {rep['systems']}")
+    if len(ecef) < MIN_FIXES_BDS:
+        failed.append(f"{len(ecef)} fixes")
+    if not (np.isfinite(e3d).all()
+            and rep["median_3d_m"] < MAX_MEDIAN_BDS):
+        failed.append(f"median 3D error {rep['median_3d_m']:.2f} m")
+    if not rep["bias_norm_m"] < MAX_BIAS_BDS:
+        failed.append(f"mean-bias norm {rep['bias_norm_m']:.2f} m")
+    rep["failed"] = [f"{what}: {f}" for f in failed]
+    return rep
+
+
+def phase_bds(dev, cc, tc, tcap, scen, x, signal):
+    """Phase 19 (B1I) / 21 (B3I): the receiver over the preloaded capture
+    at tests/test_system_beidou.py's bars, each kernel's launches ==
+    chunks, every chain launch on the NH20 instance, chunks run with the
+    wipe on."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    what = f"{signal} e2e"
+    rx = Receiver(_bds_config(signal), device=dev)
+    rx.preload(x)
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    chunks = counter["chunks"]
+    _check_launches(cc, tc, chunks, what)
+    spec = rx.trk.chain_spec
+    key = (spec.K, spec.order, spec.sec_data, spec.sec_len)
+    inst = dict(tcap.launches_by_instance)
+    if spec.sec_len != 20 or not spec.sec_data or inst != {key: chunks}:
+        raise AssertionError(f"{what}: chain instances {inst} for {chunks} "
+                             f"chunks of sec_len {spec.sec_len}")
+    if not counter["sec_chunks"] > 0:
+        raise AssertionError(f"{what}: no chunk ran with the NH20 wipe")
+    ephs = {p: d.ephemeris for p, d in rx.decoders.items()
+            if d.ephemeris_complete}
+    rep = _bds_bars(ephs, [s.rx_ecef_m for s in sols], scen, what)
+    if rep["failed"]:
+        raise AssertionError("; ".join(rep["failed"]))
+    return {**rep, "rtf": _BDS_CELLS[signal][1] / wall, "wall_s": wall,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches, "chunks": chunks,
+            "sec_chunks": counter["sec_chunks"],
+            "segments": counter["calls"],
+            "instances": {"<" + ",".join(str(int(v)) for v in k) + ">": n
+                          for k, n in inst.items()},
+            "channels": list(rx.channel_prn),
+            "modes": rx._mode_host.tolist(),
+            "nh20_sync": {p: d.sec_sync_offset
+                          for p, d in rx.decoders.items()}}
+
+
+def _rinex_c_rows(out_dir):
+    """BeiDou ('C') satellite rows of the RINEX 3 observation file and
+    records of the navigation file the CLI wrote."""
+    rows = {}
+    for name in ("observables.rnx", "brdc.rnx"):
+        path = out_dir / name
+        text = path.read_text() if path.is_file() else ""
+        rows[name] = len(re.findall(r"^C\d\d ", text, flags=re.M))
+    return rows
+
+
+def phase_cli_bds(cc, tc, scen, x):
+    """Phase 20: conf/bds_b1i_ibyte.conf as written through the CLI over
+    phase 19's capture written as an ibyte file at its 5 Msps (deleted
+    after the run), at phase 19's bars; the BeiDou rows of the RINEX files
+    it writes."""
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
+
+    CACHE.mkdir(exist_ok=True)
+    path = CACHE / "cli_bds_b1i.ibyte"
+    t0 = time.perf_counter()
+    _write_capture(x, path, "ibyte", IBYTE_SCALE)
+    write_s = time.perf_counter() - t0
+    what = "CLI bds_b1i_ibyte.conf"
+    out_dir = CACHE / "cli_bds"
+    rxs = []
+    try:
+        with _counting(cc, tc) as counter:
+            rep = _run_cli(["-c", str(ROOT / "conf" / "bds_b1i_ibyte.conf"),
+                            "--signal_file", str(path)], scen, out_dir,
+                           MIN_FIXES_BDS, what, max_median_m=MAX_MEDIAN_BDS,
+                           receivers=rxs)
+    finally:
+        path.unlink(missing_ok=True)
+    rep = _cli_launches(cc, tc, rep, counter, what)
+    (rx,) = rxs
+    ephs = {p: d.ephemeris for p, d in rx.decoders.items()
+            if d.ephemeris_complete}
+    coords = json.loads((out_dir / "position.geojson").read_text())[
+        "geometry"]["coordinates"]
+    lon, lat, h = np.asarray(coords, np.float64).reshape(-1, 3).T
+    bars = _bds_bars(ephs, np.stack(llh_to_ecef(
+        np.radians(lat), np.radians(lon), h), -1), scen, what)
+    if bars["failed"]:
+        raise AssertionError("; ".join(bars["failed"]))
+    rows = _rinex_c_rows(out_dir)
+    if not (rows["observables.rnx"] > 0
+            and rows["brdc.rnx"] == bars["ephemerides"]):
+        raise AssertionError(f"{what}: RINEX C rows {rows} for "
+                             f"{bars['ephemerides']} ephemerides")
+    rep.update(bars, rinex_c_rows=rows, sec_chunks=counter["sec_chunks"],
+               write_s=write_s)
+    log(f"[20] CLI, bds_b1i_ibyte.conf as written: {rep['summary']}, "
+        f"mean-bias norm {bars['bias_norm_m']:.2f} m, ephemerides "
+        f"{bars['ephemerides']} (system {bars['systems']}), RINEX C rows "
+        f"{rows['observables.rnx']} observation, {rows['brdc.rnx']} "
+        f"navigation, {counter['sec_chunks']} chunks with the NH20 wipe "
+        f"(the conf's extension is 0) | file written in {write_s:.1f} s")
+    return {"bds_b1i_ibyte.conf": rep}
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,8 @@ Usage:
     python -m gnss_sdr_1_tpu_torch --signal_file cap.dat --item_type ishort \\
         --fs 4e6 [--out_dir out/] [--device cpu]
 
-This port runs GPS L1 C/A, L2C and L5, Galileo E1B and E5a and GLONASS
-L1/L2 C/A channel groups (PCPS and its variants, CAF on E5a, DLL/PLL, VEML
+This port runs GPS L1 C/A, L2C and L5, Galileo E1B and E5a, GLONASS
+L1/L2 C/A and BeiDou B1I/B3I channel groups (PCPS and its variants, CAF on E5a, DLL/PLL, VEML
 or, on GPS L1, KF tracking, single-point PVT); a conf with several groups
 runs them together with one joint PVT (runtime.multi_receiver).  Other
 confs and the flags of features not ported yet exit with an error naming
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
                     help="ishort|ibyte|byte|short|gr_complex")
     ap.add_argument("--fs", type=float, default=None, help="sampling rate")
     ap.add_argument("--signal", default=None,
-                    help="signal id (1C, 2S, L5, 1B, 5X, 1G, 2G)")
+                    help="signal id (1C, 2S, L5, 1B, 5X, 1G, 2G, B1, B3)")
     ap.add_argument("--channels", type=int, default=None)
     ap.add_argument("--max_s", type=float, default=None,
                     help="process at most this many seconds")

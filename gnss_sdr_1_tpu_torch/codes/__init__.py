@@ -3,14 +3,16 @@
 Reference parity: src/algorithms/libs/gps_sdr_signal_processing.{h,cc},
 gps_l2c_signal.cc, gps_l5_signal.cc, galileo_e1_signal_processing.cc,
 galileo_e5_signal_processing.cc, glonass_l{1,2}_signal_processing.cc,
-gnss_signal_processing.cc.  GPS L1 C/A, L2CM and L5 I/Q, Galileo E1 B/C and
-E5a I/Q, and the GLONASS C/A code in this package: codes are generated from
-the public ICD definitions (the memory codes and the L2CM/L5 register
-states from codes/data/icd_tables.npz), emitted as +-1 float arrays, then
-resampled / FFT'd per sampling rate by the acquisition and tracking layers.
-Pure NumPy — tiny, run once.
+beidou_b{1,3}i_signal_processing.cc, gnss_signal_processing.cc.  GPS L1
+C/A, L2CM and L5 I/Q, Galileo E1 B/C and E5a I/Q, the GLONASS C/A code and
+BeiDou B1I/B3I in this package: codes are generated from the public ICD
+definitions (the memory codes and the L2CM/L5/B3I register states from
+codes/data/icd_tables.npz), emitted as +-1 float arrays, then resampled /
+FFT'd per sampling rate by the acquisition and tracking layers.  Pure
+NumPy — tiny, run once.
 """
 
+from .beidou import BEIDOU_NH20, beidou_b1i_code, beidou_b3i_code
 from .galileo_e1 import (E1C_SECONDARY, galileo_e1_sinboc11,
                          galileo_e1b_code, galileo_e1c_code)
 from .galileo_e5 import galileo_e5ai_code, galileo_e5aq_code
@@ -23,7 +25,8 @@ from .sampling import code_to_baseband, resample_code
 __all__ = ["gps_l1ca_code", "gps_l2cm_code", "gps_l5i_code", "gps_l5q_code",
            "NH10", "NH20", "galileo_e1b_code", "galileo_e1c_code",
            "galileo_e1_sinboc11", "E1C_SECONDARY", "galileo_e5ai_code",
-           "galileo_e5aq_code", "glonass_ca_code", "resample_code",
+           "galileo_e5aq_code", "glonass_ca_code", "beidou_b1i_code",
+           "beidou_b3i_code", "BEIDOU_NH20", "resample_code",
            "code_to_baseband", "generate_code", "tracking_replica"]
 
 
@@ -57,6 +60,8 @@ def generate_code(signal_id: str, prn: int):
         return galileo_e5ai_code(prn)
     if signal_id in ("1G", "2G"):
         return glonass_ca_code()
-    raise NotImplementedError(
-        f"signal {signal_id!r} is not ported yet (GPS '1C', '2S', 'L5', "
-        f"Galileo '1B', '5X' and GLONASS '1G', '2G' only)")
+    if signal_id == "B1":
+        return beidou_b1i_code(prn)
+    if signal_id == "B3":
+        return beidou_b3i_code(prn)
+    raise ValueError(f"unknown signal id {signal_id!r}")

@@ -1,12 +1,10 @@
 """Per-signal GNSS constants (GPS L1 C/A, L2C and L5, Galileo E1B and E5a,
-GLONASS L1/L2 C/A).
+GLONASS L1/L2 C/A, BeiDou B1I and B3I).
 
 Reference parity: src/core/system_parameters/GPS_L1_CA.h, GPS_L2C.h,
-GPS_L5.h, Galileo_E1.h, Galileo_E5a.h, GLONASS_L1_L2_CA.h,
-gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the public ICDs
-(IS-GPS-200/705, Galileo OS SIS ICD, GLONASS ICD).  BeiDou is not carried
-by this package yet: `SIGNALS` holds GPS L1 C/A, L2CM and L5I, Galileo E1B
-and E5a-I, and GLONASS L1/L2 C/A.
+GPS_L5.h, Galileo_E1.h, Galileo_E5a.h, GLONASS_L1_L2_CA.h, Beidou_B1I.h,
+Beidou_B3I.h, gnss_frequencies.h, MATH_CONSTANTS.h.  Values are from the
+public ICDs (IS-GPS-200/705, Galileo OS SIS ICD, GLONASS ICD, BeiDou ICD).
 """
 
 from __future__ import annotations
@@ -20,6 +18,9 @@ GPS_OMEGA_EARTH_DOT = 7.2921151467e-5  # WGS-84 Earth rotation rate [rad/s]
 GPS_F_RELATIVISTIC = -4.442807633e-10  # s/sqrt(m), clock relativistic term
 GALILEO_GM = 3.986004418e14
 GALILEO_OMEGA_EARTH_DOT = 7.2921151467e-5
+BDS_GM = 3.986004418e14        # CGCS2000 (Beidou_DNAV.h GM)
+BDS_OMEGA_EARTH_DOT = 7.2921150e-5     # CGCS2000 earth rotation rate
+BDS_GPS_TIME_OFFSET_S = 14.0   # BDT = GPST - 14 s (BDS ICD 3.0 sec 3.2)
 GPS_PI = 3.1415926535898       # ICD value of pi used in ephemeris math
 
 # Start offset added to RX time when forming pseudoranges
@@ -33,6 +34,8 @@ FREQ_L2 = 1227.60e6
 FREQ_L5 = 1176.45e6
 FREQ_E1 = 1575.42e6
 FREQ_E5A = 1176.45e6
+FREQ_B1I = 1561.098e6
+FREQ_B3I = 1268.52e6
 # GLONASS FDMA: f = f0 + k * df per channel number k in [-7, 6]
 FREQ_G1_GLO = 1602.0e6
 DFRQ1_GLO = 0.5625e6
@@ -48,7 +51,7 @@ class SignalSpec:
     (e.g. GPS_L1_CA.h: code rate 1.023e6, 1023 chips, 1 ms period).
     """
 
-    system: str              # 'GPS' | 'Galileo' | 'GLONASS'
+    system: str              # 'GPS' | 'Galileo' | 'GLONASS' | 'BeiDou'
     name: str                # e.g. 'L1CA'
     signal_id: str           # 2-char config id used by reference confs: '1C', ...
     carrier_freq_hz: float
@@ -123,11 +126,27 @@ GLONASS_L2_CA = SignalSpec(
     symbol_rate_sps=100.0, bit_rate_bps=50.0,
 )
 
+BEIDOU_B1I = SignalSpec(
+    system="BeiDou", name="B1I", signal_id="B1",
+    carrier_freq_hz=FREQ_B1I,
+    code_rate_chips_s=2.046e6, code_length_chips=2046, code_period_s=1e-3,
+    symbol_rate_sps=50.0, bit_rate_bps=50.0,    # D1 NAV (MEO/IGSO), NH20 secondary
+    secondary_code_length=20,
+)
+
+BEIDOU_B3I = SignalSpec(
+    system="BeiDou", name="B3I", signal_id="B3",
+    carrier_freq_hz=FREQ_B3I,
+    code_rate_chips_s=10.23e6, code_length_chips=10230, code_period_s=1e-3,
+    symbol_rate_sps=50.0, bit_rate_bps=50.0,
+    secondary_code_length=20,
+)
+
 # Registry keyed by the reference's 2-char signal ids
 SIGNALS: dict[str, SignalSpec] = {
     s.signal_id: s
     for s in (GPS_L1_CA, GPS_L2C, GPS_L5, GALILEO_E1B, GALILEO_E5A,
-              GLONASS_L1_CA, GLONASS_L2_CA)}
+              GLONASS_L1_CA, GLONASS_L2_CA, BEIDOU_B1I, BEIDOU_B3I)}
 
 
 def glonass_fdma_offset_hz(signal_id: str, freq_channel: int) -> float:

@@ -10,19 +10,19 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import (GPS_GM, GPS_OMEGA_EARTH_DOT, GPS_PI,
-                         GPS_F_RELATIVISTIC, GPS_WEEK_SECONDS)
+from ..constants import (BDS_GM, BDS_OMEGA_EARTH_DOT, GPS_GM,
+                         GPS_OMEGA_EARTH_DOT, GPS_PI, GPS_F_RELATIVISTIC,
+                         GPS_WEEK_SECONDS)
 from ..telemetry.lnav import GpsEphemeris
 
 
 def _gm_omega(eph) -> tuple[float, float]:
-    """WGS-84 constants for GPS and Galileo Keplerian ephemerides
-    (system 'G' or 'E'; Galileo's GM differs from GPS by only 1.5e-7
-    relative, and the reference's eph2pos uses one MU for both).  Other
-    constellations' orbit constants (BeiDou CGCS2000) are not ported yet."""
-    if getattr(eph, "system", "G") not in ("G", "E"):
-        raise NotImplementedError(
-            "only GPS and Galileo Keplerian ephemerides are ported")
+    """Constellation constants: CGCS2000 for BeiDou ephemerides
+    (system='C'), WGS-84 values otherwise (Galileo's GM differs from GPS by
+    only 1.5e-7 relative; the reference's eph2pos also uses one MU per
+    GPS/GAL and a BDS-specific pair)."""
+    if getattr(eph, "system", "G") == "C":
+        return BDS_GM, BDS_OMEGA_EARTH_DOT
     return GPS_GM, GPS_OMEGA_EARTH_DOT
 
 

@@ -46,8 +46,9 @@ class PvtSolution:
 
 
 def sat_pos_vel(eph, t: float) -> tuple[np.ndarray, np.ndarray]:
-    """Ephemeris-type dispatch: Keplerian broadcast (GPS, and Galileo
-    through telemetry.inav.to_keplerian) vs GLONASS state-vector + RK4
+    """Ephemeris-type dispatch: Keplerian broadcast (GPS, BeiDou on
+    CGCS2000 constants, and Galileo through telemetry.inav.to_keplerian)
+    vs GLONASS state-vector + RK4
     (rtklib ephpos geph branch, rtklib_ephemeris.cc geph2pos).  Precise
     products are not ported yet."""
     if hasattr(eph, "position_velocity"):

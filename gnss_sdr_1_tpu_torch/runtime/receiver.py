@@ -1,5 +1,5 @@
-"""Segment-synchronous GPS L1 C/A, L2C and L5, Galileo E1B and E5a and
-GLONASS L1/L2 C/A receiver pipeline.
+"""Segment-synchronous GPS L1 C/A, L2C and L5, Galileo E1B and E5a,
+GLONASS L1/L2 C/A and BeiDou B1I/B3I receiver pipeline.
 
 Reference parity: ControlThread::run (control_thread.cc:239) +
 GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
@@ -12,18 +12,21 @@ capture segments.
 This package carries GPS L1 C/A ('1C', LNAV), GPS L2CM ('2S': the 20 ms
 code is the CNAV symbol), GPS L5I ('L5': NH10 secondary, CNAV), Galileo
 E1B ('1B': the sinBOC(1,1) replica, 5-tap VEML tracking, I/NAV), Galileo
-E5a-I ('5X': CS20 secondary, F/NAV) and GLONASS L1/L2 C/A ('1G'/'2G':
+E5a-I ('5X': CS20 secondary, F/NAV), GLONASS L1/L2 C/A ('1G'/'2G':
 each slot's FDMA carrier offset `fdma_k` folded into its acquisition
-replica and carried as the channel's NCO bias, GNAV) with PCPS, Tong,
+replica and carried as the channel's NCO bias, GNAV) and BeiDou B1I/B3I
+('B1'/'B3': NH20 secondary and D1 NAV on MEO/IGSO, D2 NAV on the GEO
+PRNs 1-5, CGCS2000 orbits) with PCPS, Tong,
 QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the noncoherent I/Q CAF
 acquisition (the strategy dispatch of gnss_block_factory.cc:1552-1709),
 and either the chunked DLL/PLL engine or, on GPS L1, the Kalman-filter
-tracker (`track_engine="kf"`, track.kf).  On L5 and E5a the chain wipes
-the secondary code in the loop once telemetry reports secondary sync
-(`_maybe_extend`).  One Receiver runs one signal group; MultiReceiver
+tracker (`track_engine="kf"`, track.kf).  On L5, E5a, B1I and B3I the
+chain wipes the secondary code in the loop once telemetry reports
+secondary sync (`_maybe_extend`; a GEO channel never reports it and stays
+in wide tracking).  One Receiver runs one signal group; MultiReceiver
 (runtime/multi_receiver.py) joins several.  Streaming, checkpoint/resume,
-monitors, assistance and BeiDou are not ported yet: ReceiverConfig
-refuses them, naming the ROADMAP.md item that ports each.
+monitors and assistance are not ported yet: ReceiverConfig refuses them,
+naming the ROADMAP.md item that ports each.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from ..constants import (SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec,
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
 from ..pvt.solver import PvtSolution, solve_pvt
-from ..telemetry.channel_adapters import (GalileoChannelDecoder,
+from ..telemetry.channel_adapters import (BeidouChannelDecoder,
+                                          GalileoChannelDecoder,
                                           GalileoE5aChannelDecoder,
                                           GlonassChannelDecoder,
                                           GpsL2ChannelDecoder,
@@ -175,7 +179,7 @@ _ACQ_STRATEGIES = ("pcps", "tong", "quicksync", "cccwsr", "fine_doppler",
 
 class Receiver:
     """Single-constellation single-band receiver (GPS L1 C/A, L2C and L5,
-    Galileo E1B and E5a, GLONASS L1/L2 C/A).
+    Galileo E1B and E5a, GLONASS L1/L2 C/A, BeiDou B1I/B3I).
 
     `device`: None runs the data plane on the card (and raises without
     one); the CPU only when asked for (`device="cpu"`)."""
@@ -237,16 +241,21 @@ class Receiver:
         self._acq_tong = strat == "tong"
         self._make_acquisition(strat, acq_cfg, fs_code_rate, virtual_rate)
         # bit / secondary-code period in epochs — the coherent-extension
-        # alignment grid (20 ms GPS bit, NH10 on L5, CS20 on E5a); an E1B
-        # or L2CM symbol is one epoch and GLONASS has no secondary code, so
-        # those signals have neither extension nor the symbol-grid readback
-        self._sec_period = {"1C": 20, "L5": 10, "5X": 20}.get(cfg.signal_id)
+        # alignment grid (20 ms GPS bit, NH10 on L5, CS20 on E5a, NH20 on
+        # B1I/B3I); an E1B or L2CM symbol is one epoch and GLONASS has no
+        # secondary code, so those signals have neither extension nor the
+        # symbol-grid readback
+        self._sec_period = {"1C": 20, "L5": 10, "5X": 20, "B1": 20,
+                            "B3": 20}.get(cfg.signal_id)
         # in-loop secondary wipe-off tables (dll_pll_veml_tracking.cc:549-660
         # start_tracking secondary setup), one row per slot: NH10 for GPS
-        # L5I, CS20 for Galileo E5a-I — both data-carrying, so the Costas
-        # discriminator stays active (sec_data)
-        sec_code = {"L5": NH10, "5X": galileo_e5ai_secondary()}.get(
-            cfg.signal_id)
+        # L5I, CS20 for Galileo E5a-I, NH20 for BeiDou B1I/B3I D1 — all
+        # data-carrying, so the Costas discriminator stays active
+        # (sec_data).  GEO (D2) slots get the NH20 row too; their decoder
+        # never reports secondary sync, so it is never switched on
+        sec_code = {"L5": NH10, "5X": galileo_e5ai_secondary(),
+                    "B1": BeidouChannelDecoder._NH_AMP,
+                    "B3": BeidouChannelDecoder._NH_AMP}.get(cfg.signal_id)
         sec_codes = None if sec_code is None else np.tile(
             np.asarray(sec_code, dtype=np.float32), (len(self.acq.prns), 1))
         # tracking engine from Tracking_XX.implementation: the chunked
@@ -612,9 +621,10 @@ class Receiver:
     def _pull_in_done(self) -> bool:
         """True once every active channel is through pull-in — the
         steady-state criterion that lets the capture loop use its full
-        segment length: bit sync on GPS L1 C/A, secondary-code sync on L5
-        and E5a; an E1B decoder has no sync notion (a symbol is one epoch),
-        so its channel counts as pulled in after 1,000 surviving epochs."""
+        segment length: bit sync on GPS L1 C/A, secondary-code sync on L5,
+        E5a, B1I and B3I (never on a GEO channel); an E1B decoder has no
+        sync notion (a symbol is one epoch), so its channel counts as
+        pulled in after 1,000 surviving epochs."""
         any_active = False
         for prn in self.channel_prn:
             if prn is None:
@@ -765,9 +775,9 @@ class Receiver:
         """State 2 -> 3/4 switch once telemetry reports bit / secondary
         sync: coherent extension over extend_correlation_symbols epochs
         aligned to each channel's bit grid, with the narrow loop bandwidths
-        (dll_pll_veml_tracking.cc:1774-1900).  On L5 (NH10) and E5a (CS20)
-        the switch also enables the chain's in-loop secondary wipe-off at
-        the host-synced code phase."""
+        (dll_pll_veml_tracking.cc:1774-1900).  On L5 (NH10), E5a (CS20) and
+        B1I/B3I (NH20) the switch also enables the chain's in-loop
+        secondary wipe-off at the host-synced code phase."""
         if self.trk_kind != "dll_pll":
             return          # the KF tracker has no extended/narrow states
         n = self.trk.cfg.extend_correlation_symbols
@@ -987,4 +997,5 @@ class Receiver:
 _DECODERS = {"1C": LnavDecoder, "2S": GpsL2ChannelDecoder,
              "L5": GpsL5ChannelDecoder, "1B": GalileoChannelDecoder,
              "5X": GalileoE5aChannelDecoder, "1G": GlonassChannelDecoder,
-             "2G": GlonassChannelDecoder}
+             "2G": GlonassChannelDecoder, "B1": BeidouChannelDecoder,
+             "B3": BeidouChannelDecoder}

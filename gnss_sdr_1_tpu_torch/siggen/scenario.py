@@ -155,6 +155,22 @@ def _gps_to_cnav(eph):
     )
 
 
+def _gps_to_beidou(eph):
+    """Map the scenario's Keplerian truth onto D1 broadcast fields
+    (system='C' selects the CGCS2000 constants in the propagator)."""
+    from ..telemetry.beidou_dnav import BeidouEphemeris
+
+    return BeidouEphemeris(
+        prn=eph.prn, week=eph.week, toc=eph.toc, toe=eph.toe,
+        af0=eph.af0, af1=eph.af1, af2=eph.af2, tgd=eph.tgd,
+        iodc=eph.iodc, iode=eph.iode,
+        sqrt_a=eph.sqrt_a, e=eph.e, m0=eph.m0, delta_n=eph.delta_n,
+        omega0=eph.omega0, i0=eph.i0, omega=eph.omega,
+        omega_dot=eph.omega_dot, idot=eph.idot,
+        cuc=eph.cuc, cus=eph.cus, crc=eph.crc, crs=eph.crs,
+        cic=eph.cic, cis=eph.cis)
+
+
 def build_scenario(
     rx_ecef: np.ndarray,
     prns: list[int],
@@ -175,12 +191,13 @@ def build_scenario(
     satellites above the horizon for a receiver near the prime meridian
     mid-latitudes; pass explicit raans/anomalies otherwise.  GPS L1 C/A
     (LNAV), GPS L2CM and L5I (CNAV), Galileo E1B (I/NAV), Galileo E5a-I
-    (F/NAV) and GLONASS L1 C/A (GNAV, each slot on its FDMA carrier
-    `fdma_ks[slot]`) only: BeiDou's message stream is not ported yet."""
-    if signal not in ("1C", "2S", "L5", "1B", "5X", "1G"):
+    (F/NAV), GLONASS L1 C/A (GNAV, each slot on its FDMA carrier
+    `fdma_ks[slot]`) and BeiDou B1I (D1 NAV on CGCS2000 ephemerides; B3I
+    callers pass its chip rate and carrier) only."""
+    if signal not in ("1C", "2S", "L5", "1B", "5X", "1G", "B1"):
         raise NotImplementedError(
-            f"signal {signal!r} is not ported yet (GPS '1C', '2S', 'L5', "
-            f"Galileo '1B', '5X' and GLONASS '1G' only)")
+            f"signal {signal!r} is not ported (GPS '1C', '2S', 'L5', "
+            f"Galileo '1B', '5X', GLONASS '1G' and BeiDou 'B1' only)")
     from ..constants import SIGNALS
 
     if chip_rate is None:
@@ -191,11 +208,11 @@ def build_scenario(
     if carrier_freq is None:
         carrier_freq = float(SIGNALS[signal].carrier_freq_hz)
     toe = np.floor(t0_tow / 7200.0) * 7200.0   # ephemeris reference nearby
-    # bit stream starts at the last subframe (LNAV, 6 s), CNAV message
-    # (L5 6 s, L2CM 12 s), GNAV frame (30 s) or page (I/NAV and F/NAV
-    # streams, 2 s) boundary before the earliest possible transmit time
-    # (t0 - 0.1 s)
-    boundary = {"1C": 6.0, "1G": 30.0,
+    # bit stream starts at the last subframe (LNAV and D1, 6 s), CNAV
+    # message (L5 6 s, L2CM 12 s), GNAV frame (30 s) or page (I/NAV and
+    # F/NAV streams, 2 s) boundary before the earliest possible transmit
+    # time (t0 - 0.1 s)
+    boundary = {"1C": 6.0, "B1": 6.0, "1G": 30.0,
                 "L5": 6.0, "2S": 12.0}.get(signal, 2.0)
     bits_tow0 = np.floor((t0_tow - 0.1) / boundary) * boundary
 
@@ -215,6 +232,10 @@ def build_scenario(
         anom = anomalies[i]
         eph = make_test_ephemeris(prn, toe, plane_raan_deg=raan,
                                   anomaly_deg=anom, af0=2e-5 * ((i % 3) - 1))
+        if signal == "B1":
+            # the receiver propagates B1 ephemerides with CGCS2000
+            # constants; keep truth and broadcast on the same model
+            eph = _gps_to_beidou(eph)
         carrier_offset = 0.0
         if signal == "1G":
             # GLONASS: broadcast is a state vector at tb (multiple of 900 s)
@@ -277,7 +298,22 @@ def build_scenario(
         delay_chips = (tau0 - stream_offset_s) * chip_rate
         # nav bits covering the run (+ margin)
         bit_rate_override = None
-        if signal == "1B":
+        if signal == "B1":
+            # D1 NAV: 6 s subframes cycling 1,2,3 so the ephemeris
+            # completes in 18 s (fixture analogue of the GPS
+            # subframe_cycle); 50 bps bits, NH20 applied by the caller
+            from ..telemetry.beidou_dnav import (
+                d1_fields_for, encode_subframe_bits)
+
+            n_sf = int(np.ceil((duration_s + 2.0) / 6.0)) + 2
+            cyc = (1, 2, 3)
+            sfs = []
+            for k in range(n_sf):
+                fid = cyc[k % 3]
+                sfs.append(encode_subframe_bits(
+                    fid, bits_tow0 + 6.0 * k, d1_fields_for(eph, fid)))
+            bits01 = np.concatenate(sfs)
+        elif signal == "1B":
             # I/NAV pages (2 s each), word cycle 5,1,2,3,4 so ephemeris +
             # GST complete within 10 s; GST TOW = even-part start time
             from ..telemetry.inav import encode_page, encode_word

@@ -5,9 +5,8 @@ The receiver expects every telemetry decoder to expose
   ephemeris_complete
 (the Gnss_Synchro TOW-stamping contract of the reference's telemetry
 blocks).  LnavDecoder implements it natively; these adapters wrap the other
-signals' decoders.  This package carries the GPS L2CM and L5I (CNAV),
-GLONASS L1/L2 C/A (GNAV), Galileo E1B (I/NAV) and Galileo E5a-I (F/NAV)
-adapters; BeiDou's waits for its decoder.
+signals' decoders: BeiDou B1I/B3I (D1/D2 NAV), GPS L2CM and L5I (CNAV),
+GLONASS L1/L2 C/A (GNAV), Galileo E1B (I/NAV) and Galileo E5a-I (F/NAV).
 """
 
 from __future__ import annotations
@@ -15,6 +14,145 @@ from __future__ import annotations
 import numpy as np
 
 from .inav import InavDecoder, to_keplerian
+
+
+class BeidouChannelDecoder:
+    """B1I (D1 NAV) channel: prompts arrive per 1 ms code period, modulated
+    by the NH20 secondary code at 20 ms bit period.
+
+    The adapter performs secondary-code sync (correlating prompt signs with
+    NH20 over a sliding 20-epoch window), wipes NH, integrates to 20 ms
+    bits and feeds DnavDecoder.  (The reference folds NH handling into
+    tracking's extended-integration states; host-side wipe keeps the device
+    loop branch-light.)
+    """
+
+    _NH = np.array([0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 1, 0, 0, 1, 1,
+                    1, 0], dtype=np.float64)
+    _NH_AMP = 1.0 - 2.0 * _NH
+
+    def __init__(self, prn: int):
+        from .beidou_dnav import D2Decoder, DnavDecoder
+
+        self.prn = prn
+        # GEO satellites (PRN 1-5) broadcast D2 NAV at 500 sps with no NH
+        # modulation; MEO/IGSO broadcast D1 at 50 bps under NH20
+        # (beidou_b1i_telemetry_decoder_gs.cc:317-345 set_satellite)
+        self.is_geo = 1 <= prn <= 5
+        self._dec = D2Decoder(prn) if self.is_geo else DnavDecoder(prn)
+        # D2 symbol boundary is ambiguous at 1 ms epoch granularity: run
+        # both 2-epoch integration phases until one achieves frame sync
+        self._d2_alt = D2Decoder(prn) if self.is_geo else None
+        self._d2_phase: int | None = None
+        self._buf: list[float] = []
+        self._nh_offset: int | None = None
+        self._bit_symbol0: int | None = None
+
+    def push(self, prompt_i, start_samples=None) -> None:
+        self._buf.extend(np.asarray(prompt_i, dtype=np.float64))
+        if self.is_geo:
+            self._push_d2()
+            return
+        if self._nh_offset is None:
+            self._sync_nh()
+        if self._nh_offset is None:
+            return
+        # consume whole NH periods into bits
+        p = np.asarray(self._buf)
+        usable = (len(p) - self._nh_offset) // 20
+        if usable <= 0:
+            return
+        seg = p[self._nh_offset : self._nh_offset + usable * 20]
+        bits = (seg.reshape(usable, 20) * self._NH_AMP[None, :]).sum(axis=1)
+        self._dec.push(bits)
+        self._nh_offset += usable * 20
+
+    def _push_d2(self) -> None:
+        p = np.asarray(self._buf)
+        if self._d2_phase is None:
+            # feed both phases from scratch each call until one syncs
+            # (cheap: D2Decoder.push is incremental, so re-create lazily)
+            for phase, dec in ((0, self._dec), (1, self._d2_alt)):
+                n = (len(p) - phase) // 2
+                fed = getattr(dec, "_fed", 0)
+                if n > fed:
+                    seg = p[phase + fed * 2 : phase + n * 2]
+                    dec.push(seg.reshape(-1, 2).sum(axis=1))
+                    dec._fed = n
+            if self._dec.frame_sync:
+                self._d2_phase = 0
+                self._bit_symbol0 = 0
+            elif self._d2_alt.frame_sync:
+                self._dec = self._d2_alt
+                self._d2_phase = 1
+                self._bit_symbol0 = 1
+            return
+        phase = self._d2_phase
+        n = (len(p) - phase) // 2
+        fed = getattr(self._dec, "_fed", 0)
+        if n > fed:
+            seg = p[phase + fed * 2 : phase + n * 2]
+            self._dec.push(seg.reshape(-1, 2).sum(axis=1))
+            self._dec._fed = n
+
+    def _sync_nh(self) -> None:
+        p = np.asarray(self._buf)
+        if len(p) < 80:
+            return
+        s = np.sign(p)
+        best, best_off = 0.0, None
+        for off in range(20):
+            n = (len(p) - off) // 20
+            if n < 3:
+                continue
+            w = s[off : off + n * 20].reshape(n, 20)
+            c = np.abs((w * self._NH_AMP[None, :]).sum(axis=1)).mean()
+            if c > best:
+                best, best_off = c, off
+        if best_off is not None and best > 16.0:   # dominant NH alignment
+            self._nh_offset = best_off
+            self._bit_symbol0 = best_off
+
+    @property
+    def sec_sync_offset(self) -> int | None:
+        """Epoch index (mod 20) of the NH20 boundary once synced — the
+        receiver uses it to align the engine's extended-coherent window and
+        in-loop wipe-off phase.  GEO (D2) carries no NH code: always None so
+        the receiver keeps the channel in wide tracking."""
+        if self.is_geo:
+            return None
+        return None if self._bit_symbol0 is None else self._bit_symbol0 % 20
+
+    def tow_at_symbol(self, symbol_idx: int):
+        """SOW at a 1 ms epoch index (D1 bits advance 20 ms, D2 symbols
+        2 ms)."""
+        if self._bit_symbol0 is None:
+            return None
+        per = 2.0 if self.is_geo else 20.0
+        bit_idx = (symbol_idx - self._bit_symbol0) / per
+        sow = self._dec.sow_at_symbol(int(np.floor(bit_idx)))
+        if sow is None:
+            return None
+        frac = bit_idx - np.floor(bit_idx)
+        return sow + per * 1e-3 * frac
+
+    @property
+    def ephemeris(self):
+        return self._dec.ephemeris
+
+    @property
+    def iono(self):
+        return self._dec.iono
+
+    @property
+    def ephemeris_complete(self) -> bool:
+        # subframes 1-3 decoded (beidou_dnav_navigation_message.cc
+        # have_new_ephemeris gating)
+        return self._dec.ephemeris_complete
+
+    @property
+    def raw(self):
+        return self._dec
 
 
 class GpsL2ChannelDecoder:

@@ -1,12 +1,13 @@
 """The port's conf-file CLI and its configuration layer against the JAX
 package's: every conf in conf/ parses to the same items and frontend; the
 six GPS L1 C/A confs, the two Galileo E1 confs, the GPS L5 and L2C confs,
-the Galileo E5a (CAF) conf and the three multi-group confs (GPS L1 +
-Galileo E1 on one or two sources, GPS L1 + GLONASS L1) that need only
-what the port carries map to the same ReceiverConfig values and build a
-Receiver; the multi-group ones run through the mixed-constellation branch;
-every other conf, and every flag of a feature not ported yet, is refused
-with its ROADMAP.md item; the block registries agree; and both CLIs print
+the Galileo E5a (CAF) conf, the BeiDou B1I conf and the three multi-group
+confs (GPS L1 + Galileo E1 on one or two sources, GPS L1 + GLONASS L1)
+that need only what the port carries map to the same ReceiverConfig values
+and build a Receiver; the multi-group ones run through the
+mixed-constellation branch; `--signal B1` and `--signal B3` run; every
+other conf, and every flag of a feature not ported yet, is refused with
+its ROADMAP.md item; the block registries agree; and both CLIs print
 the same lines on a short capture.  The slow case runs both CLIs to fixes
 on a 24 s capture."""
 
@@ -37,10 +38,10 @@ from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
-PORTED = ["galileo_e1_gr_complex.conf", "galileo_e1_quicksync.conf",
-          "galileo_e5a.conf", "glonass_l1_gps_l1_ibyte.conf",
-          "gps_l1_if_xlating.conf", "gps_l1_ishort.conf",
-          "gps_l1_kalman.conf", "gps_l1_nsr.conf",
+PORTED = ["bds_b1i_ibyte.conf", "galileo_e1_gr_complex.conf",
+          "galileo_e1_quicksync.conf", "galileo_e5a.conf",
+          "glonass_l1_gps_l1_ibyte.conf", "gps_l1_if_xlating.conf",
+          "gps_l1_ishort.conf", "gps_l1_kalman.conf", "gps_l1_nsr.conf",
           "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf",
           "gps_l2c_ibyte.conf", "gps_l5.conf", "hybrid_ishort.conf",
           "multisource_hybrid_ishort.conf"]
@@ -51,7 +52,7 @@ RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 
 
 def test_corpus_split():
-    assert len(CONFS) == 16 and len(UNPORTED) == 2
+    assert len(CONFS) == 16 and UNPORTED == ["gps_l1_supl_assisted.conf"]
     assert set(PORTED) <= set(CONFS)
 
 
@@ -154,7 +155,6 @@ def test_galileo_tong_and_folding_keys_map(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("bds_b1i_ibyte.conf", "item 7"),
     ("gps_l1_supl_assisted.conf", "item 4")])
 def test_unported_conf_names_its_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -225,13 +225,31 @@ def test_unported_conf_refused_with_roadmap_item(name, capsys):
 @pytest.mark.parametrize("flag,value", [
     ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
     ("--supl", "localhost"), ("--telecommand_port", "2101"),
-    ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111"),
-    ("--signal", "B1")])
+    ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111")])
 def test_unported_flag_refused(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
     assert e.value.code == 2
     assert "ROADMAP.md §1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("signal,fs", [("B1", 5.0e6), ("B3", 12.5e6)])
+def test_beidou_signal_flag_runs(signal, fs, tmp_path, capsys):
+    """`--signal B1` and `--signal B3` run the BeiDou receiver end to end
+    on the CPU over 0.1 s of random ishort items (B1 at
+    bds_b1i_ibyte.conf's 5 Msps, B3 at 12.5 Msps): no fix, exit 0."""
+    rng = np.random.default_rng(19)
+    raw = rng.integers(-2000, 2000, size=2 * int(fs * 0.1)).astype(np.int16)
+    cap = tmp_path / "cap.ishort"
+    raw.tofile(cap)
+    lines = _run(tcli, ["--signal_file", str(cap), "--item_type", "ishort",
+                        "--fs", str(fs), "--signal", signal, "--channels",
+                        "2", "--device", "cpu", "--out_dir",
+                        str(tmp_path / "out")], capsys)
+    assert lines[0].startswith(f"Processing {int(fs * 0.1)} samples") \
+        and f"2 {signal} channels" in lines[0]
+    assert any(ln.startswith("Processed in ") for ln in lines)
+    assert lines[-1] == "No position fix obtained."
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(capsys):

@@ -304,15 +304,12 @@ def test_caf_and_unported_refused():
 
     with pytest.raises(NotImplementedError, match="item 7"):
         ReceiverConfig(signal_id="1B", acq_strategy="caf")
-    # L5, E5a, GPS L2C and GLONASS are ported; BeiDou and the KF tracker
-    # off GPS L1 C/A are not
-    for sid in ("B1", "B3"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ReceiverConfig(signal_id=sid)
-    for sid in ("2S", "1G", "2G"):
+    # L5, E5a, GPS L2C, GLONASS and BeiDou are ported; the KF tracker off
+    # GPS L1 C/A is not
+    for sid in ("2S", "1G", "2G", "B1", "B3"):
         ReceiverConfig(signal_id=sid)
     ReceiverConfig(signal_id="5X", acq_strategy="caf")
-    for sid in ("1B", "L5", "5X"):
+    for sid in ("1B", "L5", "5X", "B1"):
         with pytest.raises(NotImplementedError, match="item 7"):
             ReceiverConfig(signal_id=sid, track_engine="kf")
     with pytest.raises(NotImplementedError, match="item 4"):
@@ -369,17 +366,20 @@ def test_galileo_solve_pvt_identical():
 
 def test_galileo_ephemeris_constants():
     """Keplerian Galileo ephemerides (system 'E') propagate with the JAX
-    package's constants; BeiDou's (system 'C') stay refused."""
+    package's constants, as do BeiDou's (system 'C', CGCS2000)."""
     from types import SimpleNamespace
 
     from gnss_sdr_1_tpu.pvt.ephemeris import _gm_omega as jgm
+    from gnss_sdr_1_tpu_torch.constants import (BDS_GM,
+                                                BDS_OMEGA_EARTH_DOT)
     from gnss_sdr_1_tpu_torch.pvt.ephemeris import _gm_omega as tgm
 
-    for system in ("G", "E"):
+    for system in ("G", "E", "C"):
         eph = SimpleNamespace(system=system)
         assert tgm(eph) == jgm(eph)
-    with pytest.raises(NotImplementedError):
-        tgm(SimpleNamespace(system="C"))
+    assert tgm(SimpleNamespace(system="C")) == (BDS_GM, BDS_OMEGA_EARTH_DOT)
+    assert tgm(SimpleNamespace(system="E")) != tgm(
+        SimpleNamespace(system="C"))
 
 
 @pytest.mark.slow

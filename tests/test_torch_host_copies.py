@@ -545,8 +545,7 @@ def test_l2c_glonass_constants_identical():
     for sid in ("2S", "1G", "2G"):
         assert dataclasses.asdict(tconst.SIGNALS[sid]) == \
             dataclasses.asdict(jconst.SIGNALS[sid])
-    assert sorted(tconst.SIGNALS) == sorted(
-        s for s in jconst.SIGNALS if s not in ("B1", "B3"))
+    assert sorted(tconst.SIGNALS) == sorted(jconst.SIGNALS)
     for sid in ("1G", "2G", "1C"):
         for k in range(-7, 7):
             assert tconst.glonass_fdma_offset_hz(sid, k) == \
@@ -606,3 +605,64 @@ def test_l2c_glonass_scenario_and_generator_identical(signal):
     np.testing.assert_array_equal(
         tgen(spec_t, st.sats, codes, 4.092e6, 0.01, noise=True),
         jgen(spec_j, sj.sats, codes, 4.092e6, 0.01, noise=True))
+
+
+# ---------------------------------------------------------------------------
+# BeiDou B1I/B3I: the code and D1/D2 modules, the CGCS2000 orbit branch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rel", ["codes/beidou.py",
+                                 "telemetry/beidou_dnav.py",
+                                 "pvt/ephemeris.py"])
+def test_beidou_modules_are_copies_and_import_no_jax(rel):
+    """The B1I/B3I code generators, the D1/D2 NAV module and the Keplerian
+    propagator (with its CGCS2000 branch) are the JAX package's modules,
+    byte for byte, and each imports nothing of JAX or of the JAX package
+    (test_port_imports_no_jax walks every file; this names them)."""
+    path = ROOT / "gnss_sdr_1_tpu_torch" / rel
+    assert path.read_text() == (ROOT / "gnss_sdr_1_tpu" / rel).read_text()
+    assert path in _port_sources()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+            if node.level == 0:
+                assert names[0].split(".")[0] in (
+                    "__future__", "dataclasses", "functools", "numpy"), \
+                    f"{rel}: {names[0]}"
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "gnss_sdr_1_tpu"), f"{rel}: {name}"
+
+
+def test_beidou_cgcs2000_orbit_identical():
+    """The `C` branch of pvt/ephemeris.py: a CGCS2000 ephemeris of the B1
+    scenario gives the JAX package's position, velocity and clock, value
+    for value, and differs from the same orbit on WGS-84 constants."""
+    import gnss_sdr_1_tpu.pvt.ephemeris as jeph
+    import gnss_sdr_1_tpu_torch.pvt.ephemeris as teph
+
+    kw = dict(t0_tow=345601.25, duration_s=12.0, cn0_dbhz=48.0,
+              chip_rate=2.046e6, carrier_freq=tconst.FREQ_B1I, signal="B1")
+    sj = jscen.build_scenario(RX, [6, 9], **kw)
+    st = tscen.build_scenario(RX, [6, 9], **kw)
+    for p in (6, 9):
+        ej, et = sj.ephemerides[p], st.ephemerides[p]
+        assert et.system == ej.system == "C"
+        assert type(et).__module__ == \
+            "gnss_sdr_1_tpu_torch.telemetry.beidou_dnav"
+        for t in (345601.25, 345607.0, 345612.5):
+            pj, vj = jeph.satellite_position_velocity(ej, t)
+            pt, vt = teph.satellite_position_velocity(et, t)
+            np.testing.assert_array_equal(pt, pj)
+            np.testing.assert_array_equal(vt, vj)
+            assert teph.satellite_clock_correction(et, t) == \
+                jeph.satellite_clock_correction(ej, t)
+            assert tsolver.sat_clock(et, t) == jsolver.sat_clock(ej, t)
+            wgs = dataclasses.replace(et, system="G")
+            assert np.linalg.norm(
+                teph.satellite_position_velocity(wgs, t)[0] - pt) > 1e-3

@@ -66,13 +66,21 @@ def test_engine_with_secondary_wipe_matches_jax(signal):
     (non-zero) code index by both engines, then 0.2 s by both: 16
     epochs per chunk against a 10- or 20-chip code, so the secondary index
     wraps inside chunks and the extension windows straddle chunk seams."""
-    n_sec = SIGNALS[signal][1]
-    sec = _sec(signal)
+    engine_secondary_wipe_parity(signal, FS, _sec(signal))
+
+
+def engine_secondary_wipe_parity(signal, fs, sec, early_late=0.5):
+    """The check of test_engine_with_secondary_wipe_matches_jax for
+    `signal` at `fs` with the data-channel secondary code `sec` (also
+    BeiDou's NH20 in tests/test_torch_beidou.py)."""
+    n_sec = len(sec)
+    spec = jconst.SIGNALS[signal]
+    rate, n_chips = spec.code_rate_chips_s, spec.code_length_chips
     rng = np.random.default_rng(21)
     prns = (2, 9, 17)
     n_sym = 300 // n_sec
     sats = [SatParams(prn=p, doppler_hz=float(rng.uniform(-3000, 3000)),
-                      delay_chips=float(rng.uniform(0, 10230)),
+                      delay_chips=float(rng.uniform(0, n_chips)),
                       cn0_dbhz=50.0,
                       nav_bits=(np.repeat(rng.choice([-1.0, 1.0], n_sym),
                                           n_sec) * np.tile(sec, n_sym)),
@@ -80,15 +88,13 @@ def test_engine_with_secondary_wipe_matches_jax(signal):
             for p in prns]
     codes = np.stack([jcodes.tracking_replica(signal, p)[0] for p in prns])
     # the secondary-modulated symbols as a 1 kbps stream
-    gen_spec = dataclasses.replace(jconst.SIGNALS[signal],
-                                   bit_rate_bps=1000.0)
-    x = jgen(gen_spec, sats, {p: codes[k] for k, p in enumerate(prns)}, FS,
+    gen_spec = dataclasses.replace(spec, bit_rate_bps=1000.0)
+    x = jgen(gen_spec, sats, {p: codes[k] for k, p in enumerate(prns)}, fs,
              0.26, noise=True, seed=5)
-    spec = jconst.SIGNALS[signal]
-    kw = dict(fs_hz=FS, code_length_chips=10230, chip_rate_chips_s=10.23e6,
+    kw = dict(fs_hz=fs, code_length_chips=n_chips, chip_rate_chips_s=rate,
               carrier_freq_hz=spec.carrier_freq_hz, n_channels=3,
               pll_bw_hz=18.0, dll_bw_hz=2.0, extend_correlation_symbols=n_sec,
-              sec_data=True)
+              early_late_space_chips=early_late, sec_data=True)
     sec_codes = np.tile(sec, (3, 1))
     ej = JEngine(JTrackConfig(correlator="mxu", **kw), codes,
                  sec_codes=sec_codes)
@@ -97,9 +103,9 @@ def test_engine_with_secondary_wipe_matches_jax(signal):
     assert et.chain_spec.sec_len == n_sec and et.chain_spec.sec_data
     st = et.init_state()
     for ch, s in enumerate(sats):
-        st = et.activate_channel(st, ch, ch, s.delay_chips / 10.23e6 * FS,
+        st = et.activate_channel(st, ch, ch, s.delay_chips / rate * fs,
                                  s.doppler_hz, 0, 0)
-    head = int(FS * 0.029)
+    head = int(fs * 0.029)
     st, _ = et.track_capture(torch.from_numpy(x), st, head)
     # epoch k of a channel carries secondary chip k mod n_sec
     phases = st.epochs_in_track.numpy() % n_sec
@@ -120,7 +126,7 @@ def test_engine_with_secondary_wipe_matches_jax(signal):
     assert leaves["sec_on"].all() and (leaves["mode"] == 1).all()
     np.testing.assert_array_equal(leaves["sec_idx"], phases)
 
-    span = int(FS * 0.2)
+    span = int(fs * 0.2)
     xs = x[head:]
     st_j, oj = ej.track_capture(jnp.asarray(to_planar(xs)),
                                 _state_from_jax(leaves), span)

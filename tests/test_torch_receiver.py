@@ -47,7 +47,8 @@ def short_run():
 
 def test_receiver_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="B1")
+        ReceiverConfig(signal_id="B1", track_engine="kf")
+    ReceiverConfig(signal_id="B1")            # ported: BeiDou B1I
     ReceiverConfig(signal_id="2S")            # ported: GPS L2C
     ReceiverConfig(signal_id="1G", fdma_k=((1, -7), (2, 6)))  # GLONASS
     with pytest.raises(NotImplementedError):
