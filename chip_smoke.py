@@ -11,8 +11,9 @@ error a run, holds no bar, and ends without the lines below.
 
 Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
-     nvcc for the tracking library), with ptxas' registers, stack frame and
-     spills of every kernel instance;
+     nvcc for each library, started together: the tracking library and
+     the KF library), with ptxas' registers, stack frame and spills of
+     every kernel instance;
   2. both CUDA kernels against their plain torch versions on the card, at
      the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
      inputs and on the inputs of a real chunk taken mid-track: the chunk
@@ -42,6 +43,14 @@ Phases (one line each, with times):
      one line each;
      then the generator on the card held to the numpy one on a noiseless
      20 ms stretch of every capture the script makes on the card;
+ 2b. the KF block kernel (kf_block) against its plain version on the CPU,
+     two 40 ms blocks a launch from freshly activated channels: GPS at 12
+     channels and 4.092 Msps with orders 2 and 3 and the NIW covariance
+     off and on, 2.6 Msps with 8 channels (gps_l1_kalman.conf's rate),
+     Galileo E1B at 8 channels and 4 Msps in the virtual half-chip basis,
+     L2C at 2.046 Msps (40,926-sample epochs); timed at the GPS, 2.6 Msps
+     and E1B shapes (device time per one-block launch from the profiler,
+     the plain version's on the card, the bound);
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -59,9 +68,13 @@ Phases (one line each, with times):
      Freq_Xlating_Fir_Filter conditioner on the card decimating to
      2.046 Msps (held to the same FrontEnd on the CPU over the first
      0.5 s), then both kernels at that rate;
-  8. the CLI with GPS_L1_CA_KF_Tracking on phase 6's file (RTF, fixes,
-     median 3D error, KF epochs), and the launches per KF epoch from a
-     profiler trace of one 40 ms block;
+  8. the CLI with GPS_L1_CA_KF_Tracking on phase 6's file (RTF at real
+     time or faster, fixes, median 3D error, KF epochs, one kf_block
+     launch per engine call), the kernel launches per KF epoch of one
+     25-block engine call (<= 0.1, counted in a CUDA graph captured from
+     it) and its device time per epoch (CUDA events), and
+     conf/gps_l1_kalman.conf as written (8 channels, NIW on) over the e2e
+     scenario made on the card at its 2.6 Msps, as a gr_complex file;
   9. the acquisition strategies on the card, each held to the same call
      on the CPU (detections, Doppler bins, delays within 1 sample,
      statistics within 1e-4 relative, ms per call): PCPS with the
@@ -124,9 +137,14 @@ Phases (one line each, with times):
      capture written as an ibyte file, at phase 19's bars, and the RINEX
      C rows it writes;
  21. the BeiDou B3I receiver: 6 D1 satellites, 30 s at 12.5 Msps, as
-     phase 19.
-Then one JSON line describing every kernel (launches summed over phases
-5-7 and 10-21, each read just after its run), the nvidia-smi line, and
+     phase 19;
+ 22. the Galileo E1B receiver with the KF tracker (virtual basis) on
+     phase 10's capture made again on the card: every channel held within
+     25 Hz of the truth Doppler, ephemerides, fixes, the median 3D error
+     under one chip, kf_block launches per block.
+Then one JSON line describing every kernel (the chunked kernels'
+launches summed over phases 5-7 and 10-21, the KF kernel's over phases 8
+and 22, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -183,8 +201,12 @@ ISHORT_SCALE = 1500.0
 IF_HZ = 420e3
 FS_IF = FS / 2
 MIN_FIXES_IF = 100
-# the KF receiver's bars (tests/test_kf_tracking.py:179-184)
+# the KF receiver's bars (tests/test_kf_tracking.py:179-184); phase 8's
+# run of conf/gps_l1_kalman.conf at its rate; the blocks of one receiver
+# segment (reacq_interval_blocks) in phase 8's profile
 MIN_FIXES_KF = 10
+FS_KALMAN = 2.6e6
+KF_SEG_BLOCKS = 25
 OUTPUT_FILES = ("position.kml", "position.gpx", "position.geojson",
                 "position.nmea", "observables.rnx", "brdc.rnx",
                 "observables.rtcm")
@@ -196,6 +218,14 @@ E1_PRNS = tuple(range(1, 9))
 E1_TILED_RATE = 8.184e6
 MIN_EPH_E1 = 6
 MIN_FIXES_E1 = 10
+# phase 22: the E1B KF receiver's channels end within this of the truth
+# Doppler (tests/test_kf_tracking.py::test_kf_tracks_boc_signal), and its
+# median 3D error under one E1B chip (293 m): the KF's 0.5-chip E-L
+# spacing leaves its code loop flat on the sinBOC side lobes, and both
+# packages' KF receivers give 98.4 m (8 satellites) and 188.6 m (5) on
+# the Galileo system test's 18 s scenario on the CPU (PERF.md)
+E1_KF_MAX_DOPPLER_ERR = 25.0
+E1_KF_MAX_MEDIAN_M = 300.0
 # CCCWSR and 8 ms normalise their peak by F^2 times the input power
 E1_THRESHOLDS = {"cccwsr": 8e-4, "8ms": 8e-4}
 # phases 2 and 12-14: GPS L5I at conf/gps_l5.conf's rate and Galileo E5a-I
@@ -275,6 +305,26 @@ MIN_FIXES_BDS = 10
 MAX_MEDIAN_BDS = 5.0
 MAX_BIAS_BDS = 5.0
 
+# phase 2b: the KF block kernel at the KF paths' shapes: (what, signal,
+# fs, channels, active channels, order, bayes_run, timed); two blocks of
+# KF_BLOCK_MS a launch; NIW from epoch 10 and in use from epoch 20 in the
+# bayes cases, so a block reaches both
+KF_BLOCK_MS = 40
+KF_BAYES = {"bayes_ptrans": 10, "bayes_strans": 10}
+KF_CHECKS = (
+    ("GPS", "1C", FS, 12, 12, 2, False, True),
+    ("GPS", "1C", FS, 12, 12, 3, False, False),
+    ("GPS", "1C", FS, 12, 12, 2, True, False),
+    ("GPS", "1C", FS, 12, 12, 3, True, False),
+    ("GPS 2.6 Msps", "1C", 2.6e6, 8, 7, 2, True, True),
+    ("E1B", "1B", 4.0e6, 8, 8, 2, False, True),
+    ("L2C", "2S", 2.046e6, 6, 6, 2, False, False),
+)
+# float32 operations per correlated sample of the KF walk: the phase (2),
+# its sine and cosine (~8 each), the wipe (6), three code indices (3 each)
+# and three complex accumulations (2 each)
+KF_OPS_PER_SAMPLE = 39
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -300,6 +350,7 @@ def main() -> None:
     import gnss_sdr_1_tpu_torch  # noqa: F401  (sets TF32 off)
     from gnss_sdr_1_tpu_torch.ops import _build
     from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
+    from gnss_sdr_1_tpu_torch.ops import kf_block as kb
     from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
@@ -321,18 +372,25 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
+    _build.build_all()
     _build.library()
+    _build.kf_library()
     build_s = time.perf_counter() - t0
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | kernel build {build_s:.2f} s (nvcc, "
-        f"{' '.join(_build.ARCH_FLAGS)})")
-    ptxas = ptxas_report(_build.BUILD_LOG[_build.LIBRARY]["ptxas"])
+        f"{torch.version.cuda} | kernel build {build_s:.2f} s (one nvcc per "
+        f"library, in parallel: "
+        + ", ".join(f"{n} {r['seconds']:.2f} s"
+                    for n, r in _build.BUILD_LOG.items())
+        + f"; {' '.join(_build.ARCH_FLAGS)})")
+    ptxas = ptxas_report(_build.BUILD_LOG[_build.LIBRARY]["ptxas"]
+                         + "\n" + _build.BUILD_LOG[_build.KF_LIBRARY]["ptxas"])
     for name, r in ptxas.items():
         log(f"    ptxas {name}: {r['registers']} registers, "
             f"{r['stack']} B stack frame, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads")
     chain_inst = [r for n, r in ptxas.items() if n.startswith("track_chain")]
-    if not chain_inst or not any(n.startswith("chunk_corr") for n in ptxas):
+    if not chain_inst or not any(n.startswith("chunk_corr") for n in ptxas) \
+            or sum(n.startswith("kf_block") for n in ptxas) != 4:
         raise AssertionError(f"ptxas report lacks a kernel: {list(ptxas)}")
     for r in chain_inst:
         if r["stack"] or r["spill_stores"] or r["spill_loads"]:
@@ -404,6 +462,24 @@ def main() -> None:
             f"max |diff| {r['err']:.3e}, int rows exact, "
             f"{r['valid_epochs']} valid epochs")
     log(f"    | {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kf_rows = phase_kf_kernel(dev, kb)
+    for r in kf_rows:
+        timed = (f", {r['ms']:.5f} ms/launch of one block device "
+                 f"({r['ms_host']:.5f} from the host), plain "
+                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.2e} ms "
+                 f"({r['bound_by']})" if "ms" in r else "")
+        log(f"[2b] kf_block vs plain on the CPU, {r['what']} (order "
+            f"{r['order']}, NIW {'on' if r['bayes'] else 'off'}, C={r['C']}, "
+            f"{r['active']} active, {r['fs'] / 1e6:g} Msps, Nmax="
+            f"{r['n_max']}, L={r['code_len']}, {r['blocks']} blocks of "
+            f"{r['n_epochs']} epochs): int rows exact, Doppler "
+            f"{r['doppler']:.2e}, delta {r['delta']:.2e}, rem code "
+            f"{r['rem_code']:.2e}, rem carrier {r['rem_carr']:.2e} rad, "
+            f"correlators {r['corr']:.3e} ({r['corr_raw']:.3e} raw) of "
+            f"{r['corr_scale']:.3e}, CN0 rel {r['cn0']:.1e}, sigma2 rel "
+            f"{r['sigma2']:.1e}, {r['valid_epochs']} valid epochs" + timed)
+    log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
                              f"the torch.bmm pair {cr['library_ms']:.5f} ms")
@@ -470,15 +546,28 @@ def main() -> None:
         f"{cli7['condition_s']:.3f} s to condition the {E2E_S:g} s | "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    cli8 = phase_cli_kf(dev, cc, tc, scen, files[0])
+    cli8 = phase_cli_kf(dev, cc, tc, kb, scen, files[0])
     kfp = cli8["profile"]
     log(f"[8] CLI, GPS_L1_CA_KF_Tracking: {cli8['summary']}; "
-        f"{cli8['kf_epochs']} KF epoch steps, {cli8['ms_per_epoch']:.3f} ms "
-        f"of wall each; one 40 ms block ({kfp['epochs']} epochs, 12 ch) "
-        f"profiled: {kfp['launches_per_epoch']:.1f} kernel launches and "
-        f"{kfp['device_us_per_epoch']:.1f} us of device time per epoch, "
-        f"{kfp['wall_ms_per_epoch']:.3f} ms of wall | "
+        f"{cli8['kf_epochs']} KF epochs in {cli8['kf_blocks']} blocks, "
+        f"kf_block launches {cli8['launches_kf_block']} == engine calls "
+        f"{cli8['kf_calls']}, {cli8['ms_per_epoch']:.4f} ms of wall per "
+        f"epoch; one segment ({kfp['segment_blocks']} blocks, "
+        f"{kfp['epochs']} epochs, 12 ch): {kfp['launches_per_epoch']:.4f} "
+        f"kernel launches per epoch ({kfp['kernels_per_call']} in the "
+        f"engine call, counted in a CUDA graph of it), "
+        f"{kfp['device_us_per_epoch']:.2f} us of device time per epoch "
+        f"(kf_block {kfp['kf_device_us_per_epoch']:.2f} us), "
+        f"{kfp['wall_ms_per_epoch']:.4f} ms of wall; one block alone "
+        f"{kfp['block_launches_per_epoch']:.3f} launches per epoch | "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli8k = phase_cli_kalman(dev, kb)
+    log(f"[8] CLI, conf/gps_l1_kalman.conf as written on the e2e scenario at "
+        f"{FS_KALMAN / 1e6:g} Msps: {cli8k['summary']}; {cli8k['kf_epochs']} "
+        f"KF epochs, kf_block launches {cli8k['launches_kf_block']} | "
+        f"{time.perf_counter() - t0:.1f} s (capture made on the card in "
+        f"{cli8k['gen_s']:.2f} s)")
 
     # ---- 9-11. acquisition strategies, Galileo E1 receiver and CLI ----
     t0 = time.perf_counter()
@@ -631,8 +720,26 @@ def main() -> None:
             log(f"    | {time.perf_counter() - t0:.1f} s")
         del x_b
 
+    # ---- 22. the Galileo E1B receiver with the KF tracker ----
+    scen_e1, x_e1, gen_s = e1_capture(dev)
+    t0 = time.perf_counter()
+    e1kf = phase_e1_kf(dev, kb, scen_e1, x_e1)
+    del x_e1
+    log(f"[22] Galileo E1 KF receiver e2e (virtual basis): {len(E1_PRNS)} "
+        f"sats x {E1_S:g} s, RTF {e1kf['rtf']:.2f} ({e1kf['wall_s']:.2f} s), "
+        f"{e1kf['held']} channels held, Doppler errors "
+        f"{[round(v, 2) for v in e1kf['doppler_err_hz'].values()]} Hz, "
+        f"ephemerides {e1kf['ephemerides']} (max |sqrt_a err| "
+        f"{e1kf['max_sqrt_a_err']:.2e}), fixes {e1kf['fixes']}, median 3D "
+        f"error {e1kf['median_3d_m']:.2f} m, kf_block launches "
+        f"{e1kf['launches_kf_block']} == engine calls {e1kf['kf_calls']} "
+        f"({e1kf['launches_per_block']:.3f} per block, {e1kf['kf_epochs']} "
+        f"epochs) | {time.perf_counter() - t0:.1f} s (capture made on the "
+        f"card in {gen_s:.2f} s)")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
+    kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
              *bds.values(), *cli20.values())
@@ -664,6 +771,19 @@ def main() -> None:
                          {**sec_runs, **bds}.items()},
         "fdma_launches": glo["offset_chunks"],
         "instances_checked": len(k_rep["instances"]),
+    }, {
+        "name": "kf_block", "route": "cuda", "source": src + "kf_block.cu",
+        "replaces": "gnss_sdr_1_tpu/track/kf.py:425",
+        "launches": sum(p["launches_kf_block"] for p in (cli8, cli8k, e1kf)),
+        "max_abs_err": max(r["max_abs_err"] for r in kf_rows),
+        "corr_raw_max_abs_err": max(r["corr_raw"] for r in kf_rows),
+        "ms": kf_t["GPS"]["ms"], "plain_ms": kf_t["GPS"]["plain_ms"],
+        "bound_ms": kf_t["GPS"]["bound_ms"],
+        "bound_by": kf_t["GPS"]["bound_by"], "library_ms": None,
+        **{f"{k}_{key}": kf_t[w][key] for k, w in (("gps26", "GPS 2.6 Msps"),
+                                                    ("e1", "E1B"))
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "shapes_checked": len(kf_rows),
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
@@ -672,6 +792,7 @@ def main() -> None:
               "cli_galileo": cli11, "generator": twin, "sec": sec_runs,
               "cli_sec": cli14, "glonass": glo, "mixed": mix, "dual": dual,
               "cli_multi": cli18, "beidou": bds, "cli_beidou": cli20,
+              "kf_kernel": kf_rows, "cli_kalman": cli8k, "e1_kf": e1kf,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -689,7 +810,8 @@ def main() -> None:
 # ---------------------------------------------------------------------------
 
 _KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
-                 "17chunk_corr_kernel": "chunk_corr"}
+                 "17chunk_corr_kernel": "chunk_corr",
+                 "15kf_block_kernel": "kf_block"}
 
 
 def ptxas_report(text: str) -> dict:
@@ -1408,6 +1530,177 @@ def _check_instances(dev, tc, bases, g):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the KF block kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _kf_engine(signal, fs, n_ch, n_active, order, bayes, n_blocks):
+    """A KF engine on the CPU as the receiver builds it for `signal` at `fs`
+    (the virtual half-chip basis on E1B), `n_active` channels activated on
+    a seeded numpy capture of as many satellites (45 dB-Hz, Dopplers from
+    -3 kHz up, code phases half a sample off the grid), `n_blocks` blocks
+    of KF_BLOCK_MS.  Returns (engine, state, samples, base)."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import tracking_replica
+    from gnss_sdr_1_tpu_torch.constants import SIGNALS
+    from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
+    from gnss_sdr_1_tpu_torch.track.kf import KfTrackConfig, KfTrackingEngine
+
+    spec = SIGNALS[signal]
+    prns = list(range(1, n_ch + 1))
+    reps = {p: tracking_replica(signal, p) for p in prns}
+    rate, spc = reps[1][1:]
+    codes = np.stack([reps[p][0] for p in prns])
+    L = codes.shape[1]
+    cfg = KfTrackConfig(
+        fs_hz=fs, code_length_chips=L, chip_rate_chips_s=rate,
+        carrier_freq_hz=spec.carrier_freq_hz, n_channels=n_ch, order=order,
+        early_late_space_chips=0.5 * spc, bayes_run=bayes,
+        **(KF_BAYES if bayes else {}))
+    eng = KfTrackingEngine(cfg, codes, device="cpu")
+    base = int(round(fs * KF_BLOCK_MS * 1e-3))
+    n = n_blocks * base + cfg.epoch_samples_max
+    half = 0.5 * rate / fs
+    sats = [SatParams(prn=p, doppler_hz=-3000.0 + 550.0 * k,
+                      doppler_rate_hz_s=5.0 if order == 3 else 0.0,
+                      delay_chips=float(k * L // n_ch) + 37.0 + half,
+                      cn0_dbhz=45.0)
+            for k, p in enumerate(prns[:n_active])]
+    gen_spec = dataclasses.replace(spec, code_rate_chips_s=rate,
+                                   code_length_chips=L)
+    x = generate_baseband(gen_spec, sats, {p: reps[p][0] for p in prns},
+                          fs, n / fs + 1e-3, noise=True, seed=5)[:n]
+    st = eng.init_state()
+    for ch, s in enumerate(sats):
+        st = eng.activate_channel(st, ch, ch, s.delay_chips / rate * fs,
+                                  s.doppler_hz, 0, 0, doppler_step_hz=250.0)
+    return eng, st, torch.as_tensor(x.astype(np.complex64)), base
+
+
+def _kf_diff(kb, got, want, what):
+    """The KF kernel's outputs against the plain version's at the bars of
+    tests/test_torch_kf.py: int rows and the carried int state exact;
+    Doppler, code-frequency delta and rem code phase within 2e-2; rem
+    carrier phase within 1e-4 2 pi (circular); CN0 and sigma2 at rtol
+    1e-3; correlators within 1e-4 of max|corr| in the plain version's
+    carrier frame: each epoch's taps turned by the difference of the two
+    phase states at the epoch's start (the previous epoch's rem carrier
+    phase, itself held to its bar above).  The KF's phase state is never
+    wrapped (it grows by 2 pi f_D T an epoch, ~1,500 rad over two blocks
+    at 3 kHz), so where two summation orders round an update to
+    neighbouring float32 values the states differ by one unit of it,
+    1.2e-4 rad there, and every later tap turns by that much; the raw
+    difference is reported as `corr_raw`.  Every error is measured before
+    any bar is checked, so a failure reports them all."""
+    of, oi, fs_, is_ = (t.cpu().numpy() for t in got)
+    wf, wi, wfs, wis = (t.numpy() for t in want)
+    v = wi[:, kb.OI_VALID] != 0
+    err = {"int_rows_equal": bool(np.array_equal(oi, wi)
+                                  and np.array_equal(is_, wis)),
+           "valid_epochs": int(v.sum())}
+    for name, row in (("doppler", kb.O_DOPPLER), ("delta", kb.O_DELTA),
+                      ("rem_code", kb.O_REM_CODE),
+                      ("doppler_rate", kb.O_DOPPLER_RATE)):
+        err[name] = float(np.abs(of[:, row] - wf[:, row])[v].max())
+    for name, row in (("state_doppler", kb.R_X + 1),
+                      ("state_delta", kb.R_DELTA)):
+        err[name] = float(np.abs(fs_[row] - wfs[row]).max())
+    c = slice(kb.O_CORR, kb.O_CORR + 6)
+    err["corr_scale"] = float(np.abs(wf[:, c]).max())
+    err["corr_raw"] = float(np.abs(of[:, c] - wf[:, c]).max())
+    turn = np.zeros(of.shape[::2])                   # [E, C]
+    turn[1:] = of[:-1, kb.O_REM_CARR] - wf[:-1, kb.O_REM_CARR]
+    k, p = slice(kb.O_CORR, kb.O_CORR + 3), slice(kb.O_CORR + 3, kb.O_CORR + 6)
+    got_c = (of[:, k] + 1j * of[:, p]) * np.exp(1j * turn)[:, None]
+    want_c = wf[:, k] + 1j * wf[:, p]
+    err["corr"] = float(max(np.abs(got_c.real - want_c.real).max(),
+                            np.abs(got_c.imag - want_c.imag).max()))
+    d = np.abs(of[:, kb.O_REM_CARR] - wf[:, kb.O_REM_CARR])[v]
+    err["rem_carr"] = float(np.minimum(d, 2 * np.pi - d).max())
+    for name, row in (("cn0", kb.O_CN0), ("sigma2", kb.O_SIGMA2)):
+        g, w = of[:, row][v], wf[:, row][v]
+        err[name] = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
+        err[name + "_ok"] = bool(np.all(np.abs(g - w)
+                                        <= 1e-4 + 1e-3 * np.abs(w)))
+    err["max_abs_err"] = max(err["corr"], err["doppler"], err["delta"],
+                             err["rem_code"], err["rem_carr"])
+    bad = [k for k, ok in (
+        ("int rows", err["int_rows_equal"]), ("valid epochs", v.any()),
+        ("doppler", err["doppler"] <= 2e-2), ("delta", err["delta"] <= 2e-2),
+        ("rem_code", err["rem_code"] <= 2e-2),
+        ("doppler_rate", err["doppler_rate"] <= 2e-2),
+        ("state_doppler", err["state_doppler"] <= 2e-2),
+        ("state_delta", err["state_delta"] <= 2e-2),
+        ("corr", err["corr"] <= 1e-4 * err["corr_scale"]),
+        ("rem_carr", err["rem_carr"] <= 1e-4 * 2 * np.pi),
+        ("cn0", err["cn0_ok"]), ("sigma2", err["sigma2_ok"])) if not ok]
+    if bad:
+        raise AssertionError(f"KF kernel {what}: {bad} out of bounds: {err}")
+    return err
+
+
+def _kf_bound(kb, spec, n_samp, out_i):
+    """Least time of one walk: the bytes it must move (the samples and the
+    channels' code rows read once, the state read and written, the
+    per-epoch rows written) against its operations on this run's data (the
+    correlated samples of the valid epochs, KF_OPS_PER_SAMPLE each, and the
+    scalar update of each valid epoch)."""
+    C = spec.C
+    v = out_i[:, kb.OI_VALID] != 0
+    n_corr = int(np.minimum(out_i[:, kb.OI_CURLEN], spec.n_max)[v].sum())
+    n_bytes = (n_samp * 8 + C * spec.code_len * 4
+               + 2 * (kb.n_frows(spec.n_hist) + kb.N_IROWS) * C * 4
+               + out_i.shape[0] * (kb.N_OROWS + kb.N_OIROWS) * C * 4)
+    n_ops = KF_OPS_PER_SAMPLE * n_corr + OPS_PER_EPOCH_CHANNEL * int(v.sum())
+    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops,
+            "correlated_samples": n_corr}
+
+
+def phase_kf_kernel(dev, kb):
+    """The KF block kernel against kf_block_plain on the CPU at every shape
+    of KF_CHECKS (two blocks a launch, so the rebase between blocks runs in
+    the kernel), and timed at the shapes marked: device ms per one-block
+    launch from the profiler, the plain version's on the card."""
+    rows = []
+    for what, signal, fs, n_ch, n_act, order, bayes, timed in KF_CHECKS:
+        eng, st, x, base = _kf_engine(signal, fs, n_ch, n_act, order, bayes,
+                                      2)
+        spec = eng.block_spec(base, 2)
+        fst, ist = eng.pack_state(st)
+        want = kb.kf_block_plain(spec, x, eng._codes, fst, ist)
+        card = [t.to(dev) for t in (x, eng._codes, fst, ist)]
+        got = kb.kf_block_cuda(spec, *card)
+        torch.cuda.synchronize()
+        r = {"what": what, "signal": signal, "fs": fs, "C": n_ch,
+             "active": n_act, "order": order, "bayes": bayes,
+             "n_epochs": spec.n_epochs, "blocks": 2, "n_max": spec.n_max,
+             "code_len": spec.code_len,
+             **_kf_diff(kb, got, want, f"{what} order {order} bayes "
+                                       f"{bayes}")}
+        if timed:
+            one = eng.block_spec(base, 1)
+            xs = card[0][: base + spec.n_max]
+
+            def call():
+                kb.kf_block_cuda(one, xs, *card[1:])
+
+            r["ms"] = _device_ms(call, 20)
+            r["ms_host"] = _time_cuda(call, 20)
+            r["plain_ms"] = _time_cuda(
+                lambda: kb.kf_block_plain(one, xs, *card[1:]), 2)
+            oi = kb.kf_block_plain(one, x[: base + spec.n_max], eng._codes,
+                                   fst, ist)[1].numpy()
+            r.update(_kf_bound(kb, one, base + spec.n_max, oi))
+            r["library_ms"] = None
+        rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: acquisition and the tracking engine (bench scenario)
 # ---------------------------------------------------------------------------
 
@@ -1870,12 +2163,81 @@ def _kernel_events(prof):
     return [e for e in events if e.get("cat") == "kernel"]
 
 
-def _kf_block_profile(dev, scen, capture):
-    """Kernel launches, device time and wall per KF epoch: one 40 ms block
-    of 12 channels (activated at the scenario's Dopplers and delays) under
-    torch.profiler after a warm-up block, and a third block timed alone."""
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def _kf_counting(kb):
+    """Set the KF kernel's launch counter to 0 and count the engine calls
+    (KfTrackingEngine.track_blocks), the blocks and the epochs they walk,
+    independently of the counter."""
+    from gnss_sdr_1_tpu_torch.track.kf import KfTrackingEngine
 
+    counter = {"calls": 0, "blocks": 0, "epochs": 0}
+    run = KfTrackingEngine.track_blocks
+
+    def counted(self, samples, state, base, n_blocks=1):
+        counter["calls"] += 1
+        counter["blocks"] += n_blocks
+        counter["epochs"] += n_blocks * self.block_spec(base, n_blocks).n_epochs
+        return run(self, samples, state, base, n_blocks)
+
+    KfTrackingEngine.track_blocks = counted
+    kb.launches = 0
+    try:
+        yield counter
+    finally:
+        KfTrackingEngine.track_blocks = run
+
+
+def _check_kf_launches(kb, counter, what):
+    """One kf_block launch per engine call, and at least one call."""
+    if not counter["calls"] > 0:
+        raise AssertionError(f"{what}: no KF block ran")
+    if kb.launches != counter["calls"]:
+        raise AssertionError(f"{what}: {kb.launches} kf_block launches for "
+                             f"{counter['calls']} engine calls")
+
+
+def _graph_kernels(call):
+    """The kernel launches `call()` makes on the current stream, counted
+    exactly as the kernel nodes of a CUDA graph captured from it (the
+    libcuda's cuGraphGetNodes / cuGraphNodeGetType).  torch.profiler's trace
+    is not used: on the H100 (torch 2.11) traces of this call taken late in
+    this script came back without its kernels."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        call()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    graph.reset()
+    return kinds.count(0)              # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _kf_block_profile(dev, kb, scen, capture):
+    """Kernel launches, device time and wall per KF epoch as the receiver
+    calls the engine: one capture segment of KF_SEG_BLOCKS 40 ms blocks of
+    12 channels (activated at the scenario's Dopplers and delays), after a
+    warm-up segment.  The launches of one engine call's device part (the
+    state packed, kf_block, the state unpacked; the output readback
+    launches nothing) are counted in a CUDA graph captured from it (one
+    block alone too); the next segment's kf_block and whole device part
+    are timed with CUDA events, and the segment after it from the host."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.io import FileSignalSource
     from gnss_sdr_1_tpu_torch.track.kf import KfTrackConfig, KfTrackingEngine
@@ -1887,56 +2249,112 @@ def _kf_block_profile(dev, scen, capture):
         np.stack([gps_l1ca_code(s.prn) for s in scen.sats]), device=dev)
     base = int(FS * 0.04)
     nmax = eng.cfg.epoch_samples_max
-    n_ep = base // (eng._t0_int - 2) + 2
+    seg = KF_SEG_BLOCKS * base
+    spec = eng.block_spec(base, KF_SEG_BLOCKS)
+    n_ep = KF_SEG_BLOCKS * spec.n_epochs
     x = torch.as_tensor(FileSignalSource(
         str(capture), item_type="ishort", sampling_frequency=FS).read(
-            0, 3 * base + nmax), device=dev)
+            0, 3 * seg + base + nmax), device=dev)
     st = eng.init_state()
     for ch, s in enumerate(scen.sats):
         st = eng.activate_channel(st, ch, ch,
                                   (s.delay_chips % 1023) / 1.023e6 * FS,
                                   s.doppler_hz, 0, 0, doppler_step_hz=250.0)
-    st, _ = eng.track_block(x[: base + nmax], st, base)
+    st, _ = eng.track_blocks(x[: seg + nmax], st, base, KF_SEG_BLOCKS)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st, _ = eng.track_block(x[base: 2 * base + nmax], st, base)
-        torch.cuda.synchronize()
-    kern = _kernel_events(prof)
+
+    def device_part(sp, xs, state):
+        fst, ist = eng.pack_state(state)
+        out = kb.kf_block(sp, xs, eng._codes, fst, ist)
+        return eng.unpack_state(out[2], out[3])
+
+    before = kb.launches
+    n_kern = _graph_kernels(lambda: device_part(spec, x[seg: 2 * seg + nmax],
+                                                st))
+    n_kern_b = _graph_kernels(lambda: device_part(
+        eng.block_spec(base, 1), x[seg: seg + base + nmax], st))
+    if kb.launches - before != 2:
+        raise AssertionError(f"KF profile: {kb.launches - before} kf_block "
+                             f"launches in two captured engine calls")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    fst, ist = eng.pack_state(st)
+    ev[1].record()
+    out = kb.kf_block(spec, x[seg: 2 * seg + nmax], eng._codes, fst, ist)
+    ev[2].record()
+    st = eng.unpack_state(out[2], out[3])
+    ev[3].record()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st, outs = eng.track_block(x[2 * base: 3 * base + nmax], st, base)
+    st, outs = eng.track_blocks(x[2 * seg: 3 * seg + nmax], st, base,
+                                KF_SEG_BLOCKS)
     wall = time.perf_counter() - t0
     if not outs.valid.any():
-        raise AssertionError("KF profile block tracked no valid epoch")
-    return {"epochs": n_ep, "launches_per_epoch": len(kern) / n_ep,
-            "device_us_per_epoch": sum(e["dur"] for e in kern) / n_ep,
-            "wall_ms_per_epoch": wall / n_ep * 1e3}
+        raise AssertionError("KF profile segment tracked no valid epoch")
+    n_ep_b = eng.block_spec(base, 1).n_epochs
+    rep = {"segment_blocks": KF_SEG_BLOCKS, "epochs": n_ep,
+           "kernels_per_call": n_kern,
+           "launches_per_epoch": n_kern / n_ep,
+           "kf_device_us_per_epoch": ev[1].elapsed_time(ev[2]) / n_ep * 1e3,
+           "device_us_per_epoch": ev[0].elapsed_time(ev[3]) / n_ep * 1e3,
+           "wall_ms_per_epoch": wall / n_ep * 1e3,
+           "block_epochs": n_ep_b, "block_kernels": n_kern_b,
+           "block_launches_per_epoch": n_kern_b / n_ep_b}
+    if not (n_kern >= 1 and rep["launches_per_epoch"] <= 0.1):
+        raise AssertionError(f"KF profile: {n_kern} kernels in one engine "
+                             f"call, {rep['launches_per_epoch']:.3f} per "
+                             f"epoch")
+    return rep
 
 
-def phase_cli_kf(dev, cc, tc, scen, capture):
-    from gnss_sdr_1_tpu_torch.track.kf import KfTrackingEngine
-
+def phase_cli_kf(dev, cc, tc, kb, scen, capture):
+    """The CLI with GPS_L1_CA_KF_Tracking on phase 6's file: the bars of
+    tests/test_kf_tracking.py, one kf_block launch per engine call, no
+    launch of the DLL/PLL kernels, the CLI at real time or faster; then
+    the engine's segment profiled."""
     conf = _write_conf("cli_kf.conf", capture, "GPS_L1_CA_KF_Tracking")
-    steps = {"n": 0}
-    step = KfTrackingEngine._epoch_step
+    with _counting(cc, tc), _kf_counting(kb) as kc:
+        rep = _run_cli(["-c", str(conf)], scen, CACHE / "cli_kf",
+                       MIN_FIXES_KF, "CLI KF")
+    _check_kf_launches(kb, kc, "CLI KF")
+    if cc.launches or tc.launches:
+        raise AssertionError(f"CLI KF: {cc.launches} + {tc.launches} "
+                             f"DLL/PLL launches")
+    if not rep["cli_rtf"] >= 1.0:
+        raise AssertionError(f"CLI KF: RTF {rep['cli_rtf']:.3f} below real "
+                             f"time")
+    rep.update(kf_epochs=kc["epochs"], kf_blocks=kc["blocks"],
+               kf_calls=kc["calls"], launches_kf_block=kb.launches,
+               ms_per_epoch=rep["process_wall_s"] / kc["epochs"] * 1e3,
+               profile=_kf_block_profile(dev, kb, scen, capture))
+    return rep
 
-    def counted(self, *a, **kw):
-        steps["n"] += 1
-        return step(self, *a, **kw)
 
-    KfTrackingEngine._epoch_step = counted
+def phase_cli_kalman(dev, kb):
+    """conf/gps_l1_kalman.conf as written (2.6 Msps gr_complex, 8 channels,
+    the NIW covariance on) over the e2e scenario made on the card at its
+    rate and written as a gr_complex file (deleted after the run), at the
+    KF bars and real time."""
+    scen = _cells()["kalman"][0]
+    x, gen_s = card_capture(dev, ["kalman"], 1234)
+    CACHE.mkdir(exist_ok=True)
+    path = CACHE / f"kalman_{FS_KALMAN:.0f}_{E2E_S:.0f}.gr_complex"
+    x.tofile(path)
+    del x
     try:
-        with _counting(cc, tc):
-            rep = _run_cli(["-c", str(conf)], scen, CACHE / "cli_kf",
-                           MIN_FIXES_KF, "CLI KF")
+        with _kf_counting(kb) as kc:
+            rep = _run_cli(["-c", str(ROOT / "conf" / "gps_l1_kalman.conf"),
+                            "--signal_file", str(path)], scen,
+                           CACHE / "cli_kalman", MIN_FIXES_KF,
+                           "gps_l1_kalman.conf")
     finally:
-        KfTrackingEngine._epoch_step = step
-    if not steps["n"] > 0 or cc.launches or tc.launches:
-        raise AssertionError(f"CLI KF: {steps['n']} KF epoch steps, "
-                             f"{cc.launches} + {tc.launches} DLL/PLL launches")
-    rep.update(kf_epochs=steps["n"],
-               ms_per_epoch=rep["process_wall_s"] / steps["n"] * 1e3,
-               profile=_kf_block_profile(dev, scen, capture))
+        path.unlink(missing_ok=True)
+    _check_kf_launches(kb, kc, "gps_l1_kalman.conf")
+    if not rep["cli_rtf"] >= 1.0:
+        raise AssertionError(f"gps_l1_kalman.conf: RTF {rep['cli_rtf']:.3f} "
+                             f"below real time")
+    rep.update(kf_epochs=kc["epochs"], kf_blocks=kc["blocks"],
+               launches_kf_block=kb.launches, gen_s=gen_s)
     return rep
 
 
@@ -2105,6 +2523,50 @@ def phase_e1(dev, cc, tc, scen, x):
             "launches_chunk_corr": cc.launches,
             "launches_track_chain": tc.launches,
             "chunks": counter["chunks"], "channels": list(rx.channel_prn)}
+
+
+def phase_e1_kf(dev, kb, scen, x):
+    """Phase 22: the Galileo E1B receiver with the KF tracker (the virtual
+    half-chip basis) on phase 10's capture, preloaded: every channel held
+    to the end within E1_KF_MAX_DOPPLER_ERR of the truth Doppler, I/NAV
+    ephemerides and fixes at phase 10's bars, the median 3D error under
+    E1_KF_MAX_MEDIAN_M, one kf_block launch per engine call."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    rx = Receiver(_e1_config(track_engine="kf"), device=dev)
+    if rx.trk.cfg.code_length_chips != 2 * 4092:
+        raise AssertionError("E1 KF: the engine is not in the virtual basis")
+    rx.preload(x)
+    with _kf_counting(kb) as kc:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    _check_kf_launches(kb, kc, "E1 KF")
+    active = rx.state.active.cpu().numpy()
+    dopp = rx.state.x[:, 1].cpu().numpy()
+    truth = {s.prn: s.doppler_hz + s.doppler_rate_hz_s * E1_S
+             + 0.5 * s.doppler_rate2_hz_s2 * E1_S ** 2 for s in scen.sats}
+    err = {p: float(dopp[ch] - truth[p])
+           for ch, p in enumerate(rx.channel_prn) if p is not None}
+    held = sorted(p for ch, p in enumerate(rx.channel_prn)
+                  if p is not None and active[ch])
+    if held != sorted(E1_PRNS) or not all(
+            abs(v) <= E1_KF_MAX_DOPPLER_ERR for v in err.values()):
+        raise AssertionError(f"E1 KF: channels held {held}, Doppler errors "
+                             f"{err}")
+    eph_err = {p: abs(d.ephemeris.sqrt_a - scen.ephemerides[p].sqrt_a)
+               for p, d in rx.decoders.items() if d.ephemeris_complete}
+    if len(eph_err) < MIN_EPH_E1 or max(eph_err.values()) > 2e-5:
+        raise AssertionError(f"E1 KF: ephemerides {eph_err}")
+    return {"rtf": E1_S / wall, "wall_s": wall,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, "E1 KF",
+                         MIN_FIXES_E1, E1_KF_MAX_MEDIAN_M),
+            "held": len(held), "doppler_err_hz": err,
+            "ephemerides": len(eph_err),
+            "max_sqrt_a_err": max(eph_err.values()),
+            "launches_kf_block": kb.launches, "kf_calls": kc["calls"],
+            "kf_blocks": kc["blocks"], "kf_epochs": kc["epochs"],
+            "launches_per_block": kb.launches / kc["blocks"]}
 
 
 def phase_cli_galileo(cc, tc, scen, capture):
@@ -2361,6 +2823,8 @@ def _cells():
                             GPS_L1_CA, "1C", FS_GLO_HI, GLO_CONF_S)
     cells["conf 1G"] = cell(glo({GLO_CONF_SLOT: 0}, GLO_CONF_S),
                             GLONASS_L1_CA, "1G", FS_GLO_HI, GLO_CONF_S)
+    cells["kalman"] = cell(gps(range(1, 13), E2E_S), GPS_L1_CA, "1C",
+                           FS_KALMAN, E2E_S)
     cells["conf 2S"] = cell(build_scenario(
         rx, list(L2C_CONF_PRNS), t0_tow=t0, duration_s=L2C_CONF_S,
         cn0_dbhz=47.0, signal="2S"), GPS_L2C, "2S", FS_L2C, L2C_CONF_S)

@@ -7,9 +7,12 @@ in `csrc/` and of the flags, so an edited source or header is rebuilt and
 an unchanged one is reused.  The build runs from the repository's sources
 alone: nvcc from `$CUDA_HOME/bin`, `/usr/local/cuda/bin` or the PATH.
 
-The tracking kernels form one library, `track_chain` (`library()`): the
-chain in `track_chain.cu`, the chunk correlator in `chunk_corr.cuh`, and the
-capture-level entry that enqueues both for every chunk.
+The chunked engine's kernels form one library, `track_chain` (`library()`):
+the chain in `track_chain.cu`, the chunk correlator in `chunk_corr.cuh`, and
+the capture-level entry that enqueues both for every chunk.  The KF block
+walk is a second, `kf_block` (`kf_library()`: `kf_block.cu` with the gather
+correlation in `gather_corr.cuh`).  `build_all()` runs one nvcc per library,
+all at once.
 
 Flags: `-O3`, no `--use_fast_math` (atan2f / sincosf / log10f keep full
 float32 accuracy) and `--fmad=false` (no multiply-add contraction, so the
@@ -26,6 +29,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,7 +38,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 # per-library build record: seconds taken (0.0 when reused) and ptxas report
 BUILD_LOG: dict[str, dict] = {}
 
@@ -85,31 +89,56 @@ def build(name: str) -> pathlib.Path:
 
 
 LIBRARY = "track_chain"
+KF_LIBRARY = "kf_block"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of the tracking library: pointers and the stream as
-# c_void_p (ctypes would cut a Python int to 32 bits), counts as c_int;
-# each returns the first CUDA error, 0 on success
+# C entry points of each library: pointers and the stream as c_void_p
+# (ctypes would cut a Python int to 32 bits), counts as c_int; each returns
+# the first CUDA error, 0 on success
 _ENTRIES = {
-    # x, n_samp, rows, slot, fst, ist, zr, zi, s_reg, step0, params, stream
-    "chunk_corr_launch": [_P, _I] + [_P] * 10,
-    # zr, zi, s_reg, step0, sec_rows, fst, ist, out_f, out_i, out_corr,
-    # fst_out, ist_out, params, stream
-    "track_chain_launch": [_P] * 14,
-    # n_chunks, x, n_samp, rows, slot, sec_rows, fst_in, ist_in, fst_a,
-    # ist_a, fst_b, ist_b, zr, zi, s_reg, step0, out_f, out_i, out_corr,
-    # corr params, chain params, stream
-    "track_capture_launch": [_I, _P, _I] + [_P] * 19,
+    LIBRARY: {
+        # x, n_samp, rows, slot, fst, ist, zr, zi, s_reg, step0, params,
+        # stream
+        "chunk_corr_launch": [_P, _I] + [_P] * 10,
+        # zr, zi, s_reg, step0, sec_rows, fst, ist, out_f, out_i, out_corr,
+        # fst_out, ist_out, params, stream
+        "track_chain_launch": [_P] * 14,
+        # n_chunks, x, n_samp, rows, slot, sec_rows, fst_in, ist_in, fst_a,
+        # ist_a, fst_b, ist_b, zr, zi, s_reg, step0, out_f, out_i, out_corr,
+        # corr params, chain params, stream
+        "track_capture_launch": [_I, _P, _I] + [_P] * 19,
+    },
+    KF_LIBRARY: {
+        # x, codes, n_slots, fst, ist, out_f, out_i, fst_out, ist_out,
+        # params, stream
+        "kf_block_launch": [_P, _P, _I] + [_P] * 8,
+    },
 }
 
 
-def library() -> ctypes.CDLL:
-    """The tracking library, built at first use, entry points declared."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build(LIBRARY)))
-        for fn_name, argtypes in _ENTRIES.items():
+def build_all() -> None:
+    """Build every library at once, one nvcc each (a no-op for those
+    already built)."""
+    with ThreadPoolExecutor(len(_ENTRIES)) as pool:
+        list(pool.map(build, _ENTRIES))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """Library `name`, built at first use, entry points declared."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn_name, argtypes in _ENTRIES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def library() -> ctypes.CDLL:
+    """The chunked engine's tracking library."""
+    return _load(LIBRARY)
+
+
+def kf_library() -> ctypes.CDLL:
+    """The KF block library."""
+    return _load(KF_LIBRARY)

@@ -10,10 +10,12 @@ the SignalConditioner chain (DataTypeAdapter -> InputFilter -> Resampler,
 signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 
 This port carries GPS L1 C/A ('1C'), L2CM ('2S') and L5 ('L5'), Galileo
-E1B ('1B') and E5a ('5X') and GLONASS L1/L2 C/A ('1G'/'2G') channel groups
-with PCPS, Tong, QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) CAF
-acquisition, DLL/PLL (VEML on E1B) or, on GPS L1, KF tracking, and
-single-point PVT; a conf with several groups maps to one ReceiverConfig
+E1B ('1B') and E5a ('5X'), GLONASS L1/L2 C/A ('1G'/'2G') and BeiDou
+B1I/B3I ('B1'/'B3') channel groups with PCPS, Tong, QuickSync, CCCWSR,
+fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B) or
+KF tracking (the receiver builds it on every signal; the conf key
+GPS_L1_CA_KF_Tracking names it on GPS L1 C/A only, as in the JAX
+package), and single-point PVT; a conf with several groups maps to one ReceiverConfig
 per group (`to_receiver_configs`, run by runtime.multi_receiver).
 `to_receiver_config` refuses everything else with NotImplementedError naming
 the ROADMAP.md item that ports it, so no conf maps quietly to an engine

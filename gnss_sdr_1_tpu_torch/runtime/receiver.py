@@ -19,8 +19,11 @@ replica and carried as the channel's NCO bias, GNAV) and BeiDou B1I/B3I
 PRNs 1-5, CGCS2000 orbits) with PCPS, Tong,
 QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the noncoherent I/Q CAF
 acquisition (the strategy dispatch of gnss_block_factory.cc:1552-1709),
-and either the chunked DLL/PLL engine or, on GPS L1, the Kalman-filter
-tracker (`track_engine="kf"`, track.kf).  On L5, E5a, B1I and B3I the
+and either the chunked DLL/PLL engine or the Kalman-filter tracker
+(`track_engine="kf"`, track.kf: one kf_block launch per capture segment
+on the card; Galileo E1B in the virtual half-chip basis, and a GLONASS
+channel at the nominal carrier, as the JAX receiver builds it).  On L5,
+E5a, B1I and B3I the
 chain wipes the secondary code in the loop once telemetry reports
 secondary sync (`_maybe_extend`; a GEO channel never reports it and stays
 in wide tracking).  One Receiver runs one signal group; MultiReceiver
@@ -159,9 +162,6 @@ class ReceiverConfig:
             raise not_ported(f"acq_strategy='caf' on signal "
                              f"{self.signal_id!r} (the CAF acquisition is "
                              f"Galileo E5a's)", "signals")
-        if self.track_engine == "kf" and self.signal_id != "1C":
-            raise not_ported(f"the KF tracker on signal {self.signal_id!r}",
-                             "signals")
         for name in ("enable_monitor", "enable_pvt_monitor"):
             if getattr(self, name):
                 raise not_ported(name, "monitors")
@@ -912,20 +912,11 @@ class Receiver:
             torch.cuda.synchronize(self.device)
 
     def _kf_track_segment(self, seg, span: int):
-        """Segment tracking through the KF engine: a loop over blocks (the
-        KF closes its filter every epoch and has no chunked capture path).
-        Returns (state, TrackOutputs with segment-relative epoch starts)."""
+        """Segment tracking through the KF engine: the segment's blocks in
+        one call (one kf_block launch on the card).  Returns (state,
+        TrackOutputs with segment-relative epoch starts)."""
         base = int(round(self.cfg.fs_hz * self.cfg.block_ms * 1e-3))
-        nmax = self.trk.cfg.epoch_samples_max
-        st = self.state
-        pos = 0
-        pieces = []
-        while pos + base <= span:
-            st, outs = self.trk.track_block(seg[pos:pos + base + nmax], st,
-                                            base)
-            pieces.append(outs._replace(start=outs.start + pos))
-            pos += base
-        cat = type(pieces[0])(*(np.concatenate(xs) for xs in zip(*pieces)))
+        st, cat = self.trk.track_blocks(seg, self.state, base, span // base)
         return st, TrackOutputs(
             valid=cat.valid, start=cat.start, cur_len=cat.cur_len,
             correlators=cat.correlators,

@@ -7,12 +7,14 @@ normal-inverse-Wishart measurement-covariance estimator
 
 The filter state is batched over channels ([C, 3] state, [C, 3, 3]
 covariance) and every epoch's predict + scalar-measurement update is
-closed-form (the innovation covariance is 1x1, so no matrix inverse).  A
-block runs its epochs as a Python loop of torch ops on the engine's device;
-each epoch correlates every channel with the gather multicorrelator
-(ops.multicorrelator).  The JAX package runs the same epoch step as one
-`lax.scan` per block and reaches no Pallas kernel, so no hand kernel
-carries it here.
+closed-form (the innovation covariance is 1x1, so no matrix inverse).
+The epochs of a block are serial: each epoch's correlation reads the code
+and carrier phase the previous epoch's update left.  The JAX package runs
+a block as one `lax.scan` program; here a block, or a capture segment of
+consecutive blocks, is one launch of the hand-written kernel
+ops.kf_block (csrc/kf_block.cu) on the card, and its plain torch walk on
+the CPU.  The engine packs the state into the kernel's rows once per call
+and unpacks it after.
 
 State (order 3; order 2 zeroes the rate row/column):
     x = [carrier phase at epoch start (rad), Doppler (Hz), Doppler rate (Hz/s)]
@@ -29,6 +31,11 @@ Bayesian covariance (bayes_run): after `ptrans` epochs the NIW posterior of
 the innovation starts accumulating; after `ptrans + strans` epochs the
 innovation covariance P_y is taken from the NIW estimate instead of
 H P_pre H' + R (:763-776).
+
+The receiver builds the engine for every signal it carries; BOC signals
+(Galileo E1B) run in the virtual half-chip basis (the sinBOC replica at 1
+sample per half-chip, the code length and rate doubled).  The code tables
+are +-1 (checked for the card, where the kernel keeps them as bits).
 """
 
 from __future__ import annotations
@@ -41,11 +48,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.multicorrelator import multicorrelate
-from ..ops.track_chain import _f32, mod_floor
-from .discriminators import dll_nc_e_minus_l_normalized, pll_cloop_two_quadrant_atan
-from .lock_detectors import carrier_lock_detector, cn0_svn_estimator
-from .loop_filter import IirState, iir_apply, iir_coefficients
+from ..ops import kf_block as kb
+from ..ops.kf_block import KfSpec, _phase_sigma2
+from ..ops.track_chain import _f32
+from .loop_filter import IirState, iir_coefficients
 
 _TWO_PI = 2.0 * np.pi
 _F32 = torch.float32
@@ -135,14 +141,6 @@ class KfTrackOutputs(NamedTuple):
     active: np.ndarray
 
 
-def _phase_sigma2(cn0_dbhz, t):
-    """Phase-detector variance from CN0 (gps_l1_ca_kf_tracking_cc.cc:755-758):
-    sigma2 = 1/(2*CN0*T) * (1 + 1/(2*CN0*T))   [rad^2]."""
-    cn_lin = torch.pow(10.0, cn0_dbhz / 10.0)
-    a = 1.0 / (2.0 * cn_lin * t)
-    return a * (1.0 + a)
-
-
 def _set(t: torch.Tensor, ch: int, value) -> torch.Tensor:
     """Functional per-channel update (states are never mutated in place)."""
     t = t.clone()
@@ -200,21 +198,23 @@ class KfTrackingEngine:
     `codes` is [n_slots, code_len] float32 +-1 at 1 sample/chip (the gather
     multicorrelator resamples on the fly, A.2 floor contract).  `device`:
     None runs on the card (and raises without one); the CPU only when asked
-    for."""
+    for.  The constants of the epoch step (`_F`, `_Q`, `_shifts`, the DLL
+    coefficients) stay on the host: they reach the block walk as floats of
+    its KfSpec."""
 
     def __init__(self, cfg: KfTrackConfig, codes: np.ndarray, device=None):
         if cfg.order not in (2, 3):
             raise ValueError("KF order must be 2 or 3")
         self.cfg = cfg
         self.device = dev = resolve_device(device)
-        self._codes = torch.as_tensor(np.asarray(codes, np.float32),
-                                      device=dev)
+        codes = np.asarray(codes, np.float32)
+        if dev.type == "cuda" and not np.all(np.abs(codes) == 1.0):
+            raise ValueError("the KF kernel takes +-1 code tables")
+        self._codes = torch.as_tensor(codes, device=dev)
         el = cfg.early_late_space_chips
-        self._shifts = torch.tensor([-el, 0.0, el], dtype=_F32, device=dev)
-        b_in, b_out = iir_coefficients(cfg.dll_bw_hz, cfg.code_period_s, 2,
-                                       False)
-        self._dll_b_in = torch.as_tensor(b_in, device=dev)
-        self._dll_b_out = torch.as_tensor(b_out, device=dev)
+        self._shifts = np.asarray([-el, 0.0, el], np.float32)
+        self._dll_b_in, self._dll_b_out = iir_coefficients(
+            cfg.dll_bw_hz, cfg.code_period_s, 2, False)
         t0 = float(cfg.samples_per_code)
         self._t0_int = int(np.floor(t0))
         self._t0_frac = float(t0 - self._t0_int)
@@ -233,8 +233,8 @@ class KfTrackingEngine:
             f[0, 2] = f[1, 2] = 0.0
             q[2, 2] = 0.0
             p0[2, 2] = 0.0
-        self._F = torch.as_tensor(f, device=dev)
-        self._Q = torch.as_tensor(q, device=dev)
+        self._F = torch.as_tensor(f)
+        self._Q = torch.as_tensor(q)
         self._P0 = p0
         # scalar constants of the epoch step, rounded to float32 as the
         # reference rounds them
@@ -246,6 +246,7 @@ class KfTrackingEngine:
             aid=_f32(_f32(cfg.chip_rate_chips_s)
                      / _f32(cfg.carrier_freq_hz)),
             t0_int=_f32(self._t0_int), t0_frac=_f32(self._t0_frac))
+        self._specs: dict[tuple[int, int], KfSpec] = {}
 
     # ---------------- host state management ----------------
 
@@ -331,184 +332,125 @@ class KfTrackingEngine:
     def deactivate_channel(self, state: KfTrackState, ch: int) -> KfTrackState:
         return state._replace(active=_set(state.active, ch, False))
 
-    # ---------------- device epoch step ----------------
+    # ---------------- the block walk ----------------
 
-    def _epoch_step(self, samples, state: KfTrackState, limit: int, n_idx):
-        """One epoch of every channel.  `samples` [n_samp] complex64 on the
-        engine's device; `n_idx` = arange(epoch_samples_max) (int64)."""
+    def block_spec(self, base: int, n_blocks: int = 1) -> KfSpec:
+        """The static configuration of a walk over `n_blocks` blocks of
+        `base` samples (each base // (t0_int - 2) + 2 epochs), made once
+        per (base, n_blocks)."""
+        key = (int(base), int(n_blocks))
+        if key not in self._specs:
+            self._specs[key] = self._make_spec(*key)
+        return self._specs[key]
+
+    def _make_spec(self, base: int, n_blocks: int) -> KfSpec:
         cfg, c = self.cfg, self._c
-        dev = samples.device
-        Nmax = cfg.epoch_samples_max
-        valid = state.active & (state.start < limit)
+        return KfSpec(
+            C=cfg.n_channels, n_hist=cfg.cn0_samples,
+            code_len=int(self._codes.shape[1]), n_max=cfg.epoch_samples_max,
+            win=self._win, base=base,
+            n_epochs=base // (self._t0_int - 2) + 2,
+            n_blocks=n_blocks, order=cfg.order,
+            bayes_run=bool(cfg.bayes_run), bayes_ptrans=cfg.bayes_ptrans,
+            bayes_strans=cfg.bayes_strans, max_lock_fail=cfg.max_lock_fail,
+            t0_int=self._t0_int, chip_rate=c["chip_rate"], fs=c["fs"],
+            two_pi=c["two_pi"], fs2=c["fs2"], t=c["t"], aid=c["aid"],
+            t0_int_f=c["t0_int"], t0_frac=c["t0_frac"],
+            cn0_min_dbhz=_f32(cfg.cn0_min_dbhz),
+            carrier_lock_th=_f32(cfg.carrier_lock_th),
+            shifts=tuple(_f32(v) for v in self._shifts),
+            F=tuple(float(v) for v in self._F.numpy().ravel()),
+            Q=tuple(float(v) for v in self._Q.numpy().ravel()),
+            dll_b_in=tuple(float(v) for v in self._dll_b_in),
+            dll_b_out=tuple(float(v) for v in self._dll_b_out))
 
-        # window origin m and per-channel offsets, clamped as the
-        # reference's dynamic_slice clamps
-        n_samp = samples.shape[0]
-        win = min(self._win, n_samp)
-        m = torch.min(torch.where(state.active, state.start,
-                                  torch.full_like(state.start, 1 << 29)))
-        m = torch.clamp(m, 0, n_samp - win)
-        off = torch.clamp(state.start - m, 0, win - Nmax)
-        segs = samples[(m + off).to(torch.int64)[:, None] + n_idx]
+    def pack_state(self, state: KfTrackState):
+        """The state as the kernel's rows: (fst [SF, C] f32, ist [SI, C]
+        i32), ops.kf_block's R_* / I_* layout."""
+        C = self.cfg.n_channels
+        fr = [state.rem_code_phase_samples[None], state.code_freq_delta[None],
+              state.x.T, state.P.reshape(C, 9).T,
+              state.code_filter.inputs.T, state.code_filter.outputs.T,
+              state.cn0_dbhz[None], state.niw_mu[None],
+              state.niw_kappa[None], state.niw_nu[None], state.niw_psi[None],
+              state.niw_psi_est[None], state.prompt_hist.real.T,
+              state.prompt_hist.imag.T]
+        fst = torch.cat(fr)
+        ist = torch.stack([state.active.to(_I32), state.prn_slot,
+                           state.start, state.cur_len, state.hist_count,
+                           state.lock_fail, state.epochs]).to(_I32)
+        return fst, ist
 
-        code_freq = c["chip_rate"] + state.code_freq_delta
-        code_step = code_freq / c["fs"]
-        rem_code_chips = code_freq * state.rem_code_phase_samples / c["fs"]
-        carr_step = c["two_pi"] * state.x[:, 1] / c["fs"]
-        # phase state is the NCO phase at epoch start (d_rem_carr_phase_rad
-        # = kf_x(0), :786); order 3 feeds the Doppler-rate state into the
-        # correlator's quadratic phase term
-        carr_phase = state.x[:, 0]
-        carr_rate = (c["two_pi"] * state.x[:, 2] / c["fs2"]
-                     if cfg.order == 3 else torch.zeros_like(carr_step))
-        corr = multicorrelate(
-            segs, self._codes[state.prn_slot.long()], self._shifts,
-            code_step, rem_code_chips, carr_phase, carr_step, carr_rate,
-            state.cur_len.to(_F32))                      # [C, 3] complex
-        prompt = corr[:, 1]
-
-        # --- KF predict (:748-749) ---
-        x_pre = state.x @ self._F.T
-        P_pre = self._F @ state.P @ self._F.T + self._Q
-
-        # --- measurement (:752-760) ---
-        y = pll_cloop_two_quadrant_atan(prompt)          # rad
-        r = _phase_sigma2(state.cn0_dbhz, c["t"])
-
-        # --- NIW innovation-covariance estimate (bayesian_estimation.cc,
-        # sequential K=1 scalar update) ---
-        if cfg.bayes_run:
-            upd_niw = valid & (state.epochs >= cfg.bayes_ptrans)
-            kap, nu, mu, psi = (state.niw_kappa, state.niw_nu,
-                                state.niw_mu, state.niw_psi)
-            mu_post = (kap * mu + y) / (kap + 1.0)
-            kap_post = kap + 1.0
-            nu_post = nu + 1.0
-            psi_post = psi + kap / (kap + 1.0) * (y - mu) ** 2
-            psi_est = torch.where(nu_post - 2.0 > 0.0,
-                                  psi_post / (nu_post - 2.0),
-                                  psi_post / (nu_post + 2.0))
-            niw_mu = torch.where(upd_niw, mu_post, mu)
-            niw_kappa = torch.where(upd_niw, kap_post, kap)
-            niw_nu = torch.where(upd_niw, nu_post, nu)
-            niw_psi = torch.where(upd_niw, psi_post, psi)
-            niw_psi_est = torch.where(upd_niw, psi_est, state.niw_psi_est)
-            use_bayes = state.epochs >= (cfg.bayes_ptrans + cfg.bayes_strans)
-            p_y = torch.where(use_bayes, niw_psi_est, P_pre[:, 0, 0] + r)
-            r_est = torch.where(use_bayes, niw_psi_est - P_pre[:, 0, 0], r)
-        else:
-            niw_mu, niw_kappa = state.niw_mu, state.niw_kappa
-            niw_nu, niw_psi = state.niw_nu, state.niw_psi
-            niw_psi_est = state.niw_psi_est
-            p_y = P_pre[:, 0, 0] + r
-            r_est = r
-
-        # --- scalar-measurement update (:779-782), H = [1,0,0] ---
-        K = P_pre[:, :, 0] / p_y[:, None]                # [C, 3]
-        x_new = x_pre + K * y[:, None]
-        P_new = P_pre - K[:, :, None] * P_pre[:, None, 0, :]
-
-        # --- DLL with carrier aiding (:795-805) ---
-        code_err_chips = dll_nc_e_minus_l_normalized(corr[:, 0], corr[:, 2])
-        code_filt_new, code_err_filt = iir_apply(
-            state.code_filter, code_err_chips, self._dll_b_in,
-            self._dll_b_out)
-        new_code_freq_delta = c["aid"] * x_new[:, 1] - code_err_filt
-
-        # --- next epoch length (A.6 split precision) ---
-        new_code_freq = c["chip_rate"] + new_code_freq_delta
-        d_t = -(c["t0_int"] * new_code_freq_delta / new_code_freq
-                + c["t0_frac"] * new_code_freq_delta / new_code_freq)
-        frac = c["t0_frac"] + d_t + state.rem_code_phase_samples
-        frac_floor = torch.floor(frac)
-        next_len = self._t0_int + frac_floor.to(_I32)
-        new_rem_code = frac - frac_floor
-
-        # --- CN0 / lock supervision (A.7) ---
-        N = cfg.cn0_samples
-        pushed = torch.cat([state.prompt_hist[:, 1:], prompt[:, None]], dim=1)
-        hist = torch.where(valid[:, None], pushed, state.prompt_hist)
-        hist_count = torch.clamp(state.hist_count + valid.to(_I32), max=N)
-        hist_full = hist_count >= N
-        cn0 = cn0_svn_estimator(hist, c["t"])
-        cn0_run = torch.where(valid & hist_full, cn0, state.cn0_dbhz)
-        carrier_lock = carrier_lock_detector(hist)
-        epochs = state.epochs + valid.to(_I32)
-        check_now = valid & hist_full & (mod_floor(epochs, N) == 0)
-        fail = check_now & ((cn0 < cfg.cn0_min_dbhz)
-                            | (carrier_lock < cfg.carrier_lock_th))
-        lock_fail = torch.where(
-            fail, state.lock_fail + 1,
-            torch.where(check_now, torch.clamp(state.lock_fail - 1, min=0),
-                        state.lock_fail))
-        still_active = state.active & (lock_fail <= cfg.max_lock_fail)
-
-        def mrg(n, o):
-            v = valid
-            while v.dim() < n.dim():
-                v = v[..., None]
-            return torch.where(v, n, o)
-
-        new_x = mrg(x_new, state.x)
-        new_state = KfTrackState(
-            active=mrg(still_active, state.active),
-            prn_slot=state.prn_slot,
-            start=mrg(state.start + state.cur_len, state.start),
-            cur_len=mrg(next_len, state.cur_len),
-            rem_code_phase_samples=mrg(new_rem_code,
-                                       state.rem_code_phase_samples),
-            code_freq_delta=mrg(new_code_freq_delta, state.code_freq_delta),
-            x=new_x,
-            P=mrg(P_new, state.P),
+    def unpack_state(self, fst, ist) -> KfTrackState:
+        """Inverse of pack_state (views of the rows where it can)."""
+        C, N = self.cfg.n_channels, self.cfg.cn0_samples
+        h = kb.R_HIST
+        return KfTrackState(
+            active=ist[kb.I_ACTIVE] != 0, prn_slot=ist[kb.I_SLOT],
+            start=ist[kb.I_START], cur_len=ist[kb.I_CURLEN],
+            rem_code_phase_samples=fst[kb.R_REM_CODE],
+            code_freq_delta=fst[kb.R_DELTA],
+            x=fst[kb.R_X:kb.R_X + 3].T,
+            P=fst[kb.R_P:kb.R_P + 9].T.reshape(C, 3, 3),
             code_filter=IirState(
-                inputs=mrg(code_filt_new.inputs, state.code_filter.inputs),
-                outputs=mrg(code_filt_new.outputs, state.code_filter.outputs)),
-            cn0_dbhz=cn0_run,
-            prompt_hist=hist,
-            hist_count=hist_count,
-            lock_fail=mrg(lock_fail, state.lock_fail),
-            epochs=epochs,
-            niw_mu=niw_mu, niw_kappa=niw_kappa, niw_nu=niw_nu,
-            niw_psi=niw_psi, niw_psi_est=niw_psi_est,
-        )
-        zero = torch.zeros((), dtype=_F32, device=dev)
-        outputs = (
-            valid, state.start, state.cur_len,
-            torch.where(valid[:, None], corr,
-                        torch.zeros((), dtype=corr.dtype, device=dev)),
-            new_x[:, 1], new_x[:, 2],
-            torch.where(valid, r_est, zero),
-            new_state.code_freq_delta,
-            new_state.rem_code_phase_samples,
-            mod_floor(new_x[:, 0], c["two_pi"]),
-            torch.where(valid & hist_full, cn0, zero),
-            new_state.active,
-        )
-        return new_state, outputs
+                inputs=fst[kb.R_DLL_IN:kb.R_DLL_IN + 3].T,
+                outputs=fst[kb.R_DLL_OUT:kb.R_DLL_OUT + 3].T),
+            cn0_dbhz=fst[kb.R_CN0],
+            prompt_hist=torch.complex(fst[h:h + N].T, fst[h + N:h + 2 * N].T),
+            hist_count=ist[kb.I_HIST_COUNT], lock_fail=ist[kb.I_LOCK_FAIL],
+            epochs=ist[kb.I_EPOCHS],
+            niw_mu=fst[kb.R_NIW_MU], niw_kappa=fst[kb.R_NIW_KAPPA],
+            niw_nu=fst[kb.R_NIW_NU], niw_psi=fst[kb.R_NIW_PSI],
+            niw_psi_est=fst[kb.R_NIW_PSI_EST])
 
-    # ---------------- host API ----------------
-
-    def track_block(self, samples, state: KfTrackState, base: int):
-        """Track every epoch that starts within [0, base) of `samples`
-        (complex64, numpy or a tensor, >= base + epoch_samples_max
-        samples).  Returns (state rebased by base, KfTrackOutputs over
-        base // (t0_int - 2) + 2 epochs, numpy)."""
-        n_epochs = base // (self._t0_int - 2) + 2
-        if samples.shape[0] < base + self.cfg.epoch_samples_max:
-            raise ValueError("block must hold base + epoch_samples_max samples")
+    def _samples(self, samples) -> torch.Tensor:
         if isinstance(samples, torch.Tensor):
             if samples.device.type != self.device.type:
                 raise ValueError(f"samples lie on {samples.device}, engine "
                                  f"on {self.device}")
-            samples = samples.to(torch.complex64)
-        else:
-            samples = torch.as_tensor(
-                np.array(samples, dtype=np.complex64), device=self.device)
-        n_idx = torch.arange(self.cfg.epoch_samples_max, device=self.device)
-        st, rows = state, []
-        for _ in range(n_epochs):
-            st, out = self._epoch_step(samples, st, int(base), n_idx)
-            rows.append(out)
-        outs = KfTrackOutputs(*(torch.stack(col).cpu().numpy()
-                                for col in zip(*rows)))
-        return self.rebase(st, base), outs
+            return samples.to(torch.complex64).contiguous()
+        return torch.as_tensor(np.array(samples, dtype=np.complex64),
+                               device=self.device)
+
+    def track_blocks(self, samples, state: KfTrackState, base: int,
+                     n_blocks: int = 1):
+        """Track `n_blocks` consecutive blocks of `base` samples in one
+        call (complex64, numpy or a tensor, >= n_blocks * base +
+        epoch_samples_max samples): every epoch that starts within
+        [b * base, (b + 1) * base) of block b.  On the card one kf_block
+        launch walks them all; on the CPU the plain walk.  Returns (state
+        rebased by n_blocks * base, KfTrackOutputs over n_blocks *
+        (base // (t0_int - 2) + 2) epochs with starts relative to
+        samples[0], numpy)."""
+        spec = self.block_spec(base, n_blocks)
+        if samples.shape[0] < n_blocks * base + self.cfg.epoch_samples_max:
+            raise ValueError("samples must hold n_blocks * base + "
+                             "epoch_samples_max samples")
+        fst, ist = self.pack_state(state)
+        out_f, out_i, fst, ist = kb.kf_block(spec, self._samples(samples),
+                                             self._codes, fst, ist)
+        of, oi = out_f.cpu().numpy(), out_i.cpu().numpy()
+        start = oi[:, kb.OI_START] + (np.arange(len(oi)) // spec.n_epochs
+                                      * spec.base)[:, None].astype(np.int32)
+        corr = of[:, kb.O_CORR:kb.O_CORR + 3] \
+            + 1j * of[:, kb.O_CORR + 3:kb.O_CORR + 6]
+        outs = KfTrackOutputs(
+            valid=oi[:, kb.OI_VALID] != 0, start=start,
+            cur_len=oi[:, kb.OI_CURLEN],
+            correlators=corr.transpose(0, 2, 1).astype(np.complex64),
+            carrier_doppler_hz=of[:, kb.O_DOPPLER],
+            doppler_rate_hz_s=of[:, kb.O_DOPPLER_RATE],
+            carr_phase_sigma2=of[:, kb.O_SIGMA2],
+            code_freq_delta=of[:, kb.O_DELTA],
+            rem_code_phase_samples=of[:, kb.O_REM_CODE],
+            rem_carr_phase_rad=of[:, kb.O_REM_CARR],
+            cn0_dbhz=of[:, kb.O_CN0],
+            active=oi[:, kb.OI_ACTIVE] != 0)
+        return self.unpack_state(fst, ist), outs
+
+    def track_block(self, samples, state: KfTrackState, base: int):
+        """Track every epoch that starts within [0, base) of `samples`
+        (>= base + epoch_samples_max samples).  Returns (state rebased by
+        base, KfTrackOutputs over base // (t0_int - 2) + 2 epochs,
+        numpy)."""
+        return self.track_blocks(samples, state, base, 1)

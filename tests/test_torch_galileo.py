@@ -304,14 +304,24 @@ def test_caf_and_unported_refused():
 
     with pytest.raises(NotImplementedError, match="item 7"):
         ReceiverConfig(signal_id="1B", acq_strategy="caf")
-    # L5, E5a, GPS L2C, GLONASS and BeiDou are ported; the KF tracker off
-    # GPS L1 C/A is not
+    # L5, E5a, GPS L2C, GLONASS and BeiDou are ported, and the KF tracker
+    # runs on every signal: on E1B in the virtual half-chip basis (the
+    # sinBOC replica at 2.046 MHz, 8184 half-chips), as the JAX receiver
+    # builds it
     for sid in ("2S", "1G", "2G", "B1", "B3"):
         ReceiverConfig(signal_id=sid)
     ReceiverConfig(signal_id="5X", acq_strategy="caf")
-    for sid in ("1B", "L5", "5X", "B1"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ReceiverConfig(signal_id=sid, track_engine="kf")
+    for sid, prn in (("1B", 1), ("L5", 1), ("5X", 11), ("B1", 6)):
+        rx = Receiver(ReceiverConfig(signal_id=sid, track_engine="kf",
+                                     prn_search=(prn,)), device="cpu")
+        assert rx.trk_kind == "kf"
+        spc = 2 if sid == "1B" else 1
+        assert rx.trk.cfg.code_length_chips == rx.cfg.spec.code_length_chips \
+            * spc
+        assert rx.trk.cfg.chip_rate_chips_s == pytest.approx(
+            rx.cfg.spec.code_rate_chips_s * spc)
+        assert rx.trk.cfg.early_late_space_chips == \
+            rx.cfg.early_late_space_chips * spc
     with pytest.raises(NotImplementedError, match="item 4"):
         ReceiverConfig(signal_id="1B", acq_strategy="assisted")
     assert "item 7" in ROADMAP_ITEMS["signals"]

@@ -46,8 +46,10 @@ def short_run():
 
 
 def test_receiver_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="B1", track_engine="kf")
+    # ported: the KF tracker on BeiDou B1I, as on every signal
+    rx = Receiver(ReceiverConfig(signal_id="B1", track_engine="kf",
+                                 prn_search=(6, 7)), device="cpu")
+    assert rx.trk_kind == "kf" and rx.trk.cfg.code_length_chips == 2046
     ReceiverConfig(signal_id="B1")            # ported: BeiDou B1I
     ReceiverConfig(signal_id="2S")            # ported: GPS L2C
     ReceiverConfig(signal_id="1G", fdma_k=((1, -7), (2, 6)))  # GLONASS
