@@ -13,7 +13,8 @@ Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
      nvcc for each library, started together: the tracking library and
      the KF library), with ptxas' registers, stack frame and spills of
-     every kernel instance;
+     every kernel instance (the chain's instances may use no local
+     memory, the KF kernel's may spill nothing);
   2. both CUDA kernels against their plain torch versions on the card, at
      the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
      inputs and on the inputs of a real chunk taken mid-track: the chunk
@@ -48,9 +49,17 @@ Phases (one line each, with times):
      channels and 4.092 Msps with orders 2 and 3 and the NIW covariance
      off and on, 2.6 Msps with 8 channels (gps_l1_kalman.conf's rate),
      Galileo E1B at 8 channels and 4 Msps in the virtual half-chip basis,
-     L2C at 2.046 Msps (40,926-sample epochs); timed at the GPS, 2.6 Msps
-     and E1B shapes (device time per one-block launch from the profiler,
-     the plain version's on the card, the bound);
+     L2C at 2.046 Msps (40,926-sample epochs), GPS on 1 channel and on 20
+     (18 active: the CTAs of the cluster take channels in rounds); timed
+     at the GPS, 2.6 Msps, E1B, 1- and 20-channel shapes (device time per
+     one-block launch from the profiler, the plain version's on the card,
+     the bound, the cluster size, threads per CTA, shared memory and
+     prefetch); at the GPS shape also the engine's 25-block launch in us
+     per epoch, and the same launch through the KF_BLOCK_STAGES build (a
+     second nvcc of kf_block.cu): the share of an epoch spent in the
+     barrier and m, the correlation, the reduction and the update on
+     CTA 0, and the serial floor of a block (its epochs times one update
+     and one barrier);
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -70,7 +79,9 @@ Phases (one line each, with times):
      0.5 s), then both kernels at that rate;
   8. the CLI with GPS_L1_CA_KF_Tracking on phase 6's file (RTF at real
      time or faster, fixes, median 3D error, KF epochs, one kf_block
-     launch per engine call), the kernel launches per KF epoch of one
+     launch per engine call, kf_block's device time per epoch over the
+     run from CUDA events around its launches), the kernel launches per
+     KF epoch of one
      25-block engine call (<= 0.1, counted in a CUDA graph captured from
      it) and its device time per epoch (CUDA events), and
      conf/gps_l1_kalman.conf as written (8 channels, NIW on) over the e2e
@@ -141,7 +152,8 @@ Phases (one line each, with times):
  22. the Galileo E1B receiver with the KF tracker (virtual basis) on
      phase 10's capture made again on the card: every channel held within
      25 Hz of the truth Doppler, ephemerides, fixes, the median 3D error
-     under one chip, kf_block launches per block.
+     under one chip, kf_block launches per block and its device time per
+     epoch.
 Then one JSON line describing every kernel (the chunked kernels'
 launches summed over phases 5-7 and 10-21, the KF kernel's over phases 8
 and 22, each read just after its run), the nvidia-smi line, and
@@ -319,6 +331,8 @@ KF_CHECKS = (
     ("GPS 2.6 Msps", "1C", 2.6e6, 8, 7, 2, True, True),
     ("E1B", "1B", 4.0e6, 8, 8, 2, False, True),
     ("L2C", "2S", 2.046e6, 6, 6, 2, False, False),
+    ("GPS C=1", "1C", FS, 1, 1, 2, False, True),
+    ("GPS C=20", "1C", FS, 20, 18, 2, False, True),
 )
 # float32 operations per correlated sample of the KF walk: the phase (2),
 # its sine and cosine (~8 each), the wipe (6), three code indices (3 each)
@@ -395,6 +409,10 @@ def main() -> None:
     for r in chain_inst:
         if r["stack"] or r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"track_chain uses local memory: {r}")
+    for name, r in ptxas.items():
+        if name.startswith("kf_block") and (r["spill_stores"]
+                                            or r["spill_loads"]):
+            raise AssertionError(f"{name} spills: {r}")
 
     # ---- 2. kernels vs plain ----
     t0 = time.perf_counter()
@@ -468,7 +486,10 @@ def main() -> None:
         timed = (f", {r['ms']:.5f} ms/launch of one block device "
                  f"({r['ms_host']:.5f} from the host), plain "
                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.2e} ms "
-                 f"({r['bound_by']})" if "ms" in r else "")
+                 f"({r['bound_by']}); a cluster of {r['n_cta']} CTAs of "
+                 f"{r['threads']} threads, {r['cpc']} channel(s) each at "
+                 f"most, {r['smem']} B of shared memory, prefetch "
+                 f"{'on' if r['prefetch'] else 'off'}" if "ms" in r else "")
         log(f"[2b] kf_block vs plain on the CPU, {r['what']} (order "
             f"{r['order']}, NIW {'on' if r['bayes'] else 'off'}, C={r['C']}, "
             f"{r['active']} active, {r['fs'] / 1e6:g} Msps, Nmax="
@@ -479,6 +500,27 @@ def main() -> None:
             f"correlators {r['corr']:.3e} ({r['corr_raw']:.3e} raw) of "
             f"{r['corr_scale']:.3e}, CN0 rel {r['cn0']:.1e}, sigma2 rel "
             f"{r['sigma2']:.1e}, {r['valid_epochs']} valid epochs" + timed)
+        if "seg_ms" in r:
+            sh, su = r["stage_share"], r["stage_us_per_epoch"]
+            log(f"    {r['what']}, the engine's {r['seg_blocks']}-block "
+                f"launch ({r['seg_epochs']} epochs, "
+                f"{r['seg_valid_epochs']} valid): "
+                f"{r['seg_ms']:.4f} ms, {r['seg_us_per_epoch']:.3f} us per "
+                f"epoch (CUDA events), bound {r['seg_bound_ms']:.2e} ms; "
+                f"stage split (KF_BLOCK_STAGES build in "
+                f"{r['stage_build_s']:.2f} s, CTA 0, "
+                f"{r['stage_mhz']:.0f} cycles per us): "
+                + ", ".join(f"{k} {100 * sh[k]:.1f} % ({su[k]:.3f} us)"
+                            for k in sh)
+                + f" of an epoch of {r['stage_epoch_us']:.3f} us over "
+                f"{r['stage_epochs']} epochs (in order: "
+                f"{r['stage_ordered']}; in the correlation the prefetch "
+                f"wait {r['prefetch_wait_us']:.3f} us and thread 32's "
+                f"samples {r['samples_us']:.3f} us; beside it the update's "
+                f"state-only part {r['update_pre_us']:.3f} us; "
+                f"{r['prefetch_hits']} of the {r['stage_epochs']} epochs "
+                f"read the prefetch buffer); serial floor of one block "
+                f"{r['serial_floor_ms']:.4f} ms")
     log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
@@ -551,8 +593,10 @@ def main() -> None:
     log(f"[8] CLI, GPS_L1_CA_KF_Tracking: {cli8['summary']}; "
         f"{cli8['kf_epochs']} KF epochs in {cli8['kf_blocks']} blocks, "
         f"kf_block launches {cli8['launches_kf_block']} == engine calls "
-        f"{cli8['kf_calls']}, {cli8['ms_per_epoch']:.4f} ms of wall per "
-        f"epoch; one segment ({kfp['segment_blocks']} blocks, "
+        f"{cli8['kf_calls']}, {cli8['kf_device_us_per_epoch']:.2f} us of "
+        f"kf_block device time per epoch over the run (CUDA events), "
+        f"{cli8['ms_per_epoch']:.4f} ms of wall per epoch; one segment "
+        f"({kfp['segment_blocks']} blocks, "
         f"{kfp['epochs']} epochs, 12 ch): {kfp['launches_per_epoch']:.4f} "
         f"kernel launches per epoch ({kfp['kernels_per_call']} in the "
         f"engine call, counted in a CUDA graph of it), "
@@ -565,7 +609,9 @@ def main() -> None:
     cli8k = phase_cli_kalman(dev, kb)
     log(f"[8] CLI, conf/gps_l1_kalman.conf as written on the e2e scenario at "
         f"{FS_KALMAN / 1e6:g} Msps: {cli8k['summary']}; {cli8k['kf_epochs']} "
-        f"KF epochs, kf_block launches {cli8k['launches_kf_block']} | "
+        f"KF epochs, kf_block launches {cli8k['launches_kf_block']}, "
+        f"{cli8k['kf_device_us_per_epoch']:.2f} us of kf_block device time "
+        f"per epoch | "
         f"{time.perf_counter() - t0:.1f} s (capture made on the card in "
         f"{cli8k['gen_s']:.2f} s)")
 
@@ -734,8 +780,9 @@ def main() -> None:
         f"error {e1kf['median_3d_m']:.2f} m, kf_block launches "
         f"{e1kf['launches_kf_block']} == engine calls {e1kf['kf_calls']} "
         f"({e1kf['launches_per_block']:.3f} per block, {e1kf['kf_epochs']} "
-        f"epochs) | {time.perf_counter() - t0:.1f} s (capture made on the "
-        f"card in {gen_s:.2f} s)")
+        f"epochs, {e1kf['kf_device_us_per_epoch']:.2f} us of kf_block device "
+        f"time per epoch) | {time.perf_counter() - t0:.1f} s (capture made on "
+        f"the card in {gen_s:.2f} s)")
 
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
@@ -780,9 +827,20 @@ def main() -> None:
         "ms": kf_t["GPS"]["ms"], "plain_ms": kf_t["GPS"]["plain_ms"],
         "bound_ms": kf_t["GPS"]["bound_ms"],
         "bound_by": kf_t["GPS"]["bound_by"], "library_ms": None,
-        **{f"{k}_{key}": kf_t[w][key] for k, w in (("gps26", "GPS 2.6 Msps"),
-                                                    ("e1", "E1B"))
+        **{f"{k}_{key}": kf_t[w][key]
+           for k, w in (("gps26", "GPS 2.6 Msps"), ("e1", "E1B"),
+                        ("c1", "GPS C=1"), ("c20", "GPS C=20"))
            for key in ("ms", "plain_ms", "bound_ms")},
+        "geometry": {w: {k: r[k] for k in ("n_cta", "threads", "cpc",
+                                           "smem", "prefetch")}
+                     for w, r in kf_t.items()},
+        **{k: kf_t["GPS"][k] for k in ("seg_us_per_epoch", "seg_bound_ms",
+                                       "stage_share", "stage_us_per_epoch",
+                                       "serial_floor_ms")},
+        "device_us_per_epoch": {
+            "cli_kf": cli8["kf_device_us_per_epoch"],
+            "gps_l1_kalman": cli8k["kf_device_us_per_epoch"],
+            "e1b_kf": e1kf["kf_device_us_per_epoch"]},
         "shapes_checked": len(kf_rows),
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
@@ -1538,8 +1596,11 @@ def _kf_engine(signal, fs, n_ch, n_active, order, bayes, n_blocks):
     """A KF engine on the CPU as the receiver builds it for `signal` at `fs`
     (the virtual half-chip basis on E1B), `n_active` channels activated on
     a seeded numpy capture of as many satellites (45 dB-Hz, Dopplers from
-    -3 kHz up, code phases half a sample off the grid), `n_blocks` blocks
-    of KF_BLOCK_MS.  Returns (engine, state, samples, base)."""
+    -3 kHz up in steps of 550 Hz, or over the same 6,050 Hz past 12
+    satellites, code phases half a sample off the grid), `n_blocks` blocks
+    of KF_BLOCK_MS.  Returns (engine, state, samples, base, make), where
+    make(n, dev) is the same scenario's first n samples made on `dev` by
+    generate_on_card."""
     import dataclasses
 
     from gnss_sdr_1_tpu_torch.codes import tracking_replica
@@ -1562,7 +1623,8 @@ def _kf_engine(signal, fs, n_ch, n_active, order, bayes, n_blocks):
     base = int(round(fs * KF_BLOCK_MS * 1e-3))
     n = n_blocks * base + cfg.epoch_samples_max
     half = 0.5 * rate / fs
-    sats = [SatParams(prn=p, doppler_hz=-3000.0 + 550.0 * k,
+    step = min(550.0, 6050.0 / max(n_active - 1, 1))
+    sats = [SatParams(prn=p, doppler_hz=-3000.0 + step * k,
                       doppler_rate_hz_s=5.0 if order == 3 else 0.0,
                       delay_chips=float(k * L // n_ch) + 37.0 + half,
                       cn0_dbhz=45.0)
@@ -1575,7 +1637,12 @@ def _kf_engine(signal, fs, n_ch, n_active, order, bayes, n_blocks):
     for ch, s in enumerate(sats):
         st = eng.activate_channel(st, ch, ch, s.delay_chips / rate * fs,
                                   s.doppler_hz, 0, 0, doppler_step_hz=250.0)
-    return eng, st, torch.as_tensor(x.astype(np.complex64)), base
+
+    def make(n_samp, dev):
+        return generate_on_card(gen_spec, sats, {p: reps[p][0] for p in prns},
+                                fs, n_samp / fs + 1e-3, dev, seed=5)[:n_samp]
+
+    return eng, st, torch.as_tensor(x.astype(np.complex64)), base, make
 
 
 def _kf_diff(kb, got, want, what):
@@ -1660,15 +1727,101 @@ def _kf_bound(kb, spec, n_samp, out_i):
             "correlated_samples": n_corr}
 
 
+def _kf_segment(dev, kb, eng, st, base, make, n_active):
+    """The launch the engine makes on a capture segment (KF_SEG_BLOCKS
+    blocks, the scenario made on the card), timed with CUDA events as us
+    per epoch; then the same launch through the KF_BLOCK_STAGES build
+    (int rows held to the plain build's exactly), whose timeline of CTA 0
+    splits each epoch in which its channel correlates into the barrier and
+    m (from thread 0's start of the epoch to thread 32's m), the
+    correlation (thread 32: the prefetch wait, its samples, its warp's
+    sums), the reduction (the barrier, the prefetch issue and the sums
+    over warps, to thread 0's reduced taps) and the update (thread 0), and
+    gives the update's state-only part that runs beside the correlation;
+    cycles become us by the stage launch's event time over the cycles its
+    timeline spans.  The serial floor of one block: its epochs times one
+    update's measured latency (both parts) and one barrier's."""
+    from gnss_sdr_1_tpu_torch.ops import _build
+
+    spec = eng.block_spec(base, KF_SEG_BLOCKS)
+    n = KF_SEG_BLOCKS * base + spec.n_max
+    x = make(n, dev)
+    fst, ist = (t.to(dev) for t in eng.pack_state(st))
+    codes = eng._codes.to(dev)
+    E = KF_SEG_BLOCKS * spec.n_epochs
+    ms = _time_cuda(lambda: kb.kf_block_cuda(spec, x, codes, fst, ist), 5)
+    out = kb.kf_block_cuda(spec, x, codes, fst, ist)
+    oi = out[1].cpu().numpy()
+    n_valid = int((oi[:, kb.OI_VALID] != 0).sum())
+    want = 0.9 * n_active * KF_SEG_BLOCKS * KF_BLOCK_MS * 1e-3 \
+        / eng.cfg.code_period_s
+    if not (bool(torch.isfinite(out[0]).all()) and n_valid >= want):
+        raise AssertionError(f"KF segment: {n_valid} valid epochs (want "
+                             f">= {want:.0f}) or non-finite outputs")
+    t0 = time.perf_counter()
+    _build.kf_stage_library()
+    build_s = time.perf_counter() - t0
+    stages = torch.zeros((E, kb.STAGE_POINTS), dtype=torch.int64,
+                         device=dev)
+
+    def staged():
+        return kb.kf_block_cuda(spec, x, codes, fst, ist, stages=stages)
+
+    s_ms = _time_cuda(staged, 3)
+    s_out = staged()
+    tl = stages.cpu().numpy().astype(np.float64)
+    v = np.nonzero(tl[:-1, kb.TL_WAIT] > 0)[0]    # CTA 0's channel ran
+    if not (np.array_equal(s_out[1].cpu().numpy(), oi) and len(v) > E // 2):
+        raise AssertionError(f"KF stage build: int rows differ from the "
+                             f"plain build's, or {len(v)} of {E} epochs in "
+                             f"its timeline")
+    us_per_cycle = s_ms * 1e3 / (tl[-1, kb.TL_UPD] - tl[0, kb.TL_START])
+    spans = {
+        "barrier_m": tl[v, kb.TL_M32] - tl[v, kb.TL_START],
+        "correlation": tl[v, kb.TL_PART] - tl[v, kb.TL_M32],
+        "reduction": tl[v, kb.TL_RED] - tl[v, kb.TL_PART],
+        "update": tl[v, kb.TL_UPD] - tl[v, kb.TL_RED]}
+    inner = {
+        "prefetch_wait": tl[v, kb.TL_WAIT] - tl[v, kb.TL_M32],
+        "samples": tl[v, kb.TL_SAMP] - tl[v, kb.TL_WAIT],
+        "update_pre": tl[v, kb.TL_PRE] - tl[v, kb.TL_M0]}
+    epoch = float((tl[v + 1, kb.TL_START] - tl[v, kb.TL_START]).mean())
+    us = {k: float(d.mean()) * us_per_cycle for k, d in spans.items()}
+    one = eng.block_spec(base, 1)
+    return {"seg_blocks": KF_SEG_BLOCKS, "seg_epochs": E,
+            "seg_ms": ms, "seg_us_per_epoch": ms * 1e3 / E,
+            "seg_valid_epochs": n_valid,
+            "seg_bound_ms": _kf_bound(kb, spec, n, oi)["bound_ms"],
+            "stage_build_s": build_s, "stage_ms": s_ms,
+            "stage_epochs": len(v), "stage_epoch_us": epoch * us_per_cycle,
+            "stage_share": {k: float(d.mean()) / epoch
+                            for k, d in spans.items()},
+            "stage_us_per_epoch": us,
+            # every span of every epoch in its order (thread 0's and 32's
+            # stamps interleave as the epoch runs)
+            "stage_ordered": bool(min(d.min() for d in spans.values())
+                                  >= 0),
+            **{f"{k}_us": float(d.mean()) * us_per_cycle
+               for k, d in inner.items()},
+            "prefetch_hits": int(tl[v, kb.TL_HIT].sum()),
+            "stage_mhz": 1.0 / us_per_cycle,
+            "serial_floor_ms": one.n_epochs * (
+                us["update"] + us["barrier_m"]
+                + float(inner["update_pre"].mean()) * us_per_cycle) * 1e-3}
+
+
 def phase_kf_kernel(dev, kb):
     """The KF block kernel against kf_block_plain on the CPU at every shape
     of KF_CHECKS (two blocks a launch, so the rebase between blocks runs in
     the kernel), and timed at the shapes marked: device ms per one-block
-    launch from the profiler, the plain version's on the card."""
+    launch from the profiler, the plain version's on the card, the launch
+    geometry (cluster size, threads per CTA, shared memory, prefetch); at
+    the GPS shape also the engine's 25-block launch and the stage split
+    (_kf_segment)."""
     rows = []
     for what, signal, fs, n_ch, n_act, order, bayes, timed in KF_CHECKS:
-        eng, st, x, base = _kf_engine(signal, fs, n_ch, n_act, order, bayes,
-                                      2)
+        eng, st, x, base, make = _kf_engine(signal, fs, n_ch, n_act, order,
+                                            bayes, 2)
         spec = eng.block_spec(base, 2)
         fst, ist = eng.pack_state(st)
         want = kb.kf_block_plain(spec, x, eng._codes, fst, ist)
@@ -1683,6 +1836,9 @@ def phase_kf_kernel(dev, kb):
                                        f"{bayes}")}
         if timed:
             one = eng.block_spec(base, 1)
+            geo = kb.launch_geometry(one)
+            r.update(n_cta=geo.n_cta, threads=geo.threads, cpc=geo.cpc,
+                     smem=geo.smem, prefetch=geo.prefetch)
             xs = card[0][: base + spec.n_max]
 
             def call():
@@ -1696,6 +1852,8 @@ def phase_kf_kernel(dev, kb):
                                    fst, ist)[1].numpy()
             r.update(_kf_bound(kb, one, base + spec.n_max, oi))
             r["library_ms"] = None
+            if what == "GPS":
+                r.update(_kf_segment(dev, kb, eng, st, base, make, n_act))
         rows.append(r)
     return rows
 
@@ -2167,11 +2325,15 @@ def _kernel_events(prof):
 def _kf_counting(kb):
     """Set the KF kernel's launch counter to 0 and count the engine calls
     (KfTrackingEngine.track_blocks), the blocks and the epochs they walk,
-    independently of the counter."""
+    independently of the counter; CUDA events around every kf_block launch
+    give its device time (`kf_device_ms`, summed once the run is over:
+    recording an event does not wait for the card)."""
     from gnss_sdr_1_tpu_torch.track.kf import KfTrackingEngine
 
     counter = {"calls": 0, "blocks": 0, "epochs": 0}
     run = KfTrackingEngine.track_blocks
+    launch = kb.kf_block_cuda
+    events = []
 
     def counted(self, samples, state, base, n_blocks=1):
         counter["calls"] += 1
@@ -2179,12 +2341,27 @@ def _kf_counting(kb):
         counter["epochs"] += n_blocks * self.block_spec(base, n_blocks).n_epochs
         return run(self, samples, state, base, n_blocks)
 
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(*args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
     KfTrackingEngine.track_blocks = counted
+    kb.kf_block_cuda = timed
     kb.launches = 0
     try:
         yield counter
     finally:
         KfTrackingEngine.track_blocks = run
+        kb.kf_block_cuda = launch
+        torch.cuda.synchronize()
+        counter["kf_device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        counter["kf_device_us_per_epoch"] = (
+            counter["kf_device_ms"] / max(counter["epochs"], 1) * 1e3)
 
 
 def _check_kf_launches(kb, counter, what):
@@ -2325,6 +2502,7 @@ def phase_cli_kf(dev, cc, tc, kb, scen, capture):
                              f"time")
     rep.update(kf_epochs=kc["epochs"], kf_blocks=kc["blocks"],
                kf_calls=kc["calls"], launches_kf_block=kb.launches,
+               kf_device_us_per_epoch=kc["kf_device_us_per_epoch"],
                ms_per_epoch=rep["process_wall_s"] / kc["epochs"] * 1e3,
                profile=_kf_block_profile(dev, kb, scen, capture))
     return rep
@@ -2354,7 +2532,8 @@ def phase_cli_kalman(dev, kb):
         raise AssertionError(f"gps_l1_kalman.conf: RTF {rep['cli_rtf']:.3f} "
                              f"below real time")
     rep.update(kf_epochs=kc["epochs"], kf_blocks=kc["blocks"],
-               launches_kf_block=kb.launches, gen_s=gen_s)
+               launches_kf_block=kb.launches, gen_s=gen_s,
+               kf_device_us_per_epoch=kc["kf_device_us_per_epoch"])
     return rep
 
 
@@ -2566,6 +2745,7 @@ def phase_e1_kf(dev, kb, scen, x):
             "max_sqrt_a_err": max(eph_err.values()),
             "launches_kf_block": kb.launches, "kf_calls": kc["calls"],
             "kf_blocks": kc["blocks"], "kf_epochs": kc["epochs"],
+            "kf_device_us_per_epoch": kc["kf_device_us_per_epoch"],
             "launches_per_block": kb.launches / kc["blocks"]}
 
 

@@ -1,7 +1,7 @@
-// Gather multicorrelator for one channel's epoch, spread over a group of
-// warps: carrier wipe-off and the three-tap floor code resampler of
-// gnss_sdr_1_tpu_torch/ops/multicorrelator.py, rounded as its plain torch
-// version rounds on the CPU.
+// Gather multicorrelator for one channel's epoch, spread over the threads
+// of a thread block: carrier wipe-off and the three-tap floor code
+// resampler of gnss_sdr_1_tpu_torch/ops/multicorrelator.py, rounded as its
+// plain torch version rounds on the CPU.
 //
 // For n < n_valid (one epoch, starting at x[0]):
 //   phase   = fma(cs, n, cp)                 ORDER 3: fma((0.5 cr) n, n, .)
@@ -11,7 +11,7 @@
 // The multiply-adds of the phase and the code index round once, as
 // torch.addcmul does on the CPU; everything else rounds op by op
 // (build with --fmad=false).  Each thread sums its samples in order and the
-// group reduces by warp shuffles; the sums differ from the plain version's
+// block reduces by warp shuffles; the sums differ from the plain version's
 // BLAS order in the last bits only.
 //
 // The code table of a channel is its +-1 chips packed 32 to a word (bit set
@@ -85,10 +85,13 @@ __device__ __forceinline__ void gather_corr_partial(
         for (int k = 0; k < 3; ++k) {
             // floor, then mod L with L's sign; the index stays within a
             // code period or two of [0, L), so the wrap loops run once
-            // at most in practice
+            // at most in practice, and one unsigned compare keeps the
+            // usual in-range index off them
             int idx = (int)floorf(__fsub_rn(fmaf(step, nf, sh[k]), rem));
-            while (idx >= len) idx -= len;
-            while (idx < 0) idx += len;
+            if ((unsigned)idx >= (unsigned)len) {
+                while (idx >= len) idx -= len;
+                while (idx < 0) idx += len;
+            }
             const bool plus = (bits[idx >> 5] >> (idx & 31)) & 1u;
             acc[k] = __fadd_rn(acc[k], plus ? wr : -wr);
             acc[3 + k] = __fadd_rn(acc[3 + k], plus ? wi : -wi);

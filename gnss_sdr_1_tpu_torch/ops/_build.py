@@ -12,7 +12,9 @@ the chain in `track_chain.cu`, the chunk correlator in `chunk_corr.cuh`, and
 the capture-level entry that enqueues both for every chunk.  The KF block
 walk is a second, `kf_block` (`kf_library()`: `kf_block.cu` with the gather
 correlation in `gather_corr.cuh`).  `build_all()` runs one nvcc per library,
-all at once.
+all at once.  `kf_stage_library()` builds `kf_block.cu` once more with
+`-DKF_BLOCK_STAGES` (the kernel's stage clocks); nothing on the receiver's
+path loads it.
 
 Flags: `-O3`, no `--use_fast_math` (atan2f / sincosf / log10f keep full
 float32 accuracy) and `--fmad=false` (no multiply-add contraction, so the
@@ -56,26 +58,33 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> pathlib.Path:
+def _variant(name: str, defines: tuple) -> str:
+    return "-".join([name, *(d.lower() for d in defines)])
+
+
+def _target(name: str, defines: tuple = ()) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + list(defines)).encode())
+    return BUILD / f"lib{_variant(name, defines)}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists."""
-    out = _target(name)
+def build(name: str, defines: tuple = ()) -> pathlib.Path:
+    """Compile csrc/<name>.cu (with -D for each of `defines`) unless an
+    up-to-date library exists."""
+    out = _target(name, defines)
+    key = _variant(name, defines)
     if out.exists():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "reused"})
+        BUILD_LOG.setdefault(key, {"seconds": 0.0, "ptxas": "reused"})
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.NamedTemporaryFile(dir=BUILD, suffix=".so",
                                      delete=False) as tmp:
         tmp_path = pathlib.Path(tmp.name)
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp_path),
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS,
+           *(f"-D{d}" for d in defines), "-o", str(tmp_path),
            str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -83,13 +92,14 @@ def build(name: str) -> pathlib.Path:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n"
                            f"{res.stderr}")
     os.replace(tmp_path, out)          # atomic: concurrent builds agree
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+    BUILD_LOG[key] = {"seconds": time.perf_counter() - t0,
                        "ptxas": (res.stdout + res.stderr).strip()}
     return out
 
 
 LIBRARY = "track_chain"
 KF_LIBRARY = "kf_block"
+KF_STAGES = ("KF_BLOCK_STAGES",)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: pointers and the stream as c_void_p
 # (ctypes would cut a Python int to 32 bits), counts as c_int; each returns
@@ -109,8 +119,10 @@ _ENTRIES = {
     },
     KF_LIBRARY: {
         # x, codes, n_slots, fst, ist, out_f, out_i, fst_out, ist_out,
-        # params, stream
-        "kf_block_launch": [_P, _P, _I] + [_P] * 8,
+        # stages, params, stream
+        "kf_block_launch": [_P, _P, _I] + [_P] * 9,
+        # order, bayes_run, dynamic shared memory
+        "kf_block_max_cluster": [_I, _I, _I],
     },
 }
 
@@ -122,16 +134,18 @@ def build_all() -> None:
         list(pool.map(build, _ENTRIES))
 
 
-def _load(name: str) -> ctypes.CDLL:
-    """Library `name`, built at first use, entry points declared."""
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build(name)))
+def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Library `name` (built with `defines`), built at first use, entry
+    points declared."""
+    key = _variant(name, defines)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(name, defines)))
         for fn_name, argtypes in _ENTRIES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def library() -> ctypes.CDLL:
@@ -142,3 +156,8 @@ def library() -> ctypes.CDLL:
 def kf_library() -> ctypes.CDLL:
     """The KF block library."""
     return _load(KF_LIBRARY)
+
+
+def kf_stage_library() -> ctypes.CDLL:
+    """The KF block library built with the kernel's stage clocks."""
+    return _load(KF_LIBRARY, KF_STAGES)

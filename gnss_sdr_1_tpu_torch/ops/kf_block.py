@@ -20,7 +20,9 @@ consecutive blocks of one capture segment, rebasing the epoch starts by
 The JAX package runs the same epoch step as one `lax.scan` per block
 (gnss_sdr_1_tpu/track/kf.py `_track_block_impl`, :425); it is not a Pallas
 kernel.  The kernel (csrc/kf_block.cu, with the correlation in
-csrc/gather_corr.cuh) walks the block in one launch.
+csrc/gather_corr.cuh) walks the blocks in one launch of one thread-block
+cluster, one CTA per channel; `kf_geometry` computes the launch's shape
+and shared memory, which the C entry checks.
 
 State crosses the call as row-stacked matrices in the style of
 ops.track_chain: `n_frows(N)` x C float32 (R_* below: the KF state and
@@ -351,6 +353,125 @@ def kf_block_plain(spec: KfSpec, samples, codes, fst, ist):
 # CUDA kernel (csrc/kf_block.cu)
 # ---------------------------------------------------------------------------
 
+# launch geometry: threads per CTA (== the kernel's __launch_bounds__), the
+# largest cluster the kernel asks for, the portable cluster size (the C
+# entry sets cudaFuncAttributeNonPortableClusterSizeAllowed above it) and
+# the dynamic shared memory one CTA may use on Hopper
+KF_THREADS = 512
+KF_WARPS = KF_THREADS // 32
+KF_MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+SMEM_MAX = 232_448
+# the timeline the KF_BLOCK_STAGES build writes, per epoch, of CTA 0's
+# first channel (kf_block.cu TL_*): SM clock stamps of thread 0 (the epoch
+# begins, m known, the update's state-only part done, the taps reduced,
+# the update done) and of thread 32 (m known, the prefetch wait done, its
+# samples done, its warp's sums stored), and 1 where the epoch read the
+# prefetch buffer
+TL_START, TL_M0, TL_PRE, TL_RED, TL_UPD, TL_M32, TL_WAIT, TL_SAMP, TL_PART, \
+    TL_HIT = range(10)
+STAGE_POINTS = 10
+# bytes of the update's state-only part (kf_block.cu KfPre)
+PRE_BYTES = 160
+
+
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def prefetch_bytes(n_max: int) -> int:
+    """One prefetch buffer: n_max samples from a 16-byte aligned start
+    (one sample of skew at most) rounded up to 16 bytes."""
+    return _round16(8 * (n_max + 2))
+
+
+def kf_layout(cpc: int, n_max: int, code_len: int, n_hist: int,
+              prefetch: bool) -> dict:
+    """Byte offsets of one CTA's dynamic shared memory, as kf_block.cu
+    `kf_layout` computes them: the mbarriers, the two m slots, the prefetch
+    records, the prefetch buffers, the code bits, the state rows, the warp
+    partial sums and the update's state-only part; `total` is the launch's
+    dynamic shared memory."""
+    W = (code_len + 31) // 32
+    lay = {"bar": 0, "slot": 8 * cpc}
+    lay["info"] = lay["slot"] + 8
+    lay["pf"] = _round16(lay["info"] + 16 * cpc)
+    lay["bits"] = lay["pf"] + (cpc * prefetch_bytes(n_max) if prefetch
+                               else 0)
+    lay["sf"] = lay["bits"] + 4 * cpc * W
+    lay["si"] = lay["sf"] + 4 * n_frows(n_hist) * cpc
+    lay["part"] = lay["si"] + 4 * N_IROWS * cpc
+    lay["pre"] = lay["part"] + 4 * 2 * KF_WARPS * 6
+    lay["total"] = lay["pre"] + PRE_BYTES
+    return lay
+
+
+@dataclasses.dataclass(frozen=True)
+class KfGeometry:
+    """One launch: a cluster of n_cta CTAs of `threads` threads; CTA r
+    takes channels r, r + n_cta, ... (at most `cpc` each); `prefetch`
+    where every CTA's cpc buffers of `pf_bytes` fit beside the rest in
+    `smem` bytes of dynamic shared memory."""
+
+    C: int
+    n_cta: int
+    threads: int
+    cpc: int
+    prefetch: bool
+    pf_bytes: int
+    smem: int
+
+
+def kf_geometry(C: int, n_max: int, code_len: int, n_hist: int,
+                max_cluster: int) -> KfGeometry:
+    """The launch geometry of C channels when the card schedules clusters
+    of up to `max_cluster` CTAs."""
+    if not 1 <= max_cluster <= KF_MAX_CLUSTER:
+        raise ValueError(f"max_cluster must be in [1, {KF_MAX_CLUSTER}], "
+                         f"got {max_cluster}")
+    if C < 1:
+        raise ValueError("the KF kernel takes at least one channel")
+    n_cta = min(C, max_cluster)
+    cpc = -(-C // n_cta)
+    smem = kf_layout(cpc, n_max, code_len, n_hist, True)["total"]
+    prefetch = smem <= SMEM_MAX
+    if not prefetch:
+        smem = kf_layout(cpc, n_max, code_len, n_hist, False)["total"]
+        if smem > SMEM_MAX:
+            raise ValueError(f"{C} channels of {code_len} chips and "
+                             f"{n_hist} history rows need {smem} B of shared "
+                             f"memory a CTA (at most {SMEM_MAX})")
+    return KfGeometry(C=C, n_cta=n_cta, threads=KF_THREADS, cpc=cpc,
+                      prefetch=prefetch,
+                      pf_bytes=prefetch_bytes(n_max) if prefetch else 0,
+                      smem=smem)
+
+
+@functools.lru_cache(maxsize=64)
+def _max_cluster(order: int, bayes: bool, smem: int) -> int:
+    from ._build import kf_library
+
+    n = kf_library().kf_block_max_cluster(order, int(bayes), smem)
+    if n < 1:
+        raise RuntimeError(f"the card schedules no cluster of the KF kernel "
+                           f"({smem} B of shared memory a CTA): CUDA error "
+                           f"{-n}")
+    return n
+
+
+@functools.lru_cache(maxsize=64)
+def launch_geometry(spec: KfSpec) -> KfGeometry:
+    """The geometry of the spec's launch on this card: the largest cluster
+    it schedules (cudaOccupancyMaxActiveClusters, asked at first launch)
+    for the shared memory the geometry needs."""
+    args = (spec.C, spec.n_max, spec.code_len, spec.n_hist)
+    geo = kf_geometry(*args, KF_MAX_CLUSTER)
+    while True:
+        n = _max_cluster(spec.order, spec.bayes_run, geo.smem)
+        if n >= geo.n_cta:
+            return geo
+        geo = kf_geometry(*args, n)
+
 
 class KfParams(ctypes.Structure):
     """Mirror of `KfParams` in csrc/kf_block.cu (copied by the C entry;
@@ -376,14 +497,20 @@ class KfParams(ctypes.Structure):
         ("shifts", ctypes.c_float * 3), ("F", ctypes.c_float * 9),
         ("Q", ctypes.c_float * 9), ("dll_b_in", ctypes.c_float * 4),
         ("dll_b_out", ctypes.c_float * 3),
+        ("n_cta", ctypes.c_int), ("cpc", ctypes.c_int),
+        ("threads", ctypes.c_int), ("prefetch", ctypes.c_int),
+        ("pf_bytes", ctypes.c_int), ("smem", ctypes.c_int),
     ]
 
 
 @functools.lru_cache(maxsize=64)
-def kf_params(spec: KfSpec, n_samp: int) -> KfParams:
-    """The kernel's constants for one spec and sample count (built once)."""
+def kf_params(spec: KfSpec, n_samp: int, geo: KfGeometry) -> KfParams:
+    """The kernel's constants for one spec, sample count and geometry
+    (built once)."""
     if spec.order not in (2, 3):
         raise ValueError("the KF kernel takes order 2 or 3")
+    if geo.C != spec.C:
+        raise ValueError(f"geometry of {geo.C} channels for {spec.C}")
     p = KfParams()
     for name in ("C", "n_hist", "code_len", "n_max", "win", "base",
                  "n_epochs", "n_blocks", "order", "bayes_ptrans",
@@ -401,6 +528,9 @@ def kf_params(spec: KfSpec, n_samp: int) -> KfParams:
         arr = getattr(p, name)
         for j in range(n):
             arr[j] = _f32(getattr(spec, name)[j])
+    for name in ("n_cta", "cpc", "threads", "pf_bytes", "smem"):
+        setattr(p, name, int(getattr(geo, name)))
+    p.prefetch = int(geo.prefetch)
     return p
 
 
@@ -418,26 +548,34 @@ def check_inputs(spec: KfSpec, samples, codes, fst, ist):
     check_tensor(ist, "ist", (N_IROWS, spec.C), torch.int32)
 
 
-def kf_block_cuda(spec: KfSpec, samples, codes, fst, ist):
-    """Launch the CUDA kernel once for the spec's n_blocks blocks.  The
-    code tables must be +-1 (the kernel keeps them as bits; the engine
-    checks)."""
+def kf_block_cuda(spec: KfSpec, samples, codes, fst, ist, stages=None):
+    """Launch the CUDA kernel once for the spec's n_blocks blocks, as one
+    cluster (launch_geometry).  The code tables must be +-1 (the kernel
+    keeps them as bits; the engine checks).  `stages` (int64 [n_blocks *
+    n_epochs, STAGE_POINTS] on the card, zeroed) launches the
+    KF_BLOCK_STAGES build instead, which writes its timeline there."""
     global launches
-    from ._build import kf_library
+    from ._build import kf_library, kf_stage_library
 
     check_inputs(spec, samples, codes, fst, ist)
     C, E = spec.C, spec.n_blocks * spec.n_epochs
+    if stages is not None:
+        check_tensor(stages, "stages", (E, STAGE_POINTS), torch.int64)
     dev = samples.device
     out_f = torch.empty((E, N_OROWS, C), dtype=torch.float32, device=dev)
     out_i = torch.empty((E, N_OIROWS, C), dtype=torch.int32, device=dev)
     fst_out = torch.empty_like(fst)
     ist_out = torch.empty_like(ist)
+    geo = launch_geometry(spec)
+    lib = kf_library() if stages is None else kf_stage_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = kf_library().kf_block_launch(
+    err = lib.kf_block_launch(
         samples.data_ptr(), codes.data_ptr(), codes.shape[0], fst.data_ptr(),
         ist.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
         fst_out.data_ptr(), ist_out.data_ptr(),
-        ctypes.addressof(kf_params(spec, int(samples.shape[0]))), stream)
+        None if stages is None else stages.data_ptr(),
+        ctypes.addressof(kf_params(spec, int(samples.shape[0]), geo)),
+        stream)
     if err != 0:
         raise RuntimeError(f"kf_block kernel launch failed: CUDA error {err}")
     launches += 1

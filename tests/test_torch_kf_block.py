@@ -410,14 +410,22 @@ def test_kf_receivers_agree_on_boc_signal():
 # ---------------------------------------------------------------------------
 
 
+# the kernel's cases: BLOCK_CASES on 8 channels (one thread block each in
+# one cluster), and GPS on 1 channel and on 20 (rounds: CTAs of a cluster
+# of 16 or fewer take two channels or more)
+GPU_CASES = {**{k: (*v, 8) for k, v in BLOCK_CASES.items()},
+             "gps_one_channel": ("1C", 4.092e6, 2, False, 1),
+             "gps_20_channels": ("1C", 4.092e6, 2, False, 20)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+@pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_kf_block_kernel_matches_plain_on_gpu(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA KF kernel has no CPU "
                     "mode)")
-    signal, fs, order, bayes = BLOCK_CASES[case]
-    prns = list(range(1, 9))
+    signal, fs, order, bayes, n_ch = GPU_CASES[case]
+    prns = list(range(1, n_ch + 1))
     kw = _cfg_kw(signal, fs, len(prns), order=order, bayes_run=bayes,
                  **({"bayes_ptrans": 10, "bayes_strans": 10} if bayes
                     else {}))
@@ -426,7 +434,9 @@ def test_kf_block_kernel_matches_plain_on_gpu(case):
         np.stack([tracking_replica(signal, p)[0] for p in prns]),
         device="cpu")
     rate = kw["chip_rate_chips_s"]
-    sats = [SatParams(prn=p, doppler_hz=-300.0 + 90.0 * i,
+    # Dopplers over the same 630 Hz however many channels (low, so the
+    # unwrapped phase state stays small)
+    sats = [SatParams(prn=p, doppler_hz=-300.0 + 720.0 * i / max(n_ch, 8),
                       delay_chips=0.5 * rate / fs + 37.0 + 97.0 * i,
                       cn0_dbhz=45.0) for i, p in enumerate(prns)]
     base = int(round(fs * BLOCK_S))
