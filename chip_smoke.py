@@ -11,10 +11,12 @@ error a run, holds no bar, and ends without the lines below.
 
 Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
-     nvcc for each library, started together: the tracking library and
-     the KF library), with ptxas' registers, stack frame and spills of
-     every kernel instance (the chain's instances may use no local
-     memory, the KF kernel's may spill nothing);
+     nvcc for each library, started together: the tracking library, the
+     KF library and the gather walk's, which holds the one-epoch
+     multicorrelator too),
+     with ptxas' registers, stack frame and spills of every kernel
+     instance (the chain's instances may use no local memory, the KF
+     kernel's may spill nothing);
   2. both CUDA kernels against their plain torch versions on the card, at
      the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
      inputs and on the inputs of a real chunk taken mid-track: the chunk
@@ -60,6 +62,17 @@ Phases (one line each, with times):
      barrier and m, the correlation, the reduction and the update on
      CTA 0, and the serial floor of a block (its epochs times one update
      and one barrier);
+ 2c. the gather DLL/PLL walk (gather_block) against its plain version on
+     the CPU over 80 ms (two 40 ms blocks) of channels tracked 50 ms from
+     the truth: GPS at 12 channels, Galileo E1B (K=5), L5 with NH10, E5a
+     with CS20 and B1I with NH20 (the wipe on from a non-zero index),
+     GLONASS with FDMA biases to 2.81 MHz, L2C (no prefetch), GPS on 1
+     channel and on 20 (18 active); the 16 template instances on the GPS
+     and E1B cases; timed per one-block launch (device ms from the
+     profiler, the plain version's on the card, the bound, the cluster
+     geometry), at GPS also the receiver's 1 s segment launch in us per
+     epoch; then multicorrelate_cuda against multicorrelate at K = 3 and
+     5, timed at the TCP connector's C = 1;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -153,10 +166,27 @@ Phases (one line each, with times):
      phase 10's capture made again on the card: every channel held within
      25 Hz of the truth Doppler, ephemerides, fixes, the median 3D error
      under one chip, kf_block launches per block and its device time per
-     epoch.
+     epoch;
+ 23. phase 5's receiver with correlator='gather' over phase 5's capture
+     (run right after phase 5): fixes and median 3D error at phase 5's
+     bars, RTF, gather_block launches == capture segments, its device us
+     per epoch (CUDA events around every launch);
+ 24. tests/test_system_galileo.py's 5-satellite E1B scenario (18 s at
+     4 Msps, numpy's noise made on the card) and
+ 25. tests/test_system_beidou.py's 5-satellite B1I scenario (24 s at
+     4 Msps), each through that test's receiver on the gather path at its
+     bars (median 3D error and mean-bias norm under 5 m), where both
+     packages' chunked paths give 10.05 m and 33.82 m;
+ 26. conf/gps_l1_ishort.conf with Tracking_1C.correlator=gather added, its
+     resampler set to phase 6's file (4.092 -> 2.046 Msps, 12 channels),
+     through the CLI at phase 6's bars (run after phase 8);
+ 27. the TCP connector (track/tcp_connector.py) on
+     tests/test_tcp_connector.py's scenario, its correlation on the card
+     (one multicorrelate launch per epoch), at that test's bars.
 Then one JSON line describing every kernel (the chunked kernels'
 launches summed over phases 5-7 and 10-21, the KF kernel's over phases 8
-and 22, each read just after its run), the nvidia-smi line, and
+and 22, the gather walk's over 23-26, the multicorrelator's over 27, each
+read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -316,6 +346,14 @@ MAX_SQRT_A_ERR_BDS = 2e-5
 MIN_FIXES_BDS = 10
 MAX_MEDIAN_BDS = 5.0
 MAX_BIAS_BDS = 5.0
+# phases 24-25: the Galileo and BeiDou system tests' scenarios as they
+# stand (5 satellites at 4 Msps; E1B 18 s, B1I 24 s), where both packages'
+# chunked paths give 10.05 m and 33.82 m median 3D error
+FS_SYS = 4.0e6
+SYS_E1_PRNS = (1, 2, 3, 4, 5)
+SYS_E1_S = 18.0
+SYS_B1_PRNS = (6, 7, 8, 9, 10)
+SYS_B1_S = 24.0
 
 # phase 2b: the KF block kernel at the KF paths' shapes: (what, signal,
 # fs, channels, active channels, order, bayes_run, timed); two blocks of
@@ -338,6 +376,24 @@ KF_CHECKS = (
 # its sine and cosine (~8 each), the wipe (6), three code indices (3 each)
 # and three complex accumulations (2 each)
 KF_OPS_PER_SAMPLE = 39
+# phase 2c: the gather DLL/PLL walk at the receivers' shapes: (what,
+# signal, fs, channels, active channels, timed); a launch walks two 40 ms
+# blocks; timed per one-block launch
+GATHER_WALK_MS = 80
+GATHER_CHECKS = (
+    ("GPS", "1C", FS, 12, 12, True),
+    ("E1B", "1B", FS_E1, 8, 8, True),
+    ("L5 NH10", "L5", FS_L5, 6, 6, True),
+    ("E5a CS20", "5X", FS_E5A, 6, 6, False),
+    ("B1I NH20", "B1", FS_B1I, 8, 8, True),
+    ("GLONASS FDMA", "1G", FS_GLO_HI, 5, 5, True),
+    ("L2C", "2S", FS_L2C, 6, 6, True),
+    ("GPS C=1", "1C", FS, 1, 1, True),
+    ("GPS C=20", "1C", FS, 20, 18, True),
+)
+# float32 operations per correlated sample of the gather walk: as the KF's
+# with K code indices and K complex accumulations
+GATHER_OPS_PER_SAMPLE = {3: 39, 5: 49}
 
 
 def log(msg: str) -> None:
@@ -364,7 +420,9 @@ def main() -> None:
     import gnss_sdr_1_tpu_torch  # noqa: F401  (sets TF32 off)
     from gnss_sdr_1_tpu_torch.ops import _build
     from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
+    from gnss_sdr_1_tpu_torch.ops import gather_block as gb
     from gnss_sdr_1_tpu_torch.ops import kf_block as kb
+    from gnss_sdr_1_tpu_torch.ops import multicorrelator as mc
     from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
@@ -386,9 +444,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all()
-    _build.library()
-    _build.kf_library()
+    ptxas = build_report()
     build_s = time.perf_counter() - t0
     log(f"[1] card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | kernel build {build_s:.2f} s (one nvcc per "
@@ -396,23 +452,10 @@ def main() -> None:
         + ", ".join(f"{n} {r['seconds']:.2f} s"
                     for n, r in _build.BUILD_LOG.items())
         + f"; {' '.join(_build.ARCH_FLAGS)})")
-    ptxas = ptxas_report(_build.BUILD_LOG[_build.LIBRARY]["ptxas"]
-                         + "\n" + _build.BUILD_LOG[_build.KF_LIBRARY]["ptxas"])
     for name, r in ptxas.items():
         log(f"    ptxas {name}: {r['registers']} registers, "
             f"{r['stack']} B stack frame, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads")
-    chain_inst = [r for n, r in ptxas.items() if n.startswith("track_chain")]
-    if not chain_inst or not any(n.startswith("chunk_corr") for n in ptxas) \
-            or sum(n.startswith("kf_block") for n in ptxas) != 4:
-        raise AssertionError(f"ptxas report lacks a kernel: {list(ptxas)}")
-    for r in chain_inst:
-        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
-            raise AssertionError(f"track_chain uses local memory: {r}")
-    for name, r in ptxas.items():
-        if name.startswith("kf_block") and (r["spill_stores"]
-                                            or r["spill_loads"]):
-            raise AssertionError(f"{name} spills: {r}")
 
     # ---- 2. kernels vs plain ----
     t0 = time.perf_counter()
@@ -522,6 +565,45 @@ def main() -> None:
                 f"read the prefetch buffer); serial floor of one block "
                 f"{r['serial_floor_ms']:.4f} ms")
     log(f"    | {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g_rows, g_inst, mc_rows = phase_gather_kernel(dev, gb, mc)
+    for r in g_rows:
+        timed = (f"; one 40 ms block ({r['block_epochs']} epochs) "
+                 f"{r['ms']:.5f} ms/launch device ({r['ms_host']:.5f} from "
+                 f"the host), plain {r['plain_ms']:.3f} ms, bound "
+                 f"{r['bound_ms']:.2e} ms ({r['bound_by']})"
+                 if "ms" in r else "")
+        log(f"[2c] gather_block vs plain on the CPU, {r['what']} (K={r['K']}, "
+            f"order {r['order']}, sec_len {r['sec_len']}, C={r['C']}, "
+            f"{r['active']} active, {r['fs'] / 1e6:g} Msps, Nmax="
+            f"{r['n_max']}, L={r['code_len']}, {r['n_epochs']} epochs, FDMA "
+            f"biases {r['carr_offsets_hz']} Hz; a cluster of {r['n_cta']} "
+            f"CTAs of {r['threads']} threads, {r['cpc']} channel(s) each at "
+            f"most, {r['smem']} B of shared memory, prefetch "
+            f"{'on' if r['prefetch'] else 'off'}): int rows exact, Doppler "
+            f"{r['doppler']:.2e}, delta {r['delta']:.2e}, rem code "
+            f"{r['rem_code']:.2e}, rem carrier {r['rem_carr']:.2e} rad, "
+            f"correlators {r['corr']:.3e} ({r['corr_raw']:.3e} raw) of "
+            f"{r['corr_scale']:.3e}, CN0 rel {r['cn0']:.1e}, "
+            f"{r['valid_epochs']} valid epochs" + timed)
+        if "seg_ms" in r:
+            log(f"    {r['what']}, the receiver's 1 s segment launch "
+                f"({r['seg_epochs']} epochs, {r['seg_valid_epochs']} valid): "
+                f"{r['seg_ms']:.4f} ms, {r['seg_us_per_epoch']:.3f} us per "
+                f"epoch (CUDA events), bound {r['seg_bound_ms']:.2e} ms")
+    for r in g_inst:
+        log(f"    gather_block instance {r['instance']} vs plain on the CPU: "
+            f"max |diff| {r['err']:.3e}, int rows exact, "
+            f"{r['valid_epochs']} valid epochs")
+    for r in mc_rows:
+        timed = (f", {r['ms']:.5f} ms/launch device ({r['ms_host']:.5f} "
+                 f"from the host), plain {r['plain_ms']:.3f} ms, bound "
+                 f"{r['bound_ms']:.2e} ms ({r['bound_by']})"
+                 if "ms" in r else "")
+        log(f"[2c] multicorrelate_cuda vs plain on the CPU, {r['what']} "
+            f"(K={r['K']}, C={r['C']}, N={r['N']}): max |diff| "
+            f"{r['max_abs_err']:.3e} of {r['scale']:.3e}" + timed)
+    log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
                              f"the torch.bmm pair {cr['library_ms']:.5f} ms")
@@ -569,6 +651,18 @@ def main() -> None:
         f"{e2e['launches_track_chain']} == chunks {e2e['chunks']} | "
         f"{time.perf_counter() - t0:.1f} s (capture made in {gen_s:.1f} s)")
 
+    # ---- 23. the same receiver on the gather correlator ----
+    t0 = time.perf_counter()
+    g23 = phase_gather_e2e(dev, gb, scen, x_e2e)
+    log(f"[23] receiver e2e, correlator='gather': 12 sats x {E2E_S:g} s, RTF "
+        f"{g23['rtf']:.2f} ({g23['wall_s']:.2f} s; phase 5's chunked "
+        f"{e2e['rtf']:.2f}), fixes {g23['fixes']} ({e2e['fixes']}), median "
+        f"3D error {g23['median_3d_m']:.2f} m ({e2e['median_3d_m']:.2f} m), "
+        f"gather_block launches {g23['launches_gather_block']} == segments "
+        f"{g23['segments']}, {g23['epochs']} epochs walked, "
+        f"{g23['device_us_per_epoch']:.3f} us of gather_block device time "
+        f"per epoch (CUDA events) | {time.perf_counter() - t0:.1f} s")
+
     # ---- 6-8. the conf-file CLI on files written from phase 5's capture ----
     t0 = time.perf_counter()
     files = write_cli_files(x_e2e)
@@ -605,6 +699,11 @@ def main() -> None:
         f"{kfp['wall_ms_per_epoch']:.4f} ms of wall; one block alone "
         f"{kfp['block_launches_per_epoch']:.3f} launches per epoch | "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli26 = phase_cli_gather(gb, scen, files[0])
+    log(f"[26] CLI, conf/gps_l1_ishort.conf + Tracking_1C.correlator=gather "
+        f"on phase 6's file ({FS / 1e6:g} -> {FS / 2e6:g} Msps, 12 "
+        f"channels): {cli26['summary']} | {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cli8k = phase_cli_kalman(dev, kb)
     log(f"[8] CLI, conf/gps_l1_kalman.conf as written on the e2e scenario at "
@@ -784,9 +883,38 @@ def main() -> None:
         f"time per epoch) | {time.perf_counter() - t0:.1f} s (capture made on "
         f"the card in {gen_s:.2f} s)")
 
+    # ---- 24-25. the system tests' 5-satellite scenarios, gather path ----
+    sys_runs = {}
+    for n, name in ((24, "sys 1B"), (25, "sys B1")):
+        t0 = time.perf_counter()
+        r = sys_runs[name] = phase_gather_system(dev, gb, name)
+        _, _, sats, _, fs, dur = _cells()[name]
+        log(f"[{n}] {name[4:]} system scenario, correlator='gather': "
+            f"{len(sats)} sats x {dur:g} s at {fs / 1e6:g} Msps, RTF "
+            f"{r['rtf']:.2f} ({r['wall_s']:.2f} s), ephemerides "
+            f"{r['ephemerides']} (max |sqrt_a err| {r['max_sqrt_a_err']:.2e}"
+            f"), fixes {r['fixes']}, median 3D error {r['median_3d_m']:.2f} "
+            f"m, mean-bias norm {r['bias_norm_m']:.2f} m, gather_block "
+            f"launches {r['launches_gather_block']} == segments "
+            f"{r['segments']}, {r['device_us_per_epoch']:.3f} us of device "
+            f"time per epoch | {time.perf_counter() - t0:.1f} s (capture "
+            f"made on the card in {r['gen_s']:.2f} s)")
+
+    # ---- 27. the TCP connector on the card ----
+    t0 = time.perf_counter()
+    tcp = phase_tcp(dev, mc)
+    log(f"[27] TCP connector, correlation on the card: {tcp['epochs']} "
+        f"epochs, multicorrelate launches {tcp['launches_multicorrelate']} "
+        f"== epochs, tail Doppler error {tcp['tail_doppler_err_hz']:+.3f} "
+        f"Hz, tail/head prompt {tcp['prompt_tail_over_head']:.3f}, "
+        f"{tcp['ms_per_epoch']:.3f} ms of wall per epoch (TCP round trip "
+        f"included) | {time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
+    g_t = {r["what"]: r for r in g_rows if "ms" in r}
+    mc_t = next(r for r in mc_rows if "ms" in r)
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
              *bds.values(), *cli20.values())
@@ -842,6 +970,42 @@ def main() -> None:
             "gps_l1_kalman": cli8k["kf_device_us_per_epoch"],
             "e1b_kf": e1kf["kf_device_us_per_epoch"]},
         "shapes_checked": len(kf_rows),
+    }, {
+        "name": "gather_block", "route": "cuda",
+        "source": src + "gather_block.cu",
+        "replaces": "gnss_sdr_1_tpu/track/engine.py:786",
+        "launches": sum(p["launches_gather_block"]
+                        for p in (g23, cli26, *sys_runs.values())),
+        "max_abs_err": max(r["max_abs_err"] for r in g_rows),
+        "corr_raw_max_abs_err": max(r["corr_raw"] for r in g_rows),
+        "ms": g_t["GPS"]["ms"], "plain_ms": g_t["GPS"]["plain_ms"],
+        "bound_ms": g_t["GPS"]["bound_ms"],
+        "bound_by": g_t["GPS"]["bound_by"], "library_ms": None,
+        **{f"{k}_{key}": g_t[w][key]
+           for k, w in (("e1", "E1B"), ("l5", "L5 NH10"), ("b1", "B1I NH20"),
+                        ("glo", "GLONASS FDMA"), ("l2c", "L2C"),
+                        ("c1", "GPS C=1"), ("c20", "GPS C=20"))
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "seg_us_per_epoch": g_t["GPS"]["seg_us_per_epoch"],
+        "seg_bound_ms": g_t["GPS"]["seg_bound_ms"],
+        "device_us_per_epoch": {
+            "e2e": g23["device_us_per_epoch"],
+            "cli": cli26["device_us_per_epoch"],
+            **{k[4:]: r["device_us_per_epoch"]
+               for k, r in sys_runs.items()}},
+        "geometry": {r["what"]: {k: r[k] for k in ("n_cta", "threads", "cpc",
+                                                   "smem", "prefetch")}
+                     for r in g_rows},
+        "shapes_checked": len(g_rows), "instances_checked": len(g_inst),
+    }, {
+        "name": "multicorrelate", "route": "cuda",
+        "source": src + "multicorrelate.cuh",
+        "replaces": "gnss_sdr_1_tpu/ops/multicorrelator.py:36",
+        "launches": tcp["launches_multicorrelate"],
+        "max_abs_err": max(r["max_abs_err"] for r in mc_rows),
+        "ms": mc_t["ms"], "plain_ms": mc_t["plain_ms"],
+        "bound_ms": mc_t["bound_ms"], "bound_by": mc_t["bound_by"],
+        "library_ms": None, "shapes_checked": len(mc_rows),
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
@@ -851,6 +1015,9 @@ def main() -> None:
               "cli_sec": cli14, "glonass": glo, "mixed": mix, "dual": dual,
               "cli_multi": cli18, "beidou": bds, "cli_beidou": cli20,
               "kf_kernel": kf_rows, "cli_kalman": cli8k, "e1_kf": e1kf,
+              "gather_kernel": g_rows, "gather_instances": g_inst,
+              "multicorrelate": mc_rows, "gather_e2e": g23,
+              "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -869,7 +1036,37 @@ def main() -> None:
 
 _KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
                  "17chunk_corr_kernel": "chunk_corr",
-                 "15kf_block_kernel": "kf_block"}
+                 "15kf_block_kernel": "kf_block",
+                 "19gather_block_kernel": "gather_block",
+                 "21multicorrelate_kernel": "multicorrelate"}
+
+
+def build_report() -> dict:
+    """Build every library (one nvcc each, started together, even where a
+    build of the same sources exists: the report needs ptxas) and check
+    what ptxas reports: every kernel is there (16 chain, 4 KF, 16 gather
+    and 4 multicorrelator instances); the chain's instances use no local
+    memory, the KF's spill nothing."""
+    from gnss_sdr_1_tpu_torch.ops import _build
+
+    _build.build_all(force=True)
+    for lib in _build._ENTRIES:
+        _build._load(lib)
+    ptxas = ptxas_report("\n".join(_build.BUILD_LOG[lib]["ptxas"]
+                                   for lib in _build._ENTRIES))
+    want = {"track_chain": 16, "chunk_corr": 1, "kf_block": 4,
+            "gather_block": 16, "multicorrelate": 4}
+    got = {k: sum(n.split("<")[0] == k for n in ptxas) for k in want}
+    if any(got[k] < n for k, n in want.items()):
+        raise AssertionError(f"ptxas report lacks a kernel: {got}")
+    for name, r in ptxas.items():
+        if name.startswith("track_chain") and (
+                r["stack"] or r["spill_stores"] or r["spill_loads"]):
+            raise AssertionError(f"track_chain uses local memory: {r}")
+        if name.startswith("kf_block") and (r["spill_stores"]
+                                            or r["spill_loads"]):
+            raise AssertionError(f"{name} spills: {r}")
+    return ptxas
 
 
 def ptxas_report(text: str) -> dict:
@@ -950,39 +1147,40 @@ def _bds_config(signal, **kw):
         num_doppler_bins_step2=40), **kw})
 
 
-def _engine(dev, fs=FS, signal="1C"):
-    """The engine benchmark's tracker (12 channels, 16-epoch chunks), or
+def _engine(dev, fs=FS, signal="1C", correlator="chunked", n_ch=12):
+    """The engine benchmark's tracker (n_ch channels, 16-epoch chunks), or
     for signal '1B' the tracker of phase 10's Galileo E1B receiver at `fs`
     (8 channels, 5 taps, 16-epoch chunks), or for 'L5' / '5X' the tracker
     of phase 12 / 13's receiver (6 channels, the NH10 / CS20 secondary
     rows, 16-epoch chunks), or for 'B1' / 'B3' the tracker of phase 19 / 21's
     receiver (8 / 6 channels, the NH20 rows), or for '1G' a GLONASS L1
     tracker (5 channels, the FDMA slots of GLO_CHECK_KS), or for '2S' a GPS
-    L2CM tracker (6 channels, 20 ms epochs)."""
+    L2CM tracker (6 channels, 20 ms epochs); on `correlator`."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
     from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 
+    c = {"correlator": correlator}
     if signal == "1B":
-        return Receiver(_e1_config(fs_hz=fs), device=dev).trk
+        return Receiver(_e1_config(fs_hz=fs, **c), device=dev).trk
     if signal in ("L5", "5X"):
-        return Receiver(_sec_config(signal, fs_hz=fs), device=dev).trk
+        return Receiver(_sec_config(signal, fs_hz=fs, **c), device=dev).trk
     if signal in ("B1", "B3"):
-        return Receiver(_bds_config(signal, fs_hz=fs), device=dev).trk
+        return Receiver(_bds_config(signal, fs_hz=fs, **c), device=dev).trk
     if signal == "1G":
         return Receiver(ReceiverConfig(
             fs_hz=fs, signal_id="1G", n_channels=len(GLO_CHECK_KS),
             prn_search=tuple(GLO_CHECK_KS),
-            fdma_k=tuple(GLO_CHECK_KS.items())), device=dev).trk
+            fdma_k=tuple(GLO_CHECK_KS.items()), **c), device=dev).trk
     if signal == "2S":
         return Receiver(ReceiverConfig(
             fs_hz=fs, signal_id="2S", n_channels=6,
-            prn_search=tuple(range(1, 7)), pll_bw_hz=4.0, dll_bw_hz=0.4),
-            device=dev).trk
-    codes = np.stack([gps_l1ca_code(p) for p in range(1, 13)])
+            prn_search=tuple(range(1, 7)), pll_bw_hz=4.0, dll_bw_hz=0.4,
+            **c), device=dev).trk
+    codes = np.stack([gps_l1ca_code(p) for p in range(1, n_ch + 1)])
     cfg = TrackConfig(fs_hz=fs, code_length_chips=1023,
                       chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
-                      n_channels=12, chunk_epochs=16)
+                      n_channels=n_ch, chunk_epochs=16, **c)
     return TrackingEngine(cfg, codes, device=dev)
 
 
@@ -1859,6 +2057,374 @@ def phase_kf_kernel(dev, kb):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the gather DLL/PLL walk and the one-epoch multicorrelator
+# against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _gather_sats(signal, n_active, dur):
+    """The kernel checks' satellites of `signal` (phase 2's), for GPS the
+    engine benchmark's 12 and, past 12, more from seed 51."""
+    from gnss_sdr_1_tpu_torch.siggen import SatParams
+
+    if signal == "1B":
+        return _e1_sats(dur)
+    if signal in ("L5", "5X", "B1", "B3"):
+        return _sec_sats(signal, dur)
+    if signal in ("1G", "2S"):
+        return (_glo_sats if signal == "1G" else _l2c_sats)(dur)
+    sats = _bench_sats(dur)
+    rng = np.random.default_rng(51)
+    sats += [SatParams(prn=p, doppler_hz=float(rng.uniform(-4000, 4000)),
+                       delay_chips=float(rng.uniform(0, 1023)),
+                       cn0_dbhz=44.0,
+                       nav_bits=rng.choice([-1.0, 1.0],
+                                           size=int(dur * 50) + 8))
+             for p in range(13, 19)]
+    return sats[:n_active]
+
+
+def _gather_case(dev, signal, fs, n_ch, n_active, walk_ms=GATHER_WALK_MS):
+    """A gather engine on the CPU with `n_active` channels activated at
+    their satellites' truth on a seeded capture and tracked over a short
+    head by the plain walk (the secondary-code signals then switched to the
+    extended mode with the wipe on from their true, non-zero code index),
+    and the inputs of the next `walk_ms` ms: (engine, spec, samples,
+    codes, sec_rows, fst, ist, n_epochs), all on the CPU."""
+    from gnss_sdr_1_tpu_torch.codes import tracking_replica
+    from gnss_sdr_1_tpu_torch.constants import SIGNALS
+
+    eng = _engine(torch.device("cpu"), fs, signal, "gather", n_ch)
+    head = {"2S": 0.1, "1B": 0.052}.get(signal, 0.053)
+    dur = head + walk_ms * 1e-3 + 3 * eng.cfg.code_period_s
+    sats = _gather_sats(signal, n_active, dur + 0.01)
+    if signal in ("1G", "2S"):
+        x = generate_on_card(SIGNALS[signal], sats, {
+            s.prn: tracking_replica(signal, s.prn)[0] for s in sats}, fs,
+            dur, dev, seed=48).cpu()
+    else:
+        x = torch.as_tensor(_gen(
+            sats, dur, f"gather_{signal}_{fs:.0f}_{n_active}_{dur:g}s_v1",
+            fs, signal))
+    st = _activate_all(eng, sats)
+    span = int(fs * head)
+    st, _ = eng.track_capture(x[: span + eng.cfg.epoch_samples_max], st,
+                              span)
+    if eng.chain_spec.sec_len > 1:
+        n = eng.chain_spec.sec_len
+        phases = st.epochs_in_track.numpy() % n
+        if not (phases > 0).all() or not bool(st.active.all()):
+            raise AssertionError(f"{signal} gather check: secondary phases "
+                                 f"{phases}, active {st.active}")
+        for ch, ph in enumerate(phases):
+            st = eng.enable_extended(st, ch, (n - int(ph)) % n,
+                                     sec_phase=int(ph))
+    walk = int(fs * walk_ms * 1e-3)
+    seg = x[span:]
+    fst, ist = eng._pack_rows(st, walk)
+    slot = st.prn_slot.long()
+    return (eng, eng.gather_spec, seg, eng._codes[slot].contiguous(),
+            eng._sec[slot].T.contiguous(), fst, ist,
+            eng._check_capture(seg, walk))
+
+
+def _gather_diff(tc, got, want, what):
+    """The gather kernel's outputs against the plain version's at the bars
+    of _kf_diff: int rows, the valid and active rows and the carried int
+    state exact; Doppler, code-frequency delta and rem code phase within
+    2e-2; rem carrier phase within 1e-4 2 pi (circular); CN0 at rtol 1e-3;
+    correlators within 1e-4 of max|corr| in the plain version's carrier
+    frame (each epoch's taps turned by the difference of the two entering
+    rem carrier phases, themselves held to their bar; at a GLONASS slot's
+    2.81 MHz a last-bit Doppler difference moves the phase by ~1e-3 rad an
+    epoch), the raw difference reported as `corr_raw`.  Every error is
+    measured before any bar is checked."""
+    of, oi, oc, fs_, is_ = (t.cpu().numpy() for t in got)
+    wf, wi, wc, wfs, wis = (t.numpy() for t in want)
+    K = oc.shape[1] // 2
+    v = wf[:, tc.O_VALID] > 0.5
+    err = {"int_rows_equal": bool(
+        np.array_equal(oi, wi) and np.array_equal(is_, wis)
+        and np.array_equal(of[:, tc.O_VALID], wf[:, tc.O_VALID])
+        and np.array_equal(of[:, tc.O_ACTIVE], wf[:, tc.O_ACTIVE])),
+        "valid_epochs": int(v.sum())}
+    for name, row in (("doppler", tc.O_DOPPLER), ("delta", tc.O_DELTA),
+                      ("rem_code", tc.O_REM_CODE)):
+        err[name] = float(np.abs(of[:, row] - wf[:, row])[v].max())
+    for name, row in (("state_doppler", tc.F_DOPPLER),
+                      ("state_delta", tc.F_DELTA)):
+        err[name] = float(np.abs(fs_[row] - wfs[row]).max())
+    err["corr_scale"] = float(np.abs(wc).max())
+    err["corr_raw"] = float(np.abs(oc - wc).max())
+    turn = np.zeros(of.shape[::2])                   # [E, C]
+    turn[1:] = of[:-1, tc.O_REM_CARR] - wf[:-1, tc.O_REM_CARR]
+    got_c = (oc[:, :K] + 1j * oc[:, K:]) * np.exp(1j * turn)[:, None]
+    want_c = wc[:, :K] + 1j * wc[:, K:]
+    err["corr"] = float(max(np.abs(got_c.real - want_c.real).max(),
+                            np.abs(got_c.imag - want_c.imag).max()))
+    d = np.abs(of[:, tc.O_REM_CARR] - wf[:, tc.O_REM_CARR])[v]
+    err["rem_carr"] = float(np.minimum(d, 2 * np.pi - d).max())
+    g, w = of[:, tc.O_CN0][v], wf[:, tc.O_CN0][v]
+    err["cn0"] = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max())
+    err["cn0_ok"] = bool(np.all(np.abs(g - w) <= 1e-4 + 1e-3 * np.abs(w)))
+    err["max_abs_err"] = max(err["corr"], err["doppler"], err["delta"],
+                             err["rem_code"], err["rem_carr"])
+    bad = [k for k, ok in (
+        ("int rows", err["int_rows_equal"]), ("valid epochs", v.any()),
+        ("doppler", err["doppler"] <= 2e-2), ("delta", err["delta"] <= 2e-2),
+        ("rem_code", err["rem_code"] <= 2e-2),
+        ("state_doppler", err["state_doppler"] <= 2e-2),
+        ("state_delta", err["state_delta"] <= 2e-2),
+        ("corr", err["corr"] <= 1e-4 * err["corr_scale"]),
+        ("rem_carr", err["rem_carr"] <= 1e-4 * 2 * np.pi),
+        ("cn0", err["cn0_ok"])) if not ok]
+    if bad:
+        raise AssertionError(f"gather kernel {what}: {bad} out of bounds: "
+                             f"{err}")
+    return err
+
+
+def _samples_read(tc, n_max, out_f, out_i):
+    """The distinct samples a walk's valid epochs correlate: the union over
+    channels and epochs of [start, start + min(cur_len, n_max)) (out_i's
+    rows), from the plain version's outputs of the same walk."""
+    v = out_f[:, tc.O_VALID] > 0.5
+    lo = out_i[:, 0][v].astype(np.int64)
+    if lo.size == 0:
+        return 0
+    hi = lo + np.minimum(out_i[:, 1][v], n_max)
+    base = int(lo.min())
+    edge = np.zeros(int(hi.max()) - base + 1, np.int64)
+    np.add.at(edge, lo - base, 1)
+    np.add.at(edge, hi - base, -1)
+    return int((np.cumsum(edge)[:-1] > 0).sum())
+
+
+def _gather_bound(tc, spec, out_f, out_i):
+    """Least time of one walk: the bytes it must move (the samples its
+    valid epochs correlate and the channels' code rows read once, the
+    state read and written, the per-epoch rows written) against its
+    operations on this run's data (the correlated samples of the valid
+    epochs, GATHER_OPS_PER_SAMPLE[K] each, and one closure of
+    OPS_PER_EPOCH_CHANNEL per valid epoch)."""
+    C, K = spec.C, spec.K
+    v = out_f[:, tc.O_VALID] > 0.5
+    n_corr = int(np.minimum(out_i[:, 1], spec.n_max)[v].sum())
+    n_samp = _samples_read(tc, spec.n_max, out_f, out_i)
+    n_bytes = (n_samp * 8 + C * spec.code_len * 4
+               + 2 * (tc.n_frows(K) + tc.N_IROWS) * C * 4
+               + out_f.shape[0] * (tc.N_OROWS + 2 + 2 * K) * C * 4)
+    n_ops = GATHER_OPS_PER_SAMPLE[K] * n_corr \
+        + OPS_PER_EPOCH_CHANNEL * int(v.sum())
+    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops,
+            "samples_read": n_samp, "correlated_samples": n_corr}
+
+
+def _gather_instances(dev, gb, tc, bases, g):
+    """Each of the 16 template instances <K, ORDER, SEC_DATA, HAS_SEC> that
+    gather_kernel_for (csrc/gather_block.cu) can return, launched on the
+    GPS (K=3) and E1B (K=5) cases against gather_block_plain on the CPU
+    (_gather_diff's bars); ORDER=2 takes the order-2 loop coefficients with
+    the integrator seeded from the Doppler; HAS_SEC a random 20-chip code
+    with the wipe on in every other channel from a non-zero index; SEC_DATA
+    switches the Costas discriminator."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.track.loop_filter import fll_pll_coefficients
+
+    w2 = fll_pll_coefficients(35.0, 25.0, 2)
+    n2 = fll_pll_coefficients(8.0, 12.0, 2)
+    coef = lambda c: (c.w0p, c.w0p2, c.w0p3, c.w0f, c.w0f2, c.a2, c.a3,
+                      c.b3)                                     # noqa: E731
+    rows = []
+    for K, (spec0, x, codes, fst0, ist0, n_ep) in sorted(bases.items()):
+        C = spec0.C
+        for order in (2, 3):
+            for sec_data in (False, True):
+                for has_sec in (False, True):
+                    loop = dataclasses.replace(spec0.loop, sec_data=sec_data)
+                    fst, ist = fst0.clone(), ist0.clone()
+                    if order == 2:
+                        loop = dataclasses.replace(
+                            loop, order=2, wide=coef(w2), narrow=coef(n2))
+                        fst[tc.F_CARR_W] = fst[tc.F_DOPPLER]
+                        fst[tc.F_CARR_X] = 0.0
+                    if has_sec:
+                        sec = torch.where(torch.rand((20, C), generator=g)
+                                          < 0.5, -1.0, 1.0).float()
+                        ist[tc.I_SEC_ON] = (torch.arange(C) % 2 == 0).to(
+                            torch.int32)
+                        ist[tc.I_SEC_IDX] = (torch.arange(C, dtype=torch.int32)
+                                             * 7 + 3) % 20
+                    else:
+                        sec = torch.ones((1, C), dtype=torch.float32)
+                        ist[tc.I_SEC_ON] = 0
+                        ist[tc.I_SEC_IDX] = 0
+                    loop = dataclasses.replace(loop, sec_len=sec.shape[0])
+                    spec = dataclasses.replace(spec0, loop=loop)
+                    name = (f"<{K},{order},{str(sec_data).lower()},"
+                            f"{str(has_sec).lower()}>")
+                    args = (x, codes, sec.contiguous(), fst, ist)
+                    before = gb.launches
+                    got = gb.gather_block(spec, *(t.to(dev) for t in args),
+                                          n_ep)
+                    torch.cuda.synchronize()
+                    if gb.launches != before + 1:
+                        raise AssertionError(f"{name}: the gather wrapper "
+                                             f"did not launch")
+                    want = gb.gather_block_plain(spec, *args, n_ep)
+                    err = _gather_diff(tc, got, want, name)
+                    rows.append({"instance": name,
+                                 "err": err["max_abs_err"],
+                                 "valid_epochs": err["valid_epochs"]})
+    if len({r["instance"] for r in rows}) != 16:
+        raise AssertionError(f"{len(rows)} gather instances checked")
+    return rows
+
+
+def _gather_segment(dev, gb, tc, eng, case):
+    """The launch the receiver makes on a 1 s segment of the GPS shape
+    (1,000 epochs of 12 channels, the capture made on the card, channels
+    activated at the truth), timed with CUDA events: us per epoch, and its
+    bound."""
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+
+    seg_s = 1.0
+    sats = _gather_sats("1C", eng.cfg.n_channels, seg_s + 0.05)
+    x = generate_on_card(GPS_L1_CA, sats, {s.prn: gps_l1ca_code(s.prn)
+                                           for s in sats}, FS, seg_s + 0.01,
+                         dev, seed=52)
+    st = _activate_all(eng, sats)
+    span = int(FS * seg_s)
+    fst, ist = eng._pack_rows(st, span)
+    slot = st.prn_slot.long()
+    args = [x, eng._codes[slot].contiguous(), eng._sec[slot].T.contiguous(),
+            fst, ist]
+    card = [t.to(dev) for t in args]
+    n_ep = eng._check_capture(x, span)
+    ms = _time_cuda(lambda: gb.gather_block_cuda(case[1], *card, n_ep), 3)
+    out = gb.gather_block_cuda(case[1], *card, n_ep)
+    of, oi = out[0].cpu().numpy(), out[1].cpu().numpy()
+    n_valid = int((of[:, tc.O_VALID] > 0.5).sum())
+    if not (bool(torch.isfinite(out[0]).all()) and n_valid >= 0.95 * 12000):
+        raise AssertionError(f"gather segment: {n_valid} valid epochs or "
+                             f"non-finite outputs")
+    return {"seg_epochs": n_ep, "seg_valid_epochs": n_valid, "seg_ms": ms,
+            "seg_us_per_epoch": ms * 1e3 / n_ep,
+            "seg_bound_ms": _gather_bound(tc, case[1], of, oi)["bound_ms"]}
+
+
+def _mc_checks(dev, mc, cases):
+    """multicorrelate_cuda against the plain multicorrelate on the CPU on
+    one epoch of each case's channels (their first windows, K = 3 at the
+    GPS shape, 5 at the E1B shape) and of its first channel alone (C = 1,
+    the TCP connector's call), within 1e-4 of max|corr|; timed at C = 1,
+    K = 3 (device ms per launch, the plain version on the card, the bound:
+    bytes of the samples and code row against 39 operations a sample)."""
+    from gnss_sdr_1_tpu_torch.ops import gather_block as gb
+    from gnss_sdr_1_tpu_torch.ops import track_chain as tc
+
+    rows = []
+    for what, (eng, spec, x, codes, sec, fst, ist, n_ep) in cases.items():
+        m, off = gb.window_offsets(spec, ist, x.shape[0])
+        segs = x[(m + off).long()[:, None] + torch.arange(spec.n_max)]
+        step, rem, cp, cs = gb.epoch_params(spec, fst)
+        shifts = torch.tensor(spec.shifts)
+        n_valid = ist[tc.I_CURLEN]
+        for C in (spec.C, 1):
+            args = (segs[:C].contiguous(), codes[:C].contiguous(), shifts,
+                    step[:C], rem[:C], cp[:C], cs[:C], 0.0, n_valid[:C])
+            want = mc.multicorrelate(*args)
+            card = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+            before = mc.launches
+            got = mc.correlate(*card)
+            torch.cuda.synchronize()
+            if mc.launches != before + 1:
+                raise AssertionError("correlate did not launch the kernel")
+            d = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            if not d <= 1e-4 * scale:
+                raise AssertionError(f"multicorrelate {what} C={C}: |diff| "
+                                     f"{d:.3e} > 1e-4 x {scale:.3e}")
+            r = {"what": what, "K": spec.K, "C": C, "N": spec.n_max,
+                 "max_abs_err": d, "scale": scale}
+            if what == "GPS" and C == 1:
+                r["ms"] = _device_ms(lambda: mc.multicorrelate_cuda(*card),
+                                     50)
+                r["ms_host"] = _time_cuda(
+                    lambda: mc.multicorrelate_cuda(*card), 50)
+                r["plain_ms"] = _time_cuda(
+                    lambda: mc.multicorrelate(*card), 10)
+                n = int(n_valid[0])
+                n_bytes = n * 8 + codes.shape[1] * 4 + spec.K * 8
+                n_ops = GATHER_OPS_PER_SAMPLE[spec.K] * n
+                tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+                r.update(bound_ms=max(tb, to),
+                         bound_by="bytes" if tb >= to else "operations",
+                         library_ms=None)
+            rows.append(r)
+    return rows
+
+
+def phase_gather_kernel(dev, gb, mc):
+    """The gather walk against gather_block_plain on the CPU at every shape
+    of GATHER_CHECKS (two 40 ms blocks a launch), timed at the shapes
+    marked (device ms per one-block launch from the profiler, the plain
+    version's on the card, the bound, the launch geometry); the 16
+    template instances on the GPS and E1B cases; at the GPS shape the
+    receiver's 1 s segment launch in us per epoch; then the one-epoch
+    multicorrelator (_mc_checks)."""
+    from gnss_sdr_1_tpu_torch.ops import track_chain as tc
+
+    rows, bases, mc_cases = [], {}, {}
+    g = torch.Generator().manual_seed(9)
+    for what, signal, fs, n_ch, n_act, timed in GATHER_CHECKS:
+        case = _gather_case(dev, signal, fs, n_ch, n_act)
+        eng, spec, x, codes, sec, fst, ist, n_ep = case
+        args = (x, codes, sec, fst, ist)
+        want = gb.gather_block_plain(spec, *args, n_ep)
+        card = [t.to(dev) for t in args]
+        got = gb.gather_block_cuda(spec, *card, n_ep)
+        torch.cuda.synchronize()
+        geo = gb.launch_geometry(spec)
+        r = {"what": what, "signal": signal, "fs": fs, "C": n_ch,
+             "active": n_act, "K": spec.K, "order": spec.loop.order,
+             "sec_len": spec.loop.sec_len, "n_epochs": n_ep,
+             "n_max": spec.n_max, "code_len": spec.code_len,
+             "carr_offsets_hz": [round(float(v)) for v in
+                                 fst[tc.F_CARR_OFF]],
+             "n_cta": geo.n_cta, "threads": geo.threads, "cpc": geo.cpc,
+             "smem": geo.smem, "prefetch": geo.prefetch,
+             **_gather_diff(tc, got, want, what)}
+        if timed:
+            blk = eng._check_capture(x, int(fs * GATHER_WALK_MS * 5e-4))
+
+            def call():
+                gb.gather_block_cuda(spec, *card, blk)
+
+            r["block_epochs"] = blk
+            r["ms"] = _device_ms(call, 10)
+            r["ms_host"] = _time_cuda(call, 10)
+            r["plain_ms"] = _time_cuda(
+                lambda: gb.gather_block_plain(spec, *card, blk), 1)
+            ob = gb.gather_block_plain(spec, *args, blk)
+            r.update(_gather_bound(tc, spec, ob[0].numpy(), ob[1].numpy()))
+            r["library_ms"] = None
+            if what == "GPS":
+                r.update(_gather_segment(dev, gb, tc, eng, case))
+        if what in ("GPS", "E1B"):
+            bases[spec.K] = (spec, x, codes, fst, ist, n_ep)
+            mc_cases[what] = case
+        rows.append(r)
+    inst = _gather_instances(dev, gb, tc, bases, g)
+    return rows, inst, _mc_checks(dev, mc, mc_cases)
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: acquisition and the tracking engine (bench scenario)
 # ---------------------------------------------------------------------------
 
@@ -2538,6 +3104,227 @@ def phase_cli_kalman(dev, kb):
 
 
 # ---------------------------------------------------------------------------
+# phases 23-27: the gather DLL/PLL path end to end, and the TCP connector
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _gather_counting(gb):
+    """Set the gather kernel's launch counter to 0 and count the gather
+    engine calls (TrackingEngine._run_capture on a 'gather' engine) and the
+    epochs they walk, independently of the counter; CUDA events around
+    every gather_block launch give its device time (summed once the run is
+    over)."""
+    from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
+
+    counter = {"calls": 0, "epochs": 0, "chunked_calls": 0}
+    run = TrackingEngine._run_capture
+    launch = gb.gather_block_cuda
+    events = []
+
+    def counted(self, samples, state, limit, n_epochs):
+        if self.correlator == "gather":
+            counter["calls"] += 1
+            counter["epochs"] += n_epochs
+        else:
+            counter["chunked_calls"] += 1
+        return run(self, samples, state, limit, n_epochs)
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(*args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    TrackingEngine._run_capture = counted
+    gb.gather_block_cuda = timed
+    gb.launches = 0
+    try:
+        yield counter
+    finally:
+        TrackingEngine._run_capture = run
+        gb.gather_block_cuda = launch
+        torch.cuda.synchronize()
+        counter["device_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        counter["device_us_per_epoch"] = (
+            counter["device_ms"] / max(counter["epochs"], 1) * 1e3)
+
+
+def _check_gather_launches(gb, counter, what):
+    """One gather_block launch per gather engine call (capture segment),
+    at least one, and no chunked call."""
+    if not counter["calls"] > 0 or counter["chunked_calls"]:
+        raise AssertionError(f"{what}: {counter['calls']} gather and "
+                             f"{counter['chunked_calls']} chunked engine "
+                             f"calls")
+    if gb.launches != counter["calls"]:
+        raise AssertionError(f"{what}: {gb.launches} gather_block launches "
+                             f"for {counter['calls']} engine calls")
+
+
+def _gather_run(dev, gb, cfg, x, duration_s):
+    """A Receiver of `cfg` on the card over the preloaded capture, counted
+    by _gather_counting: (receiver, solutions, wall seconds, counter)."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    rx = Receiver(cfg, device=dev)
+    if rx.trk.correlator != "gather":
+        raise AssertionError(f"receiver built a {rx.trk.correlator} engine")
+    rx.preload(x)
+    with _gather_counting(gb) as counter:
+        t0 = time.perf_counter()
+        sols = rx.process(x)
+        wall = time.perf_counter() - t0
+    return rx, sols, wall, counter
+
+
+def phase_gather_e2e(dev, gb, scen, x):
+    """Phase 23: phase 5's receiver on the gather correlator over phase 5's
+    capture: launches == segments, fixes and median 3D error at phase 5's
+    bars, Receiver.process RTF and the kernel's device us per epoch."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    prns = [s.prn for s in scen.sats]
+    cfg = ReceiverConfig(fs_hz=FS, signal_id="1C", n_channels=len(prns),
+                         prn_search=tuple(prns), reacq_interval_blocks=125,
+                         pvt_output_rate_ms=100, correlator="gather")
+    rx, sols, wall, c = _gather_run(dev, gb, cfg, x, E2E_S)
+    _check_gather_launches(gb, c, "gather e2e")
+    return {"rtf": E2E_S / wall, "wall_s": wall,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, "gather e2e",
+                         MIN_FIXES),
+            "launches_gather_block": gb.launches, "segments": c["calls"],
+            "epochs": c["epochs"], "device_ms": c["device_ms"],
+            "device_us_per_epoch": c["device_us_per_epoch"],
+            "channels": list(rx.channel_prn)}
+
+
+def phase_gather_system(dev, gb, name):
+    """Phases 24 (Galileo E1B) and 25 (BeiDou B1I): tests/test_system_
+    galileo.py's and tests/test_system_beidou.py's 5-satellite scenarios at
+    4 Msps, the captures made on the card with numpy's noise (the tests'
+    captures to float32 rounding), through those tests' receiver
+    configurations on the gather correlator, at their bars (ephemerides,
+    fixes, median 3D error and mean-bias norm under 5 m)."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    scen, _, sats, _, fs, dur = _cells()[name]
+    x, gen_s = card_capture(dev, [name], 1234, numpy_noise=True)
+    prns = tuple(s.prn for s in sats)
+    if name == "sys 1B":
+        cfg = ReceiverConfig(fs_hz=fs, signal_id="1B", n_channels=5,
+                             prn_search=prns, acq_dwells=3, pll_bw_hz=15.0,
+                             dll_bw_hz=2.0, correlator="gather")
+    else:
+        cfg = ReceiverConfig(fs_hz=fs, signal_id="B1", n_channels=5,
+                             prn_search=prns, acq_dwells=3,
+                             acq_bit_transition=True, pll_bw_hz=18.0,
+                             dll_bw_hz=2.0, early_late_space_chips=0.2,
+                             doppler_step2_hz=15.0,
+                             num_doppler_bins_step2=40, correlator="gather")
+    what = f"gather {name}"
+    rx, sols, wall, c = _gather_run(dev, gb, cfg, x, dur)
+    del x
+    _check_gather_launches(gb, c, what)
+    ephs = {p: d.ephemeris for p, d in rx.decoders.items()
+            if d.ephemeris_complete}
+    rep = _bds_bars(ephs, [s.rx_ecef_m for s in sols], scen, what,
+                    None if name == "sys 1B" else "C")
+    if rep["failed"]:
+        raise AssertionError("; ".join(rep["failed"]))
+    return {**rep, "rtf": dur / wall, "wall_s": wall, "gen_s": gen_s,
+            "launches_gather_block": gb.launches, "segments": c["calls"],
+            "epochs": c["epochs"],
+            "device_us_per_epoch": c["device_us_per_epoch"],
+            "channels": list(rx.channel_prn)}
+
+
+def phase_cli_gather(gb, scen, capture):
+    """Phase 26: conf/gps_l1_ishort.conf with Tracking_1C.correlator=gather
+    added, over phase 6's capture: the conf's Direct_Resampler set to the
+    capture's 4.092 Msps in and 2.046 Msps out, 12 channels, the rest as
+    written (PVT every 20 ms), through the CLI on the card at phase 6's
+    bars."""
+    items = {}
+    for ln in (ROOT / "conf" / "gps_l1_ishort.conf").read_text().splitlines():
+        ln = ln.split(";")[0].strip()
+        if "=" in ln and not ln.startswith("["):
+            k, v = ln.split("=", 1)
+            items[k.strip()] = v.strip()
+    items.update({
+        "SignalSource.filename": str(capture),
+        "SignalSource.sampling_frequency": f"{FS:.0f}",
+        "Resampler.sample_freq_in": f"{FS:.0f}",
+        "Resampler.sample_freq_out": f"{FS / 2:.0f}",
+        "GNSS-SDR.internal_fs_sps": f"{FS / 2:.0f}",
+        "Channels_1C.count": "12", "Tracking_1C.correlator": "gather"})
+    path = CACHE / "cli_gather.conf"
+    path.write_text("".join(f"{k}={v}\n" for k, v in items.items()))
+    with _gather_counting(gb) as c:
+        rep = _run_cli(["-c", str(path)], scen, CACHE / "cli_gather",
+                       MIN_FIXES, "CLI gather")
+    _check_gather_launches(gb, c, "CLI gather")
+    rep.update(launches_gather_block=gb.launches, segments=c["calls"],
+               device_us_per_epoch=c["device_us_per_epoch"])
+    rep["summary"] += (f", gather_block launches {gb.launches} == segments "
+                       f"{c['calls']}, {c['device_us_per_epoch']:.2f} us of "
+                       f"gather_block device time per epoch")
+    return rep
+
+
+def phase_tcp(dev, mc):
+    """Phase 27: tests/test_tcp_connector.py's scenario (PRN 3 at 820 Hz,
+    50 dB-Hz, 1.2 s at 2.046 Msps, the controller seeded 20 Hz off) with
+    the tracker's correlation on the card: one multicorrelate_cuda launch
+    per epoch, and that test's bars (>= 900 epochs, the tail Doppler within
+    3 Hz of the truth, the tail prompt above 0.7 of the head's)."""
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+    from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
+    from gnss_sdr_1_tpu_torch.track.tcp_connector import (
+        LoopClosureServer, TcpConnectorTracking, TcpTrackConfig)
+
+    fs, true_dop = 2.046e6, 820.0
+    x = generate_baseband(
+        GPS_L1_CA, [SatParams(prn=3, doppler_hz=true_dop, delay_chips=257.3,
+                              cn0_dbhz=50.0)],
+        {3: gps_l1ca_code(3)}, fs, 1.2, noise=True, seed=2)
+    srv = LoopClosureServer(pll_bw_hz=20.0, dll_bw_hz=2.0,
+                            seed_doppler_hz=800.0)
+    trk = TcpConnectorTracking(TcpTrackConfig(fs, 1023, 1.023e6, 1575.42e6),
+                               gps_l1ca_code(3), "127.0.0.1", srv.port)
+    if trk.device.type != "cuda":
+        raise AssertionError("the TCP connector did not default to the card")
+    trk.seed(257.3 / 1.023e6 * fs, 800.0)
+    mc.launches = 0
+    try:
+        t0 = time.perf_counter()
+        rows = trk.track(x, 1000)
+        wall = time.perf_counter() - t0
+    finally:
+        trk.close()
+        srv.close()
+    launches = mc.launches
+    tail = np.array([r["doppler_hz"] for r in rows[-100:]])
+    p_tail = np.array([abs(r["prompt"]) for r in rows[-100:]])
+    p_head = np.array([abs(r["prompt"]) for r in rows[:50]])
+    if not (len(rows) >= 900 and launches == len(rows)
+            and abs(tail.mean() - true_dop) < 3.0
+            and p_tail.mean() > 0.7 * p_head.mean()):
+        raise AssertionError(f"TCP connector: {len(rows)} epochs, "
+                             f"{launches} launches, tail Doppler "
+                             f"{tail.mean():.2f} Hz, prompt tail/head "
+                             f"{p_tail.mean() / p_head.mean():.3f}")
+    return {"epochs": len(rows), "launches_multicorrelate": launches,
+            "tail_doppler_err_hz": float(tail.mean() - true_dop),
+            "prompt_tail_over_head": float(p_tail.mean() / p_head.mean()),
+            "wall_s": wall, "ms_per_epoch": wall / len(rows) * 1e3}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the acquisition strategies, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -2879,12 +3666,13 @@ def _sec_scenario(signal):
     return scen, dataclasses.replace(spec, bit_rate_bps=1000.0), codes
 
 
-def _bds_scenario(signal):
+def _bds_scenario(signal, prns=None, dur=None):
     """Phase 19 / 21's scenario: tests/test_system_beidou.py's D1
     constellation at 48 dB-Hz (B3I: the same D1 stream and CGCS2000 orbits
     at B3I's chip rate and carrier), each 50 bps bit repeated 20 times
     under NH20 as one 1 kbps stream; with the generation spec and the
-    replicas."""
+    replicas.  `prns` and `dur` replace the cell's (phase 25: the test's
+    own 5 satellites over its 24 s)."""
     import dataclasses
 
     from gnss_sdr_1_tpu_torch.codes import BEIDOU_NH20, tracking_replica
@@ -2892,7 +3680,8 @@ def _bds_scenario(signal):
     from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
     from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
 
-    _, dur, prns = _BDS_CELLS[signal]
+    _, cell_dur, cell_prns = _BDS_CELLS[signal]
+    prns, dur = prns or cell_prns, dur or cell_dur
     spec = SIGNALS[signal]
     rx_ecef = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
     scen = build_scenario(rx_ecef, list(prns), t0_tow=345601.25,
@@ -3008,6 +3797,14 @@ def _cells():
     cells["conf 2S"] = cell(build_scenario(
         rx, list(L2C_CONF_PRNS), t0_tow=t0, duration_s=L2C_CONF_S,
         cn0_dbhz=47.0, signal="2S"), GPS_L2C, "2S", FS_L2C, L2C_CONF_S)
+    # phases 24-25: tests/test_system_galileo.py's and test_system_beidou
+    # .py's 5-satellite scenarios as they stand
+    cells["sys 1B"] = cell(build_scenario(
+        rx, list(SYS_E1_PRNS), t0_tow=t0, duration_s=SYS_E1_S,
+        cn0_dbhz=48.0, chip_rate=2.046e6, signal="1B"), e1_spec, "1B",
+        FS_SYS, SYS_E1_S)
+    scen, spec, codes = _bds_scenario("B1", SYS_B1_PRNS, SYS_B1_S)
+    cells["sys B1"] = (scen, spec, scen.sats, codes, FS_SYS, SYS_B1_S)
     return cells
 
 
@@ -3161,10 +3958,11 @@ def phase_cli_sec(cc, tc, scen, x, signal):
 # ---------------------------------------------------------------------------
 
 
-def _bds_bars(ephs, ecef, scen, what):
-    """tests/test_system_beidou.py's bars: at least MIN_EPH_BDS complete
-    ephemerides, each of system 'C' with sqrt_a within MAX_SQRT_A_ERR_BDS
-    of the truth; at least MIN_FIXES_BDS fixes, a median 3D error and a
+def _bds_bars(ephs, ecef, scen, what, system="C"):
+    """tests/test_system_beidou.py's bars (tests/test_system_galileo.py's
+    are the same without the system check, `system` None): at least
+    MIN_EPH_BDS complete ephemerides, each of `system` with sqrt_a within
+    MAX_SQRT_A_ERR_BDS of the truth; at least MIN_FIXES_BDS fixes, a median 3D error and a
     mean-bias norm under MAX_MEDIAN_BDS and MAX_BIAS_BDS.  Returns the
     numbers and the bars that failed (empty when all hold)."""
     errs = {p: abs(e.sqrt_a - scen.ephemerides[p].sqrt_a)
@@ -3174,13 +3972,15 @@ def _bds_bars(ephs, ecef, scen, what):
     e3d = np.linalg.norm(d, axis=1)
     rep = {"ephemerides": len(errs),
            "max_sqrt_a_err": max(errs.values(), default=float("nan")),
-           "systems": sorted({e.system for e in ephs.values()}),
+           "systems": sorted({getattr(e, "system", "G")
+                              for e in ephs.values()}),
            "fixes": len(ecef),
            "median_3d_m": float(np.median(e3d)) if len(e3d) else np.nan,
            "bias_norm_m": float(np.linalg.norm(d.mean(axis=0)))
            if len(e3d) else np.nan}
     failed = []
-    if len(errs) < MIN_EPH_BDS or rep["systems"] != ["C"] \
+    if len(errs) < MIN_EPH_BDS \
+            or (system and rep["systems"] != [system]) \
             or not rep["max_sqrt_a_err"] <= MAX_SQRT_A_ERR_BDS:
         failed.append(f"ephemerides {errs} systems {rep['systems']}")
     if len(ecef) < MIN_FIXES_BDS:

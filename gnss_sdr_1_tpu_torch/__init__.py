@@ -1,22 +1,31 @@
 """GNSS software-defined receiver on PyTorch and CUDA (NVIDIA Hopper).
 
-A port of the `gnss_sdr_1_tpu` package (JAX on a TPU) to PyTorch, with the
-fused tracking-chain kernel written by hand in CUDA C++ for `sm_90a`.  The
-JAX package stays the reference; this package imports none of it and keeps
-its own copies of the numpy host modules it needs.  Module names follow the
-JAX package so each counterpart is easy to find.
+A port of the `gnss_sdr_1_tpu` package (JAX on a TPU) to PyTorch, with its
+tracking kernels written by hand in CUDA C++ for `sm_90a`.  The JAX package
+stays the reference; this package imports none of it and keeps its own
+copies of the numpy host modules it needs.  Module names follow the JAX
+package so each counterpart is easy to find.
+
+Signals: GPS L1 C/A ('1C'), L2CM ('2S') and L5 ('L5'), Galileo E1B ('1B')
+and E5a ('5X'), GLONASS L1/L2 C/A with FDMA ('1G'/'2G') and BeiDou B1I/B3I
+('B1'/'B3').
 
 Layering (bottom-up):
-    constants   per-signal ICD constants (GPS L1 C/A)
-    codes       PRN code generation
-    acquire     batched PCPS on torch.fft
-    track       chunked DLL/PLL/FLL engine (torch) + loop primitives
+    constants   per-signal ICD constants of the nine signals
+    codes       PRN, secondary and BOC replica codes
+    acquire     batched PCPS and its variants on torch.fft
+    track       the DLL/PLL/FLL engine with two correlators (chunked: lag
+                windows read by interpolation, the default; gather: the
+                exact per-epoch resampler), the KF tracker, the TCP
+                connector, and the loop primitives
     ops         the hand-written kernels and their plain torch versions
+                (chunk correlator, tracking chain, gather walk, one-epoch
+                multicorrelator, KF block walk)
     csrc        CUDA C++ sources of those kernels
-    telemetry   LNAV decoding (host)
+    telemetry   LNAV, CNAV, I/NAV, F/NAV, GNAV and D1/D2 decoding (host)
     observables pseudorange/phase formation (host)
     pvt         least-squares PVT (host)
-    runtime     receiver orchestration
+    runtime     receiver orchestration, multi-group receivers, conf files
     siggen      synthetic signal generator
 
 Entry points run on the card unless the caller passes `device="cpu"`.

@@ -48,9 +48,6 @@
 
 #include "rows.cuh"
 
-#define TWO_PI_F 6.283185307179586f
-#define PI_F 3.141592653589793f
-
 // lags per thread (ops/chunk_corr.py TL; checked at launch)
 #define CC_TL 17
 
@@ -62,13 +59,6 @@ struct CorrParams {
     float t0_frac, neg_t0, chip_rate, fs;
 };
 
-// numpy/JAX `mod`: result takes the sign of the divisor (exact fmod, then
-// + m where the signs differ).  fmodf alone would keep the dividend's sign.
-__device__ __forceinline__ float mod_floor(float x, float m) {
-    float r = fmodf(x, m);
-    if (r != 0.0f && ((r < 0.0f) != (m < 0.0f))) r += m;
-    return r;
-}
 
 __device__ __forceinline__ void cp_async16(float* smem_dst,
                                            const float* gmem_src) {

@@ -1,7 +1,9 @@
 // Gather multicorrelator for one channel's epoch, spread over the threads
-// of a thread block: carrier wipe-off and the three-tap floor code
-// resampler of gnss_sdr_1_tpu_torch/ops/multicorrelator.py, rounded as its
-// plain torch version rounds on the CPU.
+// of a thread block: carrier wipe-off and the K-tap floor code resampler
+// of gnss_sdr_1_tpu_torch/ops/multicorrelator.py, rounded as its plain
+// torch version rounds on the CPU.  Used by the KF walk (kf_block.cu, three
+// taps), the gather DLL/PLL walk (gather_block.cu, three or five) and the
+// one-epoch multicorrelator (multicorrelate.cuh).
 //
 // For n < n_valid (one epoch, starting at x[0]):
 //   phase   = fma(cs, n, cp)                 ORDER 3: fma((0.5 cr) n, n, .)
@@ -63,15 +65,16 @@ __device__ __forceinline__ void pack_code_bits(const float* __restrict__ row,
     }
 }
 
-// One thread's share of a channel's three taps: samples n = t, t + T, ...
-// below n_valid.  acc = {I_0, I_1, I_2, Q_0, Q_1, Q_2}.
-template <int ORDER>
-__device__ __forceinline__ void gather_corr_partial(
+// One thread's share of a channel's K taps: samples n = t, t + T, ...
+// below n_valid, tap k at code-row offset sh[k].  acc = {I_0 .. I_{K-1},
+// Q_0 .. Q_{K-1}}.
+template <int K, int ORDER>
+__device__ __forceinline__ void gather_corr_taps(
     const float2* __restrict__ x, int n_valid, const uint32_t* bits, int len,
-    float step, float rem, float sh0, float sh1, float sh2, float cp,
-    float cs, float hr, int t, int T, float acc[6]) {
-    for (int k = 0; k < 6; ++k) acc[k] = 0.0f;
-    const float sh[3] = {sh0, sh1, sh2};
+    float step, float rem, const float sh[K], float cp, float cs, float hr,
+    int t, int T, float acc[2 * K]) {
+#pragma unroll
+    for (int k = 0; k < 2 * K; ++k) acc[k] = 0.0f;
     for (int n = t; n < n_valid; n += T) {
         const float nf = (float)n;
         float ph = fmaf(cs, nf, cp);
@@ -82,7 +85,7 @@ __device__ __forceinline__ void gather_corr_partial(
         const float wr = __fadd_rn(__fmul_rn(v.x, cn), __fmul_rn(v.y, sn));
         const float wi = __fsub_rn(__fmul_rn(v.y, cn), __fmul_rn(v.x, sn));
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < K; ++k) {
             // floor, then mod L with L's sign; the index stays within a
             // code period or two of [0, L), so the wrap loops run once
             // at most in practice, and one unsigned compare keeps the
@@ -94,15 +97,16 @@ __device__ __forceinline__ void gather_corr_partial(
             }
             const bool plus = (bits[idx >> 5] >> (idx & 31)) & 1u;
             acc[k] = __fadd_rn(acc[k], plus ? wr : -wr);
-            acc[3 + k] = __fadd_rn(acc[3 + k], plus ? wi : -wi);
+            acc[K + k] = __fadd_rn(acc[K + k], plus ? wi : -wi);
         }
     }
 }
 
-// Sum the six partials over a warp (lane 0 holds the result).
-__device__ __forceinline__ void warp_sum6(float acc[6]) {
+// Sum N partials over a warp (lane 0 holds the result).
+template <int N>
+__device__ __forceinline__ void warp_sum(float acc[N]) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
+    for (int k = 0; k < N; ++k) {
         float v = acc[k];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)

@@ -20,7 +20,8 @@
 // coupled through m, so the time is E dependent epochs of one correlation
 // pass, one block reduction, one scalar update and one exchange of m each.
 //
-// Design, against that chain:
+// Design, against that chain (the cluster, the exchange of m and the
+// prefetch are cluster_walk.cuh's, shared with gather_block.cu):
 // - one thread block (CTA) of KF_THREADS threads per channel, all of them
 //   in one thread-block cluster of n_cta = min(C, max_cluster) CTAs; CTA r
 //   takes channels r, r + n_cta, ... in rounds, so rounds happen only when
@@ -31,7 +32,7 @@
 //   ranks' slots (a lane each) and takes the same integer minimum; the
 //   double-buffered slot makes one barrier an epoch enough (a slot is
 //   written again only after every peer has passed the next barrier);
-// - the correlation spreads over warps 1.. of the CTA (gather_corr_partial
+// - the correlation spreads over warps 1.. of the CTA (gather_corr_taps
 //   over KF_THREADS - 32 threads, warp sums, one shared-memory pass by
 //   warp 0);
 // - the scalar update runs on lane 0 of warp 0 with up to 128 registers
@@ -71,6 +72,7 @@
 
 #include <cstdint>
 
+#include "cluster_walk.cuh"
 #include "gather_corr.cuh"
 
 namespace cg = cooperative_groups;
@@ -112,12 +114,10 @@ namespace cg = cooperative_groups;
 #define OI_ACTIVE 3
 #define N_OIROWS 4
 
-// launch geometry (ops/kf_block.py KF_THREADS, KF_MAX_CLUSTER, SMEM_MAX)
+// launch geometry (ops/kf_block.py KF_THREADS, KF_MAX_CLUSTER)
 #define KF_THREADS 512
 #define KF_WARPS (KF_THREADS / 32)
 #define KF_MAX_CLUSTER 16
-#define KF_PORTABLE_CLUSTER 8
-#define KF_SMEM_MAX 232448
 // the timeline of one epoch (KF_BLOCK_STAGES builds): SM clock cycles
 #define TL_START 0     // thread 0: the epoch begins (its local minimum next)
 #define TL_M0 1        // thread 0: m known
@@ -158,8 +158,6 @@ struct KfLayout {
     int bar, slot, info, pf, bits, sf, si, part, pre, total;
 };
 
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
-
 __host__ __device__ inline KfLayout kf_layout(const KfParams& p) {
     const int W = (p.code_len + 31) / 32;
     const int SF = R_HIST + 2 * p.n_hist;
@@ -195,51 +193,6 @@ __device__ __forceinline__ long long stage_clock() {
     asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t) :: "memory");
     return t;
 }
-
-// --- mbarrier and bulk copy (PTX) ---
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 :: "r"(smem_addr(bar)) : "memory");
-}
-
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_addr(bar);
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n .reg .pred p;\n"
-            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    }
-}
-
-// `bytes` (a multiple of 16) from 16-byte aligned global `src` to shared
-// `dst`, completing on `bar` (one arrival plus the bytes)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-    const uint32_t b = smem_addr(bar);
-    // the buffer's earlier reads (generic proxy) before the copy's writes
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(b), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
-}
-
-// the prefetch record of one channel slot (shared, written by thread 0)
-#define PF_PENDING 0   // a copy is in flight or unconsumed
-#define PF_START 1     // global sample index the window would start at
-#define PF_SKEW 2      // samples between the buffer's start and PF_START
-#define PF_PARITY 3    // mbarrier parity of the pending copy
 
 // What one channel's scalar epoch update reads of its state, and what it
 // computes from the state alone: lane 0 of warp 0 runs this while the
@@ -526,11 +479,10 @@ __device__ __forceinline__ void hist_shift(float* sf, int ld, int j, int N,
     __syncwarp();
 }
 
-// Every barrier below follows a __syncwarp(): lane 0 of warp 0 runs long
-// stretches alone (the update, the prefetch issue), and __syncthreads()
-// is an aligned barrier, which a warp must reach converged; on the H100 a
-// lane that reached it after the rest of its warp was let through without
-// waiting for the other warps.
+// Every CTA barrier below is cta_barrier() (cluster_walk.cuh): lane 0 of
+// warp 0 runs long stretches alone (the update, the prefetch issue), and
+// on the H100 a lane that reached a bare __syncthreads() after the rest of
+// its warp was let through without waiting for the other warps.
 template <int ORDER, bool BAYES>
 __global__ void __launch_bounds__(KF_THREADS, 1)
 kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
@@ -561,32 +513,18 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
     float* part = reinterpret_cast<float*>(kf_smem + lay.part);
     KfPre* pre_s = reinterpret_cast<KfPre*>(kf_smem + lay.pre);
 
-    for (int k = tid; k < SF * n_own; k += KF_THREADS) {
-        const int row = k / n_own, j = k - row * n_own;
-        sf[row * ld + j] = fst[row * C + rank + j * n_cta];
-    }
-    for (int k = tid; k < N_IROWS * n_own; k += KF_THREADS) {
-        const int row = k / n_own, j = k - row * n_own;
-        si[row * ld + j] = ist[row * C + rank + j * n_cta];
-    }
-    if (tid == 0) {
-        for (int j = 0; j < n_own; ++j) {
-            mbar_init(bar + j);
-            info[4 * j + PF_PENDING] = 0;
-            info[4 * j + PF_PARITY] = 0;
-        }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncwarp();
-    __syncthreads();
+    load_columns(sf, fst, SF, n_own, ld, C, rank, n_cta, tid, KF_THREADS);
+    load_columns(si, ist, N_IROWS, n_own, ld, C, rank, n_cta, tid,
+                 KF_THREADS);
+    if (tid == 0) prefetch_init(bar, info, n_own);
+    cta_barrier();
     for (int j = 0; j < n_own; ++j) {
         int s = si[I_SLOT * ld + j];
         s = s < 0 ? 0 : (s >= n_slots ? n_slots - 1 : s);
         pack_code_bits(codes + (size_t)s * p.code_len, p.code_len,
                        bits + j * W, W, warp, KF_WARPS, lane);
     }
-    __syncwarp();
-    __syncthreads();
+    cta_barrier();
 
     // the timeline's writers (KF_BLOCK_STAGES builds only)
     const bool tl0 = kStages && stages != nullptr && rank == 0 && tid == 0;
@@ -605,19 +543,13 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
             long long* tl = kStages ? stages + row * KF_STAGE_POINTS : nullptr;
             if (tl0) tl[TL_START] = stage_clock();
             // thread 0 wrote every state word of this CTA: its minimum
-            if (tid == 0) {
-                int m = 1 << 29;
+            int local = 1 << 29;
+            if (tid == 0)
                 for (int j = 0; j < n_own; ++j)
                     if (si[I_ACTIVE * ld + j] != 0)
-                        m = min(m, si[I_START * ld + j]);
-                slot[parity] = m;
-            }
-            __syncwarp();
-            cluster.sync();
-            int v = 1 << 29;
-            if (lane < n_cta)
-                v = *cluster.map_shared_rank(slot + parity, lane);
-            const int m = min(max(__reduce_min_sync(0xffffffffu, v), 0),
+                        local = min(local, si[I_START * ld + j]);
+            const int m = min(max(cluster_min(cluster, slot, parity, local,
+                                              tid, lane, n_cta), 0),
                               n_samp - win);
             if (tl0) tl[TL_M0] = stage_clock();
             if (tl32) tl[TL_M32] = stage_clock();
@@ -642,22 +574,18 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
                                             + sf[R_DELTA * ld + j];
                     const int off = m + min(max(start - m, 0),
                                             win - p.n_max);
-                    const float2* src = xb + off;
-                    int* rec = info + 4 * j;
-                    if (rec[PF_PENDING]) {
-                        mbar_wait(bar + j, (uint32_t)rec[PF_PARITY]);
-                        if (rec[PF_START] == b * p.base + off)
-                            src = pf + (size_t)j * pf_len + rec[PF_SKEW];
-                    }
+                    const float2* src = prefetched(
+                        info + 4 * j, bar + j, pf + (size_t)j * pf_len,
+                        b * p.base + off, xb + off);
                     if (tl32 && j == 0) {
                         tl[TL_WAIT] = stage_clock();
                         tl[TL_HIT] = src != xb + off;
                     }
-                    gather_corr_partial<ORDER>(
+                    gather_corr_taps<3, ORDER>(
                         src, min(cur_len, p.n_max), bits + j * W,
                         p.code_len, code_freq * p.inv_fs,
-                        code_freq * rem * p.inv_fs, p.shifts[0],
-                        p.shifts[1], p.shifts[2], sf[R_X * ld + j],
+                        code_freq * rem * p.inv_fs, p.shifts,
+                        sf[R_X * ld + j],
                         p.two_pi * sf[(R_X + 1) * ld + j] * p.inv_fs,
                         ORDER == 3 ? 0.5f * (p.two_pi * sf[(R_X + 2) * ld + j]
                                              * p.inv_fs2)
@@ -667,41 +595,23 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
                 }
                 float* pj = part + (j & 1) * KF_WARPS * 6;
                 if (warp != 0) {
-                    warp_sum6(acc);
+                    warp_sum<6>(acc);
                     if (lane == 0) {
 #pragma unroll
                         for (int k = 0; k < 6; ++k) pj[warp * 6 + k] = acc[k];
                     }
                     if (tl32 && j == 0) tl[TL_PART] = stage_clock();
                 }
-                __syncwarp();
-                __syncthreads();
+                cta_barrier();
                 if (tid == 0 && valid) {
                     // the pending copy was consumed above; prefetch the
-                    // next window, start + cur_len, where it lies inside
-                    // the samples and its block (rebased) is walked
-                    int* rec = info + 4 * j;
-                    if (rec[PF_PENDING]) {
-                        rec[PF_PENDING] = 0;
-                        rec[PF_PARITY] ^= 1;
-                    }
+                    // next window, start + cur_len, where its block
+                    // (rebased) is walked
                     const int gs = b * p.base + start + cur_len;
-                    const uintptr_t lo = reinterpret_cast<uintptr_t>(x + gs)
-                                         & ~(uintptr_t)15;
-                    const uintptr_t hi =
-                        (reinterpret_cast<uintptr_t>(x + gs + p.n_max) + 15)
-                        & ~(uintptr_t)15;
-                    if (p.prefetch && gs < p.n_blocks * p.base
-                        && lo >= reinterpret_cast<uintptr_t>(x)
-                        && hi <= reinterpret_cast<uintptr_t>(x + p.n_samp)) {
-                        rec[PF_PENDING] = 1;
-                        rec[PF_START] = gs;
-                        rec[PF_SKEW] = (int)((reinterpret_cast<uintptr_t>(
-                                                  x + gs) - lo) / 8);
-                        bulk_load(pf + (size_t)j * pf_len,
-                                  reinterpret_cast<const void*>(lo),
-                                  (uint32_t)(hi - lo), bar + j);
-                    }
+                    prefetch_next(info + 4 * j, bar + j,
+                                  pf + (size_t)j * pf_len, x, p.n_samp, gs,
+                                  p.n_max,
+                                  p.prefetch && gs < p.n_blocks * p.base);
                 }
                 if (warp == 0) {
                     float s6[6];
@@ -709,7 +619,7 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
                     for (int k = 0; k < 6; ++k)
                         s6[k] = lane >= 1 && lane < KF_WARPS
                                     ? pj[lane * 6 + k] : 0.0f;
-                    warp_sum6(s6);
+                    warp_sum<6>(s6);
                     if (tl0 && j == 0) tl[TL_RED] = stage_clock();
                     const float pr = __shfl_sync(0xffffffffu, s6[1], 0);
                     const float pq = __shfl_sync(0xffffffffu, s6[4], 0);
@@ -729,21 +639,12 @@ kf_block_kernel(const float2* __restrict__ x, const float* __restrict__ codes,
         if (tid == 0)
             for (int j = 0; j < n_own; ++j) si[I_START * ld + j] -= p.base;
     }
-    // no copy may land after the CTA is gone
-    if (tid == 0)
-        for (int j = 0; j < n_own; ++j)
-            if (info[4 * j + PF_PENDING])
-                mbar_wait(bar + j, (uint32_t)info[4 * j + PF_PARITY]);
-    __syncwarp();
-    __syncthreads();
-    for (int k = tid; k < SF * n_own; k += KF_THREADS) {
-        const int row = k / n_own, j = k - row * n_own;
-        fst_out[row * C + rank + j * n_cta] = sf[row * ld + j];
-    }
-    for (int k = tid; k < N_IROWS * n_own; k += KF_THREADS) {
-        const int row = k / n_own, j = k - row * n_own;
-        ist_out[row * C + rank + j * n_cta] = si[row * ld + j];
-    }
+    if (tid == 0) prefetch_drain(bar, info, n_own);
+    cta_barrier();
+    store_columns(fst_out, sf, SF, n_own, ld, C, rank, n_cta, tid,
+                  KF_THREADS);
+    store_columns(ist_out, si, N_IROWS, n_own, ld, C, rank, n_cta, tid,
+                  KF_THREADS);
     // no peer may read this CTA's m slots after it exits
     __syncwarp();
     cluster.sync();
@@ -759,50 +660,13 @@ static KfKernel kf_kernel_for(int order, int bayes) {
     return bayes ? kf_block_kernel<2, true> : kf_block_kernel<2, false>;
 }
 
-static cudaError_t kf_set_attributes(KfKernel kernel, int smem, int n_cta) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && n_cta > KF_PORTABLE_CLUSTER)
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return err;
-}
-
-static cudaLaunchConfig_t kf_config(int n_cta, int smem,
-                                    cudaLaunchAttribute* attr,
-                                    cudaStream_t stream) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n_cta, 1, 1);
-    cfg.blockDim = dim3(KF_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = (size_t)smem;
-    cfg.stream = stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = n_cta;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
-}
-
 // The largest cluster of KF_THREADS-thread CTAs with `smem` bytes of
-// dynamic shared memory each that the card can schedule (at least one
-// such cluster active), up to KF_MAX_CLUSTER; minus the CUDA error when
-// none can be.
+// dynamic shared memory each that the card can schedule, up to
+// KF_MAX_CLUSTER (cluster_walk.cuh cluster_max).
 extern "C" int kf_block_max_cluster(int order, int bayes, int smem) {
-    KfKernel kernel = kf_kernel_for(order, bayes);
-    cudaError_t err = kf_set_attributes(kernel, smem, KF_MAX_CLUSTER);
-    if (err != cudaSuccess) return -(int)err;
-    for (int n = KF_MAX_CLUSTER; n >= 1; --n) {
-        cudaLaunchAttribute attr;
-        cudaLaunchConfig_t cfg = kf_config(n, smem, &attr, 0);
-        int active = 0;
-        err = cudaOccupancyMaxActiveClusters(
-            &active, reinterpret_cast<const void*>(kernel), &cfg);
-        if (err == cudaSuccess && active >= 1) return n;
-        cudaGetLastError();
-    }
-    return -(int)(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+    return cluster_max(reinterpret_cast<const void*>(
+                           kf_kernel_for(order, bayes)),
+                       KF_THREADS, smem, KF_MAX_CLUSTER);
 }
 
 // One launch: every epoch of the n_blocks blocks on `stream`, as one
@@ -821,16 +685,18 @@ extern "C" int kf_block_launch(const void* x, const void* codes, int n_slots,
         return (int)cudaErrorInvalidValue;
     if (p.threads != KF_THREADS || p.n_cta < 1 || p.n_cta > KF_MAX_CLUSTER
         || p.n_cta > p.C || p.cpc != (p.C + p.n_cta - 1) / p.n_cta
-        || (p.prefetch && p.pf_bytes != round16(8 * (p.n_max + 2)))
-        || p.smem != kf_layout(p).total || p.smem > KF_SMEM_MAX
+        || (p.prefetch && p.pf_bytes != prefetch_bytes(p.n_max))
+        || p.smem != kf_layout(p).total || p.smem > CLUSTER_SMEM_MAX
         || (stages != nullptr) != kStages)
         return (int)cudaErrorInvalidConfiguration;
     KfKernel kernel = kf_kernel_for(p.order, p.bayes_run);
-    cudaError_t err = kf_set_attributes(kernel, p.smem, p.n_cta);
+    cudaError_t err = cluster_set_attributes(
+        reinterpret_cast<const void*>(kernel), p.smem, p.n_cta);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = kf_config(
-        p.n_cta, p.smem, &attr, reinterpret_cast<cudaStream_t>(stream));
+    cudaLaunchConfig_t cfg = cluster_config(
+        p.n_cta, KF_THREADS, p.smem, &attr,
+        reinterpret_cast<cudaStream_t>(stream));
     err = cudaLaunchKernelEx(
         &cfg, kernel, reinterpret_cast<const float2*>(x),
         reinterpret_cast<const float*>(codes), n_slots,

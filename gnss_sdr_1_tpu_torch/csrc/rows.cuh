@@ -1,11 +1,18 @@
 // Row layout of the tracking state and the chain's per-epoch outputs,
-// shared by the chunk correlator (chunk_corr.cuh) and the chain
-// (track_chain.cu); mirrored by ops/track_chain.py (F_* / I_* / O_*).
+// shared by the chunk correlator (chunk_corr.cuh), the loop closure
+// (loop_close.cuh), the chain (track_chain.cu) and the gather walk
+// (gather_block.cu); mirrored by ops/track_chain.py (F_* / I_* / O_*).
+// Also the float helpers all of them share.
 //
 // State: fst [n_frows(K), C] float32 and ist [N_IROWS, C] int32, one
 // column per channel.  Per-epoch outputs: out_f [E, N_OROWS, C].
 
 #pragma once
+
+#include <math.h>
+
+#define TWO_PI_F 6.283185307179586f
+#define PI_F 3.141592653589793f
 
 enum {
     F_REM_CODE = 0, F_DELTA, F_DOPPLER, F_REM_CARR, F_CARR_W, F_CARR_X,
@@ -20,3 +27,11 @@ enum {
     O_DOPPLER = 0, O_DELTA, O_REM_CODE, O_REM_CARR, O_CN0, O_VALID,
     O_ACTIVE, N_OROWS
 };
+
+// numpy/JAX `mod`: result takes the sign of the divisor (exact fmod, then
+// + m where the signs differ).  fmodf alone would keep the dividend's sign.
+__device__ __forceinline__ float mod_floor(float x, float m) {
+    float r = fmodf(x, m);
+    if (r != 0.0f && ((r < 0.0f) != (m < 0.0f))) r += m;
+    return r;
+}

@@ -8,11 +8,16 @@ an unchanged one is reused.  The build runs from the repository's sources
 alone: nvcc from `$CUDA_HOME/bin`, `/usr/local/cuda/bin` or the PATH.
 
 The chunked engine's kernels form one library, `track_chain` (`library()`):
-the chain in `track_chain.cu`, the chunk correlator in `chunk_corr.cuh`, and
-the capture-level entry that enqueues both for every chunk.  The KF block
-walk is a second, `kf_block` (`kf_library()`: `kf_block.cu` with the gather
-correlation in `gather_corr.cuh`).  `build_all()` runs one nvcc per library,
-all at once.  `kf_stage_library()` builds `kf_block.cu` once more with
+the chain in `track_chain.cu` (its loop closure in `loop_close.cuh`), the
+chunk correlator in `chunk_corr.cuh`, and the capture-level entry that
+enqueues both for every chunk.  The KF block walk is a second, `kf_block`
+(`kf_library()`: `kf_block.cu` with the gather correlation in
+`gather_corr.cuh` and the cluster skeleton in `cluster_walk.cuh`); the
+gather DLL/PLL walk a third, `gather_block` (`gather_library()`:
+`gather_block.cu` with `gather_corr.cuh`, `cluster_walk.cuh`,
+`loop_close.cuh` and the TCP connector's one-epoch multicorrelator,
+`multicorrelate.cuh`).  `build_all()` runs one nvcc per library, all at
+once.  `kf_stage_library()` builds `kf_block.cu` once more with
 `-DKF_BLOCK_STAGES` (the kernel's stage clocks); nothing on the receiver's
 path loads it.
 
@@ -70,12 +75,13 @@ def _target(name: str, defines: tuple = ()) -> pathlib.Path:
     return BUILD / f"lib{_variant(name, defines)}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, defines: tuple = ()) -> pathlib.Path:
+def build(name: str, defines: tuple = (), force: bool = False) -> pathlib.Path:
     """Compile csrc/<name>.cu (with -D for each of `defines`) unless an
-    up-to-date library exists."""
+    up-to-date library exists (`force`: compile anyway, for ptxas'
+    report)."""
     out = _target(name, defines)
     key = _variant(name, defines)
-    if out.exists():
+    if out.exists() and not force:
         BUILD_LOG.setdefault(key, {"seconds": 0.0, "ptxas": "reused"})
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -99,6 +105,7 @@ def build(name: str, defines: tuple = ()) -> pathlib.Path:
 
 LIBRARY = "track_chain"
 KF_LIBRARY = "kf_block"
+GATHER_LIBRARY = "gather_block"
 KF_STAGES = ("KF_BLOCK_STAGES",)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: pointers and the stream as c_void_p
@@ -124,14 +131,23 @@ _ENTRIES = {
         # order, bayes_run, dynamic shared memory
         "kf_block_max_cluster": [_I, _I, _I],
     },
+    GATHER_LIBRARY: {
+        # x, codes, sec_rows, fst, ist, out_f, out_i, out_corr, fst_out,
+        # ist_out, loop params, params, stream
+        "gather_block_launch": [_P] * 13,
+        # taps, dynamic shared memory
+        "gather_block_max_cluster": [_I, _I],
+        # x, codes, step, rem, cp, cs, cr, n_valid, out, params, stream
+        "multicorrelate_launch": [_P] * 11,
+    },
 }
 
 
-def build_all() -> None:
+def build_all(force: bool = False) -> None:
     """Build every library at once, one nvcc each (a no-op for those
-    already built)."""
+    already built unless `force`)."""
     with ThreadPoolExecutor(len(_ENTRIES)) as pool:
-        list(pool.map(build, _ENTRIES))
+        list(pool.map(lambda name: build(name, force=force), _ENTRIES))
 
 
 def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
@@ -156,6 +172,12 @@ def library() -> ctypes.CDLL:
 def kf_library() -> ctypes.CDLL:
     """The KF block library."""
     return _load(KF_LIBRARY)
+
+
+def gather_library() -> ctypes.CDLL:
+    """The gather DLL/PLL walk's library (with the one-epoch
+    multicorrelator)."""
+    return _load(GATHER_LIBRARY)
 
 
 def kf_stage_library() -> ctypes.CDLL:

@@ -52,6 +52,9 @@ import math
 import numpy as np
 import torch
 
+from .cluster_walk import (PORTABLE_CLUSTER, SMEM_MAX,  # noqa: F401
+                           ClusterGeometry, cluster_geometry, fit_to_card,
+                           prefetch_bytes, round16)
 from .multicorrelator import multicorrelate
 from .track_chain import _f32, check_tensor, mod_floor
 
@@ -353,15 +356,12 @@ def kf_block_plain(spec: KfSpec, samples, codes, fst, ist):
 # CUDA kernel (csrc/kf_block.cu)
 # ---------------------------------------------------------------------------
 
-# launch geometry: threads per CTA (== the kernel's __launch_bounds__), the
-# largest cluster the kernel asks for, the portable cluster size (the C
-# entry sets cudaFuncAttributeNonPortableClusterSizeAllowed above it) and
-# the dynamic shared memory one CTA may use on Hopper
+# launch geometry: threads per CTA (== the kernel's __launch_bounds__) and
+# the largest cluster the kernel asks for (the portable cluster size and
+# the shared memory a CTA may use are ops/cluster_walk.py's)
 KF_THREADS = 512
 KF_WARPS = KF_THREADS // 32
 KF_MAX_CLUSTER = 16
-PORTABLE_CLUSTER = 8
-SMEM_MAX = 232_448
 # the timeline the KF_BLOCK_STAGES build writes, per epoch, of CTA 0's
 # first channel (kf_block.cu TL_*): SM clock stamps of thread 0 (the epoch
 # begins, m known, the update's state-only part done, the taps reduced,
@@ -375,16 +375,6 @@ STAGE_POINTS = 10
 PRE_BYTES = 160
 
 
-def _round16(v: int) -> int:
-    return (v + 15) // 16 * 16
-
-
-def prefetch_bytes(n_max: int) -> int:
-    """One prefetch buffer: n_max samples from a 16-byte aligned start
-    (one sample of skew at most) rounded up to 16 bytes."""
-    return _round16(8 * (n_max + 2))
-
-
 def kf_layout(cpc: int, n_max: int, code_len: int, n_hist: int,
               prefetch: bool) -> dict:
     """Byte offsets of one CTA's dynamic shared memory, as kf_block.cu
@@ -395,7 +385,7 @@ def kf_layout(cpc: int, n_max: int, code_len: int, n_hist: int,
     W = (code_len + 31) // 32
     lay = {"bar": 0, "slot": 8 * cpc}
     lay["info"] = lay["slot"] + 8
-    lay["pf"] = _round16(lay["info"] + 16 * cpc)
+    lay["pf"] = round16(lay["info"] + 16 * cpc)
     lay["bits"] = lay["pf"] + (cpc * prefetch_bytes(n_max) if prefetch
                                else 0)
     lay["sf"] = lay["bits"] + 4 * cpc * W
@@ -406,71 +396,30 @@ def kf_layout(cpc: int, n_max: int, code_len: int, n_hist: int,
     return lay
 
 
-@dataclasses.dataclass(frozen=True)
-class KfGeometry:
-    """One launch: a cluster of n_cta CTAs of `threads` threads; CTA r
-    takes channels r, r + n_cta, ... (at most `cpc` each); `prefetch`
-    where every CTA's cpc buffers of `pf_bytes` fit beside the rest in
-    `smem` bytes of dynamic shared memory."""
-
-    C: int
-    n_cta: int
-    threads: int
-    cpc: int
-    prefetch: bool
-    pf_bytes: int
-    smem: int
-
-
 def kf_geometry(C: int, n_max: int, code_len: int, n_hist: int,
-                max_cluster: int) -> KfGeometry:
+                max_cluster: int) -> ClusterGeometry:
     """The launch geometry of C channels when the card schedules clusters
     of up to `max_cluster` CTAs."""
-    if not 1 <= max_cluster <= KF_MAX_CLUSTER:
-        raise ValueError(f"max_cluster must be in [1, {KF_MAX_CLUSTER}], "
-                         f"got {max_cluster}")
-    if C < 1:
-        raise ValueError("the KF kernel takes at least one channel")
-    n_cta = min(C, max_cluster)
-    cpc = -(-C // n_cta)
-    smem = kf_layout(cpc, n_max, code_len, n_hist, True)["total"]
-    prefetch = smem <= SMEM_MAX
-    if not prefetch:
-        smem = kf_layout(cpc, n_max, code_len, n_hist, False)["total"]
-        if smem > SMEM_MAX:
-            raise ValueError(f"{C} channels of {code_len} chips and "
-                             f"{n_hist} history rows need {smem} B of shared "
-                             f"memory a CTA (at most {SMEM_MAX})")
-    return KfGeometry(C=C, n_cta=n_cta, threads=KF_THREADS, cpc=cpc,
-                      prefetch=prefetch,
-                      pf_bytes=prefetch_bytes(n_max) if prefetch else 0,
-                      smem=smem)
+    return cluster_geometry(
+        C, n_max, KF_THREADS, max_cluster, KF_MAX_CLUSTER,
+        lambda cpc, pf: kf_layout(cpc, n_max, code_len, n_hist,
+                                  pf)["total"],
+        f"{code_len} chips and {n_hist} history rows")
 
 
 @functools.lru_cache(maxsize=64)
-def _max_cluster(order: int, bayes: bool, smem: int) -> int:
-    from ._build import kf_library
-
-    n = kf_library().kf_block_max_cluster(order, int(bayes), smem)
-    if n < 1:
-        raise RuntimeError(f"the card schedules no cluster of the KF kernel "
-                           f"({smem} B of shared memory a CTA): CUDA error "
-                           f"{-n}")
-    return n
-
-
-@functools.lru_cache(maxsize=64)
-def launch_geometry(spec: KfSpec) -> KfGeometry:
+def launch_geometry(spec: KfSpec) -> ClusterGeometry:
     """The geometry of the spec's launch on this card: the largest cluster
     it schedules (cudaOccupancyMaxActiveClusters, asked at first launch)
     for the shared memory the geometry needs."""
-    args = (spec.C, spec.n_max, spec.code_len, spec.n_hist)
-    geo = kf_geometry(*args, KF_MAX_CLUSTER)
-    while True:
-        n = _max_cluster(spec.order, spec.bayes_run, geo.smem)
-        if n >= geo.n_cta:
-            return geo
-        geo = kf_geometry(*args, n)
+    from ._build import kf_library
+
+    return fit_to_card(
+        lambda n: kf_geometry(spec.C, spec.n_max, spec.code_len,
+                              spec.n_hist, n),
+        lambda smem: kf_library().kf_block_max_cluster(
+            spec.order, int(spec.bayes_run), smem),
+        KF_MAX_CLUSTER)
 
 
 class KfParams(ctypes.Structure):
@@ -504,7 +453,7 @@ class KfParams(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def kf_params(spec: KfSpec, n_samp: int, geo: KfGeometry) -> KfParams:
+def kf_params(spec: KfSpec, n_samp: int, geo: ClusterGeometry) -> KfParams:
     """The kernel's constants for one spec, sample count and geometry
     (built once)."""
     if spec.order not in (2, 3):

@@ -138,52 +138,293 @@ def mod_floor(x, m: float):
 # ---------------------------------------------------------------------------
 
 
-def chain_plain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
-    """The chain in plain torch ops (any device); same rows as the kernel."""
-    E, LW, K = spec.E, spec.LW, spec.K
-    P = spec.prompt_index
-    half_n = spec.ext_n // 2
-    dev = zr.device
-    f32 = torch.float32
-    i32 = torch.int32
-    C = fst.shape[1]
-    step0 = step0.reshape(C)
-    lag = torch.arange(LW, dtype=f32, device=dev)[None, :]       # [1, LW]
+def loop_consts_plain(spec: ChainSpec, ist):
+    """The wide/narrow select of the loop constants for each channel's mode
+    (fixed while a walk runs: only the host switches it), as
+    csrc/loop_close.cuh `loop_consts`: (pll [8], bi [4], bo [3]) lists of
+    [C] rows."""
+    narrow_f = (ist[I_MODE] >= 1).to(torch.float32)
 
-    def sel(narrow_f, w, n):
+    def sel(w, n):
         base, slope = _sel_pair(w, n)
         return base + narrow_f * slope
 
-    carr_off = fst[F_CARR_OFF]
-    limit = ist[I_LIMIT]
-    mode0 = ist[I_MODE]
-    sec_on = ist[I_SEC_ON] > 0
+    return ([sel(spec.wide[j], spec.narrow[j]) for j in range(8)],
+            [sel(spec.dll_b_in[j], spec.dll_b_in_n[j]) for j in range(4)],
+            [sel(spec.dll_b_out[j], spec.dll_b_out_n[j]) for j in range(3)])
 
-    rem_code, delta, doppler = fst[F_REM_CODE], fst[F_DELTA], fst[F_DOPPLER]
-    rem_carr, cw, cx = fst[F_REM_CARR], fst[F_CARR_W], fst[F_CARR_X]
-    prev_r, prev_i = fst[F_PREV_R], fst[F_PREV_I]
-    sabsi0, si20, sq20, cn0_old = (fst[F_SABSI], fst[F_SI2], fst[F_SQ2],
-                                   fst[F_CN0])
-    acch_r, acch_i = fst[F_ACCH_R], fst[F_ACCH_I]
-    din = [fst[F_DLL_IN0 + j] for j in range(3)]
-    dout = [fst[F_DLL_OUT0 + j] for j in range(3)]
-    accr0 = [fst[F_ACC_R0 + k] for k in range(K)]
-    acci0 = [fst[F_ACC_R0 + K + k] for k in range(K)]
-    active_i, start, cur_len = ist[I_ACTIVE], ist[I_START], ist[I_CURLEN]
-    push_count0, lockfail0, epochs0 = (ist[I_PUSH], ist[I_LOCKFAIL],
-                                       ist[I_EPOCHS])
-    fllon_i, extcnt0, sec_idx = ist[I_FLL_ON], ist[I_EXTCNT], ist[I_SEC_IDX]
+
+def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
+                     sec_rows):
+    """One epoch's loop closure of every channel, JAX `_loop_update`
+    (gnss_sdr_1_tpu/track/engine.py:548-782): the secondary wipe, the
+    extended coherent accumulation, the Costas / four-quadrant PLL and FLL
+    discriminators, the FLL-assisted PLL of order 2/3 with its wide/narrow
+    select, the EPL/VEML DLL with its IIR filter, the A.6 split-precision
+    NCO step, the SNV CN0 estimator with the carrier-lock supervision and
+    the FLL turn-off seeding, merged by `valid`.
+
+    `consts` comes from `loop_consts_plain`, `f` [SF, C] / `i` [SI, C]
+    are the state rows entering the epoch, `corr_r` / `corr_i` the K taps
+    (lists of [C], true-NCO frame) and `sec_rows` [sec_len, C] the
+    channels' secondary codes.  Returns (f', i',
+    out_f rows [N_OROWS, C], out_i rows [2, C], out_corr rows [2K, C],
+    valid [C]).  The chain (`chain_plain`) and the gather walk
+    (ops.gather_block) both close their epochs here."""
+    K, P = spec.K, spec.prompt_index
+    half_n = spec.ext_n // 2
+    f32 = torch.float32
+    i32 = torch.int32
+    zero = torch.zeros_like(f[0])
+    (w0p, w0p2, w0p3, w0f, w0f2, a2, a3, b3), bi, bo = consts
+
+    carr_off = f[F_CARR_OFF]
+    limit = i[I_LIMIT]
+    mode0 = i[I_MODE]
+    sec_on = i[I_SEC_ON] > 0
+    rem_code, delta, doppler = f[F_REM_CODE], f[F_DELTA], f[F_DOPPLER]
+    rem_carr, cw, cx = f[F_REM_CARR], f[F_CARR_W], f[F_CARR_X]
+    prev_r, prev_i = f[F_PREV_R], f[F_PREV_I]
+    sabsi0, si20, sq20, cn0_old = f[F_SABSI], f[F_SI2], f[F_SQ2], f[F_CN0]
+    acch_r, acch_i = f[F_ACCH_R], f[F_ACCH_I]
+    din = [f[F_DLL_IN0 + j] for j in range(3)]
+    dout = [f[F_DLL_OUT0 + j] for j in range(3)]
+    accr0 = [f[F_ACC_R0 + k] for k in range(K)]
+    acci0 = [f[F_ACC_R0 + K + k] for k in range(K)]
+    active_i, start, cur_len = i[I_ACTIVE], i[I_START], i[I_CURLEN]
+    push_count0, lockfail0, epochs0 = i[I_PUSH], i[I_LOCKFAIL], i[I_EPOCHS]
+    fllon_i, extcnt0, sec_idx = i[I_FLL_ON], i[I_EXTCNT], i[I_SEC_IDX]
+
+    active = active_i > 0
+    valid = active & (start < limit)
+    validf = valid.to(f32)
+
+    t_epoch = cur_len.to(f32) / _f32(spec.fs)
+    if spec.sec_len > 1:
+        idx_c = torch.clamp(sec_idx, max=spec.sec_len - 1).long()
+        sec_chip = torch.gather(sec_rows, 0, idx_c[None, :])[0]
+    else:
+        sec_chip = sec_rows[0]
+    s = torch.where(sec_on, sec_chip, torch.ones_like(sec_chip))
+    cw_r = [corr_r[k] * s for k in range(K)]
+    cw_i = [corr_i[k] * s for k in range(K)]
+    pw_r, pw_i = cw_r[P], cw_i[P]
+
+    narrow = mode0 >= 1
+    acc_r = [accr0[k] + cw_r[k] for k in range(K)]
+    acc_i = [acci0[k] + cw_i[k] for k in range(K)]
+    cnt = extcnt0 + 1
+    boundary = narrow & (cnt >= spec.ext_n)
+    upd = (~narrow) | boundary
+    disc_r = [torch.where(narrow, acc_r[k], cw_r[k]) for k in range(K)]
+    disc_i = [torch.where(narrow, acc_i[k], cw_i[k]) for k in range(K)]
+    dp_r, dp_i = disc_r[P], disc_i[P]
+    t_int = torch.where(narrow, cnt.to(f32) * _f32(spec.code_period_s),
+                        t_epoch)
+
+    # --- carrier discriminators (A.3) ---
+    costas = torch.where(
+        dp_r != 0.0,
+        torch.atan2(dp_i * torch.sign(dp_r), torch.abs(dp_r)),
+        zero) / _TWO_PI
+    fourq = torch.atan2(dp_i, dp_r) / _TWO_PI
+    if spec.sec_data:
+        carr_err_cyc = costas
+    else:
+        carr_err_cyc = torch.where(sec_on, fourq, costas)
+    dot = prev_r * pw_r + prev_i * pw_i
+    cross = prev_r * pw_i - pw_r * prev_i
+    freq_err_hz = torch.atan2(cross, dot) / t_epoch / _TWO_PI
+    t_half = max(_f32(half_n * spec.code_period_s), _f32(1e-6))
+    p2_r = acc_r[P] - acch_r
+    p2_i = acc_i[P] - acch_i
+    dot_h = acch_r * p2_r + acch_i * p2_i
+    cross_h = acch_r * p2_i - p2_r * acch_i
+    h_mag = acch_r * acch_r + acch_i * acch_i
+    freq_err_ext = torch.where(
+        (h_mag > 0.0) & boundary,
+        torch.atan2(cross_h, dot_h) / t_half / _TWO_PI, zero)
+
+    fll_on = fllon_i > 0
+    pll_in = carr_err_cyc
+    fll_in = torch.where(fll_on & ~narrow & (push_count0 > 0),
+                         freq_err_hz, zero)
+    fll_in = torch.where(narrow & fll_on, freq_err_ext, fll_in)
+
+    # --- FLL-assisted PLL cascade (A.5), the wide/narrow constants ---
+    if spec.order == 3:
+        w_new = cw + t_int * (w0p3 * pll_in + w0f2 * fll_in)
+        x_new = cx + t_int * (0.5 * w_new + a2 * w0f * fll_in
+                              + a3 * w0p2 * pll_in)
+        doppler_new = 0.5 * x_new + b3 * w0p * pll_in
+    else:
+        w_new = cw + t_int * (w0p2 * pll_in + w0f * fll_in)
+        doppler_new = 0.5 * (w_new + cw) + a2 * w0p * pll_in
+        x_new = cx
+
+    # --- DLL (A.3/A.5) ---
+    if spec.veml:
+        pe = torch.sqrt(disc_r[0] ** 2 + disc_i[0] ** 2
+                        + disc_r[1] ** 2 + disc_i[1] ** 2)
+        pl_ = torch.sqrt(disc_r[3] ** 2 + disc_i[3] ** 2
+                         + disc_r[4] ** 2 + disc_i[4] ** 2)
+        ssum = pe + pl_
+        code_err = torch.where(ssum > 0.0, (pe - pl_) / ssum, zero)
+    else:
+        e = torch.sqrt(disc_r[0] ** 2 + disc_i[0] ** 2)
+        l_ = torch.sqrt(disc_r[2] ** 2 + disc_i[2] ** 2)
+        ssum = e + l_
+        code_err = torch.where(ssum > 0.0, 0.5 * (e - l_) / ssum, zero)
+    code_err_filt = (bo[0] * dout[0] + bo[1] * dout[1]
+                     + bo[2] * dout[2] + bi[0] * code_err
+                     + bi[1] * din[0] + bi[2] * din[1]
+                     + bi[3] * din[2])
+    din_new = (code_err, din[0], din[1])
+    dout_new = (code_err_filt, dout[0], dout[1])
+
+    app = valid & upd
+    appf = app.to(f32)
+
+    def mrg(n, o):
+        return torch.where(app, n, o)
+
+    cw_m = mrg(w_new, cw)
+    cx_m = mrg(x_new, cx)
+    din_m = [mrg(din_new[j], din[j]) for j in range(3)]
+    dout_m = [mrg(dout_new[j], dout[j]) for j in range(3)]
+    doppler_m = mrg(doppler_new, doppler)
+    cr_fc = _f32(np.float32(spec.chip_rate) / np.float32(spec.carrier_freq))
+    delta_m = mrg(cr_fc * doppler_new - code_err_filt, delta)
+
+    # --- NCO stepping / next length (A.6 split precision) ---
+    ncf = _f32(spec.chip_rate) + delta_m
+    d_t = (-_f32(spec.t0_int) * delta_m / ncf
+           - _f32(spec.t0_frac) * delta_m / ncf)
+    frac = _f32(spec.t0_frac) + d_t + rem_code
+    frac_floor = torch.floor(frac)
+    next_len = spec.t0_int + frac_floor.to(i32)
+    rem_code_new = frac - frac_floor
+    carr_step_new = _TWO_PI * (doppler_m + carr_off) / _f32(spec.fs)
+    rem_carr_new = mod_floor(
+        rem_carr + carr_step_new * next_len.to(f32), _TWO_PI)
+
+    # --- CN0 / lock supervision on window accumulators (A.7) ---
+    s_absi = sabsi0 + appf * torch.abs(dp_r)
+    s_i2 = si20 + appf * dp_r * dp_r
+    s_q2 = sq20 + appf * dp_i * dp_i
+    push_count = push_count0 + app.to(i32)
+    window_done = app & (torch.remainder(push_count,
+                                         spec.cn0_samples) == 0)
+    t_cn0 = torch.where(narrow,
+                        torch.full_like(t_epoch, _f32(
+                            spec.ext_n * spec.code_period_s)),
+                        t_epoch)
+    m = _f32(spec.cn0_samples)
+    psig = (s_absi / m) ** 2
+    ptot = (s_i2 + s_q2) / m
+    noise = torch.clamp(ptot - psig, min=_TINY)
+    cn0 = (10.0 * torch.log10(torch.clamp(psig / noise, min=_f32(1e-10)))
+           - 10.0 * torch.log10(t_cn0))
+    carrier_lock = (s_i2 - s_q2) / torch.clamp(s_i2 + s_q2, min=_TINY)
+    cn0_last = torch.where(window_done, cn0, cn0_old)
+    hist_full = push_count >= spec.cn0_samples
+    s_absi = torch.where(window_done, zero, s_absi)
+    s_i2 = torch.where(window_done, zero, s_i2)
+    s_q2 = torch.where(window_done, zero, s_q2)
+    check_now = window_done & ~fll_on
+    fail = check_now & ((cn0 < spec.cn0_min_dbhz)
+                        | (carrier_lock < spec.carrier_lock_th))
+    ok = check_now & ~fail
+    lock_fail = torch.where(
+        fail, lockfail0 + 1,
+        torch.where(ok, torch.clamp(lockfail0 - 1, min=0), lockfail0))
+    still_active = active & (lock_fail <= spec.max_lock_fail)
+
+    epochs_in_track = epochs0 + 1
+    fll_still_on = fll_on & torch.where(
+        narrow, push_count < spec.fll_narrow_windows,
+        epochs_in_track < spec.fll_epochs)
+    turnoff = narrow & fll_on & ~fll_still_on
+    if spec.order == 3:
+        seed_w = torch.zeros_like(doppler_m)
+        seed_x = 2.0 * doppler_m
+    else:
+        seed_w = doppler_m
+        seed_x = torch.zeros_like(doppler_m)
+    tv = turnoff & valid
+    cw_m = torch.where(tv, seed_w, cw_m)
+    cx_m = torch.where(tv, seed_x, cx_m)
+
+    reset_acc = boundary | ~narrow
+    racf = (~reset_acc).to(f32)
+    acc_r_new = [acc_r[k] * racf for k in range(K)]
+    acc_i_new = [acc_i[k] * racf for k in range(K)]
+    at_half = narrow & (cnt == half_n)
+    acch_r_new = racf * torch.where(at_half, acc_r[P], acch_r)
+    acch_i_new = racf * torch.where(at_half, acc_i[P], acch_i)
+
+    # --- merge by valid: a dead channel never takes new state ---
+    def mv(n, o):
+        return torch.where(valid, n, o)
+
+    merged_dopp = mv(doppler_m, doppler)
+    merged_active = mv(still_active.to(i32), active_i)
+    merged_cn0 = mv(cn0_last, cn0_old)
+    merged_delta = mv(delta_m, delta)
+    merged_rem_code = mv(rem_code_new, rem_code)
+    merged_rem_carr = mv(rem_carr_new, rem_carr)
+    new_cur = mv(next_len, cur_len)
+
+    # --- per-epoch outputs ---
+    out_f = torch.stack([
+        merged_dopp, merged_delta, merged_rem_code, merged_rem_carr,
+        torch.where(valid & hist_full, merged_cn0, zero), validf,
+        merged_active.to(f32)])
+    out_i = torch.stack([start, cur_len])
+    out_corr = torch.stack([validf * corr_r[k] for k in range(K)]
+                           + [validf * corr_i[k] for k in range(K)])
+
+    f_new = torch.stack(
+        [merged_rem_code, merged_delta, merged_dopp, merged_rem_carr,
+         mv(cw_m, cw), mv(cx_m, cx), mv(pw_r, prev_r), mv(pw_i, prev_i),
+         mv(s_absi, sabsi0), mv(s_i2, si20), mv(s_q2, sq20), merged_cn0,
+         mv(acch_r_new, acch_r), mv(acch_i_new, acch_i), carr_off]
+        + din_m + dout_m
+        + [mv(acc_r_new[k], accr0[k]) for k in range(K)]
+        + [mv(acc_i_new[k], acci0[k]) for k in range(K)])
+    i_new = torch.stack(
+        [merged_active, mv(start + cur_len, start), new_cur,
+         mv(push_count, push_count0), mv(lock_fail, lockfail0),
+         mv(epochs_in_track, epochs0), mv(fll_still_on.to(i32), fllon_i),
+         mode0, mv(torch.where(reset_acc, torch.zeros_like(cnt), cnt),
+                   extcnt0),
+         i[I_SEC_ON], mv(torch.remainder(sec_idx + 1, spec.sec_len),
+                         sec_idx), limit]).to(i32)
+    return f_new, i_new, out_f, out_i, out_corr, valid
+
+
+def chain_plain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
+    """The chain in plain torch ops (any device); same rows as the kernel:
+    per epoch the tap read and the rotation into the true-NCO frame, then
+    `loop_close_plain`, then the frozen-vs-true phase ledger."""
+    E, LW, K = spec.E, spec.LW, spec.K
+    dev = zr.device
+    f32 = torch.float32
+    C = fst.shape[1]
+    step0 = step0.reshape(C)
+    lag = torch.arange(LW, dtype=f32, device=dev)[None, :]       # [1, LW]
+    carr_off = fst[F_CARR_OFF]
+    consts = loop_consts_plain(spec, ist)
+    f, i = fst, ist
     dphi = torch.zeros(C, dtype=f32, device=dev)
 
     out_f = torch.empty((E, N_OROWS, C), dtype=f32, device=dev)
-    out_i = torch.empty((E, 2, C), dtype=i32, device=dev)
+    out_i = torch.empty((E, 2, C), dtype=torch.int32, device=dev)
     out_corr = torch.empty((E, 2 * K, C), dtype=f32, device=dev)
-    zero = torch.zeros(C, dtype=f32, device=dev)
 
     for kk in range(E):
-        active = active_i > 0
-        valid = active & (start < limit)
-        validf = valid.to(f32)
+        rem_code, delta, doppler = f[F_REM_CODE], f[F_DELTA], f[F_DOPPLER]
+        start, cur_len = i[I_START], i[I_CURLEN]
 
         # ---- tap read at the TRUE code phase ----
         d_s = (start - s_reg[:, kk]).to(f32)
@@ -204,247 +445,16 @@ def chain_plain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):
         corr_r = [taps_r[k] * rc + taps_i[k] * rs for k in range(K)]
         corr_i = [taps_i[k] * rc - taps_r[k] * rs for k in range(K)]
 
-        # ---- loop closure ----
-        t_epoch = cur_len.to(f32) / _f32(spec.fs)
-        if spec.sec_len > 1:
-            idx_c = torch.clamp(sec_idx, max=spec.sec_len - 1).long()
-            sec_chip = torch.gather(sec_rows, 0, idx_c[None, :])[0]
-        else:
-            sec_chip = sec_rows[0]
-        s = torch.where(sec_on, sec_chip, torch.ones_like(sec_chip))
-        cw_r = [corr_r[k] * s for k in range(K)]
-        cw_i = [corr_i[k] * s for k in range(K)]
-        pw_r, pw_i = cw_r[P], cw_i[P]
-
-        narrow = mode0 >= 1
-        narrow_f = narrow.to(f32)
-        acc_r = [accr0[k] + cw_r[k] for k in range(K)]
-        acc_i = [acci0[k] + cw_i[k] for k in range(K)]
-        cnt = extcnt0 + 1
-        boundary = narrow & (cnt >= spec.ext_n)
-        upd = (~narrow) | boundary
-        disc_r = [torch.where(narrow, acc_r[k], cw_r[k]) for k in range(K)]
-        disc_i = [torch.where(narrow, acc_i[k], cw_i[k]) for k in range(K)]
-        dp_r, dp_i = disc_r[P], disc_i[P]
-        t_int = torch.where(narrow, cnt.to(f32) * _f32(spec.code_period_s),
-                            t_epoch)
-
-        # --- carrier discriminators (A.3) ---
-        costas = torch.where(
-            dp_r != 0.0,
-            torch.atan2(dp_i * torch.sign(dp_r), torch.abs(dp_r)),
-            zero) / _TWO_PI
-        fourq = torch.atan2(dp_i, dp_r) / _TWO_PI
-        if spec.sec_data:
-            carr_err_cyc = costas
-        else:
-            carr_err_cyc = torch.where(sec_on, fourq, costas)
-        dot = prev_r * pw_r + prev_i * pw_i
-        cross = prev_r * pw_i - pw_r * prev_i
-        freq_err_hz = torch.atan2(cross, dot) / t_epoch / _TWO_PI
-        t_half = max(_f32(half_n * spec.code_period_s), _f32(1e-6))
-        p2_r = acc_r[P] - acch_r
-        p2_i = acc_i[P] - acch_i
-        dot_h = acch_r * p2_r + acch_i * p2_i
-        cross_h = acch_r * p2_i - p2_r * acch_i
-        h_mag = acch_r * acch_r + acch_i * acch_i
-        freq_err_ext = torch.where(
-            (h_mag > 0.0) & boundary,
-            torch.atan2(cross_h, dot_h) / t_half / _TWO_PI, zero)
-
-        fll_on = fllon_i > 0
-        pll_in = carr_err_cyc
-        fll_in = torch.where(fll_on & ~narrow & (push_count0 > 0),
-                             freq_err_hz, zero)
-        fll_in = torch.where(narrow & fll_on, freq_err_ext, fll_in)
-
-        # --- FLL-assisted PLL cascade (A.5), wide/narrow select ---
-        w0p = sel(narrow_f, spec.wide[0], spec.narrow[0])
-        w0p2 = sel(narrow_f, spec.wide[1], spec.narrow[1])
-        w0p3 = sel(narrow_f, spec.wide[2], spec.narrow[2])
-        w0f = sel(narrow_f, spec.wide[3], spec.narrow[3])
-        w0f2 = sel(narrow_f, spec.wide[4], spec.narrow[4])
-        a2 = sel(narrow_f, spec.wide[5], spec.narrow[5])
-        a3 = sel(narrow_f, spec.wide[6], spec.narrow[6])
-        b3 = sel(narrow_f, spec.wide[7], spec.narrow[7])
-        if spec.order == 3:
-            w_new = cw + t_int * (w0p3 * pll_in + w0f2 * fll_in)
-            x_new = cx + t_int * (0.5 * w_new + a2 * w0f * fll_in
-                                  + a3 * w0p2 * pll_in)
-            doppler_new = 0.5 * x_new + b3 * w0p * pll_in
-        else:
-            w_new = cw + t_int * (w0p2 * pll_in + w0f * fll_in)
-            doppler_new = 0.5 * (w_new + cw) + a2 * w0p * pll_in
-            x_new = cx
-
-        # --- DLL (A.3/A.5) ---
-        if spec.veml:
-            pe = torch.sqrt(disc_r[0] ** 2 + disc_i[0] ** 2
-                            + disc_r[1] ** 2 + disc_i[1] ** 2)
-            pl_ = torch.sqrt(disc_r[3] ** 2 + disc_i[3] ** 2
-                             + disc_r[4] ** 2 + disc_i[4] ** 2)
-            ssum = pe + pl_
-            code_err = torch.where(ssum > 0.0, (pe - pl_) / ssum, zero)
-        else:
-            e = torch.sqrt(disc_r[0] ** 2 + disc_i[0] ** 2)
-            l_ = torch.sqrt(disc_r[2] ** 2 + disc_i[2] ** 2)
-            ssum = e + l_
-            code_err = torch.where(ssum > 0.0, 0.5 * (e - l_) / ssum, zero)
-        bi = [sel(narrow_f, spec.dll_b_in[j], spec.dll_b_in_n[j])
-              for j in range(4)]
-        bo = [sel(narrow_f, spec.dll_b_out[j], spec.dll_b_out_n[j])
-              for j in range(3)]
-        code_err_filt = (bo[0] * dout[0] + bo[1] * dout[1]
-                         + bo[2] * dout[2] + bi[0] * code_err
-                         + bi[1] * din[0] + bi[2] * din[1]
-                         + bi[3] * din[2])
-        din_new = (code_err, din[0], din[1])
-        dout_new = (code_err_filt, dout[0], dout[1])
-
-        app = valid & upd
-        appf = app.to(f32)
-
-        def mrg(n, o):
-            return torch.where(app, n, o)
-
-        cw_m = mrg(w_new, cw)
-        cx_m = mrg(x_new, cx)
-        din_m = [mrg(din_new[j], din[j]) for j in range(3)]
-        dout_m = [mrg(dout_new[j], dout[j]) for j in range(3)]
-        doppler_m = mrg(doppler_new, doppler)
-        cr_fc = _f32(np.float32(spec.chip_rate) / np.float32(spec.carrier_freq))
-        delta_m = mrg(cr_fc * doppler_new - code_err_filt, delta)
-
-        # --- NCO stepping / next length (A.6 split precision) ---
-        ncf = _f32(spec.chip_rate) + delta_m
-        d_t = (-_f32(spec.t0_int) * delta_m / ncf
-               - _f32(spec.t0_frac) * delta_m / ncf)
-        frac = _f32(spec.t0_frac) + d_t + rem_code
-        frac_floor = torch.floor(frac)
-        next_len = spec.t0_int + frac_floor.to(i32)
-        rem_code_new = frac - frac_floor
-        carr_step_new = _TWO_PI * (doppler_m + carr_off) / _f32(spec.fs)
-        rem_carr_new = mod_floor(
-            rem_carr + carr_step_new * next_len.to(f32), _TWO_PI)
-
-        # --- CN0 / lock supervision on window accumulators (A.7) ---
-        s_absi = sabsi0 + appf * torch.abs(dp_r)
-        s_i2 = si20 + appf * dp_r * dp_r
-        s_q2 = sq20 + appf * dp_i * dp_i
-        push_count = push_count0 + app.to(i32)
-        window_done = app & (torch.remainder(push_count,
-                                             spec.cn0_samples) == 0)
-        t_cn0 = torch.where(narrow,
-                            torch.full_like(t_epoch, _f32(
-                                spec.ext_n * spec.code_period_s)),
-                            t_epoch)
-        m = _f32(spec.cn0_samples)
-        psig = (s_absi / m) ** 2
-        ptot = (s_i2 + s_q2) / m
-        noise = torch.clamp(ptot - psig, min=_TINY)
-        cn0 = (10.0 * torch.log10(torch.clamp(psig / noise, min=_f32(1e-10)))
-               - 10.0 * torch.log10(t_cn0))
-        carrier_lock = (s_i2 - s_q2) / torch.clamp(s_i2 + s_q2, min=_TINY)
-        cn0_last = torch.where(window_done, cn0, cn0_old)
-        hist_full = push_count >= spec.cn0_samples
-        s_absi = torch.where(window_done, zero, s_absi)
-        s_i2 = torch.where(window_done, zero, s_i2)
-        s_q2 = torch.where(window_done, zero, s_q2)
-        check_now = window_done & ~fll_on
-        fail = check_now & ((cn0 < spec.cn0_min_dbhz)
-                            | (carrier_lock < spec.carrier_lock_th))
-        ok = check_now & ~fail
-        lock_fail = torch.where(
-            fail, lockfail0 + 1,
-            torch.where(ok, torch.clamp(lockfail0 - 1, min=0), lockfail0))
-        still_active = active & (lock_fail <= spec.max_lock_fail)
-
-        epochs_in_track = epochs0 + 1
-        fll_still_on = fll_on & torch.where(
-            narrow, push_count < spec.fll_narrow_windows,
-            epochs_in_track < spec.fll_epochs)
-        turnoff = narrow & fll_on & ~fll_still_on
-        if spec.order == 3:
-            seed_w = torch.zeros_like(doppler_m)
-            seed_x = 2.0 * doppler_m
-        else:
-            seed_w = doppler_m
-            seed_x = torch.zeros_like(doppler_m)
-        tv = turnoff & valid
-        cw_m = torch.where(tv, seed_w, cw_m)
-        cx_m = torch.where(tv, seed_x, cx_m)
-
-        reset_acc = boundary | ~narrow
-        racf = (~reset_acc).to(f32)
-        acc_r_new = [acc_r[k] * racf for k in range(K)]
-        acc_i_new = [acc_i[k] * racf for k in range(K)]
-        at_half = narrow & (cnt == half_n)
-        acch_r_new = racf * torch.where(at_half, acc_r[P], acch_r)
-        acch_i_new = racf * torch.where(at_half, acc_i[P], acch_i)
-
-        # --- merge by valid: a dead channel never takes new state ---
-        def mv(n, o):
-            return torch.where(valid, n, o)
-
-        merged_dopp = mv(doppler_m, doppler)
-        merged_active = mv(still_active.to(i32), active_i)
-        merged_cn0 = mv(cn0_last, cn0_old)
-        merged_delta = mv(delta_m, delta)
-        merged_rem_code = mv(rem_code_new, rem_code)
-        merged_rem_carr = mv(rem_carr_new, rem_carr)
-        new_cur = mv(next_len, cur_len)
-
-        # --- per-epoch outputs ---
-        out_f[kk, O_DOPPLER] = merged_dopp
-        out_f[kk, O_DELTA] = merged_delta
-        out_f[kk, O_REM_CODE] = merged_rem_code
-        out_f[kk, O_REM_CARR] = merged_rem_carr
-        out_f[kk, O_CN0] = torch.where(valid & hist_full, merged_cn0, zero)
-        out_f[kk, O_VALID] = validf
-        out_f[kk, O_ACTIVE] = merged_active.to(f32)
-        out_i[kk, 0] = start
-        out_i[kk, 1] = cur_len
-        for k in range(K):
-            out_corr[kk, k] = validf * corr_r[k]
-            out_corr[kk, K + k] = validf * corr_i[k]
+        f, i, out_f[kk], out_i[kk], out_corr[kk], valid = loop_close_plain(
+            spec, consts, f, i, corr_r, corr_i, sec_rows)
 
         # --- frozen-vs-true phase ledger ---
-        step_new = _TWO_PI * (merged_dopp + carr_off) / _f32(spec.fs)
-        dphi_next = (dphi + step_new * new_cur.to(f32)
+        step_new = _TWO_PI * (f[F_DOPPLER] + carr_off) / _f32(spec.fs)
+        dphi_next = (dphi + step_new * i[I_CURLEN].to(f32)
                      - step0 * cur_len.to(f32))
         dphi = torch.where(valid,
                            mod_floor(dphi_next + _PI, _TWO_PI) - _PI, dphi)
-
-        # --- carry ---
-        rem_code, delta, doppler, rem_carr = (merged_rem_code, merged_delta,
-                                              merged_dopp, merged_rem_carr)
-        cw, cx = mv(cw_m, cw), mv(cx_m, cx)
-        prev_r, prev_i = mv(pw_r, prev_r), mv(pw_i, prev_i)
-        sabsi0, si20, sq20 = mv(s_absi, sabsi0), mv(s_i2, si20), mv(s_q2, sq20)
-        cn0_old = merged_cn0
-        acch_r, acch_i = mv(acch_r_new, acch_r), mv(acch_i_new, acch_i)
-        din, dout = din_m, dout_m
-        accr0 = [mv(acc_r_new[k], accr0[k]) for k in range(K)]
-        acci0 = [mv(acc_i_new[k], acci0[k]) for k in range(K)]
-        active_i = merged_active
-        start, cur_len = mv(start + cur_len, start), new_cur
-        push_count0 = mv(push_count, push_count0)
-        lockfail0 = mv(lock_fail, lockfail0)
-        epochs0 = mv(epochs_in_track, epochs0)
-        fllon_i = mv(fll_still_on.to(i32), fllon_i)
-        extcnt0 = mv(torch.where(reset_acc, torch.zeros_like(cnt), cnt),
-                     extcnt0)
-        sec_idx = mv(torch.remainder(sec_idx + 1, spec.sec_len), sec_idx)
-
-    fst_out = torch.stack(
-        [rem_code, delta, doppler, rem_carr, cw, cx, prev_r, prev_i,
-         sabsi0, si20, sq20, cn0_old, acch_r, acch_i, carr_off]
-        + list(din) + list(dout) + accr0 + acci0)
-    ist_out = torch.stack(
-        [active_i, start, cur_len, push_count0, lockfail0, epochs0,
-         fllon_i, mode0, extcnt0, ist[I_SEC_ON], sec_idx, limit]
-    ).to(i32)
-    return out_f, out_i, out_corr, fst_out, ist_out
+    return out_f, out_i, out_corr, f, i
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 This port carries GPS L1 C/A ('1C'), L2CM ('2S') and L5 ('L5'), Galileo
 E1B ('1B') and E5a ('5X'), GLONASS L1/L2 C/A ('1G'/'2G') and BeiDou
 B1I/B3I ('B1'/'B3') channel groups with PCPS, Tong, QuickSync, CCCWSR,
-fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B) or
+fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B;
+`Tracking_XX.correlator` picks the chunked or the gather correlator) or
 KF tracking (the receiver builds it on every signal; the conf key
 GPS_L1_CA_KF_Tracking names it on GPS L1 C/A only, as in the JAX
 package), and single-point PVT; a conf with several groups maps to one ReceiverConfig
@@ -40,8 +41,6 @@ ROADMAP_ITEMS = {
     "sources": "ROADMAP.md §1 item 6 (io/labsat.py and io/network.py)",
     "signals": "ROADMAP.md §1 item 7 (the other signals and "
                "constellations)",
-    "gather": "ROADMAP.md §1 item 8 (the per-epoch gather DLL/PLL path and "
-              "the TCP connector)",
 }
 
 
@@ -262,10 +261,20 @@ def to_receiver_config(conf: InMemoryConfiguration,
             raise ValueError(
                 f"tracking '{trk_impl}' needs an external process/device "
                 f"({tinfo.note})")
+        if tinfo.strategy == "tcp_connector":
+            # native but standalone: one TCP round-trip per epoch cannot
+            # live inside the batched capture loop — use
+            # track.tcp_connector.TcpConnectorTracking directly (the
+            # reference runs this block per-channel against an external
+            # MATLAB/Simulink process, gps_l1_ca_tcp_connector_tracking.cc)
+            raise ValueError(
+                f"tracking '{trk_impl}' closes its loop over TCP per epoch; "
+                "run it standalone via gnss_sdr_1_tpu_torch.track."
+                "tcp_connector, not inside the batched Receiver")
         if tinfo.strategy not in ("dll_pll", "veml", "kf"):
             raise not_ported(
                 f"tracking '{trk_impl}' (strategy '{tinfo.strategy}')",
-                "gather" if tinfo.strategy == "tcp_connector" else "signals")
+                "signals")
         # VEML is the DLL/PLL engine at 5 taps (the receiver picks the
         # taps by signal)
         track_engine = "kf" if tinfo.strategy == "kf" else "dll_pll"
@@ -302,6 +311,7 @@ def to_receiver_config(conf: InMemoryConfiguration,
         acq_folding_factor=int(conf.property(
             f"Acquisition{sig}.folding_factor", 2)),
         track_engine=track_engine,
+        correlator=str(conf.property(f"Tracking{sig}.correlator", "auto")),
         pll_bw_hz=float(conf.property(f"Tracking{sig}.pll_bw_hz", 25.0)),
         dll_bw_hz=float(conf.property(f"Tracking{sig}.dll_bw_hz", 2.0)),
         pll_bw_narrow_hz=float(

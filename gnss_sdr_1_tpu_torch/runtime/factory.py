@@ -136,7 +136,9 @@ _BLOCKS = [
          status="collapsed",
          note="carrier aiding is built into the unified engine (A.4)"),
     _trk("GPS_L1_CA_DLL_PLL_Tracking_GPU", "1C", "dll_pll", "collapsed",
-         "CUDA multicorrelator -> the chunk correlator kernel"),
+         "CUDA multicorrelator -> the chunk correlator kernel "
+         "(csrc/chunk_corr.cuh) or the gather walk kernel "
+         "(csrc/gather_block.cu)"),
     _trk("GPS_L1_CA_DLL_PLL_Tracking_Fpga", "1C", "dll_pll", "collapsed"),
     _trk("GPS_L1_CA_KF_Tracking", "1C", "kf",
          note="track.kf.KfTrackingEngine"),
@@ -210,6 +212,8 @@ STRATEGY_IMPL: dict[tuple[str, str], tuple[str, str]] = {
     ("tracking", "veml"): ("gnss_sdr_1_tpu_torch.track.engine",
                            "TrackingEngine"),
     ("tracking", "kf"): ("gnss_sdr_1_tpu_torch.track.kf", "KfTrackingEngine"),
+    ("tracking", "tcp_connector"): ("gnss_sdr_1_tpu_torch.track.tcp_connector",
+                                    "TcpConnectorTracking"),
 }
 
 

@@ -6,8 +6,8 @@ GNSSFlowgraph channel management (gnss_flowgraph.cc:1058-1104): satellite
 search list, acquisition -> channel assignment, tracking supervision with
 satellite recycling, telemetry/observables/PVT fan-in.  The data plane runs
 on the card (batched PCPS on torch.fft, the chunked tracking engine with
-its CUDA chain kernel); the lifecycle FSM stays on the host between
-capture segments.
+its CUDA chain kernel, or the gather walk); the lifecycle FSM stays on
+the host between capture segments.
 
 This package carries GPS L1 C/A ('1C', LNAV), GPS L2CM ('2S': the 20 ms
 code is the CNAV symbol), GPS L5I ('L5': NH10 secondary, CNAV), Galileo
@@ -19,7 +19,9 @@ replica and carried as the channel's NCO bias, GNAV) and BeiDou B1I/B3I
 PRNs 1-5, CGCS2000 orbits) with PCPS, Tong,
 QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) the noncoherent I/Q CAF
 acquisition (the strategy dispatch of gnss_block_factory.cc:1552-1709),
-and either the chunked DLL/PLL engine or the Kalman-filter tracker
+and either the DLL/PLL engine (chunked, the default, or the per-epoch
+exact gather path, `correlator="gather"`: one gather_block launch per
+capture segment on the card) or the Kalman-filter tracker
 (`track_engine="kf"`, track.kf: one kf_block launch per capture segment
 on the card; Galileo E1B in the virtual half-chip basis, and a GLONASS
 channel at the nominal carrier, as the JAX receiver builds it).  On L5,
@@ -92,6 +94,12 @@ class ReceiverConfig:
     # tracking engine from Tracking_1C.implementation: dll_pll | kf
     # (GPS_L1_CA_KF_Tracking -> track.kf.KfTrackingEngine)
     track_engine: str = "dll_pll"
+    # DLL/PLL correlator (Tracking_XX.correlator conf key): auto | chunked
+    # | gather.  'auto' is 'chunked', the accelerator path, as the JAX
+    # package's 'auto' is its chunked Pallas path on its accelerator; the
+    # JAX names 'pallas' and 'mxu' are 'chunked' here; 'gather' is the
+    # per-epoch exact path (the JAX package's choice off the TPU)
+    correlator: str = "auto"
     doppler_step2_hz: float = 40.0
     num_doppler_bins_step2: int = 10
     # tracking
@@ -158,6 +166,7 @@ class ReceiverConfig:
             raise NotImplementedError(
                 f"track_engine={self.track_engine!r} is not ported yet "
                 f"(only 'dll_pll', 'kf')")
+        tracking_correlator(self.correlator)
         if self.acq_strategy == "caf" and self.signal_id != "5X":
             raise not_ported(f"acq_strategy='caf' on signal "
                              f"{self.signal_id!r} (the CAF acquisition is "
@@ -169,6 +178,24 @@ class ReceiverConfig:
     @property
     def spec(self) -> SignalSpec:
         return SIGNALS[self.signal_id]
+
+
+def tracking_correlator(name: str) -> str:
+    """The engine correlator a ReceiverConfig.correlator value runs:
+    'auto', 'chunked' and the JAX package's chunked names 'pallas' and
+    'mxu' -> 'chunked'; 'gather' -> 'gather'.  The JAX package's legacy
+    'fft' correlator is refused."""
+    if name in ("auto", "chunked", "pallas", "mxu"):
+        return "chunked"
+    if name == "gather":
+        return name
+    if name == "fft":
+        raise ValueError(
+            "correlator='fft' does not carry over to the port (ROADMAP.md, "
+            "North star, 'Does not carry over': the legacy 'fft' "
+            "correlator); use 'chunked' or 'gather'")
+    raise ValueError(f"unknown correlator {name!r} (auto | chunked | "
+                     f"gather)")
 
 
 # acquisition strategies this package carries ('caf' is the E5a strategy;
@@ -263,6 +290,7 @@ class Receiver:
         # (gps_l1_ca_kf_tracking_cc.h:76 — a drop-in channel tracking
         # implementation producing the same outputs)
         self.trk_kind = cfg.track_engine
+        self.correlator = tracking_correlator(cfg.correlator)
         codes = np.stack([self._codes[p] for p in self.acq.prns])
         if self.trk_kind == "kf":
             self.trk = KfTrackingEngine(
@@ -303,6 +331,7 @@ class Receiver:
                         cfg.very_early_late_space_chips),
                     chunk_epochs=cfg.chunk_epochs,
                     sec_data=sec_codes is not None,
+                    correlator=self.correlator,
                 ),
                 codes, sec_codes=sec_codes, device=self.device)
         self._slot_of_prn = {p: i for i, p in enumerate(self.acq.prns)}

@@ -68,6 +68,15 @@ class TrackConfig:
     # of the tracking-chain kernel runs the exact per-epoch loop closures
     chunk_epochs: int = 16
 
+    # correlator:
+    #   'chunked' — `chunk_epochs` epochs correlated at once on the regular
+    #               grid, taps read by linear interpolation between integer
+    #               lags (the accelerator path)
+    #   'gather'  — per-epoch, per-sample floor code resampler (the
+    #               reference's exact A.2 contract): one gather_block launch
+    #               walks every epoch of a capture segment
+    correlator: str = "chunked"
+
     @property
     def samples_per_code(self) -> float:
         return self.fs_hz * self.code_length_chips / self.chip_rate_chips_s

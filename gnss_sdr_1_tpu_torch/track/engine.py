@@ -1,4 +1,4 @@
-"""Channel-batched chunked tracking engine (PyTorch).
+"""Channel-batched DLL/PLL tracking engine (PyTorch), chunked or gather.
 
 Reference parity: dll_pll_veml_tracking.cc (src/algorithms/tracking/
 gnuradio_blocks/).  Every channel advances in lock-step through integration
@@ -15,7 +15,8 @@ Tracking states (reference general_work :1544-1900):
                            channel's bit grid, loop closed once per window
                            with the narrow bandwidths.
 
-Chunked correlation: `chunk_epochs` (E) epochs of every channel are sliced
+Two correlators (`TrackConfig.correlator`).  Chunked (the default, the
+accelerator path): `chunk_epochs` (E) epochs of every channel are sliced
 on the regular epoch grid with the chunk-entry (frozen) NCO rates, wiped
 off, and correlated against the per-slot shifted-replica bank, giving a
 lag window of LW lags per epoch (ops.chunk_corr).  The tracking chain
@@ -27,10 +28,18 @@ difference.  The chain's state crosses chunks as row-stacked matrices
 kernels for every chunk of a capture segment (ops.track_capture); on the
 CPU the same chunk loop runs in Python with the plain versions.
 
-Numerical contracts (SURVEY.md Appendix A): A.2 code resampling on the lag
-grid, A.3 discriminators, A.4 carrier-aided code NCO, A.5 loop filters,
-A.6 split-precision NCO stepping and variable block length, A.7 CN0 SNV
-estimator + carrier lock detector + max_lock_fail.
+Gather (the JAX package's exact path off the TPU): every epoch slices its
+window at the channel's own start and runs the per-sample floor code
+resampler (A.2) before the same loop closure; on the card one gather_block
+launch walks every epoch of a capture segment (ops.gather_block), on the
+CPU its plain version walks them in Python.  It skips the capture padding
+and the shifted-replica table.
+
+Numerical contracts (SURVEY.md Appendix A): A.2 code resampling (on the lag
+grid when chunked, exact when gathering), A.3 discriminators, A.4
+carrier-aided code NCO, A.5 loop filters, A.6 split-precision NCO stepping
+and variable block length, A.7 CN0 SNV estimator + carrier lock detector +
+max_lock_fail.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import chunk_corr as cc
+from ..ops import gather_block as gb
 from ..ops import track_capture as tcap
 from ..ops import track_chain as tc
 from .config import TrackConfig
@@ -193,6 +203,10 @@ class TrackingEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device
+        if cfg.correlator not in ("chunked", "gather"):
+            raise ValueError(f"correlator must be 'chunked' or 'gather', got "
+                             f"{cfg.correlator!r}")
+        self.correlator = cfg.correlator
         if codes.ndim != 2:
             raise ValueError("codes must be [n_slots, code_samples]")
         if sec_codes is None:
@@ -217,7 +231,10 @@ class TrackingEngine:
         self._t0_int = int(np.floor(t0))
         self._t0_frac = float(t0 - self._t0_int)
         self._lag_margin = 16
-        E = self._chunk_epochs = cfg.chunk_epochs
+        # the gather path steps its epochs in fours, as the JAX package's
+        # gather loop does (capture outputs: ceil(n_epochs / 4) * 4 rows)
+        E = self._chunk_epochs = (cfg.chunk_epochs if self.correlator ==
+                                  "chunked" else 4)
         # regular-grid chunk windows: each chunk slices ONE segment per
         # channel at s_reg = start - grid_pad, then E static windows at
         # stride t0_int; the per-epoch drift d' = s_pred - s_reg is folded
@@ -243,15 +260,27 @@ class TrackingEngine:
         LW, NW = self._lag_window, self._corr_win
         self._codes_np = np.asarray(codes)
         self._a0 = a0
-        m = np.arange(-(LW - 1), NW)
-        chip_idx = np.floor(a0 * (m + self._lag_margin)).astype(np.int64)
-        rows = np.zeros((codes.shape[0], cc.row_width(LW, NW)), np.float32)
-        rows[:, :LW - 1 + NW] = self._codes_np[:, np.mod(chip_idx, lv)]
-        self._rows = torch.as_tensor(rows, device=dev)   # [slots, QW]
-        self.corr_spec = cc.CorrSpec(
-            E=E, LW=LW, NW=NW, C=cfg.n_channels, t0_int=self._t0_int,
-            t0_frac=self._t0_frac, grid_pad=self._grid_pad,
-            chip_rate=float(cfg.chip_rate_chips_s), fs=float(cfg.fs_hz))
+        if self.correlator == "chunked":
+            m = np.arange(-(LW - 1), NW)
+            chip_idx = np.floor(a0 * (m + self._lag_margin)).astype(np.int64)
+            rows = np.zeros((codes.shape[0], cc.row_width(LW, NW)),
+                            np.float32)
+            rows[:, :LW - 1 + NW] = self._codes_np[:, np.mod(chip_idx, lv)]
+            self._rows = torch.as_tensor(rows, device=dev)   # [slots, QW]
+            self.corr_spec = cc.CorrSpec(
+                E=E, LW=LW, NW=NW, C=cfg.n_channels, t0_int=self._t0_int,
+                t0_frac=self._t0_frac, grid_pad=self._grid_pad,
+                chip_rate=float(cfg.chip_rate_chips_s), fs=float(cfg.fs_hz))
+        else:
+            # the +-1 code rows, one per slot (the card's kernel keeps them
+            # as bits), and the gather walk's window: the per-channel start
+            # spread (< one code period) plus one max-length epoch
+            if dev.type == "cuda" and not np.all(
+                    np.abs(self._codes_np) == 1.0):
+                raise ValueError("the gather kernel takes +-1 code tables")
+            self._codes = torch.as_tensor(
+                self._codes_np.astype(np.float32), device=dev)
+            self._win = cfg.epoch_samples_max + self._t0_int + 66
         self._fll_epochs = int(round(cfg.pull_in_time_s / cfg.code_period_s))
         w, n = self._fllpll, self._fllpll_n
         self.chain_spec = tc.ChainSpec(
@@ -279,6 +308,14 @@ class TrackingEngine:
             dll_b_out=tuple(float(v) for v in b_out),
             dll_b_out_n=tuple(float(v) for v in b_out_n),
         )
+        if self.correlator == "gather":
+            spc = cfg.code_samples_per_chip
+            self.gather_spec = gb.GatherSpec(
+                loop=self.chain_spec, n_max=cfg.epoch_samples_max,
+                win=self._win, code_len=codes.shape[1],
+                shifts=tuple(float(np.float32(s) * np.float32(spc))
+                             for s in cfg.tap_shifts_chips()),
+                spc=float(spc))
 
     @functools.cached_property
     def rep_rows_np(self) -> np.ndarray:
@@ -492,24 +529,31 @@ class TrackingEngine:
 
     def _run_capture(self, samples, state: TrackState, limit: int,
                      n_epochs: int):
-        """Chunk loop over a device-resident capture: ceil(n_epochs / E)
-        chunks, each one correlator and one chain launch, all enqueued by
-        one call on the card.  Returns the final state and the per-epoch
-        rows (out_f [cap, 7, C], out_i [cap, 2, C], out_corr [cap, 2K, C])
-        still on the device."""
+        """The epoch walk over a device-resident capture.  Chunked: a loop
+        of ceil(n_epochs / E) chunks, each one correlator and one chain
+        launch, all enqueued by one call on the card.  Gather: n_epochs
+        epochs in one gather_block launch.  Returns the final state and the
+        per-epoch rows (out_f [n, 7, C], out_i [n, 2, C], out_corr [n, 2K,
+        C], n = the epochs walked) still on the device."""
         if samples.device.type != self.device.type:
             raise ValueError(f"capture lies on {samples.device}, engine on "
                              f"{self.device}")
-        samples = self._pad_for_chunks(
-            samples.to(torch.complex64).contiguous())
-        E = self._chunk_epochs
-        n_chunks = (n_epochs + E - 1) // E
+        samples = samples.to(torch.complex64).contiguous()
         fst, ist = self._pack_rows(state, limit)
         slot = state.prn_slot.to(_I32).contiguous()
         sec_rows = self._sec[slot.long()].T.contiguous()
-        out_f, out_i, out_corr, fst, ist = tcap.track_capture(
-            self.chain_spec, self.corr_spec, n_chunks, samples, self._rows,
-            slot, sec_rows, fst, ist)
+        if self.correlator == "gather":
+            out_f, out_i, out_corr, fst, ist = gb.gather_block(
+                self.gather_spec, samples,
+                self._codes[slot.long()].contiguous(), sec_rows, fst, ist,
+                n_epochs)
+        else:
+            E = self._chunk_epochs
+            n_chunks = (n_epochs + E - 1) // E
+            out_f, out_i, out_corr, fst, ist = tcap.track_capture(
+                self.chain_spec, self.corr_spec, n_chunks,
+                self._pad_for_chunks(samples), self._rows, slot, sec_rows,
+                fst, ist)
         return self._unpack_rows(state, fst, ist), out_f, out_i, out_corr
 
     # ---------------- output reductions ----------------
@@ -528,10 +572,13 @@ class TrackingEngine:
     def n_symbol_slots(n_epochs_cap: int, sym_n: int) -> int:
         return n_epochs_cap // sym_n + 2
 
-    def _decimated_outputs(self, out_f, out_i, out_corr) -> TrackOutputs:
+    def _decimated_outputs(self, out_f, out_i, out_corr,
+                           decim: int | None = None) -> TrackOutputs:
         """Full-rate valid/start/len/correlators/rem_code; the loop-state
-        rows sampled at epochs k % D == D-1 and held (repeated) between."""
-        K, D = self.cfg.n_taps, self.capture_decim
+        rows sampled at epochs k % D == D-1 and held (repeated) between
+        (D = `decim`, capture_decim by default; 1 keeps every row)."""
+        K = self.cfg.n_taps
+        D = self.capture_decim if decim is None else decim
         corr = torch.complex(out_corr[:, :K], out_corr[:, K:])     # [cap,K,C]
         f = out_f.cpu().numpy()
         i = out_i.cpu().numpy()
@@ -605,10 +652,35 @@ class TrackingEngine:
     # ---------------- host API ----------------
 
     def _check_capture(self, samples, span: int) -> int:
+        """The epochs a capture call walks: every epoch that can start in
+        [0, span), rounded up to whole chunks (the gather path's fours)."""
         need = span + self.cfg.epoch_samples_max
         if samples.shape[0] < need:
             raise ValueError(f"capture must hold >= {need} samples")
-        return span // (self._t0_int - 2) + 2
+        E = self._chunk_epochs
+        return -(-(span // (self._t0_int - 2) + 2) // E) * E
+
+    def track_block(self, samples, state: TrackState, base: int):
+        """Process one sample block (JAX engine.py:1512-1532).
+
+        `samples`: complex64 (numpy or a tensor) holding at least `base +
+        epoch_samples_max` samples; the tail overlaps the next block.  Every
+        active channel advances through all epochs that start within [0,
+        base).  Returns (state rebased by base, TrackOutputs at full rate:
+        base // (t0_int - 2) + 2 epochs on the gather path, whole chunks of
+        them on the chunked path)."""
+        x = (samples if torch.is_tensor(samples)
+             else torch.from_numpy(np.asarray(samples))).to(
+                 self.device, torch.complex64)
+        need = base + self.cfg.epoch_samples_max
+        if x.shape[0] < need:
+            raise ValueError(f"block must be >= base+epoch_samples_max = "
+                             f"{need}, got {x.shape[0]}")
+        n_epochs = base // (self._t0_int - 2) + 2
+        st, out_f, out_i, out_corr = self._run_capture(x, state, base,
+                                                       n_epochs)
+        return self.rebase(st, base), self._decimated_outputs(
+            out_f, out_i, out_corr, decim=1)
 
     def track_capture(self, samples, state: TrackState, span: int):
         """Process a whole device-resident capture segment (complex64

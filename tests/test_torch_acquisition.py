@@ -11,6 +11,9 @@ from gnss_sdr_1_tpu.codes import gps_l1ca_code
 from gnss_sdr_1_tpu.constants import GPS_L1_CA
 from gnss_sdr_1_tpu.siggen import SatParams, generate_baseband
 from gnss_sdr_1_tpu_torch.acquire import AcqConfig, PcpsAcquisition
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 2.046e6
 PRESENT = [3, 7, 11, 19, 24]

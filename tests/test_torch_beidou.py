@@ -55,6 +55,9 @@ from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband as tgen
 from gnss_sdr_1_tpu_torch.track.engine import state_to_numpy
 from test_torch_chain import _compare, _complex_pairs
 from test_torch_l5_e5a_engine import engine_secondary_wipe_parity
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
 # tests/test_system_beidou.py's rate: 1.955 samples per B1I chip

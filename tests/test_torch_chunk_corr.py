@@ -35,6 +35,9 @@ from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import state_from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 4.092e6
 C = 4

@@ -35,6 +35,9 @@ from gnss_sdr_1_tpu_torch.runtime.config import build_frontend as tbuild
 from gnss_sdr_1_tpu_torch.runtime.config import to_receiver_config as trc
 from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband
 from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 CONFS = sorted(p.name for p in CONF_DIR.glob("*.conf"))
@@ -272,9 +275,8 @@ def test_registries_match():
     with pytest.raises(KeyError):
         tfactory.resolve("No_Such_Block")
     # every strategy of the JAX package's but assisted acquisition (item 4)
-    # and the TCP-connector tracking (item 8)
     assert set(tfactory.STRATEGY_IMPL) == set(jfactory.STRATEGY_IMPL) - {
-        ("acquisition", "assisted"), ("tracking", "tcp_connector")}
+        ("acquisition", "assisted")}
     for kind, strategy in tfactory.STRATEGY_IMPL:
         assert tfactory.strategy_impl(kind, strategy).__module__.startswith(
             "gnss_sdr_1_tpu_torch.")
@@ -456,3 +458,69 @@ def test_glonass_group_writes_rinex_and_rtcm(tmp_path, capsys, monkeypatch):
     with pytest.raises(AttributeError, match="week"):
         jcli.main(argv + ["--platform", "cpu", "--out_dir",
                           str(tmp_path / "j")])
+
+
+def _conf_with(tmp_path, base, **extra):
+    """conf/`base` with keys added or replaced (dots written as '__')."""
+    text = (CONF_DIR / base).read_text()
+    items = [f"{k.replace('__', '.')}={v}" for k, v in extra.items()]
+    path = tmp_path / f"with_{len(items)}_{base}"
+    path.write_text(text + "\n" + "\n".join(items) + "\n")
+    return path
+
+
+def test_gather_correlator_maps_like_jax_and_runs(tmp_path, capsys):
+    """`Tracking_1C.correlator=gather` maps as in the JAX package and runs
+    through the port's gather engine: gps_l1_ishort.conf on the 0.3 s,
+    2-channel capture of test_cli_lines_match_jax, both CLIs on their
+    gather paths, print the same lines but the wall time."""
+    conf = _conf_with(tmp_path, "gps_l1_ishort.conf",
+                      Tracking_1C__correlator="gather")
+    rj, rt = jrc(JConf(str(conf))), trc(TConf(str(conf)))
+    assert rt.correlator == rj.correlator == "gather"
+    rx = Receiver(rt, device="cpu")
+    assert rx.trk.correlator == "gather" and rx.trk.gather_spec.K == 3
+    cap = tmp_path / "cap.ishort"
+    _write_ishort(cap, [3, 8], 4.0e6, 0.3, 345606.1)
+    common = ["-c", str(conf), "--signal_file", str(cap), "--channels", "2"]
+    lj = _run(jcli, common + ["--platform", "cpu", "--out_dir",
+                              str(tmp_path / "j")], capsys)
+    lt = _run(tcli, common + ["--device", "cpu", "--out_dir",
+                              str(tmp_path / "t")], capsys)
+    assert lt[:2] == lj[:2]
+    assert lt[2].split(";")[1] == lj[2].split(";")[1]
+    assert lt[3:] == lj[3:]
+
+
+@pytest.mark.parametrize("name,correlator", [
+    ("pallas", "chunked"), ("mxu", "chunked"), ("auto", "chunked"),
+    ("chunked", "chunked")])
+def test_chunked_correlator_names_map(tmp_path, name, correlator):
+    conf = _conf_with(tmp_path, "gps_l1_ishort.conf",
+                      Tracking_1C__correlator=name)
+    rt = trc(TConf(str(conf)))
+    assert rt.correlator == name
+    assert Receiver(rt, device="cpu").trk.correlator == correlator
+
+
+def test_fft_correlator_refused(tmp_path):
+    conf = _conf_with(tmp_path, "gps_l1_ishort.conf",
+                      Tracking_1C__correlator="fft")
+    assert jrc(JConf(str(conf))).correlator == "fft"
+    with pytest.raises(ValueError, match="Does not carry over"):
+        trc(TConf(str(conf)))
+
+
+def test_tcp_connector_conf_raises_like_jax(tmp_path):
+    """A TCP_CONNECTOR tracking conf raises the JAX package's ValueError
+    (the tracker runs standalone, not inside the batched Receiver), naming
+    the port's module."""
+    conf = _conf_with(
+        tmp_path, "gps_l1_ishort.conf",
+        Tracking_1C__implementation="GPS_L1_CA_TCP_CONNECTOR_Tracking")
+    with pytest.raises(ValueError, match="closes its loop over TCP") as ej:
+        jrc(JConf(str(conf)))
+    with pytest.raises(ValueError, match="closes its loop over TCP") as et:
+        trc(TConf(str(conf)))
+    assert "gnss_sdr_1_tpu.track.tcp_connector" in str(ej.value)
+    assert "gnss_sdr_1_tpu_torch.track.tcp_connector" in str(et.value)

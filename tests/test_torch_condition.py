@@ -18,6 +18,9 @@ from gnss_sdr_1_tpu.runtime.config import FileConfiguration as JConf
 from gnss_sdr_1_tpu.runtime.config import build_frontend as jbuild
 from gnss_sdr_1_tpu_torch.runtime.config import FileConfiguration as TConf
 from gnss_sdr_1_tpu_torch.runtime.config import build_frontend as tbuild
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 RTOL = 1e-5

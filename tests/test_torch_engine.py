@@ -21,6 +21,9 @@ from gnss_sdr_1_tpu.utils.planar import to_planar
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import (state_from_numpy,
                                                state_to_numpy)
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 4.092e6
 N_CH = 3

@@ -40,6 +40,9 @@ from gnss_sdr_1_tpu_torch.constants import GALILEO_E1B as TE1B
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import state_from_numpy, state_to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 4.0e6               # not commensurate with the 2.046 MHz virtual rate
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)

@@ -47,6 +47,9 @@ from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import state_from_numpy, state_to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RX = llh_to_ecef(np.radians(55.75), np.radians(37.62), 180.0)
 T0 = 35995.0               # 25 s into a 30 s GNAV frame

@@ -27,6 +27,9 @@ from gnss_sdr_1_tpu.siggen import SatParams, generate_baseband
 from gnss_sdr_1_tpu.track import kf as jkf
 from gnss_sdr_1_tpu_torch.ops.multicorrelator import multicorrelate as tmc
 from gnss_sdr_1_tpu_torch.track import kf as tkf
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 4.092e6
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"

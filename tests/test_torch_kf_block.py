@@ -27,6 +27,9 @@ from gnss_sdr_1_tpu_torch.constants import SIGNALS
 from gnss_sdr_1_tpu_torch.ops import kf_block as kb
 from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
 from gnss_sdr_1_tpu_torch.track import kf as tkf
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BLOCK_S = 0.04
 

@@ -3,8 +3,9 @@ the CPU: one cluster of min(C, max_cluster) thread blocks, channels dealt
 to them in rounds, the dynamic shared memory each needs and whether the
 sample prefetch buffers fit, at the KF shape of every signal the receiver
 builds and at channel counts around the cluster sizes.  The kernel itself
-(csrc/kf_block.cu) runs only on the card; its constants are read from the
-source here so that the two cannot drift apart."""
+(csrc/kf_block.cu, with the cluster skeleton it shares in
+csrc/cluster_walk.cuh) runs only on the card; its constants are read from
+the sources here so that the two cannot drift apart."""
 
 import functools
 import pathlib
@@ -15,6 +16,7 @@ import pytest
 from gnss_sdr_1_tpu_torch.ops import kf_block as kb
 
 CU = pathlib.Path(kb.__file__).resolve().parent.parent / "csrc" / "kf_block.cu"
+SHARED = CU.parent / "cluster_walk.cuh"
 SIGNALS = ("1C", "1B", "L5", "5X", "2S", "1G", "2G", "B1", "B3")
 CLUSTERS = (8, 16)
 # the GPS L1 C/A engine at 4.092 Msps: epoch_samples_max, L, cn0_samples
@@ -34,9 +36,13 @@ def _receiver_shape(sid):
     return spec.C, spec.n_max, spec.code_len, spec.n_hist
 
 
+def _sources():
+    return CU.read_text() + SHARED.read_text()
+
+
 def _cu_define(name):
-    m = re.search(rf"^#define {name} (\d+)$", CU.read_text(), re.M)
-    assert m, f"{name} not defined in {CU.name}"
+    m = re.search(rf"^#define {name} (\d+)$", _sources(), re.M)
+    assert m, f"{name} not defined in {CU.name} or {SHARED.name}"
     return int(m.group(1))
 
 
@@ -89,12 +95,13 @@ def test_geometry_of_channel_counts(C, max_cluster):
 
 
 def test_geometry_matches_the_kernel_source():
-    src = CU.read_text()
+    assert '#include "cluster_walk.cuh"' in CU.read_text()
+    src = _sources()
     assert _cu_define("KF_THREADS") == kb.KF_THREADS
     assert "__launch_bounds__(KF_THREADS, 1)" in src
     assert _cu_define("KF_MAX_CLUSTER") == kb.KF_MAX_CLUSTER
-    assert _cu_define("KF_PORTABLE_CLUSTER") == kb.PORTABLE_CLUSTER
-    assert _cu_define("KF_SMEM_MAX") == kb.SMEM_MAX
+    assert _cu_define("CLUSTER_PORTABLE") == kb.PORTABLE_CLUSTER
+    assert _cu_define("CLUSTER_SMEM_MAX") == kb.SMEM_MAX
     assert _cu_define("KF_STAGE_POINTS") == kb.STAGE_POINTS
     for name in ("TL_START", "TL_M0", "TL_PRE", "TL_RED", "TL_UPD", "TL_M32",
                  "TL_WAIT", "TL_SAMP", "TL_PART", "TL_HIT"):
@@ -106,7 +113,7 @@ def test_geometry_matches_the_kernel_source():
     assert "<<<" not in src and "cudaLaunchKernelEx" in src
     assert "cudaLaunchAttributeClusterDimension" in src
     # clusters past the portable size are allowed explicitly
-    assert "n_cta > KF_PORTABLE_CLUSTER" in src
+    assert "n_cta > CLUSTER_PORTABLE" in src
     assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
 
 

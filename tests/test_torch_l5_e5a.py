@@ -41,6 +41,9 @@ from gnss_sdr_1_tpu_torch.codes.galileo_e5 import \
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
 from gnss_sdr_1_tpu_torch.siggen.generator import generate_baseband as tgen
 from gnss_sdr_1_tpu_torch.track.engine import state_to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 12.0e6              # 1.17 samples per chip, as the system test
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)

@@ -27,6 +27,9 @@ from gnss_sdr_1_tpu.track import TrackingEngine as JEngine
 from gnss_sdr_1_tpu.utils.planar import to_planar
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import state_from_numpy, state_to_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 12.0e6              # 1.17 samples per chip, as the system test
 SIGNALS = {"L5": ("GPS_L5", 10), "5X": ("GALILEO_E5A", 20)}

@@ -41,6 +41,9 @@ from gnss_sdr_1_tpu_torch.runtime.config import FileConfiguration as TConf
 from gnss_sdr_1_tpu_torch.runtime.config import to_receiver_configs as trcs
 from gnss_sdr_1_tpu_torch.runtime.multi_receiver import (JointSolution,
                                                          MultiReceiver)
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONF_DIR = pathlib.Path(__file__).resolve().parent.parent / "conf"
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)

@@ -16,6 +16,9 @@ from gnss_sdr_1_tpu.runtime import ReceiverConfig as JReceiverConfig
 from gnss_sdr_1_tpu.siggen.generator import generate_baseband
 from gnss_sdr_1_tpu.siggen.scenario import build_scenario
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FS = 2.046e6
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
