@@ -11,26 +11,30 @@ error a run, holds no bar, and ends without the lines below.
 
 Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
-     nvcc for each library, started together: the tracking library, the
-     KF library and the gather walk's, which holds the one-epoch
-     multicorrelator too),
+     nvcc for each library and stage build, started together: the
+     tracking library, the KF library, the gather walk's, which holds the
+     one-epoch multicorrelator too, and the KF and gather stage builds),
      with ptxas' registers, stack frame and spills of every kernel
-     instance (the chain's instances may use no local memory, the KF
-     kernel's may spill nothing);
+     instance (the chain's instances may use no local memory, the KF and
+     gather kernels' may spill nothing);
   2. both CUDA kernels against their plain torch versions on the card, at
      the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
      inputs and on the inputs of a real chunk taken mid-track: the chunk
      correlator (chunk_corr) and the tracking chain (track_chain), each
      timed (device time per launch from the profiler, the plain version,
-     and for the correlator the torch.bmm pair it replaces); then the
+     and for the correlator the torch.bmm pair it replaces, the cluster of
+     CTAs a channel takes, its tiles and TF32 passes, and three bounds:
+     bytes, the lag products at the float32 rate, and its TF32 passes at
+     the tensor cores' rate); then the
      capture entry (both kernels over three chunks in one call) against
      the plain chunk loop on the CPU; the same three checks (untimed) at
      the engine's shapes for 2.046 Msps (phase 7's rate) and 2.6 Msps
      (gps_l1_kalman.conf's, 2.54 samples per chip); the same three checks
      at the Galileo E1 receiver's shape (K=5 VEML taps, E=16, C=8,
      4.0 Msps: NW=16045, LW=69), timed like the first, and once more
-     (untimed) at 8.184 Msps, where the correlator walks its 4 ms window
-     (NW=32783) in two shared-memory tiles; and the same three checks,
+     (untimed) at 8.184 Msps, where every CTA of a channel's cluster walks
+     its share of the 4 ms window (NW=32783) in several shared-memory
+     tiles; and the same three checks,
      timed, at the GPS L5 shape (12.5 Msps, C=6, NH10), the Galileo E5a
      shape (12 Msps, C=6, CS20), the BeiDou B1I shape (5 Msps, C=8, the
      0.2-chip correlator, NH20) and the B3I shape (12.5 Msps, C=6, NH20)
@@ -43,7 +47,9 @@ Phases (one line each, with times):
      GPS L2C shape (3 Msps, C=6, the 20 ms window of ~60,000 samples
      walked in 4 tiles); and each of the chain's 16 template instances
      <K, ORDER, SEC_DATA, HAS_SEC> on the E1 (K=5) and L5 (K=3) chunks,
-     one line each;
+     one line each, and their every output on the inputs recorded in
+     tests/data/chain_instances.npz held bit for bit to the digests the
+     chain kernel gave on them before its closure was split;
      then the generator on the card held to the numpy one on a noiseless
      20 ms stretch of every capture the script makes on the card;
  2b. the KF block kernel (kf_block) against its plain version on the CPU,
@@ -70,9 +76,14 @@ Phases (one line each, with times):
      channel and on 20 (18 active); the 16 template instances on the GPS
      and E1B cases; timed per one-block launch (device ms from the
      profiler, the plain version's on the card, the bound, the cluster
-     geometry), at GPS also the receiver's 1 s segment launch in us per
-     epoch; then multicorrelate_cuda against multicorrelate at K = 3 and
-     5, timed at the TCP connector's C = 1;
+     geometry; CUDA events, the profiler's device time beside them), at
+     GPS also the receiver's 1 s segment launch in us per epoch and the
+     same launch through the GATHER_BLOCK_STAGES build (a second nvcc of
+     gather_block.cu): the exchange of m, the correlation, the reduction
+     and the closure of an epoch on CTA 0 (the closure's state-only part
+     beside them), in order, and the
+     serial floor of a 40 ms block; then multicorrelate_cuda against
+     multicorrelate at K = 3 and 5, timed at the TCP connector's C = 1;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -222,6 +233,8 @@ CACHE = ROOT / "chip_smoke_cache"
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# the TF32 tensor-core rate (dense), for the correlator's passes
+PEAK_TF32_S = 495e12
 # float32 operations per (epoch, channel) of the chain: tap reads ~45,
 # rotation ~20, wipe/accumulate ~12, discriminators ~60, PLL ~15, DLL ~30,
 # NCO ~15, CN0/lock ~25, ledger ~10, with each transcendental counted as
@@ -234,6 +247,10 @@ WIPE_OPS_PER_SAMPLE = 8
 # chunks of the capture entry's check in phase 2 (the sample limit of the
 # mid-track segment, 40 ms, ends inside the third)
 CAPTURE_CHUNKS = 3
+# phase 2: the chain's 16 instances on fixed inputs (.npz) and the SHA-256
+# digests of every output that the chain kernel gave on them before its
+# closure was split around the gather walk's correlation (.json)
+CHAIN_DIGESTS = ROOT / "tests" / "data" / "chain_instances"
 # phase 2's extra kernel checks: phase 7's internal rate and
 # gps_l1_kalman.conf's (a non-integer number of samples per chip)
 CHECK_RATES = (2.046e6, 2.6e6)
@@ -466,8 +483,8 @@ def main() -> None:
         f"mid-track {cr['err_track']:.3e} of {cr['scale_track']:.3e}), "
         f"kernel {cr['ms']:.5f} ms/launch device ({cr['ms_host']:.5f} from "
         f"the host), plain {cr['plain_ms']:.3f} ms, torch.bmm pair "
-        f"{cr['library_ms']:.5f} ms, bound {cr['bound_ms']:.2e} ms "
-        f"({cr['bound_by']})")
+        f"{cr['library_ms']:.5f} ms, {_corr_bounds(cr)}; "
+        f"{k_rep['gps_split']}")
     log(f"    track_chain vs plain: max |diff| {ch['max_abs_err']:.3e} "
         f"(random {ch['err_random']:.3e}, mid-track {ch['err_track']:.3e}), "
         f"int rows exact, kernel {ch['ms']:.5f} ms/launch device "
@@ -478,7 +495,7 @@ def main() -> None:
         f"int rows exact, {ch['capture_valid_epochs']} valid epochs")
     for r in k_rep["other_rates"] + [k_rep["e1"], k_rep["e1_tiled"]]:
         log(f"    at {r['fs'] / 1e6:g} Msps (K={r['K']}, NW={r['NW']}, "
-            f"LW={r['LW']}, {r['tiles']} tile(s), "
+            f"LW={r['LW']}, {r['split']}, "
             f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
             f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
             f"track_chain {r['chain_err']:.3e}, capture "
@@ -486,8 +503,8 @@ def main() -> None:
     e1c, e1h = k_rep["e1"]["corr"], k_rep["e1"]["chain"]
     log(f"    Galileo E1 shape (K=5, E=16, C=8, NW={e1c['NW']}): chunk_corr "
         f"{e1c['ms']:.5f} ms/launch device, plain {e1c['plain_ms']:.3f} ms, "
-        f"torch.bmm pair {e1c['library_ms']:.5f} ms, bound "
-        f"{e1c['bound_ms']:.2e} ms ({e1c['bound_by']}); track_chain "
+        f"torch.bmm pair {e1c['library_ms']:.5f} ms, {_corr_bounds(e1c)}; "
+        f"{k_rep['e1']['split']}; track_chain "
         f"{e1h['ms']:.5f} ms/launch device, plain {e1h['plain_ms']:.3f} ms, "
         f"bound {e1h['bound_ms']:.2e} ms ({e1h['bound_by']})")
     for sig, r in k_rep["sec"].items():
@@ -498,8 +515,8 @@ def main() -> None:
             f"{r['samples_per_chip']:.4f} samples/chip): chunk_corr max "
             f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
             f"{sc['ms']:.5f} ms/launch device, plain {sc['plain_ms']:.3f} ms, "
-            f"torch.bmm pair {sc['library_ms']:.5f} ms, bound "
-            f"{sc['bound_ms']:.2e} ms ({sc['bound_by']}); track_chain "
+            f"torch.bmm pair {sc['library_ms']:.5f} ms, {_corr_bounds(sc)}; "
+            f"{r['split']}; track_chain "
             f"{r['chain_err']:.3e}, {sh['ms']:.5f} ms/launch device, plain "
             f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.2e} ms "
             f"({sh['bound_by']}); capture {r['capture_err']:.3e}, int rows "
@@ -508,12 +525,12 @@ def main() -> None:
         sc, sh = r["corr"], r["chain"]
         log(f"    {sig} shape (K=3, E=16, C={len(r['offsets_hz'])}, "
             f"{r['fs'] / 1e6:g} Msps, NW={r['NW']}, LW={r['LW']}, "
-            f"{r['tiles']} tile(s), FDMA biases "
+            f"{r['split']}, FDMA biases "
             f"{[round(v) for v in r['offsets_hz']]} Hz): chunk_corr max "
             f"|diff| {r['corr_err']:.3e} of {r['corr_scale']:.3e}, "
             f"{sc['ms']:.5f} ms/launch device, plain {sc['plain_ms']:.3f} ms, "
-            f"torch.bmm pair {sc['library_ms']:.5f} ms, bound "
-            f"{sc['bound_ms']:.2e} ms ({sc['bound_by']}); track_chain "
+            f"torch.bmm pair {sc['library_ms']:.5f} ms, {_corr_bounds(sc)}; "
+            f"{r['split']}; track_chain "
             f"{r['chain_err']:.3e}, {sh['ms']:.5f} ms/launch device, plain "
             f"{sh['plain_ms']:.3f} ms, bound {sh['bound_ms']:.2e} ms "
             f"({sh['bound_by']}); capture {r['capture_err']:.3e}, int rows "
@@ -522,6 +539,9 @@ def main() -> None:
         log(f"    track_chain instance {r['instance']} vs plain on the CPU: "
             f"max |diff| {r['err']:.3e}, int rows exact, "
             f"{r['valid_epochs']} valid epochs")
+    dg = k_rep["chain_digests"]
+    log(f"    track_chain's 16 instances on the recorded inputs: {dg['same']} "
+        f"of {dg['total']} outputs bit for bit as recorded")
     log(f"    | {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kf_rows = phase_kf_kernel(dev, kb)
@@ -568,11 +588,12 @@ def main() -> None:
     t0 = time.perf_counter()
     g_rows, g_inst, mc_rows = phase_gather_kernel(dev, gb, mc)
     for r in g_rows:
+        prof = ("lost by the profiler" if r.get("ms_profiler") is None
+                else f"the profiler's device time {r['ms_profiler']:.5f}")
         timed = (f"; one 40 ms block ({r['block_epochs']} epochs) "
-                 f"{r['ms']:.5f} ms/launch device ({r['ms_host']:.5f} from "
-                 f"the host), plain {r['plain_ms']:.3f} ms, bound "
-                 f"{r['bound_ms']:.2e} ms ({r['bound_by']})"
-                 if "ms" in r else "")
+                 f"{r['ms']:.5f} ms/launch (CUDA events; {prof}), plain "
+                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.2e} ms "
+                 f"({r['bound_by']})" if "ms" in r else "")
         log(f"[2c] gather_block vs plain on the CPU, {r['what']} (K={r['K']}, "
             f"order {r['order']}, sec_len {r['sec_len']}, C={r['C']}, "
             f"{r['active']} active, {r['fs'] / 1e6:g} Msps, Nmax="
@@ -587,10 +608,25 @@ def main() -> None:
             f"{r['corr_scale']:.3e}, CN0 rel {r['cn0']:.1e}, "
             f"{r['valid_epochs']} valid epochs" + timed)
         if "seg_ms" in r:
+            sp = r["stages"]
             log(f"    {r['what']}, the receiver's 1 s segment launch "
                 f"({r['seg_epochs']} epochs, {r['seg_valid_epochs']} valid): "
                 f"{r['seg_ms']:.4f} ms, {r['seg_us_per_epoch']:.3f} us per "
-                f"epoch (CUDA events), bound {r['seg_bound_ms']:.2e} ms")
+                f"epoch (CUDA events), bound {r['seg_bound_ms']:.2e} ms; "
+                f"stage split (GATHER_BLOCK_STAGES build, CTA 0, "
+                f"{sp['mhz']:.0f} cycles per us): "
+                + ", ".join(f"{k} {100 * sp['share'][k]:.1f} % "
+                            f"({sp['us'][k]:.3f} us)" for k in sp["us"])
+                + f" of an epoch of {sp['epoch_us']:.3f} us over "
+                f"{sp['epochs']} epochs (in order: {sp['ordered']}; in the "
+                f"correlation the prefetch wait "
+                f"{sp['inner_us']['prefetch_wait']:.3f} us and thread 32's "
+                f"samples {sp['inner_us']['samples']:.3f} us; the closure's "
+                f"state-only part {sp['inner_us']['closure_pre']:.3f} us "
+                f"beside it; "
+                f"{sp['prefetch_hits']} of the {sp['epochs']} epochs read "
+                f"the prefetch buffer); serial floor of one 40 ms block "
+                f"{r['serial_floor_ms']:.4f} ms")
     for r in g_inst:
         log(f"    gather_block instance {r['instance']} vs plain on the CPU: "
             f"max |diff| {r['err']:.3e}, int rows exact, "
@@ -928,8 +964,12 @@ def main() -> None:
         "max_abs_err": cr["max_abs_err"], "ms": cr["ms"],
         "plain_ms": cr["plain_ms"], "bound_ms": cr["bound_ms"],
         "bound_by": cr["bound_by"], "library_ms": cr["library_ms"],
+        "bound_bytes_ms": cr["bound_bytes_ms"],
+        "bound_tf32_ms": cr["bound_tf32_ms"], "passes": cr["passes"],
+        "cluster": cr["G"],
         "e1_ms": e1c["ms"], "e1_bound_ms": e1c["bound_ms"],
         "e1_plain_ms": e1c["plain_ms"], "e1_library_ms": e1c["library_ms"],
+        "e1_bound_tf32_ms": e1c["bound_tf32_ms"],
         **_shape_keys(shapes, "corr"),
     }, {
         "name": "track_chain", "route": "cuda",
@@ -988,6 +1028,8 @@ def main() -> None:
            for key in ("ms", "plain_ms", "bound_ms")},
         "seg_us_per_epoch": g_t["GPS"]["seg_us_per_epoch"],
         "seg_bound_ms": g_t["GPS"]["seg_bound_ms"],
+        "serial_floor_ms": g_t["GPS"]["serial_floor_ms"],
+        "stage_us_per_epoch": g_t["GPS"]["stages"]["us"],
         "device_us_per_epoch": {
             "e2e": g23["device_us_per_epoch"],
             "cli": cli26["device_us_per_epoch"],
@@ -1044,9 +1086,9 @@ _KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
 def build_report() -> dict:
     """Build every library (one nvcc each, started together, even where a
     build of the same sources exists: the report needs ptxas) and check
-    what ptxas reports: every kernel is there (16 chain, 4 KF, 16 gather
-    and 4 multicorrelator instances); the chain's instances use no local
-    memory, the KF's spill nothing."""
+    what ptxas reports: every kernel is there (16 chain, 2 correlator, 4
+    KF, 16 gather and 4 multicorrelator instances); the chain's instances
+    use no local memory, the KF's and the gather walk's spill nothing."""
     from gnss_sdr_1_tpu_torch.ops import _build
 
     _build.build_all(force=True)
@@ -1054,7 +1096,7 @@ def build_report() -> dict:
         _build._load(lib)
     ptxas = ptxas_report("\n".join(_build.BUILD_LOG[lib]["ptxas"]
                                    for lib in _build._ENTRIES))
-    want = {"track_chain": 16, "chunk_corr": 1, "kf_block": 4,
+    want = {"track_chain": 16, "chunk_corr": 2, "kf_block": 4,
             "gather_block": 16, "multicorrelate": 4}
     got = {k: sum(n.split("<")[0] == k for n in ptxas) for k in want}
     if any(got[k] < n for k, n in want.items()):
@@ -1063,8 +1105,8 @@ def build_report() -> dict:
         if name.startswith("track_chain") and (
                 r["stack"] or r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"track_chain uses local memory: {r}")
-        if name.startswith("kf_block") and (r["spill_stores"]
-                                            or r["spill_loads"]):
+        if name.startswith(("kf_block", "gather_block")) and (
+                r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"{name} spills: {r}")
     return ptxas
 
@@ -1394,8 +1436,12 @@ def _device_ms(fn, n):
         torch.cuda.synchronize()
     us = sum(e["dur"] for e in _kernel_events(prof))
     if not us > 0:
-        raise AssertionError("the profiler trace holds no kernel event")
+        raise NoKernelEvent("the profiler trace holds no kernel event")
     return us / n * 1e-3
+
+
+class NoKernelEvent(AssertionError):
+    """A profiler trace without the kernel's events."""
 
 
 def _midtrack(dev, fs, signal="1C"):
@@ -1547,7 +1593,10 @@ def _time_shape(cc, tc, inputs, track_args):
     bmm_ms = _device_ms(bmm_pair, 200)
     # least time: bytes (each channel's segment, its replica row, the state
     # rows read; the lag windows, slice origins and step0 written) against
-    # operations (the lag products over this chunk's wiped samples)
+    # operations (the lag products over this chunk's wiped samples) at the
+    # float32 FMA rate, the measure kept across PRs; beside it the bytes
+    # alone and the TF32 bound: the kernel's passes of the lag products at
+    # the tensor cores' TF32 rate, the wipe at the float32 rate
     C, E, LW = cspec.C, cspec.E, cspec.LW
     n_wiped = int(((wr != 0) | (wi != 0)).sum())
     c_bytes = (C * cspec.seg_len * 8 + C * cspec.QW * 4
@@ -1555,6 +1604,9 @@ def _time_shape(cc, tc, inputs, track_args):
                + (2 * C * E * LW + C * E + C) * 4)
     c_ops = 4 * LW * n_wiped + WIPE_OPS_PER_SAMPLE * n_wiped
     tb, to = c_bytes / PEAK_BYTES_S * 1e3, c_ops / PEAK_F32_S * 1e3
+    p = cc.corr_params(cspec)
+    t_tf32 = (p.passes * 4 * LW * n_wiped / PEAK_TF32_S
+              + WIPE_OPS_PER_SAMPLE * n_wiped / PEAK_F32_S) * 1e3
     corr = {
         "ms": corr_ms, "ms_host": corr_host,
         "plain_ms": corr_plain, "library_ms": bmm_ms,
@@ -1562,8 +1614,9 @@ def _time_shape(cc, tc, inputs, track_args):
                    "product alone)",
         "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
         else "operations", "bound_bytes": c_bytes, "bound_ops": c_ops,
-        "wiped_samples": n_wiped, "NW": cspec.NW,
-        "tiles": cc.corr_params(cspec).tiles}
+        "bound_bytes_ms": tb, "bound_f32_ms": to,
+        "bound_tf32_ms": t_tf32,
+        "wiped_samples": n_wiped, "NW": cspec.NW, **_corr_split(cc, cspec)}
 
     chain_ms = _device_ms(lambda: tc.chain_cuda(spec, *track_args), 200)
     chain_host = _time_cuda(lambda: tc.chain_cuda(spec, *track_args), 500)
@@ -1586,11 +1639,30 @@ def _time_shape(cc, tc, inputs, track_args):
     return corr, chain
 
 
+def _corr_bounds(r):
+    """A correlator row's bounds: the float32 one kept across PRs, the
+    bytes, and the operations of its TF32 passes."""
+    return (f"bound {r['bound_ms']:.2e} ms ({r['bound_by']}; bytes "
+            f"{r['bound_bytes_ms']:.2e}, float32 products "
+            f"{r['bound_f32_ms']:.2e}, {r['passes']} TF32 passes "
+            f"{r['bound_tf32_ms']:.2e})")
+
+
+def _corr_split(cc, cspec):
+    """The correlator's launch at a shape: the cluster of CTAs a channel
+    takes, the tiles each walks, the TF32 passes."""
+    p = cc.corr_params(cspec)
+    return {"G": p.G, "tiles": p.tiles, "passes": p.passes,
+            "split": f"{p.C} clusters of {p.G} CTAs, {p.tiles} tile(s) of "
+                     f"{8 * p.TK} samples each, {p.passes} TF32 passes, "
+                     f"{p.smem} B"}
+
+
 def _rate_summary(cc, fs, inp, c):
     """One untimed kernel check at another shape, for the report."""
     cspec = inp[0].corr_spec
     return {"fs": fs, "NW": cspec.NW, "LW": cspec.LW, "K": inp[0].chain_spec.K,
-            "tiles": cc.corr_params(cspec).tiles,
+            **_corr_split(cc, cspec),
             "samples_per_chip": fs / inp[0].cfg.chip_rate_chips_s,
             "corr_err": max(c["corr_err"].values()),
             "corr_scale": max(c["corr_scale"].values()),
@@ -1621,12 +1693,12 @@ def phase_kernels(dev, cc, tc):
     corr_t, chain_t = _time_shape(cc, tc, inputs, chk["track_args"])
 
     # Galileo E1B: the 5-tap chain and the 4 ms window at phase 10's shape,
-    # timed; then the window walked in several tiles (untimed)
+    # timed; then at 8.184 Msps, where every CTA of a channel's cluster
+    # walks its share of the window in several tiles (untimed)
     e1_in = _midtrack(dev, FS_E1, "1B")
     e_spec, e_cspec = e1_in[0].chain_spec, e1_in[0].corr_spec
     assert (e_spec.E, e_spec.LW, e_spec.C, e_spec.K, e_spec.prompt_index,
             e_cspec.NW) == (16, 69, 8, 5, 2, 16045), (e_spec, e_cspec)
-    assert cc.corr_params(e_cspec).tiles == 1
     e1_chk = _check_kernels(dev, cc, tc, e1_in, g)
     e1_corr_t, e1_chain_t = _time_shape(cc, tc, e1_in, e1_chk["track_args"])
     e1 = _rate_summary(cc, FS_E1, e1_in, e1_chk)
@@ -1666,7 +1738,7 @@ def phase_kernels(dev, cc, tc):
     # GLONASS L1 at 6.625 Msps: both kernels' first non-zero carrier bias
     # (F_CARR_OFF, one slot at |k| = 5: 2.81 MHz against the +-3.31 MHz
     # band), and GPS L2C at 3 Msps: the 20 ms window of ~60,000 samples
-    # walked in 4 tiles; each timed
+    # split over a cluster of CTAs, each in several tiles; each timed
     new = {}
     for signal, fs in (("1G", FS_GLO_HI), ("2S", FS_L2C)):
         n_in = _midtrack(dev, fs, signal)
@@ -1678,7 +1750,7 @@ def phase_kernels(dev, cc, tc):
         if signal == "1G" and not (np.abs(offs).max() == 562.5e3 * 5
                                    and (offs != 0).sum() == 4):
             raise AssertionError(f"GLONASS kernel check offsets {offs}")
-        if signal == "2S" and not (tiles == 4 and n_cspec.NW > 60000):
+        if signal == "2S" and not (tiles > 1 and n_cspec.NW > 60000):
             raise AssertionError(f"L2C kernel check in {tiles} tiles, "
                                  f"NW={n_cspec.NW}")
         n_chk = _check_kernels(dev, cc, tc, n_in, g)
@@ -1693,6 +1765,8 @@ def phase_kernels(dev, cc, tc):
         5: (e1_in[0].chain_spec, e1_chk["track_args"]),
         3: (sec_inputs["L5"][0][0].chain_spec,
             sec_inputs["L5"][1]["track_args"])}, g)
+    digests = _chain_digests(dev, tc, {
+        5: e1_in[0].chain_spec, 3: sec_inputs["L5"][0][0].chain_spec})
 
     checks = other + [e1, tiled, *sec.values(), *new.values()]
     corr_rep = {
@@ -1710,20 +1784,22 @@ def phase_kernels(dev, cc, tc):
                            + [r["err"] for r in inst]),
         **chain_t, "rows": chk["rows"]}
     return {"chunk_corr": corr_rep, "track_chain": chain_rep,
+            "gps_split": _corr_split(cc, cspec)["split"],
             "other_rates": other, "e1": e1, "e1_tiled": tiled, "sec": sec,
-            "glo": new["1G"], "l2c": new["2S"], "instances": inst}
+            "glo": new["1G"], "l2c": new["2S"], "instances": inst,
+            "chain_digests": digests}
 
 
-def _check_instances(dev, tc, bases, g):
+def _instance_cases(tc, bases, g):
     """Each of the 16 template instances <K, ORDER, SEC_DATA, HAS_SEC> that
-    chain_kernel_for (csrc/track_chain.cu) can return, launched through the
-    chain wrapper on a mid-track chunk and on random lag windows, against
-    chain_plain on the CPU (_chain_diff's bars).  `bases`: K -> (chain spec,
-    the mid-track chain inputs).  ORDER=2 takes the order-2 loop
-    coefficients with the integrator seeded from the Doppler; HAS_SEC runs
-    a secondary code (the chunk's own NH10 rows, or a random 20-chip code)
-    with the wipe on in every other channel from a non-zero index;
-    SEC_DATA switches the Costas discriminator."""
+    chain_kernel_for (csrc/track_chain.cu) can return, on a mid-track chunk
+    and on random lag windows: yields (instance name, chain spec, the
+    chain's CPU inputs).  `bases`: K -> (chain spec, the mid-track chain
+    inputs).  ORDER=2 takes the order-2 loop coefficients with the
+    integrator seeded from the Doppler; HAS_SEC runs a secondary code (the
+    chunk's own NH10 rows, or a random 20-chip code) with the wipe on in
+    every other channel from a non-zero index; SEC_DATA switches the
+    Costas discriminator."""
     import dataclasses
 
     from gnss_sdr_1_tpu_torch.track.loop_filter import fll_pll_coefficients
@@ -1732,7 +1808,6 @@ def _check_instances(dev, tc, bases, g):
     n2 = fll_pll_coefficients(8.0, 12.0, 2)
     coef = lambda c: (c.w0p, c.w0p2, c.w0p3, c.w0f, c.w0f2, c.a2, c.a3,
                       c.b3)                                     # noqa: E731
-    rows = []
     for K, (spec0, args0) in sorted(bases.items()):
         zr, zi, s_reg, step0, sec0, fst0, ist0 = (t.cpu() for t in args0)
         C = spec0.C
@@ -1766,23 +1841,56 @@ def _check_instances(dev, tc, bases, g):
                         ist[tc.I_SEC_IDX] = 0
                     name = (f"<{K},{order},{str(sec_data).lower()},"
                             f"{str(has_sec).lower()}>")
-                    err = 0.0
                     for z in ((zr, zi), rand):
-                        args = (*z, s_reg, step0, sec.contiguous(), fst, ist)
-                        before = tc.launches
-                        got = tc.chain(spec, *(t.to(dev) for t in args))
-                        torch.cuda.synchronize()
-                        if tc.launches != before + 1:
-                            raise AssertionError(f"{name}: the chain wrapper "
-                                                 f"did not launch")
-                        want = tc.chain_plain(spec, *args)
-                        err = max(err, _chain_diff(tc, got, want))
-                    n_valid = int(want[0][:, tc.O_VALID].sum())
-                    rows.append({"instance": name, "err": err,
-                                 "valid_epochs": n_valid})
-    if len({r["instance"] for r in rows}) != 16:
+                        yield name, spec, (*z, s_reg, step0, sec.contiguous(),
+                                           fst, ist)
+
+
+def _check_instances(dev, tc, bases, g):
+    """Every case of _instance_cases launched through the chain wrapper
+    against chain_plain on the CPU (_chain_diff's bars)."""
+    rows = {}
+    for name, spec, args in _instance_cases(tc, bases, g):
+        before = tc.launches
+        got = tc.chain(spec, *(t.to(dev) for t in args))
+        torch.cuda.synchronize()
+        if tc.launches != before + 1:
+            raise AssertionError(f"{name}: the chain wrapper did not launch")
+        want = tc.chain_plain(spec, *args)
+        r = rows.setdefault(name, {"instance": name, "err": 0.0})
+        r["err"] = max(r["err"], _chain_diff(tc, got, want))
+        r["valid_epochs"] = int(want[0][:, tc.O_VALID].sum())
+    if len(rows) != 16:
         raise AssertionError(f"{len(rows)} chain instances checked")
-    return rows
+    return list(rows.values())
+
+
+def _chain_digests(dev, tc, specs):
+    """Every output of the 16 chain instances (_instance_cases) on the
+    fixed inputs of CHAIN_DIGESTS' .npz (the E1 (K=5) and L5 (K=3)
+    mid-track chunks' lag windows and state rows), hashed (SHA-256 of the
+    bytes) and held to the digests in its .json, which the chain kernel
+    wrote on them before its closure was split: the chain bit for bit the
+    same.  `specs`: K -> the chain spec.  Raises when any differs."""
+    import hashlib
+
+    data = np.load(CHAIN_DIGESTS.with_suffix(".npz"))
+    want = json.loads(CHAIN_DIGESTS.with_suffix(".json").read_text())
+    bases = {K: (spec, tuple(torch.from_numpy(data[f"k{K}_{n}"]) for n in (
+        "zr", "zi", "s_reg", "step0", "sec", "fst", "ist")))
+        for K, spec in specs.items()}
+    got = [{"instance": name, "digests": [
+        hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+        for t in tc.chain(spec, *(t.to(dev) for t in args))]}
+        for name, spec, args in _instance_cases(
+            tc, bases, torch.Generator().manual_seed(3))]
+    same = sum(a == b for g, w in zip(got, want["cases"])
+               for a, b in zip(g["digests"], w["digests"]))
+    total = sum(len(w["digests"]) for w in want["cases"])
+    if len(got) != len(want["cases"]) or same != total:
+        raise AssertionError(f"chain digests: {same} of {total} outputs of "
+                             f"the 16 instances as recorded")
+    return {"same": same, "total": total}
 
 
 # ---------------------------------------------------------------------------
@@ -2289,7 +2397,10 @@ def _gather_segment(dev, gb, tc, eng, case):
     """The launch the receiver makes on a 1 s segment of the GPS shape
     (1,000 epochs of 12 channels, the capture made on the card, channels
     activated at the truth), timed with CUDA events: us per epoch, and its
-    bound."""
+    bound; then the same launch through the GATHER_BLOCK_STAGES build (int
+    rows held to the plain build's exactly), whose timeline of CTA 0 gives
+    the stage split of an epoch and the serial floor of a 40 ms block
+    (ops/gather_block.py stage_split)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
 
@@ -2313,9 +2424,28 @@ def _gather_segment(dev, gb, tc, eng, case):
     if not (bool(torch.isfinite(out[0]).all()) and n_valid >= 0.95 * 12000):
         raise AssertionError(f"gather segment: {n_valid} valid epochs or "
                              f"non-finite outputs")
+    stages = torch.zeros((n_ep, gb.STAGE_POINTS), dtype=torch.int64,
+                         device=dev)
+
+    def staged():
+        return gb.gather_block_cuda(case[1], *card, n_ep, stages=stages)
+
+    s_ms = _time_cuda(staged, 3)
+    s_out = staged()
+    if not (np.array_equal(s_out[1].cpu().numpy(), oi)
+            and torch.equal(s_out[0][:, tc.O_VALID], out[0][:, tc.O_VALID])):
+        raise AssertionError("gather stage build: int rows differ from the "
+                             "plain build's")
+    split = gb.stage_split(stages.cpu().numpy(), s_ms,
+                           eng._check_capture(x, int(FS * 0.04)))
+    if not (split["ordered"] and split["epochs"] > n_ep // 2):
+        raise AssertionError(f"gather stage timeline out of order or short: "
+                             f"{split}")
     return {"seg_epochs": n_ep, "seg_valid_epochs": n_valid, "seg_ms": ms,
             "seg_us_per_epoch": ms * 1e3 / n_ep,
-            "seg_bound_ms": _gather_bound(tc, case[1], of, oi)["bound_ms"]}
+            "seg_bound_ms": _gather_bound(tc, case[1], of, oi)["bound_ms"],
+            "stage_ms": s_ms, "stages": split,
+            "serial_floor_ms": split["serial_floor_ms"]}
 
 
 def _mc_checks(dev, mc, cases):
@@ -2406,9 +2536,16 @@ def phase_gather_kernel(dev, gb, mc):
             def call():
                 gb.gather_block_cuda(spec, *card, blk)
 
+            # CUDA events time the launch: torch.profiler loses this
+            # kernel now and then (at one shape in one run, at every shape
+            # in another); its device time beside it where the trace holds
+            # it
             r["block_epochs"] = blk
-            r["ms"] = _device_ms(call, 10)
-            r["ms_host"] = _time_cuda(call, 10)
+            r["ms"] = _time_cuda(call, 10)
+            try:
+                r["ms_profiler"] = _device_ms(call, 10)
+            except NoKernelEvent:
+                r["ms_profiler"] = None
             r["plain_ms"] = _time_cuda(
                 lambda: gb.gather_block_plain(spec, *card, blk), 1)
             ob = gb.gather_block_plain(spec, *args, blk)
@@ -3572,6 +3709,8 @@ def _shape_keys(sec, which):
         out.update({f"{k}_ms": t["ms"], f"{k}_bound_ms": t["bound_ms"],
                     f"{k}_plain_ms": t["plain_ms"],
                     f"{k}_library_ms": t.get("library_ms")})
+        if "bound_tf32_ms" in t:
+            out[f"{k}_bound_tf32_ms"] = t["bound_tf32_ms"]
     return out
 
 

@@ -80,6 +80,29 @@ __device__ __forceinline__ int cluster_min(
     return __reduce_min_sync(0xffffffffu, v);
 }
 
+// The same exchange split around work that does not need m: thread 0
+// publishes the CTA's minimum into slot `parity` and every thread arrives
+// at the cluster barrier (release); later every thread waits on it
+// (acquire) and takes the minimum of all the ranks' slots.  Each thread
+// arrives and waits once an epoch; the double-buffered slots make that
+// enough, as for cluster_min.
+__device__ __forceinline__ void cluster_publish(int* slot, int parity,
+                                                int local, int tid) {
+    if (tid == 0) slot[parity] = local;
+    __syncwarp();
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_wait_min(
+    cooperative_groups::cluster_group& cluster, int* slot, int parity,
+    int lane, int n_cta) {
+    __syncwarp();
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    int v = 1 << 29;
+    if (lane < n_cta) v = *cluster.map_shared_rank(slot + parity, lane);
+    return __reduce_min_sync(0xffffffffu, v);
+}
+
 // --- mbarrier and bulk copy (PTX) ---
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -214,21 +237,35 @@ static cudaLaunchConfig_t cluster_config(int n_cta, int threads, int smem,
     return cfg;
 }
 
+// How many clusters of n `threads`-thread CTAs of `kernel` with `smem`
+// bytes of dynamic shared memory each the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 where it holds none); minus the CUDA
+// error when the attributes cannot be set.
+static int cluster_active(const void* kernel, int threads, int smem, int n) {
+    cudaError_t err = cluster_set_attributes(kernel, smem, n);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(n, threads, smem, &attr, 0);
+    int active = 0;
+    if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg)
+        != cudaSuccess) {
+        cudaGetLastError();
+        return 0;
+    }
+    return active;
+}
+
 // The largest cluster of `threads`-thread CTAs of `kernel` with `smem`
 // bytes of dynamic shared memory each that the card can schedule (at
 // least one such cluster active), up to max_cluster; minus the CUDA error
 // when none can be.
 static int cluster_max(const void* kernel, int threads, int smem,
                        int max_cluster) {
-    cudaError_t err = cluster_set_attributes(kernel, smem, max_cluster);
-    if (err != cudaSuccess) return -(int)err;
+    int err = -(int)cudaErrorInvalidConfiguration;
     for (int n = max_cluster; n >= 1; --n) {
-        cudaLaunchAttribute attr;
-        cudaLaunchConfig_t cfg = cluster_config(n, threads, smem, &attr, 0);
-        int active = 0;
-        err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
-        if (err == cudaSuccess && active >= 1) return n;
-        cudaGetLastError();
+        const int active = cluster_active(kernel, threads, smem, n);
+        if (active >= 1) return n;
+        if (active < 0) err = active;
     }
-    return -(int)(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+    return err;
 }

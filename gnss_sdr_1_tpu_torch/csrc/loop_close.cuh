@@ -11,6 +11,11 @@
 // carrier-lock supervision and the FLL turn-off seeding, merged by
 // `valid`; writes the epoch's output rows and carries the state.
 //
+// It is split around the correlation as the plain version is: the
+// state-only part (`loop_pre`) and the rest, from the taps on
+// (`loop_post`); `loop_close` composes them on one thread (the chain), the
+// gather walk runs the first beside its correlation.
+//
 // The state is a struct the caller keeps where it likes (the chain in
 // registers over its chunk, the gather walk in shared memory between
 // epochs); everything is indexed by constants, so with the function
@@ -162,73 +167,117 @@ __device__ __forceinline__ LoopConsts loop_consts(const ChainParams& p,
     return lc;
 }
 
-// Close the loops of one channel for one epoch.  `corr_r` / `corr_i`: the
-// K taps; `s`: the secondary chip the wipe multiplies by (1 where the wipe
-// is off); `of` / `oi` / `oc`: the channel's column of the epoch's output
-// rows (row stride C).  Carries `st` where the epoch is valid and returns
-// whether it was.
+// The closure's state-only part: what it computes before the epoch's taps
+// are in (ops/track_chain.py loop_pre_plain).  `s`: the secondary chip the
+// wipe multiplies by (1 where the wipe is off).
+struct LoopPre {
+    float t_epoch, s, t_int, appf, validf, cn0_t, racf, dll_head;
+    float dll_tail[3];
+    int cnt, push_count, epochs_in_track;
+    bool active, valid, narrow, sec_on, boundary, fll_on, app, window_done,
+        hist_full, fll_still_on, turnoff, reset_acc, at_half;
+};
+
+template <int K>
+__device__ __forceinline__ LoopPre loop_pre(const ChainParams& p,
+                                            const LoopConsts& lc,
+                                            const LoopState<K>& st,
+                                            float s) {
+    LoopPre q;
+    q.active = st.active_i > 0;
+    q.valid = q.active && (st.start < st.limit);
+    q.validf = q.valid ? 1.0f : 0.0f;
+    q.narrow = st.mode0 >= 1;
+    q.sec_on = st.sec_on_i > 0;
+    q.t_epoch = (float)st.cur_len / p.fs;
+    q.s = s;
+    q.cnt = st.extcnt + 1;
+    q.boundary = q.narrow && (q.cnt >= p.ext_n);
+    const bool upd = (!q.narrow) || q.boundary;
+    q.t_int = q.narrow ? (float)q.cnt * p.code_period_s : q.t_epoch;
+    q.fll_on = st.fllon_i > 0;
+    q.app = q.valid && upd;
+    q.appf = q.app ? 1.0f : 0.0f;
+    q.push_count = st.push + (q.app ? 1 : 0);
+    q.window_done = q.app && (q.push_count % p.cn0_samples == 0);
+    q.hist_full = q.push_count >= p.cn0_samples;
+    const float t_cn0 = q.narrow ? p.t_ext : q.t_epoch;
+    q.cn0_t = 10.0f * log10f(t_cn0);
+    q.epochs_in_track = st.epochs + 1;
+    q.fll_still_on = q.fll_on && (q.narrow
+        ? (q.push_count < p.fll_narrow_windows)
+        : (q.epochs_in_track < p.fll_epochs));
+    q.turnoff = q.narrow && q.fll_on && !q.fll_still_on;
+    q.reset_acc = q.boundary || !q.narrow;
+    q.racf = q.reset_acc ? 0.0f : 1.0f;
+    q.at_half = q.narrow && (q.cnt == p.half_n);
+    // the DLL filter's terms that do not read the discriminator: its
+    // left-to-right sum up to it, and the products after it
+    q.dll_head = lc.bo[0] * st.dout[0] + lc.bo[1] * st.dout[1]
+        + lc.bo[2] * st.dout[2];
+    q.dll_tail[0] = lc.bi[1] * st.din[0];
+    q.dll_tail[1] = lc.bi[2] * st.din[1];
+    q.dll_tail[2] = lc.bi[3] * st.din[2];
+    return q;
+}
+
+// The closure once the epoch's taps are in: the secondary wipe and the
+// extended accumulation, the discriminators, the PLL cascade, the DLL
+// filter, the NCO step, the lock supervision, the merge by `valid`, the
+// epoch's output rows and the carry (ops/track_chain.py loop_post_plain).
+// `corr_r` / `corr_i`: the K taps; `of` / `oi` / `oc`: the channel's column
+// of the epoch's output rows (row stride C).  Carries `st` where the epoch
+// is valid and returns whether it was.
 template <int K, int ORDER, bool SEC_DATA>
-__device__ __forceinline__ bool loop_close(const ChainParams& p,
-                                           const LoopConsts& lc,
-                                           LoopState<K>& st,
-                                           const float corr_r[K],
-                                           const float corr_i[K], float s,
-                                           float* of, int* oi, float* oc,
-                                           int C) {
+__device__ __forceinline__ bool loop_post(const ChainParams& p,
+                                          const LoopConsts& lc,
+                                          LoopState<K>& st, const LoopPre& q,
+                                          const float corr_r[K],
+                                          const float corr_i[K], float* of,
+                                          int* oi, float* oc, int C) {
     constexpr int P = K / 2;
-    const bool active = st.active_i > 0;
-    const bool valid = active && (st.start < st.limit);
-    const float validf = valid ? 1.0f : 0.0f;
-    const bool narrow = st.mode0 >= 1;
-    const bool sec_on = st.sec_on_i > 0;
+    const bool valid = q.valid;
     const float w0p = lc.pll[0], w0p2 = lc.pll[1], w0p3 = lc.pll[2];
     const float w0f = lc.pll[3], w0f2 = lc.pll[4], a2 = lc.pll[5];
     const float a3 = lc.pll[6], b3 = lc.pll[7];
     const float* bi = lc.bi;
-    const float* bo = lc.bo;
-
-    const float t_epoch = (float)st.cur_len / p.fs;
     float cw_r[K], cw_i[K], acc_r[K], acc_i[K], disc_r[K], disc_i[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-        cw_r[k] = corr_r[k] * s;
-        cw_i[k] = corr_i[k] * s;
+        cw_r[k] = corr_r[k] * q.s;
+        cw_i[k] = corr_i[k] * q.s;
         acc_r[k] = st.accr[k] + cw_r[k];
         acc_i[k] = st.acci[k] + cw_i[k];
-        disc_r[k] = narrow ? acc_r[k] : cw_r[k];
-        disc_i[k] = narrow ? acc_i[k] : cw_i[k];
+        disc_r[k] = q.narrow ? acc_r[k] : cw_r[k];
+        disc_i[k] = q.narrow ? acc_i[k] : cw_i[k];
     }
-    const float pw_r = cw_r[P], pw_i = cw_i[P];
-    const int cnt = st.extcnt + 1;
-    const bool boundary = narrow && (cnt >= p.ext_n);
-    const bool upd = (!narrow) || boundary;
     const float dp_r = disc_r[P], dp_i = disc_i[P];
-    const float t_int = narrow ? (float)cnt * p.code_period_s : t_epoch;
+    const float pw_r = cw_r[P], pw_i = cw_i[P];
 
     // --- carrier discriminators (A.3) ---
     const float costas = (dp_r != 0.0f
         ? atan2f(dp_i * sign0(dp_r), fabsf(dp_r)) : 0.0f) / TWO_PI_F;
     float carr_err_cyc;
-    if (SEC_DATA || !sec_on) {
+    if (SEC_DATA || !q.sec_on) {
         carr_err_cyc = costas;
     } else {
         carr_err_cyc = atan2f(dp_i, dp_r) / TWO_PI_F;
     }
     const float dot = st.prev_r * pw_r + st.prev_i * pw_i;
     const float cross = st.prev_r * pw_i - pw_r * st.prev_i;
-    const float freq_err_hz = atan2f(cross, dot) / t_epoch / TWO_PI_F;
+    const float freq_err_hz = atan2f(cross, dot) / q.t_epoch / TWO_PI_F;
     const float p2_r = acc_r[P] - st.acch_r;
     const float p2_i = acc_i[P] - st.acch_i;
     const float dot_h = st.acch_r * p2_r + st.acch_i * p2_i;
     const float cross_h = st.acch_r * p2_i - p2_r * st.acch_i;
     const float h_mag = st.acch_r * st.acch_r + st.acch_i * st.acch_i;
-    const float freq_err_ext = (h_mag > 0.0f && boundary)
+    const float freq_err_ext = (h_mag > 0.0f && q.boundary)
         ? atan2f(cross_h, dot_h) / p.t_half / TWO_PI_F : 0.0f;
-
-    const bool fll_on = st.fllon_i > 0;
     const float pll_in = carr_err_cyc;
-    float fll_in = (fll_on && !narrow && st.push > 0) ? freq_err_hz : 0.0f;
-    if (narrow && fll_on) fll_in = freq_err_ext;
+    float fll_in = (q.fll_on && !q.narrow && st.push > 0) ? freq_err_hz
+                                                          : 0.0f;
+    if (q.narrow && q.fll_on) fll_in = freq_err_ext;
+    const float t_int = q.t_int;
 
     // --- FLL-assisted PLL cascade (A.5) ---
     float w_new, x_new, doppler_new;
@@ -261,12 +310,10 @@ __device__ __forceinline__ bool loop_close(const ChainParams& p,
         const float ssum = e + l;
         code_err = ssum > 0.0f ? 0.5f * (e - l) / ssum : 0.0f;
     }
-    const float code_err_filt = bo[0] * st.dout[0] + bo[1] * st.dout[1]
-        + bo[2] * st.dout[2] + bi[0] * code_err + bi[1] * st.din[0]
-        + bi[2] * st.din[1] + bi[3] * st.din[2];
+    const float code_err_filt = q.dll_head + bi[0] * code_err
+        + q.dll_tail[0] + q.dll_tail[1] + q.dll_tail[2];
 
-    const bool app = valid && upd;
-    const float appf = app ? 1.0f : 0.0f;
+    const bool app = q.app;
     float cw_m = app ? w_new : st.cw;
     float cx_m = app ? x_new : st.cx;
     float din_m[3], dout_m[3];
@@ -292,46 +339,36 @@ __device__ __forceinline__ bool loop_close(const ChainParams& p,
         mod_floor(st.rem_carr + carr_step_new * (float)next_len, TWO_PI_F);
 
     // --- CN0 / lock supervision on window accumulators (A.7) ---
+    const float appf = q.appf;
     float s_absi = st.sabsi + appf * fabsf(dp_r);
     float s_i2 = st.si2 + appf * dp_r * dp_r;
     float s_q2 = st.sq2 + appf * dp_i * dp_i;
-    const int push_count = st.push + (app ? 1 : 0);
-    const bool window_done = app && (push_count % p.cn0_samples == 0);
-    const float t_cn0 = narrow ? p.t_ext : t_epoch;
+    const bool window_done = q.window_done;
     const float m = p.cn0_samples_f;
     const float am = s_absi / m;
     const float psig = am * am;
     const float ptot = (s_i2 + s_q2) / m;
     const float noise = fmaxf(ptot - psig, TINY_F);
-    const float cn0 = 10.0f * log10f(fmaxf(psig / noise, 1e-10f))
-                      - 10.0f * log10f(t_cn0);
+    const float cn0 = 10.0f * log10f(fmaxf(psig / noise, 1e-10f)) - q.cn0_t;
     const float carrier_lock = (s_i2 - s_q2) / fmaxf(s_i2 + s_q2, TINY_F);
     const float cn0_last = window_done ? cn0 : st.cn0_old;
-    const bool hist_full = push_count >= p.cn0_samples;
     if (window_done) { s_absi = 0.0f; s_i2 = 0.0f; s_q2 = 0.0f; }
-    const bool check_now = window_done && !fll_on;
+    const bool check_now = window_done && !q.fll_on;
     const bool fail = check_now && ((cn0 < p.cn0_min_dbhz)
                                     || (carrier_lock < p.carrier_lock_th));
     const bool ok = check_now && !fail;
     const int lock_fail = fail ? st.lockfail + 1
                                : (ok ? max(st.lockfail - 1, 0) : st.lockfail);
-    const bool still_active = active && (lock_fail <= p.max_lock_fail);
+    const bool still_active = q.active && (lock_fail <= p.max_lock_fail);
 
-    const int epochs_in_track = st.epochs + 1;
-    const bool fll_still_on = fll_on && (narrow
-        ? (push_count < p.fll_narrow_windows)
-        : (epochs_in_track < p.fll_epochs));
-    const bool turnoff = narrow && fll_on && !fll_still_on;
-    if (turnoff && valid) {
+    if (q.turnoff && valid) {
         if (ORDER == 3) { cw_m = 0.0f; cx_m = 2.0f * doppler_m; }
         else { cw_m = doppler_m; cx_m = 0.0f; }
     }
 
-    const bool reset_acc = boundary || !narrow;
-    const float racf = reset_acc ? 0.0f : 1.0f;
-    const bool at_half = narrow && (cnt == p.half_n);
-    const float acch_r_new = racf * (at_half ? acc_r[P] : st.acch_r);
-    const float acch_i_new = racf * (at_half ? acc_i[P] : st.acch_i);
+    const float racf = q.racf;
+    const float acch_r_new = racf * (q.at_half ? acc_r[P] : st.acch_r);
+    const float acch_i_new = racf * (q.at_half ? acc_i[P] : st.acch_i);
 
     // --- merge by valid: a dead channel never takes new state ---
     const float merged_dopp = valid ? doppler_m : st.doppler;
@@ -343,11 +380,12 @@ __device__ __forceinline__ bool loop_close(const ChainParams& p,
     const int new_cur = valid ? next_len : st.cur_len;
 
     // --- per-epoch outputs ---
+    const float validf = q.validf;
     of[O_DOPPLER * C] = merged_dopp;
     of[O_DELTA * C] = merged_delta;
     of[O_REM_CODE * C] = merged_rem_code;
     of[O_REM_CARR * C] = merged_rem_carr;
-    of[O_CN0 * C] = (valid && hist_full) ? merged_cn0 : 0.0f;
+    of[O_CN0 * C] = (valid && q.hist_full) ? merged_cn0 : 0.0f;
     of[O_VALID * C] = validf;
     of[O_ACTIVE * C] = (float)merged_active;
     oi[0] = st.start;
@@ -387,12 +425,31 @@ __device__ __forceinline__ bool loop_close(const ChainParams& p,
         st.active_i = merged_active;
         st.start = st.start + st.cur_len;
         st.cur_len = new_cur;
-        st.push = push_count;
+        st.push = q.push_count;
         st.lockfail = lock_fail;
-        st.epochs = epochs_in_track;
-        st.fllon_i = fll_still_on ? 1 : 0;
-        st.extcnt = reset_acc ? 0 : cnt;
+        st.epochs = q.epochs_in_track;
+        st.fllon_i = q.fll_still_on ? 1 : 0;
+        st.extcnt = q.reset_acc ? 0 : q.cnt;
         st.sec_idx = (st.sec_idx + 1) % p.sec_len;
     }
     return valid;
+}
+
+// Close the loops of one channel for one epoch on one thread: the state-
+// only part and the rest, composed.  `corr_r` /
+// `corr_i`: the K taps; `s`: the secondary chip the wipe multiplies by (1
+// where the wipe is off); `of` / `oi` / `oc`: the channel's column of the
+// epoch's output rows (row stride C).  Carries `st` where the epoch is
+// valid and returns whether it was.
+template <int K, int ORDER, bool SEC_DATA>
+__device__ __forceinline__ bool loop_close(const ChainParams& p,
+                                           const LoopConsts& lc,
+                                           LoopState<K>& st,
+                                           const float corr_r[K],
+                                           const float corr_i[K], float s,
+                                           float* of, int* oi, float* oc,
+                                           int C) {
+    const LoopPre q = loop_pre<K>(p, lc, st, s);
+    return loop_post<K, ORDER, SEC_DATA>(p, lc, st, q, corr_r, corr_i, of,
+                                         oi, oc, C);
 }

@@ -236,6 +236,15 @@ static inline cudaError_t chain_enqueue(
     return cudaGetLastError();
 }
 
+// How many clusters of G correlator CTAs with `smem` bytes each the card
+// holds at once, for the instance of `passes` TF32 passes
+// (ops/chunk_corr.py fit_cluster; cluster_walk.cuh cluster_active).
+extern "C" int chunk_corr_max_active(int G, int smem, int passes) {
+    return cluster_active(reinterpret_cast<const void*>(
+                              corr_kernel_for(passes)),
+                          CC_THREADS, smem, G);
+}
+
 extern "C" int chunk_corr_launch(
     const void* x, int n_samp, const void* rows, const void* slot,
     const void* fst, const void* ist, void* zr, void* zi, void* s_reg,

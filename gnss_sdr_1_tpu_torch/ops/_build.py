@@ -16,10 +16,11 @@ enqueues both for every chunk.  The KF block walk is a second, `kf_block`
 gather DLL/PLL walk a third, `gather_block` (`gather_library()`:
 `gather_block.cu` with `gather_corr.cuh`, `cluster_walk.cuh`,
 `loop_close.cuh` and the TCP connector's one-epoch multicorrelator,
-`multicorrelate.cuh`).  `build_all()` runs one nvcc per library, all at
-once.  `kf_stage_library()` builds `kf_block.cu` once more with
-`-DKF_BLOCK_STAGES` (the kernel's stage clocks); nothing on the receiver's
-path loads it.
+`multicorrelate.cuh`).  `kf_stage_library()` and `gather_stage_library()`
+build `kf_block.cu` and `gather_block.cu` once more with `-DKF_BLOCK_STAGES`
+and `-DGATHER_BLOCK_STAGES` (each kernel's stage clocks); nothing on the
+receiver's path loads them.  `build_all()` runs one nvcc per library and
+stage variant, all at once.
 
 Flags: `-O3`, no `--use_fast_math` (atan2f / sincosf / log10f keep full
 float32 accuracy) and `--fmad=false` (no multiply-add contraction, so the
@@ -107,6 +108,9 @@ LIBRARY = "track_chain"
 KF_LIBRARY = "kf_block"
 GATHER_LIBRARY = "gather_block"
 KF_STAGES = ("KF_BLOCK_STAGES",)
+GATHER_STAGES = ("GATHER_BLOCK_STAGES",)
+# the stage-clock variants build_all() builds beside the libraries
+STAGE_VARIANTS = ((KF_LIBRARY, KF_STAGES), (GATHER_LIBRARY, GATHER_STAGES))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: pointers and the stream as c_void_p
 # (ctypes would cut a Python int to 32 bits), counts as c_int; each returns
@@ -116,6 +120,8 @@ _ENTRIES = {
         # x, n_samp, rows, slot, fst, ist, zr, zi, s_reg, step0, params,
         # stream
         "chunk_corr_launch": [_P, _I] + [_P] * 10,
+        # cluster size, dynamic shared memory, TF32 passes
+        "chunk_corr_max_active": [_I, _I, _I],
         # zr, zi, s_reg, step0, sec_rows, fst, ist, out_f, out_i, out_corr,
         # fst_out, ist_out, params, stream
         "track_chain_launch": [_P] * 14,
@@ -133,8 +139,8 @@ _ENTRIES = {
     },
     GATHER_LIBRARY: {
         # x, codes, sec_rows, fst, ist, out_f, out_i, out_corr, fst_out,
-        # ist_out, loop params, params, stream
-        "gather_block_launch": [_P] * 13,
+        # ist_out, stages, loop params, params, stream
+        "gather_block_launch": [_P] * 14,
         # taps, dynamic shared memory
         "gather_block_max_cluster": [_I, _I],
         # x, codes, step, rem, cp, cs, cr, n_valid, out, params, stream
@@ -144,10 +150,11 @@ _ENTRIES = {
 
 
 def build_all(force: bool = False) -> None:
-    """Build every library at once, one nvcc each (a no-op for those
-    already built unless `force`)."""
-    with ThreadPoolExecutor(len(_ENTRIES)) as pool:
-        list(pool.map(lambda name: build(name, force=force), _ENTRIES))
+    """Build every library and stage variant at once, one nvcc each (a
+    no-op for those already built unless `force`)."""
+    jobs = [(name, ()) for name in _ENTRIES] + list(STAGE_VARIANTS)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: build(*job, force=force), jobs))
 
 
 def _load(name: str, defines: tuple = ()) -> ctypes.CDLL:
@@ -183,3 +190,8 @@ def gather_library() -> ctypes.CDLL:
 def kf_stage_library() -> ctypes.CDLL:
     """The KF block library built with the kernel's stage clocks."""
     return _load(KF_LIBRARY, KF_STAGES)
+
+
+def gather_stage_library() -> ctypes.CDLL:
+    """The gather walk's library built with the kernel's stage clocks."""
+    return _load(GATHER_LIBRARY, GATHER_STAGES)

@@ -20,7 +20,13 @@ grid with the chunk-entry (frozen) NCO:
 only, so the kernel reads one replica row per slot (the Toeplitz table
 `rows[s, n - l + LW - 1]`, built by the engine).  The plain version expands
 the rows into the per-channel bank and correlates with one `torch.bmm` per
-I/Q plane.
+I/Q plane.  The kernel computes the same product on the tensor cores as
+the JAX package computes it on the MXU, one matrix product per channel,
+`Z[2E, LW] = W[2E, NW] . T[NW, LW]` (the I and Q planes of the E wiped
+windows against the channel's Toeplitz replica), in TF32 passes that
+split the samples into high and low parts; a table that is not exact in
+TF32 splits too (`table_passes`).  `corr_geometry` cuts the sample range
+over a cluster of CTAs per channel.
 
 It replaces the XLA stages of the JAX package's chunked engine
 (gnss_sdr_1_tpu/track/engine.py `_chunk_windows` and the two `einsum`s of
@@ -45,12 +51,25 @@ from . import track_chain as tc
 
 _TWO_PI = float(2.0 * np.pi)
 
-# kernel geometry (csrc/chunk_corr.cuh): lags per thread, threads per
-# block, zero floats left of the staged replica row
-TL = 17
+# kernel geometry (csrc/chunk_corr.cuh CC_*): threads (and warps) per CTA,
+# the largest cluster of CTAs a channel takes, and the output block one
+# pass of a CTA's accumulators covers: 32 plane-epoch rows (two m16 tiles)
+# by 80 lags (ten n8 tiles: every receiver's LW, 66-73); samples per k-step
+# of mma.m16n8k8
 THREADS = 256
-PADL = 32
-MAX_SMEM = 232448          # bytes a block may use on Hopper
+MAX_CLUSTER = 16
+BLOCK_ROWS = 32
+BLOCK_LAGS = 80
+KSTEP = 8
+# the warps as KGROUPS k-groups (k-steps g, g + KGROUPS, ...) by two
+# n-groups (five n-tiles each); the k-groups' blocks meet in shared memory
+# in rows of RED_STRIDE floats
+KGROUPS = 4
+RED_STRIDE = 88
+# shared memory two CTAs may each take on one SM (228 KB an SM, 1 KB of it
+# reserved per CTA): the tiles are sized to it, so the wipe of one CTA
+# overlaps the product of the other
+SMEM_HALF = 228 * 1024 // 2 - 1024
 
 # kernel launches made by `chunk_corr` / the capture entry on CUDA tensors
 # (never by chunk_corr_plain)
@@ -85,6 +104,10 @@ class CorrSpec:
     grid_pad: int           # regular grid starts this far before `start`
     chip_rate: float
     fs: float
+    # TF32 passes of the kernel's product: 2 where every replica value is
+    # exact in TF32 (the engine's code tables: +-1 and 0), 3 otherwise
+    # (table_passes, when the engine builds the table)
+    passes: int
 
     @property
     def QW(self) -> int:
@@ -183,6 +206,96 @@ def chunk_corr_plain(spec: CorrSpec, samples, rows, slot, fst, ist):
 # ---------------------------------------------------------------------------
 
 
+def table_passes(rows) -> int:
+    """The TF32 passes the kernel takes on a replica table: 2 where every
+    value is exact in TF32 (then hi(a) b + lo(a) b carries the float32
+    product), 3 otherwise (hi(a) hi(b) + hi(a) lo(b) + lo(a) hi(b))."""
+    bits = torch.as_tensor(np.asarray(rows, np.float32)).view(torch.int32)
+    return 2 if bool(((bits & 0x1FFF) == 0).all()) else 3
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrGeometry:
+    """One launch of the kernel: a cluster of G CTAs per channel, CTA r
+    taking k-steps [r SK, (r + 1) SK) of the NK = ceil(NW / 8) over the
+    window, in `tiles` tiles of TK k-steps; the output in MB x NB blocks of
+    32 rows by 80 lags.  Shared memory (`_layout`, `smem` bytes in all):
+    the tile's raw samples, its wiped samples (32 rows of `a_stride`
+    floats, `a_floats` with the k-groups' partial blocks, which take it
+    over when the tiles are done), two replica stretches (`q_floats`), the
+    cluster's partial sums of the outputs the CTA owns (a row a rank) and
+    the epochs' geometry."""
+
+    G: int
+    NK: int
+    SK: int
+    TK: int
+    tiles: int
+    MB: int
+    NB: int
+    a_stride: int
+    a_floats: int
+    q_floats: int
+    smem: int
+
+
+def _layout(TK: int, E: int) -> tuple[int, int, int, int]:
+    """(a_stride, a_floats, q_floats, smem bytes) for tiles of TK k-steps:
+    the tile's raw samples [E][8 TK] complex, its wiped samples (32 rows of
+    a_stride), two row stretches (this tile's, the next one's), the
+    ranks' sums of the outputs the CTA owns, the epochs' geometry."""
+    a_stride = KSTEP * TK + 4          # = 4 mod 8: A loads free of conflicts
+    a_floats = max(BLOCK_ROWS * a_stride, KGROUPS * BLOCK_ROWS * RED_STRIDE)
+    q_floats = _round4(KSTEP * TK + BLOCK_LAGS)
+    smem = 4 * (2 * E * KSTEP * TK + a_floats + 2 * q_floats
+                + BLOCK_ROWS * BLOCK_LAGS + MAX_CLUSTER + 4 * E)
+    return a_stride, a_floats, q_floats, smem
+
+
+def corr_geometry(E: int, LW: int, NW: int, G: int,
+                  max_smem: int = SMEM_HALF) -> CorrGeometry:
+    """The kernel's geometry for a window of NW samples, E epochs and LW
+    lags split over a cluster of G CTAs: each CTA's k-steps in the fewest
+    tiles whose shared memory fits `max_smem` bytes, of equal size."""
+    if not 1 <= G <= MAX_CLUSTER:
+        raise ValueError(f"a cluster takes 1 to {MAX_CLUSTER} CTAs, got {G}")
+    NK = -(-NW // KSTEP)
+    SK = -(-NK // G)
+    tk_max = SK
+    while tk_max > 1 and _layout(tk_max, E)[3] > max_smem:
+        tk_max -= 1
+    if _layout(tk_max, E)[3] > max_smem:
+        raise ValueError(f"{E} epochs leave no room for a tile in "
+                         f"{max_smem} B of shared memory")
+    tiles = -(-SK // tk_max)
+    TK = -(-SK // tiles)
+    a_stride, a_floats, q_floats, smem = _layout(TK, E)
+    return CorrGeometry(G=G, NK=NK, SK=SK, TK=TK, tiles=tiles,
+                        MB=-(-2 * E // BLOCK_ROWS),
+                        NB=-(-LW // BLOCK_LAGS), a_stride=a_stride,
+                        a_floats=a_floats, q_floats=q_floats, smem=smem)
+
+
+def fit_cluster(spec: CorrSpec, active) -> CorrGeometry:
+    """The geometry on a card where `active(G, smem)` clusters of G CTAs
+    with `smem` bytes each are resident at once: the largest cluster, up to
+    MAX_CLUSTER and to one k-step a CTA, of which all C channels' clusters
+    are resident together (one wave); else the largest the card schedules
+    at all."""
+    best = None
+    for G in range(min(MAX_CLUSTER, -(-spec.NW // KSTEP)), 0, -1):
+        geo = corr_geometry(spec.E, spec.LW, spec.NW, G)
+        n = active(G, geo.smem)
+        if n >= spec.C:
+            return geo
+        if n >= 1 and best is None:
+            best = geo
+    if best is None:
+        raise RuntimeError("the card schedules no cluster of the chunk "
+                           "correlator")
+    return best
+
+
 class CorrParams(ctypes.Structure):
     """Mirror of `CorrParams` in csrc/chunk_corr.cuh (passed by value to the
     kernel)."""
@@ -191,97 +304,38 @@ class CorrParams(ctypes.Structure):
         ("E", ctypes.c_int), ("LW", ctypes.c_int), ("NW", ctypes.c_int),
         ("C", ctypes.c_int), ("QW", ctypes.c_int), ("t0_int", ctypes.c_int),
         ("grid_pad", ctypes.c_int), ("seg_len", ctypes.c_int),
-        ("tl", ctypes.c_int), ("threads", ctypes.c_int),
-        ("padl", ctypes.c_int), ("S", ctypes.c_int), ("L", ctypes.c_int),
-        ("tiles", ctypes.c_int), ("wbuf", ctypes.c_int), ("qs", ctypes.c_int),
-        ("smem_bytes", ctypes.c_int),
+        ("G", ctypes.c_int), ("NK", ctypes.c_int), ("SK", ctypes.c_int),
+        ("TK", ctypes.c_int), ("tiles", ctypes.c_int), ("MB", ctypes.c_int),
+        ("NB", ctypes.c_int), ("a_stride", ctypes.c_int),
+        ("a_floats", ctypes.c_int), ("q_floats", ctypes.c_int),
+        ("passes", ctypes.c_int), ("smem", ctypes.c_int),
         ("t0_frac", ctypes.c_float), ("neg_t0", ctypes.c_float),
         ("chip_rate", ctypes.c_float), ("fs", ctypes.c_float),
     ]
 
 
-def _smem_floats(S: int, L: int, NG: int, LW: int) -> tuple[int, int]:
-    """(wbuf, qs): floats of the wiped-sample buffer (reused for the
-    partial sums) and of the staged replica row for one tile of S * L
-    samples."""
-    SL = S * L
-    return (_round4(max(2 * SL, 2 * S * NG * TL)),
-            _round4(PADL + SL + LW - 1))
-
-
 @functools.lru_cache(maxsize=32)
-def corr_params(spec: CorrSpec, max_smem: int = MAX_SMEM) -> CorrParams:
-    """The kernel's by-value constants and block geometry for one spec.
+def corr_params(spec: CorrSpec) -> CorrParams:
+    """The kernel's by-value constants for one spec on this card: the
+    cluster (fit_cluster) from cudaOccupancyMaxActiveClusters, asked at
+    first launch through the library's `chunk_corr_max_active`."""
+    from ._build import library
 
-    Threads own TL consecutive lags (NG lag groups cover LW) and split each
-    tile of the n range into S slices of L samples (L a multiple of TL).
-    Shared memory: the tile's wiped samples as (re, im) pairs, reused for
-    the per-slice partial sums, then the tile's stretch of the replica row
-    after PADL zeros, long enough for every index n - l + LW - 1 the slices
-    read.  One tile covers the window when that fits in `max_smem` bytes;
-    otherwise the window is walked in `tiles` tiles of S * L samples (L a
-    multiple of 4 TL, so that every tile's row stretch starts 16-byte
-    aligned) and each thread carries its lag sums from tile to tile."""
-    NG = -(-spec.LW // TL)
-    S = THREADS // NG
-    if S < 1:
-        raise ValueError(f"lag window {spec.LW} too long for the correlator")
-    L = -(-spec.NW // (S * TL)) * TL
-    tiles = 1
-    if 4 * sum(_smem_floats(S, L, NG, spec.LW)) > max_smem:
-        step = 4 * TL
-        l_max = step
-        while 4 * sum(_smem_floats(S, l_max + step, NG, spec.LW)) <= max_smem:
-            l_max += step
-        if 4 * sum(_smem_floats(S, l_max, NG, spec.LW)) > max_smem:
-            raise ValueError(f"lag window {spec.LW} leaves no room for a "
-                             f"tile in {max_smem} B of shared memory")
-        tiles = -(-spec.NW // (S * l_max))
-        L = -(-spec.NW // (tiles * S * step)) * step
-    wbuf, qs = _smem_floats(S, L, NG, spec.LW)
+    if spec.passes not in (2, 3):
+        raise ValueError(f"passes must be 2 or 3, got {spec.passes}")
+    geo = fit_cluster(spec, lambda G, smem: library().chunk_corr_max_active(
+        G, smem, spec.passes))
     p = CorrParams()
     p.E, p.LW, p.NW, p.C, p.QW = spec.E, spec.LW, spec.NW, spec.C, spec.QW
     p.t0_int, p.grid_pad, p.seg_len = spec.t0_int, spec.grid_pad, spec.seg_len
-    p.tl, p.threads, p.padl = TL, NG * S, PADL
-    p.S, p.L, p.tiles, p.wbuf, p.qs = S, L, tiles, wbuf, qs
-    p.smem_bytes = 4 * (wbuf + qs)
+    for name in ("G", "NK", "SK", "TK", "tiles", "MB", "NB", "a_stride",
+                 "a_floats", "q_floats", "smem"):
+        setattr(p, name, getattr(geo, name))
+    p.passes = spec.passes
     p.t0_frac = _f32(spec.t0_frac)
     p.neg_t0 = _f32(-(np.float32(spec.t0_int) + np.float32(spec.t0_frac)))
     p.chip_rate, p.fs = _f32(spec.chip_rate), _f32(spec.fs)
     return p
-
-
-def correlate_tiles_plain(spec: CorrSpec, samples, rows, slot, fst, ist,
-                          p: CorrParams):
-    """The kernel's tile walk in plain torch ops: for each tile of S * L
-    samples, the replica stretch staged as the kernel stages it (PADL zeros,
-    the row from the tile's first sample, zeros past the row's end) and the
-    tile's lag sums added to the running ones.  Equal to chunk_corr_plain
-    up to the order of the sums; the tests hold the tiling to it."""
-    wr, wi, s_reg, step0 = windows_plain(spec, samples, fst, ist)
-    dev = samples.device
-    C, E, LW, NW = spec.C, spec.E, spec.LW, spec.NW
-    SL = p.S * p.L
-    q_rows = rows[slot.long()]                                 # [C, QW]
-    zr = torch.zeros((C, E, LW), dtype=torch.float32, device=dev)
-    zi = torch.zeros_like(zr)
-    nl = torch.arange(SL, device=dev)
-    idx = nl[:, None] - torch.arange(LW, device=dev)[None, :] \
-        + LW - 1 + p.padl                                      # [SL, LW]
-    for t in range(p.tiles):
-        n0 = t * SL
-        nq = min(spec.QW - n0, p.qs - p.padl)
-        q = torch.zeros((C, p.qs), dtype=torch.float32, device=dev)
-        q[:, p.padl:p.padl + nq] = q_rows[:, n0:n0 + nq]
-        bank = q[:, idx]                                       # [C, SL, LW]
-        w_r = torch.zeros((C, E, SL), dtype=torch.float32, device=dev)
-        w_i = torch.zeros_like(w_r)
-        n1 = min(NW, n0 + SL)
-        w_r[..., :n1 - n0] = wr[..., n0:n1]
-        w_i[..., :n1 - n0] = wi[..., n0:n1]
-        zr = zr + torch.bmm(w_r, bank)
-        zi = zi + torch.bmm(w_i, bank)
-    return zr, zi, s_reg, step0
 
 
 def check_inputs(spec: CorrSpec, samples, rows, slot, fst, ist, n_frows):
@@ -301,7 +355,7 @@ def check_inputs(spec: CorrSpec, samples, rows, slot, fst, ist, n_frows):
 
 
 def chunk_corr_cuda(spec: CorrSpec, samples, rows, slot, fst, ist):
-    """Launch the CUDA kernel once (one block per channel and epoch)."""
+    """Launch the CUDA kernel once (a cluster of CTAs per channel)."""
     global launches
     from ._build import library
 

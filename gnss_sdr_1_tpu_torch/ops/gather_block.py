@@ -4,7 +4,7 @@ device of its inputs.
 
 For every epoch of every channel, in order (the JAX package's
 `_epoch_step`, gnss_sdr_1_tpu/track/engine.py:786-824, run by its gather
-branches at :1171 and :1486): the window origin `m` (the minimum start of
+branches at :1139 and :1415): the window origin `m` (the minimum start of
 the active channels, clipped to `[0, n_samp - win]`) and each channel's
 offset from it, clipped to `[0, win - n_max]` (the gather path never pads
 the capture, so near its end the clip moves the window); the exact gather
@@ -156,9 +156,71 @@ def gather_block_plain(spec: GatherSpec, samples, codes, sec_rows, fst, ist,
 # launch geometry: threads per CTA (== the kernel's __launch_bounds__) and
 # the largest cluster the kernel asks for (the portable cluster size and
 # the shared memory a CTA may use are ops/cluster_walk.py's)
-GB_THREADS = 256
+GB_THREADS = 512
 GB_WARPS = GB_THREADS // 32
 GB_MAX_CLUSTER = 16
+# shared-memory bytes of the closure's state-only part (LoopPre)
+PRE_BYTES = 80
+
+# the GATHER_BLOCK_STAGES build's timeline of every epoch of CTA 0's first
+# channel (gather_block.cu TL_*): SM clock stamps of thread 0 (the epoch
+# begins, m known, the closure's state-only part, the taps reduced, the
+# closure done) and of thread 32 (its correlation may begin, the prefetch
+# wait, its samples, its warp's sums stored), and whether the epoch read
+# the prefetch buffer; then thread 0's m published
+TL_START, TL_M0, TL_PRE, TL_RED, TL_UPD, TL_M32, TL_WAIT, TL_SAMP, TL_PART, \
+    TL_HIT, TL_PUB = range(11)
+STAGE_POINTS = 11
+
+
+def stage_split(tl: np.ndarray, ms: float, block_epochs: int) -> dict:
+    """Read a GATHER_BLOCK_STAGES timeline (int64 [n_epochs, STAGE_POINTS]
+    of one launch that took `ms`): the epochs in which CTA 0's channel
+    correlated (a prefetch-wait stamp) but the last, each split into the
+    exchange of m (thread 0's epoch start to the start of thread 32's
+    correlation: the whole exchange where the correlation needs m, the
+    barrier and the publication where it runs beside it), the correlation
+    (thread 32: the prefetch wait, its samples, its warp's sums, and any
+    wait for m past them), the reduction (the barrier and the sums over
+    warps, to thread 0's reduced taps) and the closure (thread 0); beside
+    them the prefetch wait, thread 32's samples and the closure's
+    state-only part (thread 0, from its previous stamp).  Cycles
+    become us by `ms` over the cycles the timeline spans.  The serial floor
+    of a block of `block_epochs` epochs: that many times the exchange of m,
+    the closure and its state-only part, the spans no width of the
+    correlation shortens (the KF walk's definition, ops/kf_block.py)."""
+    tl = np.asarray(tl, np.float64)
+    v = np.nonzero(tl[:-1, TL_WAIT] > 0)[0]
+    if len(v) == 0:
+        raise ValueError("the timeline holds no correlated epoch")
+    us_per_cycle = ms * 1e3 / (tl[-1, TL_UPD] - tl[0, TL_START])
+    spans = {"barrier_m": tl[v, TL_M32] - tl[v, TL_START],
+             "correlation": tl[v, TL_PART] - tl[v, TL_M32],
+             "reduction": tl[v, TL_RED] - tl[v, TL_PART],
+             "closure": tl[v, TL_UPD] - tl[v, TL_RED]}
+    # the state-only part runs from thread 0's previous stamp: m where it
+    # runs after m, the publication of m where it runs beside the exchange
+    pre_from = np.where(tl[v, TL_PRE] > tl[v, TL_M0], tl[v, TL_M0],
+                        tl[v, TL_PUB])
+    pre = np.where(tl[v, TL_PRE] > 0, tl[v, TL_PRE] - pre_from, 0.0)
+    inner = {"prefetch_wait": tl[v, TL_WAIT] - tl[v, TL_M32],
+             "samples": tl[v, TL_SAMP] - tl[v, TL_WAIT],
+             "closure_pre": pre}
+    epoch = float((tl[v + 1, TL_START] - tl[v, TL_START]).mean())
+    us = {k: float(d.mean()) * us_per_cycle for k, d in spans.items()}
+    inner_us = {k: float(d.mean()) * us_per_cycle for k, d in inner.items()}
+    return {
+        "epochs": len(v), "epoch_us": epoch * us_per_cycle,
+        "share": {k: float(d.mean()) / epoch for k, d in spans.items()},
+        "us": us, "inner_us": inner_us,
+        # every span of every epoch in its order (thread 0's and 32's
+        # stamps interleave as the epoch runs)
+        "ordered": bool(min(d.min() for d in spans.values()) >= 0
+                        and min(d.min() for d in inner.values()) >= 0),
+        "prefetch_hits": int(tl[v, TL_HIT].sum()),
+        "mhz": 1.0 / us_per_cycle,
+        "serial_floor_ms": block_epochs * (us["barrier_m"] + us["closure"]
+                                           + inner_us["closure_pre"]) * 1e-3}
 
 
 def gather_layout(cpc: int, K: int, n_max: int, code_len: int, sec_len: int,
@@ -166,8 +228,8 @@ def gather_layout(cpc: int, K: int, n_max: int, code_len: int, sec_len: int,
     """Byte offsets of one CTA's dynamic shared memory, as gather_block.cu
     `gb_layout` computes them: the mbarriers, the two m slots, the prefetch
     records, the prefetch buffers, the code bits, the state rows, the
-    secondary chips and the warp partial sums; `total` is the launch's
-    dynamic shared memory."""
+    secondary chips, the warp partial sums and the closure's state-only
+    part; `total` is the launch's dynamic shared memory."""
     W = (code_len + 31) // 32
     lay = {"bar": 0, "slot": 8 * cpc}
     lay["info"] = lay["slot"] + 8
@@ -178,7 +240,8 @@ def gather_layout(cpc: int, K: int, n_max: int, code_len: int, sec_len: int,
     lay["si"] = lay["sf"] + 4 * n_frows(K) * cpc
     lay["sec"] = lay["si"] + 4 * N_IROWS * cpc
     lay["part"] = lay["sec"] + 4 * sec_len * cpc
-    lay["total"] = lay["part"] + 4 * 2 * GB_WARPS * 2 * K
+    lay["pre"] = round16(lay["part"] + 4 * 2 * GB_WARPS * 2 * K)
+    lay["total"] = lay["pre"] + PRE_BYTES
     return lay
 
 
@@ -263,14 +326,18 @@ def check_inputs(spec: GatherSpec, samples, codes, sec_rows, fst, ist):
 
 
 def gather_block_cuda(spec: GatherSpec, samples, codes, sec_rows, fst, ist,
-                      n_epochs: int):
+                      n_epochs: int, stages=None):
     """Launch the CUDA kernel once for n_epochs epochs, as one cluster
     (launch_geometry).  The code rows must be +-1 (the kernel keeps them
-    as bits; the engine's tables are)."""
+    as bits; the engine's tables are).  `stages` (int64 [n_epochs,
+    STAGE_POINTS] on the card, zeroed) launches the GATHER_BLOCK_STAGES
+    build instead, which writes its timeline there."""
     global launches
-    from ._build import gather_library
+    from ._build import gather_library, gather_stage_library
 
     check_inputs(spec, samples, codes, sec_rows, fst, ist)
+    if stages is not None:
+        check_tensor(stages, "stages", (n_epochs, STAGE_POINTS), torch.int64)
     C, K = spec.C, spec.K
     f32 = torch.float32
     dev = samples.device
@@ -280,11 +347,13 @@ def gather_block_cuda(spec: GatherSpec, samples, codes, sec_rows, fst, ist,
     fst_out = torch.empty_like(fst)
     ist_out = torch.empty_like(ist)
     geo = launch_geometry(spec)
+    lib = gather_library() if stages is None else gather_stage_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = gather_library().gather_block_launch(
+    err = lib.gather_block_launch(
         samples.data_ptr(), codes.data_ptr(), sec_rows.data_ptr(),
         fst.data_ptr(), ist.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
         out_corr.data_ptr(), fst_out.data_ptr(), ist_out.data_ptr(),
+        None if stages is None else stages.data_ptr(),
         ctypes.addressof(chain_params(spec.loop)),
         ctypes.addressof(gather_params(spec, int(samples.shape[0]),
                                        int(n_epochs), geo)), stream)

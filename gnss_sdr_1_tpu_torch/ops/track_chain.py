@@ -154,101 +154,119 @@ def loop_consts_plain(spec: ChainSpec, ist):
             [sel(spec.dll_b_out[j], spec.dll_b_out_n[j]) for j in range(3)])
 
 
-def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
-                     sec_rows):
-    """One epoch's loop closure of every channel, JAX `_loop_update`
-    (gnss_sdr_1_tpu/track/engine.py:548-782): the secondary wipe, the
-    extended coherent accumulation, the Costas / four-quadrant PLL and FLL
-    discriminators, the FLL-assisted PLL of order 2/3 with its wide/narrow
-    select, the EPL/VEML DLL with its IIR filter, the A.6 split-precision
-    NCO step, the SNV CN0 estimator with the carrier-lock supervision and
-    the FLL turn-off seeding, merged by `valid`.
-
-    `consts` comes from `loop_consts_plain`, `f` [SF, C] / `i` [SI, C]
-    are the state rows entering the epoch, `corr_r` / `corr_i` the K taps
-    (lists of [C], true-NCO frame) and `sec_rows` [sec_len, C] the
-    channels' secondary codes.  Returns (f', i',
-    out_f rows [N_OROWS, C], out_i rows [2, C], out_corr rows [2K, C],
-    valid [C]).  The chain (`chain_plain`) and the gather walk
-    (ops.gather_block) both close their epochs here."""
-    K, P = spec.K, spec.prompt_index
-    half_n = spec.ext_n // 2
-    f32 = torch.float32
-    i32 = torch.int32
-    zero = torch.zeros_like(f[0])
-    (w0p, w0p2, w0p3, w0f, w0f2, a2, a3, b3), bi, bo = consts
-
-    carr_off = f[F_CARR_OFF]
-    limit = i[I_LIMIT]
-    mode0 = i[I_MODE]
+def loop_pre_plain(spec: ChainSpec, consts, f, i, sec_rows) -> dict:
+    """The closure's state-only part: what it computes before the epoch's
+    taps are in (csrc/loop_close.cuh `loop_pre`).  Every quantity is
+    rounded as the whole closure rounds it."""
+    f32, i32 = torch.float32, torch.int32
+    _, bi, bo = consts
+    active = i[I_ACTIVE] > 0
+    valid = active & (i[I_START] < i[I_LIMIT])
+    narrow = i[I_MODE] >= 1
     sec_on = i[I_SEC_ON] > 0
-    rem_code, delta, doppler = f[F_REM_CODE], f[F_DELTA], f[F_DOPPLER]
-    rem_carr, cw, cx = f[F_REM_CARR], f[F_CARR_W], f[F_CARR_X]
-    prev_r, prev_i = f[F_PREV_R], f[F_PREV_I]
-    sabsi0, si20, sq20, cn0_old = f[F_SABSI], f[F_SI2], f[F_SQ2], f[F_CN0]
-    acch_r, acch_i = f[F_ACCH_R], f[F_ACCH_I]
-    din = [f[F_DLL_IN0 + j] for j in range(3)]
-    dout = [f[F_DLL_OUT0 + j] for j in range(3)]
-    accr0 = [f[F_ACC_R0 + k] for k in range(K)]
-    acci0 = [f[F_ACC_R0 + K + k] for k in range(K)]
-    active_i, start, cur_len = i[I_ACTIVE], i[I_START], i[I_CURLEN]
-    push_count0, lockfail0, epochs0 = i[I_PUSH], i[I_LOCKFAIL], i[I_EPOCHS]
-    fllon_i, extcnt0, sec_idx = i[I_FLL_ON], i[I_EXTCNT], i[I_SEC_IDX]
-
-    active = active_i > 0
-    valid = active & (start < limit)
-    validf = valid.to(f32)
-
+    cur_len = i[I_CURLEN]
     t_epoch = cur_len.to(f32) / _f32(spec.fs)
     if spec.sec_len > 1:
-        idx_c = torch.clamp(sec_idx, max=spec.sec_len - 1).long()
+        idx_c = torch.clamp(i[I_SEC_IDX], max=spec.sec_len - 1).long()
         sec_chip = torch.gather(sec_rows, 0, idx_c[None, :])[0]
     else:
         sec_chip = sec_rows[0]
-    s = torch.where(sec_on, sec_chip, torch.ones_like(sec_chip))
-    cw_r = [corr_r[k] * s for k in range(K)]
-    cw_i = [corr_i[k] * s for k in range(K)]
-    pw_r, pw_i = cw_r[P], cw_i[P]
-
-    narrow = mode0 >= 1
-    acc_r = [accr0[k] + cw_r[k] for k in range(K)]
-    acc_i = [acci0[k] + cw_i[k] for k in range(K)]
-    cnt = extcnt0 + 1
+    cnt = i[I_EXTCNT] + 1
     boundary = narrow & (cnt >= spec.ext_n)
     upd = (~narrow) | boundary
+    app = valid & upd
+    push_count = i[I_PUSH] + app.to(i32)
+    fll_on = i[I_FLL_ON] > 0
+    epochs_in_track = i[I_EPOCHS] + 1
+    fll_still_on = fll_on & torch.where(
+        narrow, push_count < spec.fll_narrow_windows,
+        epochs_in_track < spec.fll_epochs)
+    reset_acc = boundary | ~narrow
+    t_cn0 = torch.where(narrow,
+                        torch.full_like(t_epoch, _f32(
+                            spec.ext_n * spec.code_period_s)),
+                        t_epoch)
+    din = [f[F_DLL_IN0 + j] for j in range(3)]
+    dout = [f[F_DLL_OUT0 + j] for j in range(3)]
+    return {
+        "active": active, "valid": valid, "validf": valid.to(f32),
+        "narrow": narrow, "sec_on": sec_on, "t_epoch": t_epoch,
+        "s": torch.where(sec_on, sec_chip, torch.ones_like(sec_chip)),
+        "cnt": cnt, "boundary": boundary,
+        "t_int": torch.where(narrow, cnt.to(f32) * _f32(spec.code_period_s),
+                             t_epoch),
+        "t_half": max(_f32(spec.ext_n // 2 * spec.code_period_s),
+                      _f32(1e-6)),
+        "fll_on": fll_on, "app": app, "appf": app.to(f32),
+        "push_count": push_count,
+        "window_done": app & (torch.remainder(push_count,
+                                              spec.cn0_samples) == 0),
+        "hist_full": push_count >= spec.cn0_samples,
+        "cn0_t": 10.0 * torch.log10(t_cn0),
+        "epochs_in_track": epochs_in_track, "fll_still_on": fll_still_on,
+        "turnoff": narrow & fll_on & ~fll_still_on, "reset_acc": reset_acc,
+        "racf": (~reset_acc).to(f32),
+        "at_half": narrow & (cnt == spec.ext_n // 2),
+        # the DLL filter's terms that do not read the discriminator: its
+        # left-to-right sum up to it, and the products after it
+        "dll_head": bo[0] * dout[0] + bo[1] * dout[1] + bo[2] * dout[2],
+        "dll_tail": [bi[1] * din[0], bi[2] * din[1], bi[3] * din[2]],
+    }
+
+
+def loop_post_plain(spec: ChainSpec, consts, pre, f, i, corr_r, corr_i):
+    """The closure once the epoch's taps are in: the secondary wipe and the
+    extended accumulation, the discriminators, the PLL cascade, the DLL
+    filter, the NCO step, the lock supervision, the merge by `valid`, the
+    epoch's output rows and the carried state (csrc/loop_close.cuh
+    `loop_post`).  Returns what loop_close_plain returns."""
+    K, P = spec.K, spec.prompt_index
+    i32 = torch.int32
+    zero = torch.zeros_like(f[0])
+    (w0p, w0p2, w0p3, w0f, w0f2, a2, a3, b3), bi, _ = consts
+    valid, app, narrow = pre["valid"], pre["app"], pre["narrow"]
+    fll_on, t_int = pre["fll_on"], pre["t_int"]
+    carr_off = f[F_CARR_OFF]
+    rem_code, delta, doppler = f[F_REM_CODE], f[F_DELTA], f[F_DOPPLER]
+    rem_carr, cw, cx = f[F_REM_CARR], f[F_CARR_W], f[F_CARR_X]
+    prev_r, prev_i = f[F_PREV_R], f[F_PREV_I]
+    acch_r, acch_i = f[F_ACCH_R], f[F_ACCH_I]
+    din = [f[F_DLL_IN0 + j] for j in range(3)]
+    dout = [f[F_DLL_OUT0 + j] for j in range(3)]
+    s = pre["s"]
+    cw_r = [corr_r[k] * s for k in range(K)]
+    cw_i = [corr_i[k] * s for k in range(K)]
+    acc_r = [f[F_ACC_R0 + k] + cw_r[k] for k in range(K)]
+    acc_i = [f[F_ACC_R0 + K + k] + cw_i[k] for k in range(K)]
     disc_r = [torch.where(narrow, acc_r[k], cw_r[k]) for k in range(K)]
     disc_i = [torch.where(narrow, acc_i[k], cw_i[k]) for k in range(K)]
+    pw_r, pw_i = cw_r[P], cw_i[P]
     dp_r, dp_i = disc_r[P], disc_i[P]
-    t_int = torch.where(narrow, cnt.to(f32) * _f32(spec.code_period_s),
-                        t_epoch)
 
     # --- carrier discriminators (A.3) ---
     costas = torch.where(
         dp_r != 0.0,
         torch.atan2(dp_i * torch.sign(dp_r), torch.abs(dp_r)),
         zero) / _TWO_PI
-    fourq = torch.atan2(dp_i, dp_r) / _TWO_PI
     if spec.sec_data:
         carr_err_cyc = costas
     else:
-        carr_err_cyc = torch.where(sec_on, fourq, costas)
+        carr_err_cyc = torch.where(pre["sec_on"],
+                                   torch.atan2(dp_i, dp_r) / _TWO_PI, costas)
     dot = prev_r * pw_r + prev_i * pw_i
     cross = prev_r * pw_i - pw_r * prev_i
-    freq_err_hz = torch.atan2(cross, dot) / t_epoch / _TWO_PI
-    t_half = max(_f32(half_n * spec.code_period_s), _f32(1e-6))
+    freq_err_hz = torch.atan2(cross, dot) / pre["t_epoch"] / _TWO_PI
     p2_r = acc_r[P] - acch_r
     p2_i = acc_i[P] - acch_i
     dot_h = acch_r * p2_r + acch_i * p2_i
     cross_h = acch_r * p2_i - p2_r * acch_i
     h_mag = acch_r * acch_r + acch_i * acch_i
     freq_err_ext = torch.where(
-        (h_mag > 0.0) & boundary,
-        torch.atan2(cross_h, dot_h) / t_half / _TWO_PI, zero)
-
-    fll_on = fllon_i > 0
+        (h_mag > 0.0) & pre["boundary"],
+        torch.atan2(cross_h, dot_h) / pre["t_half"] / _TWO_PI, zero)
     pll_in = carr_err_cyc
-    fll_in = torch.where(fll_on & ~narrow & (push_count0 > 0),
-                         freq_err_hz, zero)
+    fll_in = torch.where(fll_on & ~narrow & (i[I_PUSH] > 0), freq_err_hz,
+                         zero)
     fll_in = torch.where(narrow & fll_on, freq_err_ext, fll_in)
 
     # --- FLL-assisted PLL cascade (A.5), the wide/narrow constants ---
@@ -275,15 +293,11 @@ def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
         l_ = torch.sqrt(disc_r[2] ** 2 + disc_i[2] ** 2)
         ssum = e + l_
         code_err = torch.where(ssum > 0.0, 0.5 * (e - l_) / ssum, zero)
-    code_err_filt = (bo[0] * dout[0] + bo[1] * dout[1]
-                     + bo[2] * dout[2] + bi[0] * code_err
-                     + bi[1] * din[0] + bi[2] * din[1]
-                     + bi[3] * din[2])
+    tail = pre["dll_tail"]
+    code_err_filt = (pre["dll_head"] + bi[0] * code_err + tail[0] + tail[1]
+                     + tail[2])
     din_new = (code_err, din[0], din[1])
     dout_new = (code_err_filt, dout[0], dout[1])
-
-    app = valid & upd
-    appf = app.to(f32)
 
     def mrg(n, o):
         return torch.where(app, n, o)
@@ -306,28 +320,22 @@ def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
     rem_code_new = frac - frac_floor
     carr_step_new = _TWO_PI * (doppler_m + carr_off) / _f32(spec.fs)
     rem_carr_new = mod_floor(
-        rem_carr + carr_step_new * next_len.to(f32), _TWO_PI)
+        rem_carr + carr_step_new * next_len.to(torch.float32), _TWO_PI)
 
     # --- CN0 / lock supervision on window accumulators (A.7) ---
-    s_absi = sabsi0 + appf * torch.abs(dp_r)
-    s_i2 = si20 + appf * dp_r * dp_r
-    s_q2 = sq20 + appf * dp_i * dp_i
-    push_count = push_count0 + app.to(i32)
-    window_done = app & (torch.remainder(push_count,
-                                         spec.cn0_samples) == 0)
-    t_cn0 = torch.where(narrow,
-                        torch.full_like(t_epoch, _f32(
-                            spec.ext_n * spec.code_period_s)),
-                        t_epoch)
+    appf = pre["appf"]
+    s_absi = f[F_SABSI] + appf * torch.abs(dp_r)
+    s_i2 = f[F_SI2] + appf * dp_r * dp_r
+    s_q2 = f[F_SQ2] + appf * dp_i * dp_i
+    window_done = pre["window_done"]
     m = _f32(spec.cn0_samples)
     psig = (s_absi / m) ** 2
     ptot = (s_i2 + s_q2) / m
     noise = torch.clamp(ptot - psig, min=_TINY)
     cn0 = (10.0 * torch.log10(torch.clamp(psig / noise, min=_f32(1e-10)))
-           - 10.0 * torch.log10(t_cn0))
+           - pre["cn0_t"])
     carrier_lock = (s_i2 - s_q2) / torch.clamp(s_i2 + s_q2, min=_TINY)
-    cn0_last = torch.where(window_done, cn0, cn0_old)
-    hist_full = push_count >= spec.cn0_samples
+    cn0_last = torch.where(window_done, cn0, f[F_CN0])
     s_absi = torch.where(window_done, zero, s_absi)
     s_i2 = torch.where(window_done, zero, s_i2)
     s_q2 = torch.where(window_done, zero, s_q2)
@@ -335,31 +343,26 @@ def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
     fail = check_now & ((cn0 < spec.cn0_min_dbhz)
                         | (carrier_lock < spec.carrier_lock_th))
     ok = check_now & ~fail
+    lockfail0 = i[I_LOCKFAIL]
     lock_fail = torch.where(
         fail, lockfail0 + 1,
         torch.where(ok, torch.clamp(lockfail0 - 1, min=0), lockfail0))
-    still_active = active & (lock_fail <= spec.max_lock_fail)
+    still_active = pre["active"] & (lock_fail <= spec.max_lock_fail)
 
-    epochs_in_track = epochs0 + 1
-    fll_still_on = fll_on & torch.where(
-        narrow, push_count < spec.fll_narrow_windows,
-        epochs_in_track < spec.fll_epochs)
-    turnoff = narrow & fll_on & ~fll_still_on
     if spec.order == 3:
         seed_w = torch.zeros_like(doppler_m)
         seed_x = 2.0 * doppler_m
     else:
         seed_w = doppler_m
         seed_x = torch.zeros_like(doppler_m)
-    tv = turnoff & valid
+    tv = pre["turnoff"] & valid
     cw_m = torch.where(tv, seed_w, cw_m)
     cx_m = torch.where(tv, seed_x, cx_m)
 
-    reset_acc = boundary | ~narrow
-    racf = (~reset_acc).to(f32)
+    racf = pre["racf"]
     acc_r_new = [acc_r[k] * racf for k in range(K)]
     acc_i_new = [acc_i[k] * racf for k in range(K)]
-    at_half = narrow & (cnt == half_n)
+    at_half = pre["at_half"]
     acch_r_new = racf * torch.where(at_half, acc_r[P], acch_r)
     acch_i_new = racf * torch.where(at_half, acc_i[P], acch_i)
 
@@ -367,9 +370,11 @@ def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
     def mv(n, o):
         return torch.where(valid, n, o)
 
+    active_i, start, cur_len = i[I_ACTIVE], i[I_START], i[I_CURLEN]
+    validf = pre["validf"]
     merged_dopp = mv(doppler_m, doppler)
     merged_active = mv(still_active.to(i32), active_i)
-    merged_cn0 = mv(cn0_last, cn0_old)
+    merged_cn0 = mv(cn0_last, f[F_CN0])
     merged_delta = mv(delta_m, delta)
     merged_rem_code = mv(rem_code_new, rem_code)
     merged_rem_carr = mv(rem_carr_new, rem_carr)
@@ -378,29 +383,58 @@ def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
     # --- per-epoch outputs ---
     out_f = torch.stack([
         merged_dopp, merged_delta, merged_rem_code, merged_rem_carr,
-        torch.where(valid & hist_full, merged_cn0, zero), validf,
-        merged_active.to(f32)])
+        torch.where(valid & pre["hist_full"], merged_cn0, zero), validf,
+        merged_active.to(torch.float32)])
     out_i = torch.stack([start, cur_len])
     out_corr = torch.stack([validf * corr_r[k] for k in range(K)]
                            + [validf * corr_i[k] for k in range(K)])
 
+    cnt, reset_acc = pre["cnt"], pre["reset_acc"]
     f_new = torch.stack(
         [merged_rem_code, merged_delta, merged_dopp, merged_rem_carr,
-         mv(cw_m, cw), mv(cx_m, cx), mv(pw_r, prev_r), mv(pw_i, prev_i),
-         mv(s_absi, sabsi0), mv(s_i2, si20), mv(s_q2, sq20), merged_cn0,
-         mv(acch_r_new, acch_r), mv(acch_i_new, acch_i), carr_off]
+         mv(cw_m, cw), mv(cx_m, cx), mv(pw_r, f[F_PREV_R]),
+         mv(pw_i, f[F_PREV_I]), mv(s_absi, f[F_SABSI]), mv(s_i2, f[F_SI2]),
+         mv(s_q2, f[F_SQ2]), merged_cn0, mv(acch_r_new, acch_r),
+         mv(acch_i_new, acch_i), carr_off]
         + din_m + dout_m
-        + [mv(acc_r_new[k], accr0[k]) for k in range(K)]
-        + [mv(acc_i_new[k], acci0[k]) for k in range(K)])
+        + [mv(acc_r_new[k], f[F_ACC_R0 + k]) for k in range(K)]
+        + [mv(acc_i_new[k], f[F_ACC_R0 + K + k]) for k in range(K)])
+    sec_idx = i[I_SEC_IDX]
     i_new = torch.stack(
         [merged_active, mv(start + cur_len, start), new_cur,
-         mv(push_count, push_count0), mv(lock_fail, lockfail0),
-         mv(epochs_in_track, epochs0), mv(fll_still_on.to(i32), fllon_i),
-         mode0, mv(torch.where(reset_acc, torch.zeros_like(cnt), cnt),
-                   extcnt0),
+         mv(pre["push_count"], i[I_PUSH]), mv(lock_fail, lockfail0),
+         mv(pre["epochs_in_track"], i[I_EPOCHS]),
+         mv(pre["fll_still_on"].to(i32), i[I_FLL_ON]), i[I_MODE],
+         mv(torch.where(reset_acc, torch.zeros_like(cnt), cnt),
+            i[I_EXTCNT]),
          i[I_SEC_ON], mv(torch.remainder(sec_idx + 1, spec.sec_len),
-                         sec_idx), limit]).to(i32)
+                         sec_idx), i[I_LIMIT]]).to(i32)
     return f_new, i_new, out_f, out_i, out_corr, valid
+
+
+def loop_close_plain(spec: ChainSpec, consts, f, i, corr_r, corr_i,
+                     sec_rows):
+    """One epoch's loop closure of every channel, JAX `_loop_update`
+    (gnss_sdr_1_tpu/track/engine.py:548-782): the secondary wipe, the
+    extended coherent accumulation, the Costas / four-quadrant PLL and FLL
+    discriminators, the FLL-assisted PLL of order 2/3 with its wide/narrow
+    select, the EPL/VEML DLL with its IIR filter, the A.6 split-precision
+    NCO step, the SNV CN0 estimator with the carrier-lock supervision and
+    the FLL turn-off seeding, merged by `valid`.
+
+    `consts` comes from `loop_consts_plain`, `f` [SF, C] / `i` [SI, C]
+    are the state rows entering the epoch, `corr_r` / `corr_i` the K taps
+    (lists of [C], true-NCO frame) and `sec_rows` [sec_len, C] the
+    channels' secondary codes.  Returns (f', i',
+    out_f rows [N_OROWS, C], out_i rows [2, C], out_corr rows [2K, C],
+    valid [C]).  The chain (`chain_plain`) and the gather walk
+    (ops.gather_block) both close their epochs here.
+
+    It is the composition of two parts, as csrc/loop_close.cuh splits it:
+    the state-only part (`loop_pre_plain`) and the rest, from the taps on
+    (`loop_post_plain`)."""
+    pre = loop_pre_plain(spec, consts, f, i, sec_rows)
+    return loop_post_plain(spec, consts, pre, f, i, corr_r, corr_i)
 
 
 def chain_plain(spec: ChainSpec, zr, zi, s_reg, step0, sec_rows, fst, ist):

@@ -33,14 +33,14 @@ from .receiver import _DECODERS, ReceiverConfig
 # ROADMAP.md §1, "What later slices port": the item that ports each part a
 # conf or a CLI flag may ask for
 ROADMAP_ITEMS = {
-    "acquisition": "ROADMAP.md §1 item 1 (acquisition variants and Tong)",
     "ppp_rtk": "ROADMAP.md §1 item 3 (PPP, RTK and --base_obs)",
     "assistance": "ROADMAP.md §1 item 4 (SUPL and assistance)",
     "monitors": "ROADMAP.md §1 item 5 (telecommand, monitors, streaming "
                 "and checkpoint/resume)",
     "sources": "ROADMAP.md §1 item 6 (io/labsat.py and io/network.py)",
-    "signals": "ROADMAP.md §1 item 7 (the other signals and "
-               "constellations)",
+    "signals": "ROADMAP.md §1 (no item: the port runs every signal, "
+               "acquisition strategy and tracking block of the JAX package, "
+               "and the JAX package has no such one either)",
 }
 
 

@@ -63,6 +63,7 @@ from ..telemetry.channel_adapters import (BeidouChannelDecoder,
                                           GpsL5ChannelDecoder)
 from ..telemetry.decoder import LnavDecoder
 from ..track import TrackConfig, TrackingEngine, TrackOutputs
+from ..track.engine import tracking_correlator
 from ..track.kf import KfTrackConfig, KfTrackingEngine
 
 log = logging.getLogger("gnss_sdr_1_tpu_torch.receiver")
@@ -167,10 +168,6 @@ class ReceiverConfig:
                 f"track_engine={self.track_engine!r} is not ported yet "
                 f"(only 'dll_pll', 'kf')")
         tracking_correlator(self.correlator)
-        if self.acq_strategy == "caf" and self.signal_id != "5X":
-            raise not_ported(f"acq_strategy='caf' on signal "
-                             f"{self.signal_id!r} (the CAF acquisition is "
-                             f"Galileo E5a's)", "signals")
         for name in ("enable_monitor", "enable_pvt_monitor"):
             if getattr(self, name):
                 raise not_ported(name, "monitors")
@@ -178,24 +175,6 @@ class ReceiverConfig:
     @property
     def spec(self) -> SignalSpec:
         return SIGNALS[self.signal_id]
-
-
-def tracking_correlator(name: str) -> str:
-    """The engine correlator a ReceiverConfig.correlator value runs:
-    'auto', 'chunked' and the JAX package's chunked names 'pallas' and
-    'mxu' -> 'chunked'; 'gather' -> 'gather'.  The JAX package's legacy
-    'fft' correlator is refused."""
-    if name in ("auto", "chunked", "pallas", "mxu"):
-        return "chunked"
-    if name == "gather":
-        return name
-    if name == "fft":
-        raise ValueError(
-            "correlator='fft' does not carry over to the port (ROADMAP.md, "
-            "North star, 'Does not carry over': the legacy 'fft' "
-            "correlator); use 'chunked' or 'gather'")
-    raise ValueError(f"unknown correlator {name!r} (auto | chunked | "
-                     f"gather)")
 
 
 # acquisition strategies this package carries ('caf' is the E5a strategy;

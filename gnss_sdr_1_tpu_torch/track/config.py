@@ -75,6 +75,10 @@ class TrackConfig:
     #   'gather'  — per-epoch, per-sample floor code resampler (the
     #               reference's exact A.2 contract): one gather_block launch
     #               walks every epoch of a capture segment
+    # 'auto' and the JAX package's chunked names 'pallas' and 'mxu' run
+    # 'chunked'; 'fft' is refused (track.engine.tracking_correlator).  The
+    # JAX package's default is 'gather' (ROADMAP.md §3, deliberate
+    # differences)
     correlator: str = "chunked"
 
     @property

@@ -15,11 +15,12 @@ Tracking states (reference general_work :1544-1900):
                            channel's bit grid, loop closed once per window
                            with the narrow bandwidths.
 
-Two correlators (`TrackConfig.correlator`).  Chunked (the default, the
-accelerator path): `chunk_epochs` (E) epochs of every channel are sliced
-on the regular epoch grid with the chunk-entry (frozen) NCO rates, wiped
-off, and correlated against the per-slot shifted-replica bank, giving a
-lag window of LW lags per epoch (ops.chunk_corr).  The tracking chain
+Two correlators (`TrackConfig.correlator`, its names mapped by
+`tracking_correlator`).  Chunked (the default, the accelerator path):
+`chunk_epochs` (E) epochs of every channel are sliced on the regular epoch
+grid with the chunk-entry (frozen) NCO rates, wiped off, and correlated
+against the per-slot shifted-replica bank, giving a lag window of LW lags
+per epoch (ops.chunk_corr).  The tracking chain
 (ops.track_chain) then runs the exact sequential per-epoch loop closure for
 the chunk: it reads each epoch's taps from the lag window at the TRUE code
 phase and rotates them by the known frozen-vs-true carrier phase
@@ -186,6 +187,24 @@ def state_to_numpy(state: TrackState) -> dict:
     return out
 
 
+def tracking_correlator(name: str) -> str:
+    """The engine correlator a ReceiverConfig.correlator or
+    TrackConfig.correlator value runs: 'auto', 'chunked' and the JAX
+    package's chunked names 'pallas' and 'mxu' -> 'chunked'; 'gather' ->
+    'gather'.  The JAX package's legacy 'fft' correlator is refused."""
+    if name in ("auto", "chunked", "pallas", "mxu"):
+        return "chunked"
+    if name == "gather":
+        return name
+    if name == "fft":
+        raise ValueError(
+            "correlator='fft' does not carry over to the port (ROADMAP.md, "
+            "North star, 'Does not carry over': the legacy 'fft' "
+            "correlator); use 'chunked' or 'gather'")
+    raise ValueError(f"unknown correlator {name!r} (auto | chunked | "
+                     f"gather)")
+
+
 class TrackingEngine:
     """One engine per (signal type, sampling rate).
 
@@ -203,10 +222,7 @@ class TrackingEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device
-        if cfg.correlator not in ("chunked", "gather"):
-            raise ValueError(f"correlator must be 'chunked' or 'gather', got "
-                             f"{cfg.correlator!r}")
-        self.correlator = cfg.correlator
+        self.correlator = tracking_correlator(cfg.correlator)
         if codes.ndim != 2:
             raise ValueError("codes must be [n_slots, code_samples]")
         if sec_codes is None:
@@ -270,7 +286,8 @@ class TrackingEngine:
             self.corr_spec = cc.CorrSpec(
                 E=E, LW=LW, NW=NW, C=cfg.n_channels, t0_int=self._t0_int,
                 t0_frac=self._t0_frac, grid_pad=self._grid_pad,
-                chip_rate=float(cfg.chip_rate_chips_s), fs=float(cfg.fs_hz))
+                chip_rate=float(cfg.chip_rate_chips_s), fs=float(cfg.fs_hz),
+                passes=cc.table_passes(rows))
         else:
             # the +-1 code rows, one per slot (the card's kernel keeps them
             # as bits), and the gather walk's window: the per-channel start

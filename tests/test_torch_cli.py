@@ -27,6 +27,7 @@ from gnss_sdr_1_tpu_torch import __main__ as tcli
 from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
 from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
 from gnss_sdr_1_tpu_torch.ops import chunk_corr as cc
+from gnss_sdr_1_tpu_torch.ops.cluster_walk import SMEM_MAX
 from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
 from gnss_sdr_1_tpu_torch.runtime import Receiver
 from gnss_sdr_1_tpu_torch.runtime import factory as tfactory
@@ -83,9 +84,12 @@ def test_ported_conf_maps_like_jax(name):
     assert rx.trk_kind == rt.track_engine
     if rx.trk_kind == "dll_pll":
         # the chunk correlator's geometry holds at this rate (a
-        # non-integer number of samples per chip included)
-        p = cc.corr_params(rx.trk.corr_spec)
-        assert p.smem_bytes <= cc.MAX_SMEM and p.L % cc.TL == 0
+        # non-integer number of samples per chip included), on any
+        # cluster the card may give a channel
+        spec = rx.trk.corr_spec
+        for G in (1, 8, cc.MAX_CLUSTER):
+            geo = cc.corr_geometry(spec.E, spec.LW, spec.NW, G)
+            assert geo.smem <= SMEM_MAX and (geo.MB, geo.NB) == (1, 1)
         # 5 taps (VE/E/P/L/VL) for Galileo E1B, 3 for GPS L1 C/A, L5
         # and Galileo E5a
         assert rx.trk.chain_spec.K == (5 if rt.signal_id == "1B" else 3)

@@ -305,8 +305,12 @@ def test_acquisition_strategies_match_jax(e1_capture, strategy):
 def test_caf_and_unported_refused():
     from gnss_sdr_1_tpu_torch.runtime.config import ROADMAP_ITEMS
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(signal_id="1B", acq_strategy="caf")
+    # the CAF is an E5a strategy: off E5a the config builds and the
+    # receiver raises the JAX package's ValueError
+    cfg = ReceiverConfig(signal_id="1B", acq_strategy="caf")
+    with pytest.raises(ValueError, match="noncoherent-IQ CAF acquisition "
+                       "is a Galileo E5a strategy"):
+        Receiver(cfg, device="cpu")
     # L5, E5a, GPS L2C, GLONASS and BeiDou are ported, and the KF tracker
     # runs on every signal: on E1B in the virtual half-chip basis (the
     # sinBOC replica at 2.046 MHz, 8184 half-chips), as the JAX receiver
@@ -327,7 +331,8 @@ def test_caf_and_unported_refused():
             rx.cfg.early_late_space_chips * spc
     with pytest.raises(NotImplementedError, match="item 4"):
         ReceiverConfig(signal_id="1B", acq_strategy="assisted")
-    assert "item 7" in ROADMAP_ITEMS["signals"]
+    assert "JAX package has no such one" in ROADMAP_ITEMS["signals"]
+    assert "acquisition" not in ROADMAP_ITEMS
     with pytest.raises(ValueError, match="Galileo E1"):
         Receiver(ReceiverConfig(acq_strategy="cccwsr"), device="cpu")
 

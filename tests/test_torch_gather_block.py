@@ -300,6 +300,68 @@ def test_kernel_constants_match_the_source():
     assert '#include "cluster_walk.cuh"' in src
     assert "__launch_bounds__(GB_THREADS, 1)" in src
     assert "cudaLaunchKernelEx" in src and "cluster.sync()" in src
+    assert _cu_define("GB_STAGE_POINTS") == gb.STAGE_POINTS
+    assert _cu_define("GB_PRE_BYTES") == gb.PRE_BYTES
+    assert "static_assert(sizeof(LoopPre) <= GB_PRE_BYTES" in src
+    for name in ("TL_START", "TL_M0", "TL_PRE", "TL_RED", "TL_UPD", "TL_M32",
+                 "TL_WAIT", "TL_SAMP", "TL_PART", "TL_HIT", "TL_PUB"):
+        m = re.search(rf"^#define {name} (\d+) ", src, re.M)
+        assert m and int(m.group(1)) == getattr(gb, name), name
+
+
+def _synthetic_timeline(n, pre):
+    """A timeline of n epochs of 1,000 cycles: the exchange of m 100
+    cycles, the prefetch wait 10, the samples 500, the warp sums 40, the
+    reduction 150, the closure 200; its state-only part, where stamped,
+    30 cycles long, after m or beside the exchange from the publication of
+    m (20 cycles after the start); the last epoch's channel idle."""
+    tl = np.zeros((n, gb.STAGE_POINTS), np.int64)
+    t0 = 5_000 + 1_000 * np.arange(n)
+    tl[:, gb.TL_START] = t0
+    tl[:, gb.TL_M0] = t0 + 90
+    tl[:, gb.TL_M32] = t0 + 100
+    tl[:, gb.TL_WAIT] = t0 + 110
+    tl[:, gb.TL_SAMP] = t0 + 610
+    tl[:, gb.TL_PART] = t0 + 650
+    tl[:, gb.TL_RED] = t0 + 800
+    tl[:, gb.TL_UPD] = t0 + 1_000
+    if pre == "after_m":
+        tl[:, gb.TL_PRE] = t0 + 120
+    elif pre == "beside":
+        tl[:, gb.TL_PUB] = t0 + 20
+        tl[:, gb.TL_PRE] = t0 + 50
+    tl[::2, gb.TL_HIT] = 1
+    tl[-1, gb.TL_WAIT] = 0
+    return tl
+
+
+@pytest.mark.parametrize("pre", [None, "after_m", "beside"])
+def test_stage_split_reads_a_synthetic_timeline(pre):
+    n = 11
+    tl = _synthetic_timeline(n, pre)
+    # n epochs of 1,000 cycles in a launch of n us: 1,000 cycles a us
+    sp = gb.stage_split(tl, n * 1e-3, 44)
+    assert sp["epochs"] == n - 1 and sp["ordered"]
+    assert sp["mhz"] == pytest.approx(1000.0)
+    assert sp["epoch_us"] == pytest.approx(1.0)
+    want = {"barrier_m": 0.1, "correlation": 0.55, "reduction": 0.15,
+            "closure": 0.2}
+    for k, v in want.items():
+        assert sp["us"][k] == pytest.approx(v), k
+        assert sp["share"][k] == pytest.approx(v), k
+    assert sum(sp["share"].values()) == pytest.approx(1.0)
+    assert sp["inner_us"]["prefetch_wait"] == pytest.approx(0.01)
+    assert sp["inner_us"]["samples"] == pytest.approx(0.5)
+    assert sp["inner_us"]["closure_pre"] == pytest.approx(0.03 if pre
+                                                          else 0.0)
+    assert sp["prefetch_hits"] == (n - 1 + 1) // 2
+    assert sp["serial_floor_ms"] == pytest.approx(
+        44 * (0.1 + 0.2 + (0.03 if pre else 0.0)) * 1e-3)
+    # a span out of order (a clock read hoisted above its work) shows
+    tl[3, gb.TL_PART] = tl[3, gb.TL_M32] - 1
+    assert not gb.stage_split(tl, n * 1e-3, 44)["ordered"]
+    with pytest.raises(ValueError):
+        gb.stage_split(np.zeros_like(tl), 1.0, 44)
 
 
 def _chip_smoke_shapes():

@@ -19,6 +19,7 @@ from gnss_sdr_1_tpu.siggen.generator import generate_baseband
 from gnss_sdr_1_tpu.siggen.scenario import build_scenario
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
 from gnss_sdr_1_tpu_torch.runtime.receiver import tracking_correlator
+from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -273,3 +274,28 @@ def test_system_scenario_on_the_gather_path(signal):
     errs = np.stack([s.rx_ecef_m - scen.rx_ecef for s in sols])
     assert np.median(np.linalg.norm(errs, axis=1)) < 5.0
     assert np.linalg.norm(errs.mean(axis=0)) < 5.0
+
+
+@pytest.mark.parametrize("name, runs", [
+    ("auto", "chunked"), ("chunked", "chunked"), ("gather", "gather"),
+    ("mxu", "chunked"), ("pallas", "chunked")])
+def test_tracking_engine_takes_every_receiver_correlator_name(name, runs):
+    # TrackConfig.correlator takes the names ReceiverConfig.correlator
+    # takes, mapped through tracking_correlator (ROADMAP.md §3, deliberate
+    # differences: the port's default stays 'chunked', JAX's is 'gather')
+    cfg = TrackConfig(fs_hz=FS, code_length_chips=1023,
+                      chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
+                      n_channels=2, correlator=name)
+    eng = TrackingEngine(cfg, np.stack([gps_l1ca_code(1), gps_l1ca_code(2)]),
+                         device="cpu")
+    assert eng.correlator == runs
+    assert (eng.corr_spec if runs == "chunked" else eng.gather_spec).C == 2
+    assert TrackConfig(FS, 1023, 1.023e6, 1575.42e6).correlator == "chunked"
+
+
+def test_tracking_engine_refuses_fft():
+    cfg = TrackConfig(fs_hz=FS, code_length_chips=1023,
+                      chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
+                      n_channels=1, correlator="fft")
+    with pytest.raises(ValueError, match="Does not carry over"):
+        TrackingEngine(cfg, gps_l1ca_code(1)[None], device="cpu")

@@ -9,8 +9,10 @@
   delays within 1 sample, statistics to rtol 1e-4.
 - The chunk correlator at the L2CM shapes: a 20 ms epoch is ~41,000
   samples at 2.046 Msps and ~60,000 at gps_l2c_ibyte.conf's 3 Msps, which
-  the kernel walks in 3 and 4 shared-memory tiles; the geometry, and the
-  tile walk in plain torch ops against one pass (atol 1e-4 of max|z|).
+  the kernel splits over a cluster of CTAs, each walking its share in
+  shared-memory tiles; the geometry, and the kernel's product emulated
+  through its mma fragments in plain torch ops against one pass (atol
+  1e-4 of max|z|).
 - One engine capture at 2.046 Msps (three 16-epoch chunks of 320 ms) at
   the engine bars of ROADMAP.md (valid, start and cur_len exact; Doppler,
   code delta and rem code at atol 2e-2).
@@ -41,6 +43,7 @@ from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
 from gnss_sdr_1_tpu_torch.runtime import Receiver, ReceiverConfig
 from gnss_sdr_1_tpu_torch.track import TrackConfig, TrackingEngine
 from gnss_sdr_1_tpu_torch.track.engine import state_from_numpy, state_to_numpy
+from test_torch_chunk_corr import correlate_mma_emulated
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -126,24 +129,20 @@ def test_acquisition_at_dual_band_settings_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fs,tiles", [(2.046e6, 3), (3.0e6, 4)])
-def test_l2c_window_geometry(fs, tiles):
-    """The L2CM window is walked in several tiles whose replica stretches
-    start 16-byte aligned and whose lag sums carry across tiles; every
-    shared-memory index stays in range."""
+@pytest.mark.parametrize("fs,G", [(2.046e6, 8), (3.0e6, 16)])
+def test_l2c_window_geometry(fs, G):
+    """The L2CM window split over a channel's cluster of CTAs, each
+    walking its share in several tiles; every shared-memory index stays
+    in range and the layout fits the card."""
+    from test_torch_chunk_corr import _check_split
+
     rx = Receiver(dataclasses.replace(_dual_band_cfg("port"), fs_hz=fs,
                                       n_channels=6), device="cpu")
     spec = rx.trk.corr_spec
-    p = cc.corr_params(spec)
-    NG = -(-spec.LW // p.tl)
-    SL = p.S * p.L
-    assert spec.NW > 40000 and p.tiles == tiles
-    assert p.threads == NG * p.S <= cc.THREADS
-    assert p.L % (4 * p.tl) == 0 and SL % 4 == 0
-    assert (p.tiles - 1) * SL < spec.NW <= p.tiles * SL
-    assert 2 * p.S * NG * p.tl <= p.wbuf and 2 * SL <= p.wbuf
-    assert p.padl + SL + spec.LW - 1 <= p.qs and p.qs % 4 == 0
-    assert p.smem_bytes == 4 * (p.wbuf + p.qs) <= cc.MAX_SMEM
+    geo = cc.corr_geometry(spec.E, spec.LW, spec.NW, G)
+    assert spec.NW > 40000 and geo.tiles > 1
+    _check_split(spec, geo)
+    assert spec.passes == 2
     assert rx.trk.chain_spec.K == 3 and rx._sec_period is None
 
 
@@ -177,8 +176,9 @@ def l2c():
     return sats, codes, x, et, st
 
 
-def test_tile_walk_matches_one_pass_at_l2c(l2c):
-    """The kernel's own tile walk (3 tiles of the 41k-sample window) in
+def test_mma_emulation_matches_one_pass_at_l2c(l2c):
+    """The kernel's product (its fragments, TF32 passes, a cluster of 8
+    CTAs each walking its share of the 41k-sample window in tiles) in
     plain torch ops against the one-pass plain correlator on the first
     chunk of three activated L2CM channels."""
     sats, codes, x, et, st = l2c
@@ -186,9 +186,9 @@ def test_tile_walk_matches_one_pass_at_l2c(l2c):
     slot = st.prn_slot.to(torch.int32)
     seg = et._pad_for_chunks(torch.from_numpy(x))
     spec = et.corr_spec
-    p = cc.corr_params(spec)
-    assert p.tiles == 3
-    got = cc.correlate_tiles_plain(spec, seg, et._rows, slot, fst, ist, p)
+    geo = cc.corr_geometry(spec.E, spec.LW, spec.NW, 8)
+    assert geo.tiles > 1 and spec.passes == 2
+    got = correlate_mma_emulated(spec, seg, et._rows, slot, fst, ist, geo)
     want = cc.chunk_corr_plain(spec, seg, et._rows, slot, fst, ist)
     np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
     np.testing.assert_array_equal(got[3].numpy(), want[3].numpy())

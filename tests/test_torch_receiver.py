@@ -62,8 +62,8 @@ def test_receiver_refuses_unported_options():
     for strategy in ("tong", "quicksync", "fine_doppler"):
         ReceiverConfig(acq_strategy=strategy)  # ported: acquire/
     ReceiverConfig(signal_id="1B", acq_strategy="cccwsr")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReceiverConfig(acq_strategy="caf")
+    with pytest.raises(ValueError, match="Galileo E5a strategy"):
+        Receiver(ReceiverConfig(acq_strategy="caf"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         ReceiverConfig(enable_monitor=True)
 
