@@ -193,11 +193,33 @@ Phases (one line each, with times):
      through the CLI at phase 6's bars (run after phase 8);
  27. the TCP connector (track/tcp_connector.py) on
      tests/test_tcp_connector.py's scenario, its correlation on the card
-     (one multicorrelate launch per epoch), at that test's bars.
+     (one multicorrelate launch per epoch), at that test's bars;
+ 28. the streaming receiver (Receiver.process_stream) on phase 6's ishort
+     file as raw int16 I/Q in 0.1 s blocks, 1 s segments, the PVT monitor
+     on a localhost UDP socket: >= 60 fixes at a median 3D error < 5 m,
+     phase 5's fixes over the stream's span solved at the same epochs (the
+     stream solves back over ~2 s of observables history where process()
+     holds ~10 s, so its first fix comes later), PVT datagrams == fixes,
+     launches == chunks, the bytes staged to the card per signal second,
+     the unpack's device time for one segment, wall and RTF beside phase
+     5's process(), and the share of the harvest wall during which the
+     next segment was on the device (CUDA events around each segment's
+     launch against host timestamps around each harvest); then the same
+     capture nibble-packed to 2 bits (tests/test_streaming.py's bar: >= 20
+     fixes, median < 8 m) and the ishort stream with correlator='gather'
+     (gather_block launches == segments, >= 60 fixes, median < 5 m);
+ 29. an rtl_tcp server on 127.0.0.1 (a thread) serving phase 5's capture
+     as unsigned 8-bit I/Q; io.network.RtlTcpSignalSource reads it in
+     0.1 s blocks into process_stream (>= 60 fixes, median 3D error
+     < 5 m, the count printed beside phase 28's);
+ 30. phase 5's receiver over the first 12 s of phase 5's capture,
+     checkpoint, resume_from on the card (and on the CPU: the same tracking
+     state), the rest of the capture: >= 30 fixes, the mean of the last 10
+     within 1 m of phase 5's.
 Then one JSON line describing every kernel (the chunked kernels'
-launches summed over phases 5-7 and 10-21, the KF kernel's over phases 8
-and 22, the gather walk's over 23-26, the multicorrelator's over 27, each
-read just after its run), the nvidia-smi line, and
+launches summed over phases 5-7, 10-21 and 28-30, the KF kernel's over
+phases 8 and 22, the gather walk's over 23-26 and 28, the multicorrelator's
+over 27, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -215,9 +237,12 @@ import io
 import json
 import pathlib
 import re
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -371,6 +396,26 @@ SYS_E1_PRNS = (1, 2, 3, 4, 5)
 SYS_E1_S = 18.0
 SYS_B1_PRNS = (6, 7, 8, 9, 10)
 SYS_B1_S = 24.0
+# phases 28-30: blocks and segments of the stream; tests/test_streaming.py's
+# 2-bit bar; the rtl_tcp stream's uint8 counts a unit of phase 5's capture;
+# the checkpoint's split, and tests/test_checkpoint_resume.py's bars
+STREAM_BLOCK_S = 0.1
+STREAM_SEGMENT_S = 1.0
+# a stream's fixes: the receiver solves back over the observables history
+# it holds once four ephemerides are in (512 points: ~10 s on process()'s
+# symbol grid, ~2 s on the 4 ms grid of process_stream's per-epoch
+# harvest), so on phase 5's capture the stream's first fix comes ~7 s
+# after process()'s and its count is ~80, not ~159; it is held to
+# process()'s fixes over the stream's own span (at least this share of
+# them at the same epochs) and to this count
+MIN_FIXES_STREAM = 60
+MIN_SHARE_SAME_EPOCHS = 0.95
+MIN_FIXES_2BIT = 20
+MAX_MEDIAN_2BIT = 8.0
+RTL_SCALE = 30.0
+CKPT_SPLIT_S = 12.0
+MIN_FIXES_CKPT = 30
+MAX_CKPT_DIFF_M = 1.0
 
 # phase 2b: the KF block kernel at the KF paths' shapes: (what, signal,
 # fs, channels, active channels, order, bayes_run, timed); two blocks of
@@ -702,7 +747,6 @@ def main() -> None:
     # ---- 6-8. the conf-file CLI on files written from phase 5's capture ----
     t0 = time.perf_counter()
     files = write_cli_files(x_e2e)
-    del x_e2e
     log(f"    CLI captures written ({', '.join(p.name for p in files)}) | "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -946,6 +990,68 @@ def main() -> None:
         f"{tcp['ms_per_epoch']:.3f} ms of wall per epoch (TCP round trip "
         f"included) | {time.perf_counter() - t0:.1f} s")
 
+    # ---- 28. the streaming receiver on raw blocks ----
+    t0 = time.perf_counter()
+    s28 = phase_stream(dev, cc, tc, gb, scen, files[0], e2e)
+    for name, r in s28.items():
+        launches = (f"gather_block launches {r['launches_gather_block']} == "
+                    f"segments {r['segments']}, "
+                    f"{r['device_us_per_epoch']:.3f} us of gather_block "
+                    f"device time per epoch" if name == "gather" else
+                    f"launches chunk_corr {r['launches_chunk_corr']} "
+                    f"track_chain {r['launches_track_chain']} == chunks "
+                    f"{r['chunks']}")
+        unpack = (f", unpack {r['unpack_ms']:.4f} ms a segment (CUDA events"
+                  + ("; lost by the profiler)" if r["unpack_ms_profiler"]
+                     is None else f"; {r['unpack_ms_profiler']:.4f} ms of "
+                     f"device time from the profiler)")
+                  if "unpack_ms" in r else "")
+        monitor = (f", PVT datagrams {r['datagrams']} == fixes; process()'s "
+                   f"fixes over the stream's span {r['same_epochs']} of "
+                   f"{r['process_fixes_in_span']} at the same epochs, "
+                   f"{r['same_epoch_median_diff_m']:.3f} m apart (median)"
+                   if "datagrams" in r else "")
+        log(f"[28] process_stream, raw {'ishort' if name == 'gather' else name}"
+            f"{', correlator=gather' if name == 'gather' else ''} in "
+            f"{STREAM_BLOCK_S:g} s blocks, {STREAM_SEGMENT_S:g} s segments: "
+            f"{r['signal_s']:.2f} s of signal, RTF {r['rtf']:.2f} "
+            f"({r['wall_s']:.2f} s; process() {e2e['rtf']:.2f}), fixes "
+            f"{r['fixes']} from {r['first_fix_s']:.1f} s (process() "
+            f"{e2e['fixes']}), median 3D error "
+            f"{r['median_3d_m']:.2f} m{monitor}, {launches}, host to device "
+            f"{r['h2d_bytes_per_signal_s'] / 1e6:.3f} MB per signal second"
+            f"{unpack}; {r['segments']} segments, {r['segment_device_ms']:.3f}"
+            f" ms on the device and {r['harvest_ms']:.3f} ms of harvest wall "
+            f"a segment, the next segment on the device "
+            f"{100 * r['overlap_share']:.1f} % of the harvest wall")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+
+    # ---- 29. rtl_tcp over loopback into process_stream ----
+    t0 = time.perf_counter()
+    r29 = phase_rtl_tcp(dev, cc, tc, scen, files[0])
+    log(f"[29] rtl_tcp loopback (uint8 I/Q, {RTL_SCALE:g} counts a unit) into "
+        f"process_stream: {r29['signal_s']:.2f} s of signal, RTF "
+        f"{r29['rtf']:.2f} ({r29['wall_s']:.2f} s), fixes {r29['fixes']} "
+        f"from {r29['first_fix_s']:.1f} s ([28] {s28['ishort']['fixes']}), "
+        f"median 3D error "
+        f"{r29['median_3d_m']:.2f} m, commands {r29['commands']}, launches "
+        f"chunk_corr {r29['launches_chunk_corr']} track_chain "
+        f"{r29['launches_track_chain']} == chunks {r29['chunks']} | "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 30. checkpoint on the card, resume, the rest ----
+    t0 = time.perf_counter()
+    c30 = phase_checkpoint(dev, cc, tc, scen, x_e2e, e2e)
+    del x_e2e
+    log(f"[30] checkpoint at {c30['split_s']:.2f} s ({c30['ckpt_bytes']} B, "
+        f"written in {c30['ckpt_s']:.3f} s, resumed on the card in "
+        f"{c30['resume_s']:.3f} s, and on the CPU with the same tracking "
+        f"state): {c30['fixes']} fixes after the resume, the last 10's mean "
+        f"{c30['last10_diff_m']:.3f} m from phase 5's, launches chunk_corr "
+        f"{c30['launches_chunk_corr']} track_chain "
+        f"{c30['launches_track_chain']} == chunks {c30['chunks']} | "
+        f"{time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
@@ -953,7 +1059,8 @@ def main() -> None:
     mc_t = next(r for r in mc_rows if "ms" in r)
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
-             *bds.values(), *cli20.values())
+             *bds.values(), *cli20.values(), s28["ishort"],
+             s28["2bits_cpx"], r29, c30)
     src = "gnss_sdr_1_tpu_torch/csrc/"
     shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
@@ -1015,7 +1122,8 @@ def main() -> None:
         "source": src + "gather_block.cu",
         "replaces": "gnss_sdr_1_tpu/track/engine.py:786",
         "launches": sum(p["launches_gather_block"]
-                        for p in (g23, cli26, *sys_runs.values())),
+                        for p in (g23, cli26, *sys_runs.values(),
+                                  s28["gather"])),
         "max_abs_err": max(r["max_abs_err"] for r in g_rows),
         "corr_raw_max_abs_err": max(r["corr_raw"] for r in g_rows),
         "ms": g_t["GPS"]["ms"], "plain_ms": g_t["GPS"]["plain_ms"],
@@ -1060,6 +1168,7 @@ def main() -> None:
               "gather_kernel": g_rows, "gather_instances": g_inst,
               "multicorrelate": mc_rows, "gather_e2e": g23,
               "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
+              "stream": s28, "rtl_tcp": r29, "checkpoint": c30,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -2763,7 +2872,11 @@ def phase_e2e(dev, cc, tc, scen, x):
                          MIN_FIXES),
             "launches_chunk_corr": cc.launches,
             "launches_track_chain": tc.launches,
-            "chunks": counter["chunks"], "channels": list(rx.channel_prn)}
+            "chunks": counter["chunks"], "channels": list(rx.channel_prn),
+            "last10_mean_ecef": np.mean([s.rx_ecef_m for s in sols[-10:]],
+                                        axis=0).tolist(),
+            "fixes_by_epoch": {round(s.rx_time_tow_s * 10): s.rx_ecef_m.tolist()
+                               for s in sols}}
 
 
 def e2e_seeds(dev, seeds, cpu_runs, out):
@@ -3459,6 +3572,381 @@ def phase_tcp(dev, mc):
             "tail_doppler_err_hz": float(tail.mean() - true_dop),
             "prompt_tail_over_head": float(p_tail.mean() / p_head.mean()),
             "wall_s": wall, "ms_per_epoch": wall / len(rows) * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# phases 28-30: the streaming receiver, the rtl_tcp source, checkpoint/resume
+# ---------------------------------------------------------------------------
+
+
+def _e2e_config(**kw):
+    """Phase 5's receiver configuration."""
+    from gnss_sdr_1_tpu_torch.runtime import ReceiverConfig
+
+    prns = tuple(s.prn for s in _cells()["e2e"][0].sats)
+    return ReceiverConfig(fs_hz=FS, signal_id="1C", n_channels=len(prns),
+                          prn_search=prns, reacq_interval_blocks=125,
+                          pvt_output_rate_ms=100, **kw)
+
+
+def _blocks(items, per_block):
+    for pos in range(0, len(items), per_block):
+        yield pos, items[pos:pos + per_block]
+
+
+def _udp_listener():
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.bind(("127.0.0.1", 0))
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    return sock
+
+
+def _datagrams(sock):
+    """Datagrams waiting on a UDP socket (which is closed)."""
+    sock.setblocking(False)
+    n = 0
+    while True:
+        try:
+            sock.recv(1 << 16)
+        except BlockingIOError:
+            break
+        n += 1
+    sock.close()
+    return n
+
+
+@contextlib.contextmanager
+def _stream_timeline():
+    """Timeline of a process_stream run: CUDA events around every
+    segment's launch (TrackingEngine.launch_capture) and host timestamps
+    around every harvest (Receiver._harvest_segment), put on one clock by
+    an event recorded and waited for at a known host time; and the bytes
+    staged to the card (PinnedStaging.upload).  On exit: the share of the
+    harvest wall during which the next segment was on the device (the
+    harvests that have a next segment), the device span of a segment and
+    the harvest wall, each a mean."""
+    from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver
+    from gnss_sdr_1_tpu_torch.runtime.stream import PinnedStaging
+    from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
+
+    launch = TrackingEngine.launch_capture
+    harvest = Receiver._harvest_segment
+    upload = PinnedStaging.upload
+    events, harvests = [], []
+    tl = {"h2d_bytes": 0}
+
+    def timed_launch(self, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(self, *a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed_harvest(self, *a, **kw):
+        launched = len(events)
+        h0 = time.perf_counter()
+        out = harvest(self, *a, **kw)
+        harvests.append((h0, time.perf_counter(), launched))
+        return out
+
+    def counted_upload(self, seg):
+        tl["h2d_bytes"] += np.asarray(seg).nbytes
+        return upload(self, seg)
+
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    ref.synchronize()
+    t_ref = time.perf_counter()
+    TrackingEngine.launch_capture = timed_launch
+    Receiver._harvest_segment = timed_harvest
+    PinnedStaging.upload = counted_upload
+    try:
+        yield tl
+    finally:
+        TrackingEngine.launch_capture = launch
+        Receiver._harvest_segment = harvest
+        PinnedStaging.upload = upload
+        torch.cuda.synchronize()
+    spans = [(t_ref + ref.elapsed_time(a) * 1e-3,
+              t_ref + ref.elapsed_time(b) * 1e-3) for a, b in events]
+    over = wall = 0.0
+    for m, (h0, h1, launched) in enumerate(harvests):
+        if m + 1 >= launched:
+            continue                # no segment launched after this one
+        d0, d1 = spans[m + 1]
+        over += max(0.0, min(h1, d1) - max(h0, d0))
+        wall += h1 - h0
+    tl.update(segments=len(events), harvests=len(harvests),
+              overlap_share=over / wall if wall > 0 else 0.0,
+              segment_device_ms=float(np.mean([d1 - d0 for d0, d1 in spans])
+                                      * 1e3),
+              harvest_ms=float(np.mean([h1 - h0 for h0, h1, _ in harvests])
+                               * 1e3))
+
+
+def _same_epochs(sols, e2e, what, min_share):
+    """The stream's fixes against phase 5's process() fixes over the
+    stream's span [first fix, last fix] (PVT epochs keyed by tenths of a
+    second of receiver time): the share of process()'s epochs there that
+    the stream solved too (at least `min_share`, else raises), and the
+    median distance between the two fixes of an epoch."""
+    ref = e2e["fixes_by_epoch"]
+    got = {round(s.rx_time_tow_s * 10): s.rx_ecef_m for s in sols}
+    span = [k for k in ref if min(got) <= k <= max(got)]
+    same = [k for k in span if k in got]
+    share = len(same) / max(len(span), 1)
+    if not share >= min_share:
+        raise AssertionError(f"{what}: {len(same)} of process()'s "
+                             f"{len(span)} fixes over the stream's span")
+    return {"process_fixes_in_span": len(span), "same_epochs": len(same),
+            "same_epoch_median_diff_m": float(np.median(
+                [np.linalg.norm(got[k] - np.asarray(ref[k])) for k in same]))}
+
+
+def _stream_run(dev, items, fmt, scen, what, min_fixes, max_median_m,
+                pvt_monitor=False, **cfg_kw):
+    """Phase 5's receiver on the card over `items` (raw `fmt` items, or
+    complex64 samples for fmt None) in STREAM_BLOCK_S blocks through
+    process_stream, STREAM_SEGMENT_S segments, timed by _stream_timeline;
+    with `pvt_monitor`, the PVT monitor on a localhost UDP socket (one
+    datagram a fix).  Fixes and median 3D error at the bars given;
+    the solutions under "sols"."""
+    from gnss_sdr_1_tpu_torch.io.formats import FORMATS
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    per_block = int(FS * STREAM_BLOCK_S)
+    if fmt is not None:
+        f = FORMATS[fmt]
+        per_block = per_block * f.items_per_sample // f.samples_per_item
+    sock = _udp_listener() if pvt_monitor else None
+    if sock is not None:
+        cfg_kw.update(enable_pvt_monitor=True,
+                      pvt_monitor_port=sock.getsockname()[1])
+    rx = Receiver(_e2e_config(**cfg_kw), device=dev)
+    with _stream_timeline() as tl:
+        t0 = time.perf_counter()
+        sols = rx.process_stream(_blocks(items, per_block),
+                                 segment_s=STREAM_SEGMENT_S, raw_format=fmt)
+        wall = time.perf_counter() - t0
+    signal_s = rx._abs_base / FS
+    r = {"wall_s": wall, "signal_s": signal_s, "rtf": signal_s / wall,
+         **_errors_3d([s.rx_ecef_m for s in sols], scen, what, min_fixes,
+                      max_median_m),
+         "h2d_bytes_per_signal_s": tl["h2d_bytes"] / signal_s,
+         **{k: tl[k] for k in ("segments", "harvests", "overlap_share",
+                               "segment_device_ms", "harvest_ms")},
+         "scale": rx._ingest_scale, "channels": list(rx.channel_prn),
+         "nmax": rx.trk.cfg.epoch_samples_max, "sols": sols,
+         "first_fix_s": sols[0].rx_time_tow_s - scen.t0_tow}
+    if sock is not None:
+        r["datagrams"] = _datagrams(sock)
+        if r["datagrams"] != r["fixes"]:
+            raise AssertionError(f"{what}: {r['datagrams']} PVT datagrams "
+                                 f"for {r['fixes']} fixes")
+    return r
+
+
+def _unpack_ms(fn, n=20):
+    """The unpack's time for one segment: CUDA events around n calls, and
+    the profiler's device time beside it (None where the profiler's trace
+    lost the kernels)."""
+    try:
+        prof = _device_ms(fn, n)
+    except NoKernelEvent:
+        prof = None
+    return {"unpack_ms": _time_cuda(fn, n), "unpack_ms_profiler": prof}
+
+
+def phase_stream(dev, cc, tc, gb, scen, ishort_path, e2e):
+    """Phase 28: phase 6's ishort file (phase 5's capture as int16 I/Q) as
+    raw blocks through process_stream on the card, the PVT monitor on:
+    MIN_FIXES_STREAM fixes at a median 3D error under 5 m, process()'s
+    fixes over the stream's span at the same epochs (_same_epochs),
+    datagrams == fixes, launches == chunks, the bytes staged to the card
+    per signal second, the unpack's device time for one segment, the
+    overlap share; then the same capture nibble-packed to 2 bits
+    (tests/test_streaming.py's packing and bar) and the ishort stream on
+    the gather correlator (launches == segments, the ishort stream's
+    bars)."""
+    from gnss_sdr_1_tpu_torch.runtime.stream import unpack_raw
+
+    raw = np.fromfile(ishort_path, dtype=np.int16)
+    with _counting(cc, tc) as counter:
+        ish = _stream_run(dev, raw, "ishort", scen, "stream ishort",
+                          MIN_FIXES_STREAM, 5.0, pvt_monitor=True)
+    _check_launches(cc, tc, counter["chunks"], "stream ishort")
+    ish.update(_same_epochs(ish.pop("sols"), e2e, "stream ishort",
+                            MIN_SHARE_SAME_EPOCHS))
+    if counter["calls"] != ish["segments"]:
+        raise AssertionError(f"stream ishort: {counter['calls']} capture "
+                             f"calls for {ish['segments']} segments")
+    ish.update(launches_chunk_corr=cc.launches,
+               launches_track_chain=tc.launches, chunks=counter["chunks"])
+    # the unpack of one segment's items (span + epoch_samples_max samples)
+    seg_n = int(round(FS * STREAM_SEGMENT_S)) + ish["nmax"]
+    seg = torch.as_tensor(raw[:2 * seg_n], device=dev)
+    ish.update(_unpack_ms(lambda: unpack_raw(seg, "ishort", ish["scale"])))
+    del seg
+
+    # 2 bits: tests/test_streaming.py's quantisation, made on the card
+    x = torch.as_tensor(raw, device=dev).view(-1, 2).to(torch.float32)
+    q = torch.clamp(torch.round(x * (0.7 / x[:, 0].std())), -2, 1).to(
+        torch.int64)
+    nibs = (q[:, 0] & 3) | ((q[:, 1] & 3) << 2)
+    n2 = nibs.numel() // 2 * 2
+    packed = ((nibs[0:n2:2] << 4) | nibs[1:n2:2]).to(torch.uint8).cpu(
+        ).numpy()
+    del x, q, nibs
+    with _counting(cc, tc) as counter:
+        two = _stream_run(dev, packed, "2bits_cpx", scen, "stream 2 bits",
+                          MIN_FIXES_2BIT, MAX_MEDIAN_2BIT)
+    _check_launches(cc, tc, counter["chunks"], "stream 2 bits")
+    two.pop("sols")
+    two.update(launches_chunk_corr=cc.launches,
+               launches_track_chain=tc.launches, chunks=counter["chunks"])
+    seg = torch.as_tensor(packed[:(seg_n + 1) // 2], device=dev)
+    two.update(_unpack_ms(lambda: unpack_raw(seg, "2bits_cpx",
+                                             two["scale"])))
+    del packed, seg
+
+    with _gather_counting(gb) as c:
+        gat = _stream_run(dev, raw, "ishort", scen, "stream gather",
+                          MIN_FIXES_STREAM, 5.0, correlator="gather")
+    _check_gather_launches(gb, c, "stream gather")
+    gat.pop("sols")
+    if gb.launches != gat["segments"]:
+        raise AssertionError(f"stream gather: {gb.launches} gather_block "
+                             f"launches for {gat['segments']} segments")
+    gat.update(launches_gather_block=gb.launches,
+               device_us_per_epoch=c["device_us_per_epoch"])
+    return {"ishort": ish, "2bits_cpx": two, "gather": gat}
+
+
+def phase_rtl_tcp(dev, cc, tc, scen, ishort_path):
+    """Phase 29: phase 5's capture as unsigned 8-bit I/Q (RTL_SCALE counts
+    a unit, centred on 127.5) served over the rtl_tcp protocol from a
+    thread on 127.0.0.1 (tests/test_io_sources.py's mock server), read by
+    io.network.RtlTcpSignalSource in STREAM_BLOCK_S blocks into
+    process_stream on the card: launches == chunks, MIN_FIXES_STREAM
+    fixes at a median 3D error under 5 m."""
+    from gnss_sdr_1_tpu_torch.io import RtlTcpSignalSource
+
+    x = torch.as_tensor(np.fromfile(ishort_path, dtype=np.int16),
+                        device=dev).to(torch.float32)
+    u8 = torch.clamp(torch.round(x * (RTL_SCALE / ISHORT_SCALE) + 127.5),
+                     0, 255).to(torch.uint8).cpu().numpy()
+    del x
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    cmds = []
+
+    def serve():
+        conn, _ = srv.accept()
+        with conn:
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+            got = b""
+            while len(got) < 15:        # sample rate, frequency, AGC
+                got += conn.recv(15 - len(got))
+            cmds.extend(struct.unpack(">BI", got[k:k + 5])
+                        for k in range(0, 15, 5))
+            conn.sendall(memoryview(u8))
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    src = RtlTcpSignalSource(port=srv.getsockname()[1],
+                             frequency_hz=1575.42e6, sample_rate_hz=FS)
+    per_block = int(FS * STREAM_BLOCK_S)
+    n_blocks = len(u8) // 2 // per_block
+
+    def blocks():
+        for k in range(n_blocks):
+            yield k * per_block, src.read(per_block)
+
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+
+    rx = Receiver(_e2e_config(), device=dev)
+    try:
+        with _counting(cc, tc) as counter:
+            t0 = time.perf_counter()
+            sols = rx.process_stream(blocks(), segment_s=STREAM_SEGMENT_S)
+            wall = time.perf_counter() - t0
+    finally:
+        src.close()
+        thread.join(timeout=30)
+        srv.close()
+    _check_launches(cc, tc, counter["chunks"], "rtl_tcp")
+    signal_s = rx._abs_base / FS
+    return {"wall_s": wall, "signal_s": signal_s, "rtf": signal_s / wall,
+            "commands": cmds,
+            **_errors_3d([s.rx_ecef_m for s in sols], scen, "rtl_tcp",
+                         MIN_FIXES_STREAM),
+            "first_fix_s": sols[0].rx_time_tow_s - scen.t0_tow,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches, "chunks": counter["chunks"]}
+
+
+def _state_leaves(st):
+    """(name, array) for every array of a state_to_numpy dict."""
+    return [(name, a) for name, v in sorted(st.items())
+            for a in (v if isinstance(v, tuple) else (v,))]
+
+
+def phase_checkpoint(dev, cc, tc, scen, x, e2e):
+    """Phase 30: phase 5's receiver over the first CKPT_SPLIT_S of phase
+    5's capture, checkpoint, resume_from on the card, the rest: the
+    resumed receiver holds the checkpointed one's clock, assignments and
+    tracking state; >= 30 fixes, the mean of the last 10 within 1 m of
+    phase 5's uninterrupted run's.  The same file resumes on the CPU with
+    the same tracking state."""
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+    from gnss_sdr_1_tpu_torch.track.engine import state_to_numpy
+
+    ck = CACHE / "receiver.ckpt"
+    CACHE.mkdir(exist_ok=True)
+    with _counting(cc, tc) as counter:
+        rx1 = Receiver(_e2e_config(), device=dev)
+        t0 = time.perf_counter()
+        rx1.process(x[:int(FS * CKPT_SPLIT_S)])
+        first_s = time.perf_counter() - t0
+        consumed = rx1._abs_base
+        t0 = time.perf_counter()
+        rx1.checkpoint(str(ck))
+        ckpt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rx2 = Receiver.resume_from(str(ck), device=dev)
+        resume_s = time.perf_counter() - t0
+        on_cpu = Receiver.resume_from(str(ck), device="cpu")
+        leaves = [_state_leaves(state_to_numpy(r.state))
+                  for r in (rx1, rx2, on_cpu)]
+        for (name, a), (_, b), (_, c) in zip(*leaves):
+            if not (np.array_equal(a, b) and np.array_equal(a, c)):
+                raise AssertionError(f"checkpoint: {name} not resumed")
+        if (rx2.device != dev or rx2._abs_base != consumed
+                or rx2.channel_prn != rx1.channel_prn):
+            raise AssertionError("checkpoint: the resumed receiver differs")
+        t0 = time.perf_counter()
+        sols = rx2.process(x[consumed:])
+        rest_s = time.perf_counter() - t0
+    _check_launches(cc, tc, counter["chunks"], "checkpoint")
+    if len(sols) < MIN_FIXES_CKPT:
+        raise AssertionError(f"checkpoint: {len(sols)} fixes")
+    d = float(np.linalg.norm(np.mean([s.rx_ecef_m for s in sols[-10:]],
+                                     axis=0)
+                               - np.asarray(e2e["last10_mean_ecef"])))
+    if not d < MAX_CKPT_DIFF_M:
+        raise AssertionError(f"checkpoint: the last 10 fixes' mean is "
+                             f"{d:.3f} m from phase 5's")
+    size = ck.stat().st_size
+    ck.unlink()
+    return {"split_s": consumed / FS, "fixes": len(sols),
+            "last10_diff_m": d, "ckpt_bytes": size, "ckpt_s": ckpt_s,
+            "resume_s": resume_s, "first_s": first_s, "rest_s": rest_s,
+            "launches_chunk_corr": cc.launches,
+            "launches_track_chain": tc.launches, "chunks": counter["chunks"]}
 
 
 # ---------------------------------------------------------------------------

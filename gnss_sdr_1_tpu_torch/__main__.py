@@ -14,9 +14,12 @@ Usage:
 This port runs GPS L1 C/A, L2C and L5, Galileo E1B and E5a, GLONASS
 L1/L2 C/A and BeiDou B1I/B3I channel groups (PCPS and its variants, CAF on E5a, DLL/PLL, VEML
 or, on GPS L1, KF tracking, single-point PVT); a conf with several groups
-runs them together with one joint PVT (runtime.multi_receiver).  Other
-confs and the flags of features not ported yet exit with an error naming
-the ROADMAP.md item that ports them.
+runs them together with one joint PVT (runtime.multi_receiver).
+`--telecommand_port` serves the TcpCmdInterface commands while the
+receiver runs (runtime.telecommand); `--monitor_port` and
+`--pvt_monitor_port` stream Gnss_Synchro records and PVT fixes over UDP
+(runtime.monitor).  Other confs and the flags of features not ported yet
+exit with an error naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -32,9 +35,6 @@ import numpy as np
 # flags of features this port does not carry yet -> ROADMAP.md item key
 # (runtime.config.ROADMAP_ITEMS)
 _UNPORTED_FLAGS = {
-    "telecommand_port": "monitors",
-    "monitor_port": "monitors",
-    "pvt_monitor_port": "monitors",
     "base_obs": "ppp_rtk",
     "assist": "assistance",
     "supl": "assistance",
@@ -159,14 +159,31 @@ def main(argv=None) -> int:
               f"resampler {frontend.resampler_impl}")
         samples = frontend.process(samples, device=dev)
 
+    if args.monitor_port:
+        rcfg = type(rcfg)(**{**rcfg.__dict__, "enable_monitor": True,
+                             "monitor_port": args.monitor_port})
+    if args.pvt_monitor_port:
+        rcfg = type(rcfg)(**{**rcfg.__dict__, "enable_pvt_monitor": True,
+                             "pvt_monitor_port": args.pvt_monitor_port})
+
     if multi_cfgs is not None:
         return _run_multi(multi_cfgs, samples, src.n_samples / source_fs,
                           pathlib.Path(args.out_dir), dev)
 
     rx = Receiver(rcfg, device=dev)
     rx.preload(samples)
+    tcmd = None
+    if args.telecommand_port:
+        from .runtime.telecommand import TelecommandServer
+
+        tcmd = TelecommandServer(rx, port=args.telecommand_port)
+        print(f"Telecommand listening on port {tcmd.start()}")
     t0 = time.time()
-    sols = rx.process(samples)
+    try:
+        sols = rx.process(samples)
+    finally:
+        if tcmd is not None:
+            tcmd.stop()
     dt = time.time() - t0
     dur = len(samples) / rcfg.fs_hz
     print(f"Processed in {dt:.1f} s (RTF {dur / dt:.2f}x); "

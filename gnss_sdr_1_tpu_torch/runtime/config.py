@@ -16,7 +16,8 @@ fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B;
 `Tracking_XX.correlator` picks the chunked or the gather correlator) or
 KF tracking (the receiver builds it on every signal; the conf key
 GPS_L1_CA_KF_Tracking names it on GPS L1 C/A only, as in the JAX
-package), and single-point PVT; a conf with several groups maps to one ReceiverConfig
+package), single-point PVT and the monitor taps (GNSS-SDR.enable_monitor,
+Monitor.*, PVT.enable_monitor); a conf with several groups maps to one ReceiverConfig
 per group (`to_receiver_configs`, run by runtime.multi_receiver).
 `to_receiver_config` refuses everything else with NotImplementedError naming
 the ROADMAP.md item that ports it, so no conf maps quietly to an engine
@@ -35,9 +36,6 @@ from .receiver import _DECODERS, ReceiverConfig
 ROADMAP_ITEMS = {
     "ppp_rtk": "ROADMAP.md §1 item 3 (PPP, RTK and --base_obs)",
     "assistance": "ROADMAP.md §1 item 4 (SUPL and assistance)",
-    "monitors": "ROADMAP.md §1 item 5 (telecommand, monitors, streaming "
-                "and checkpoint/resume)",
-    "sources": "ROADMAP.md §1 item 6 (io/labsat.py and io/network.py)",
     "signals": "ROADMAP.md §1 (no item: the port runs every signal, "
                "acquisition strategy and tracking block of the JAX package, "
                "and the JAX package has no such one either)",
@@ -282,9 +280,6 @@ def to_receiver_config(conf: InMemoryConfiguration,
     if positioning_mode != "Single":
         raise not_ported(f"PVT.positioning_mode={positioning_mode}",
                          "ppp_rtk")
-    for key in ("GNSS-SDR.enable_monitor", "PVT.enable_monitor"):
-        if conf.property(key, False):
-            raise not_ported(key, "monitors")
     n_channels = int(conf.property(f"Channels{sig}.count",
                                    conf.property("Channels.count", 8)))
     # per-channel satellite pinning (ChannelN.satellite, read by the
@@ -336,6 +331,16 @@ def to_receiver_config(conf: InMemoryConfiguration,
         positioning_mode=positioning_mode,
         # PVT.output_rate_ms (rtklib_pvt_gs output cadence); 0 = every tick
         pvt_output_rate_ms=int(conf.property("PVT.output_rate_ms", 0)),
+        # monitor taps (GNSS-SDR.enable_monitor + Monitor.*, PVT.enable_
+        # monitor — gnss_flowgraph.cc:680, rtklib_pvt.cc monitor config)
+        enable_monitor=bool(conf.property("GNSS-SDR.enable_monitor", False)),
+        monitor_host=str(conf.property("Monitor.client_addresses",
+                                       "127.0.0.1")).split("_")[0],
+        monitor_port=int(conf.property("Monitor.udp_port", 1234)),
+        monitor_decimation=int(conf.property("Monitor.decimation_factor",
+                                             50)),
+        enable_pvt_monitor=bool(conf.property("PVT.enable_monitor", False)),
+        pvt_monitor_port=int(conf.property("PVT.monitor_udp_port", 1111)),
     )
 
 

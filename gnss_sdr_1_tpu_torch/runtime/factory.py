@@ -60,8 +60,8 @@ def _src(name, status="native", note=""):
 _BLOCKS = [
     # ---- signal sources (gnss_block_factory.cc:1256-1459) ----
     _src("File_Signal_Source"),
-    _src("Custom_UDP_Signal_Source", note="io.network.UdpSource"),
-    _src("RtlTcp_Signal_Source", note="io.network.RtlTcpSource"),
+    _src("Custom_UDP_Signal_Source", note="io.network.UdpSignalSource"),
+    _src("RtlTcp_Signal_Source", note="io.network.RtlTcpSignalSource"),
     _src("Nsr_File_Signal_Source", note="io.formats 'nsr' 2-bit real"),
     _src("Two_Bit_Cpx_File_Signal_Source", note="io.formats byte2cpx"),
     _src("Two_Bit_Packed_File_Signal_Source", note="io.formats 2-bit packed"),

@@ -29,9 +29,16 @@ E5a, B1I and B3I the
 chain wipes the secondary code in the loop once telemetry reports
 secondary sync (`_maybe_extend`; a GEO channel never reports it and stays
 in wide tracking).  One Receiver runs one signal group; MultiReceiver
-(runtime/multi_receiver.py) joins several.  Streaming, checkpoint/resume,
-monitors and assistance are not ported yet: ReceiverConfig refuses them,
-naming the ROADMAP.md item that ports each.
+(runtime/multi_receiver.py) joins several.  `process` takes a whole
+capture; `process_stream` takes blocks as they arrive (complex64, or raw
+integer items shipped to the card as they are and unpacked there), with
+each segment's readback overlapping the next segment's launch;
+`checkpoint` / `resume_from` carry a run across processes and devices;
+the monitor taps stream Gnss_Synchro records and PVT fixes over UDP, and
+the telecommand interface (runtime.telecommand) drives `status`,
+`standby`, `reset` and the cold/warm/hot starts.  Assistance is not
+ported yet: ReceiverConfig refuses it, naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -52,8 +59,10 @@ from ..codes.galileo_e5 import galileo_e5ai_secondary
 from ..condition.filters import to_device
 from ..constants import (SIGNALS, SPEED_OF_LIGHT_M_S, SignalSpec,
                          glonass_fdma_offset_hz)
+from ..io.formats import FORMATS, convert_to_complex64
 from ..observables import (CarrierSmoother, ChannelEpochHistory,
                            compute_observables)
+from ..pvt.geodesy import llh_to_ecef
 from ..pvt.solver import PvtSolution, solve_pvt
 from ..telemetry.channel_adapters import (BeidouChannelDecoder,
                                           GalileoChannelDecoder,
@@ -63,8 +72,11 @@ from ..telemetry.channel_adapters import (BeidouChannelDecoder,
                                           GpsL5ChannelDecoder)
 from ..telemetry.decoder import LnavDecoder
 from ..track import TrackConfig, TrackingEngine, TrackOutputs
-from ..track.engine import tracking_correlator
+from ..track.engine import (state_from_numpy, state_to_numpy,
+                            tracking_correlator)
 from ..track.kf import KfTrackConfig, KfTrackingEngine
+from .monitor import GnssSynchro, UdpSink
+from .stream import STREAM_FORMATS, PinnedStaging, unpack_raw
 
 log = logging.getLogger("gnss_sdr_1_tpu_torch.receiver")
 
@@ -139,8 +151,14 @@ class ReceiverConfig:
     raim: bool = True
     raim_sigma_m: float = 2.5
     positioning_mode: str = "Single"
+    # monitoring taps (GNSS-SDR.enable_monitor + Monitor.* props;
+    # gnss_flowgraph.cc:680 monitor wiring, gnss_synchro_monitor decimation)
     enable_monitor: bool = False
+    monitor_host: str = "127.0.0.1"
+    monitor_port: int = 1234
+    monitor_decimation: int = 50
     enable_pvt_monitor: bool = False
+    pvt_monitor_port: int = 1111
     # telemetry watchdog: release a channel after this many symbols without
     # a decoded TOW (gps_l1_ca_telemetry_decoder_gs.cc:364); 0 disables
     watchdog_symbols: int = 45000
@@ -168,9 +186,6 @@ class ReceiverConfig:
                 f"track_engine={self.track_engine!r} is not ported yet "
                 f"(only 'dll_pll', 'kf')")
         tracking_correlator(self.correlator)
-        for name in ("enable_monitor", "enable_pvt_monitor"):
-            if getattr(self, name):
-                raise not_ported(name, "monitors")
 
     @property
     def spec(self) -> SignalSpec:
@@ -335,7 +350,12 @@ class Receiver:
         self.rx_tow_sample: int | None = None
         self.solutions: list[PvtSolution] = []
         self.obs_epochs: list[tuple[float, dict]] = []
-        self._pos = 0          # sample index of the next segment start
+        self._pos = 0          # call-relative index of the next segment
+        # absolute sample index of the next call's first sample: stamps
+        # continue across process() / process_stream() calls, so a resumed
+        # receiver keeps one RX-clock timeline
+        self._abs_base = 0
+        self._standby = False
         self._blocks_done = 0
         self._next_obs_sample = None
         self._no_tow_syms: dict[int, int] = {}
@@ -351,6 +371,13 @@ class Receiver:
             self._smoother = CarrierSmoother(
                 window=cfg.carrier_smoothing_epochs,
                 wavelength_m=SPEED_OF_LIGHT_M_S / spec.carrier_freq_hz)
+        self.monitor = None
+        self.pvt_monitor = None
+        if cfg.enable_monitor:
+            self.monitor = UdpSink(cfg.monitor_host, cfg.monitor_port,
+                                   decimation=1)
+        if cfg.enable_pvt_monitor:
+            self.pvt_monitor = UdpSink(cfg.monitor_host, cfg.pvt_monitor_port)
 
     def _make_acquisition(self, strat: str, acq_cfg: AcqConfig,
                           fs_code_rate, virtual_rate: float) -> None:
@@ -495,13 +522,17 @@ class Receiver:
         self.watchdog_trips += 1
         return True
 
-    def _harvest(self, outs, block_offset_abs: int, decim: int = 1) -> None:
+    def _harvest(self, outs, block_offset_abs: int, decim: int = 1,
+                 owners=None) -> None:
         """Stream tracking epochs into telemetry decoders + histories.
 
         `decim` > 1: the loop-state fields (rem_carr/doppler/cn0) of `outs`
         are exact only at epochs k % decim == decim-1 (engine
         capture_decim); prompts/starts stay full-rate for telemetry, and
-        observables history points land on the decimated grid."""
+        observables history points land on the decimated grid.  `owners`
+        (process_stream): each channel's (PRN, decoder) when the segment
+        was launched; a channel assigned anew since then is skipped, its
+        rows being its previous occupant's."""
         valid = outs.valid                        # [E, C]
         starts = outs.start
         corr = outs.correlators                   # [E, C, K] complex
@@ -511,7 +542,9 @@ class Receiver:
         active = outs.active
         p_idx = getattr(self.trk.cfg, "prompt_index", 1)
         for ch, prn in enumerate(self.channel_prn):
-            if prn is None:
+            if prn is None or (owners is not None and (
+                    owners[ch][0] != prn
+                    or owners[ch][1] is not self.decoders.get(prn))):
                 continue
             v = valid[:, ch]
             if not v.any():
@@ -618,9 +651,20 @@ class Receiver:
                                 tow, float(ep_dops[m - 1]),
                                 float(acc_series[j]),
                                 float(ep_cn0[m - 1]))
+                # monitor display series (held between grid points)
+                if len(push_m):
+                    idx = np.minimum(np.searchsorted(
+                        push_m, np.arange(nv), side="right"),
+                        len(push_m) - 1)
+                    acc_series = acc_series[idx]
+                else:
+                    acc_series = np.zeros(nv)
             self.sym_count[prn] = base_sym + len(prompts)
             if self._watchdog(ch, prn, dec, len(prompts)):
                 continue
+            if self.monitor is not None and len(prompts):
+                self._monitor_tap(ch, prn, prompts, ep_starts, ep_dops,
+                                  ep_cn0, acc_series)
             if not bool(active[-1, ch]):
                 self._release(ch, prn, "lost lock")
 
@@ -652,9 +696,10 @@ class Receiver:
     def _symbol_offsets(self):
         """Per-channel symbol-boundary offsets (in [1, N]) for the
         symbol-grid capture reduction, or None while any active channel has
-        no bit sync yet (and always for the KF tracker)."""
+        no bit sync yet (and always for the KF tracker, and while a monitor
+        taps the per-epoch series)."""
         if (self.cfg.symbol_readback != "auto" or self.trk_kind != "dll_pll"
-                or self.cfg.signal_id != "1C"):
+                or self.cfg.signal_id != "1C" or self.monitor is not None):
             return None
         N = self._sec_period
         offs = np.full(self.cfg.n_channels, N, dtype=np.int32)
@@ -816,6 +861,78 @@ class Receiver:
             log.info("ch %d PRN %d -> extended coherent (%d ms, boundary in "
                      "%d epochs)", ch, prn, n, e)
 
+    def _monitor_tap(self, ch, prn, prompts, ep_starts, ep_dops, ep_cn0,
+                     acc_series) -> None:
+        """Stream decimated Gnss_Synchro records (gnss_synchro_monitor
+        analogue: one record per channel per monitor_decimation epochs)."""
+        spec = self.cfg.spec
+        dec = self.decoders.get(prn)
+        step = max(1, self.cfg.monitor_decimation)
+        recs = []
+        for k in range(0, len(prompts), step):
+            sym = self.sym_count[prn] - len(prompts) + k
+            tow = dec.tow_at_symbol(sym) if dec is not None else None
+            acq = self._acq_info.get(prn, (0.0, 0.0, 0))
+            recs.append(GnssSynchro(
+                system=spec.system[0], signal=spec.signal_id, prn=prn,
+                channel_id=ch,
+                acq_delay_samples=acq[0], acq_doppler_hz=acq[1],
+                acq_samplestamp_samples=acq[2], flag_valid_acquisition=True,
+                prompt_i=float(prompts[k].real),
+                prompt_q=float(prompts[k].imag),
+                cn0_db_hz=float(ep_cn0[k]),
+                carrier_doppler_hz=float(ep_dops[k]),
+                carrier_phase_rads=float(acc_series[k]),
+                code_phase_samples=float(ep_starts[k] % max(
+                    1, self.samples_per_code)),
+                tracking_sample_counter=int(ep_starts[k]),
+                flag_valid_symbol_output=True,
+                tow_at_current_symbol_ms=0.0 if tow is None else tow * 1e3,
+                flag_valid_word=tow is not None,
+            ))
+        if recs:
+            self.monitor.send_synchro(recs)
+
+    # ---------------- telecommand target (TcpCmdInterface contract) ------
+
+    def status(self) -> str:
+        """One-line receiver state for the `status` telecommand."""
+        n_track = sum(1 for p in self.channel_prn if p is not None)
+        n_eph = sum(1 for d in self.decoders.values()
+                    if d.ephemeris_complete)
+        last = self.solutions[-1] if self.solutions else None
+        pos = (f"lat {last.lat_deg:.5f} lon {last.lon_deg:.5f} "
+               f"h {last.height_m:.1f}" if last else "no fix")
+        return (f"channels {n_track}/{self.cfg.n_channels} tracking, "
+                f"{n_eph} ephemerides, {len(self.solutions)} fixes, {pos}")
+
+    def standby(self) -> None:
+        self._standby = True
+
+    def reset(self) -> None:
+        self._standby = False
+
+    def cold_start(self) -> None:
+        """Drop all channels, decoders and fixes (control_thread.cc
+        cold-start path)."""
+        for ch in range(self.cfg.n_channels):
+            if self.channel_prn[ch] is not None:
+                self.state = self.trk.deactivate_channel(self.state, ch)
+            self.channel_prn[ch] = None
+            self._empty_acq_streak = 0
+        self.decoders.clear()
+        self.histories.clear()
+        self.solutions.clear()
+        self.obs_epochs.clear()
+        self.rx_tow_s = None
+        self._next_obs_sample = None
+
+    def warm_start(self, lat, lon, h, utc: str) -> None:
+        """Store an a-priori position for assisted acquisition."""
+        self.apriori_ecef = llh_to_ecef(np.radians(lat), np.radians(lon), h)
+
+    hot_start = warm_start
+
     # ---------------- observables + PVT ----------------
 
     def _eph_for(self, prn: int):
@@ -888,6 +1005,8 @@ class Receiver:
                 )
                 if sol.valid:
                     self.solutions.append(sol)
+                    if self.pvt_monitor is not None:
+                        self.pvt_monitor.send_pvt(sol)
             self._next_obs_sample += tick
 
     def _scale_for(self, samples) -> float:
@@ -945,10 +1064,15 @@ class Receiver:
         nmax = self.trk.cfg.epoch_samples_max
         total = len(samples)
         seg_blocks = max(1, cfg.reacq_interval_blocks)
+        abs_base = self._abs_base
         self._pos = 0
         while self._pos + base + nmax <= total:
+            if self._standby:
+                break
             need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
             if self._pos + need <= total:
+                # acquisition and activation run in call-relative sample
+                # coordinates (the tracking segment frame)
                 self._acquire_and_assign(
                     self._pos, samples[self._pos:self._pos + need])
             # keep segments short through pull-in (an idle channel with
@@ -974,21 +1098,187 @@ class Receiver:
             sym_off = self._symbol_offsets()
             if self.trk_kind == "kf":
                 self.state, outs = self._kf_track_segment(seg_dev, span)
-                self._harvest(outs, self._pos)
+                self._harvest(outs, abs_base + self._pos)
             elif sym_off is not None:
                 self.state, souts = self.trk.track_capture_symbols(
                     seg_dev, self.state, span, sym_off, self._sec_period)
-                self._harvest_symbols(souts, self._pos, sym_off)
+                self._harvest_symbols(souts, abs_base + self._pos, sym_off)
             else:
                 self.state, outs = self.trk.track_capture(
                     seg_dev, self.state, span)
-                self._harvest(outs, self._pos,
+                self._harvest(outs, abs_base + self._pos,
                               decim=self.trk.capture_decim)
             self._maybe_extend()
             self._observables_and_pvt()
             self._pos += span
             self._blocks_done += n_blocks
+        self._abs_base = abs_base + self._pos
         return self.solutions
+
+    def process_stream(self, blocks, segment_s: float = 1.0,
+                       raw_format: str | None = None) -> list[PvtSolution]:
+        """Streaming pipeline: double-buffered device segments.
+
+        `blocks` yields (offset, chunk) like FileSignalSource.blocks() or
+        the io.network sources: complex64 chunks, or raw interleaved
+        integer items when `raw_format` names an io.formats entry (ishort,
+        ibyte, cshort, cbyte) or nibble-packed 2bits_cpx.  Raw items cross
+        to the card as they are (ishort 4 B a sample, ibyte 2 B, 2bits_cpx
+        0.5 B, against complex64's 8 B), staged in two reusable pinned
+        host buffers, and unpack
+        there (runtime.stream.unpack_raw); only the acquisition head of a
+        segment is converted on the host.
+
+        Segment k+1 is launched, and its readback queued, before segment k
+        is harvested, so the host's harvest of k overlaps the card's work
+        on k+1.  The channel FSM therefore runs one segment behind the
+        card: an assignment applies at launch, extension and lock release
+        at harvest (the JAX package's order, its receiver.py:1405-1444).
+        Unlike the JAX package's stream, the harvest of k reads each
+        channel only if it still holds the assignment it had when k was
+        launched: a channel released and assigned anew in between (the
+        acquisition for k+1 runs before the harvest of k) carries its
+        previous occupant's rows in k, which the JAX package hands to the
+        new decoder (or takes for a lost lock and releases the new
+        assignment).  The final partial segment is dropped (a live stream
+        has no end of capture to flush).  The DLL/PLL engine only."""
+        if self.trk_kind != "dll_pll":
+            raise ValueError("process_stream supports the DLL/PLL engine")
+        cfg = self.cfg
+        base = int(round(cfg.fs_hz * cfg.block_ms * 1e-3))
+        span = max(1, int(round(segment_s / (cfg.block_ms * 1e-3)))) * base
+        nmax = self.trk.cfg.epoch_samples_max
+        abs_base = self._abs_base
+        fmt = FORMATS[raw_format] if raw_format is not None else None
+        if fmt is not None and fmt.name not in STREAM_FORMATS:
+            raise ValueError(
+                "raw streaming supports interleaved I/Q integer formats "
+                "(ishort/ibyte/cshort/cbyte) and 2bits_cpx")
+        ipc = fmt.items_per_sample if fmt is not None else 1
+        spi = fmt.samples_per_item if fmt is not None else 1
+
+        def n_items(n_samples: int) -> int:
+            return (n_samples * ipc + spi - 1) // spi
+
+        if (span * ipc) % spi:
+            raise ValueError("segment span must align to whole raw items")
+        need_samps = span + nmax
+        staging = PinnedStaging(self.device)
+        buf_parts: list[np.ndarray] = []
+        buf_len = 0                     # samples buffered
+        consumed = 0                    # samples launched (stream-relative)
+        pending: list[tuple] = []
+        reacq_countdown = 0
+        for _, chunk in blocks:
+            chunk = np.asarray(chunk)
+            buf_parts.append(chunk)
+            buf_len += len(chunk) * spi // ipc
+            while buf_len >= need_samps and not self._standby:
+                buf = np.concatenate(buf_parts) if len(buf_parts) > 1 \
+                    else buf_parts[0]
+                # acquisition on the segment head (idle channels only)
+                if reacq_countdown <= 0:
+                    need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
+                    if buf_len >= need:
+                        head = buf[: n_items(need)]
+                        xc = convert_to_complex64(head, fmt)[:need] \
+                            if fmt is not None else head
+                        self._pos = consumed
+                        self._acquire_and_assign(consumed, xc)
+                    reacq_countdown = max(1, cfg.reacq_interval_blocks
+                                          // max(1, span // base))
+                reacq_countdown -= 1
+                seg = buf[: n_items(need_samps)]
+                if fmt is not None:
+                    if self._ingest_scale is None:
+                        self._scale_for(convert_to_complex64(
+                            buf[: n_items(min(buf_len, 1 << 18))], fmt))
+                    seg_dev = unpack_raw(staging.upload(seg), fmt.name,
+                                         self._ingest_scale)[:need_samps]
+                else:
+                    scale = np.float32(self._scale_for(seg))
+                    seg_dev = staging.upload(
+                        np.asarray(seg, np.complex64)) * scale
+                owners = [(p, self.decoders.get(p))
+                          for p in self.channel_prn]
+                self.state, readback = self.trk.launch_capture(
+                    seg_dev, self.state, span)
+                pending.append((readback, consumed, owners))
+                buf_parts = [buf[span * ipc // spi:]]
+                buf_len -= span
+                consumed += span
+                self._blocks_done += span // base
+                # harvest the previous segment while this one computes
+                if len(pending) > 1:
+                    self._harvest_segment(*pending.pop(0), abs_base)
+        while pending:
+            self._harvest_segment(*pending.pop(0), abs_base)
+        self._abs_base = abs_base + consumed
+        self._pos = 0
+        return self.solutions
+
+    def _harvest_segment(self, readback, seg_start: int, owners,
+                         abs_base: int) -> None:
+        """process_stream's harvest of one launched segment: wait for its
+        readback only, then the host stages."""
+        outs = self.trk.harvest_capture(readback)
+        self._harvest(outs, abs_base + seg_start,
+                      decim=self.trk.capture_decim, owners=owners)
+        self._maybe_extend()
+        self._observables_and_pvt()
+
+    # ---------------- checkpoint / resume ----------------
+
+    # the JAX package's _CKPT_FIELDS, and _empty_acq_streak (its segment
+    # gating state; the JAX package does not carry it across a resume)
+    _CKPT_FIELDS = (
+        "channel_prn", "decoders", "histories", "sym_count", "last_rem",
+        "last_frac", "carrier_phase_acc", "last_carr_rem", "rx_tow_s",
+        "rx_tow_sample", "solutions", "obs_epochs", "_blocks_done",
+        "_next_obs_sample", "_standby", "_abs_base", "_no_tow_syms",
+        "_acq_info", "_ledger_prev_start", "_ingest_scale", "_smoother",
+        "_sym_carry", "_mode_host", "_empty_acq_streak",
+    )
+
+    def checkpoint(self, path: str) -> None:
+        """Snapshot the complete receiver state — the tracking state,
+        per-channel decoder FSMs, observables histories, RX clock,
+        solutions — so a later resume_from() continues the run exactly.
+        The tracking state is saved as numpy arrays (state_to_numpy): the
+        file holds host objects only, so a checkpoint taken on the card
+        resumes on the CPU and the other way round.  The JAX package's
+        checkpoints pickle its own classes; this package does not load
+        them."""
+        import pickle
+
+        blob = {"version": 1, "cfg": self.cfg,
+                "track_state": state_to_numpy(self.state)}
+        for name in self._CKPT_FIELDS:
+            blob[name] = getattr(self, name, None)
+        with open(path, "wb") as f:
+            pickle.dump(blob, f)
+
+    @classmethod
+    def resume_from(cls, path: str, device=None) -> "Receiver":
+        """Rebuild a Receiver from a checkpoint() on `device` (None: the
+        card); feed the remaining samples to process() and the run
+        continues where it left off."""
+        import pickle
+
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        if blob.get("version") != 1:
+            raise ValueError(f"unsupported checkpoint version: "
+                             f"{blob.get('version')}")
+        rx = cls(blob["cfg"], device=device)
+        rx.state = state_from_numpy(blob["track_state"], rx.device)
+        for name in cls._CKPT_FIELDS:
+            if blob.get(name) is not None:
+                setattr(rx, name, blob[name])
+        if blob.get("_mode_host") is None:
+            rx._mode_host = np.asarray(blob["track_state"]["mode"],
+                                       dtype=np.int32).copy()
+        return rx
 
 
 # the telemetry decoder of each signal's channels (the signals this package

@@ -114,6 +114,18 @@ class TrackOutputs(NamedTuple):
     active: np.ndarray              # bool — still tracking after this epoch
 
 
+class CaptureReadback(NamedTuple):
+    """A launched capture segment's per-epoch rows on their way to the
+    host (launch_capture -> harvest_capture).  On the card: pinned host
+    tensors that a non_blocking copy fills, and the event recorded after
+    that copy; on the CPU the rows themselves and no event."""
+
+    out_f: torch.Tensor             # f32 [n, 7, C]
+    out_i: torch.Tensor             # i32 [n, 2, C]
+    correlators: torch.Tensor       # complex64 [n, C, K]
+    event: torch.cuda.Event | None
+
+
 class SymbolOutputs(NamedTuple):
     """Symbol-grid capture outputs ([S, C] each, numpy; S slots of `sym_n`
     epochs).  Slot 0 is the partial head finishing the previous segment's
@@ -589,22 +601,45 @@ class TrackingEngine:
     def n_symbol_slots(n_epochs_cap: int, sym_n: int) -> int:
         return n_epochs_cap // sym_n + 2
 
-    def _decimated_outputs(self, out_f, out_i, out_corr,
-                           decim: int | None = None) -> TrackOutputs:
-        """Full-rate valid/start/len/correlators/rem_code; the loop-state
-        rows sampled at epochs k % D == D-1 and held (repeated) between
-        (D = `decim`, capture_decim by default; 1 keeps every row)."""
+    def _read_back(self, out_f, out_i, out_corr) -> CaptureReadback:
+        """Queue the per-epoch rows' copy to the host: on the card into
+        pinned host tensors with non_blocking=True, then an event; nothing
+        waits here.  On the CPU the rows stay as they are."""
         K = self.cfg.n_taps
+        corr = torch.complex(out_corr[:, :K], out_corr[:, K:]).permute(
+            0, 2, 1)                                                 # [cap,C,K]
+        if out_f.device.type != "cuda":
+            return CaptureReadback(out_f, out_i, corr, None)
+        host = []
+        for t in (out_f, out_i, corr):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if not h.is_pinned():
+                raise RuntimeError("the readback buffer could not be pinned")
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        event = torch.cuda.Event()
+        event.record()
+        return CaptureReadback(*host, event)
+
+    def harvest_capture(self, rb: CaptureReadback,
+                        decim: int | None = None) -> TrackOutputs:
+        """The harvest half of track_capture: wait for that segment's
+        readback only (its own event, not the stream) and build its
+        TrackOutputs.  Full-rate valid/start/len/correlators/rem_code; the
+        loop-state rows sampled at epochs k % D == D-1 and held (repeated)
+        between (D = `decim`, capture_decim by default; 1 keeps every
+        row)."""
         D = self.capture_decim if decim is None else decim
-        corr = torch.complex(out_corr[:, :K], out_corr[:, K:])     # [cap,K,C]
-        f = out_f.cpu().numpy()
-        i = out_i.cpu().numpy()
+        if rb.event is not None:
+            rb.event.synchronize()
+        f = rb.out_f.numpy()
+        i = rb.out_i.numpy()
         d = np.repeat(f[D - 1::D], D, axis=0)
         return TrackOutputs(
             valid=f[:, tc.O_VALID] > 0.5,
             start=i[:, 0],
             cur_len=i[:, 1],
-            correlators=corr.permute(0, 2, 1).cpu().numpy(),
+            correlators=rb.correlators.numpy(),
             carrier_doppler_hz=d[:, tc.O_DOPPLER],
             code_freq_delta=d[:, tc.O_DELTA],
             rem_code_phase_samples=f[:, tc.O_REM_CODE],
@@ -696,20 +731,29 @@ class TrackingEngine:
         n_epochs = base // (self._t0_int - 2) + 2
         st, out_f, out_i, out_corr = self._run_capture(x, state, base,
                                                        n_epochs)
-        return self.rebase(st, base), self._decimated_outputs(
-            out_f, out_i, out_corr, decim=1)
+        return self.rebase(st, base), self.harvest_capture(
+            self._read_back(out_f, out_i, out_corr), decim=1)
 
     def track_capture(self, samples, state: TrackState, span: int):
         """Process a whole device-resident capture segment (complex64
         tensor with >= span + epoch_samples_max samples): every active
         channel consumes all epochs starting within [0, span).  Returns
         (state rebased by span, TrackOutputs with segment-relative starts,
-        the loop-state rows decimated at capture_decim)."""
+        the loop-state rows decimated at capture_decim): launch_capture
+        then harvest_capture."""
+        st, rb = self.launch_capture(samples, state, span)
+        return st, self.harvest_capture(rb)
+
+    def launch_capture(self, samples, state: TrackState, span: int):
+        """The launch half of track_capture: enqueue the segment's kernels,
+        rebase the state and queue the rows' copy to the host, without
+        waiting for any of it.  Returns (state rebased by span,
+        CaptureReadback for harvest_capture)."""
         n_epochs = self._check_capture(samples, span)
         st, out_f, out_i, out_corr = self._run_capture(samples, state, span,
                                                        n_epochs)
-        return self.rebase(st, span), self._decimated_outputs(
-            out_f, out_i, out_corr)
+        return self.rebase(st, span), self._read_back(out_f, out_i,
+                                                      out_corr)
 
     def track_capture_symbols(self, samples, state: TrackState, span: int,
                               sym_off, sym_n: int):

@@ -5,15 +5,17 @@ the Galileo E5a (CAF) conf, the BeiDou B1I conf and the three multi-group
 confs (GPS L1 + Galileo E1 on one or two sources, GPS L1 + GLONASS L1)
 that need only what the port carries map to the same ReceiverConfig values
 and build a Receiver; the multi-group ones run through the
-mixed-constellation branch; `--signal B1` and `--signal B3` run; every
-other conf, and every flag of a feature not ported yet, is refused with
-its ROADMAP.md item; the block registries agree; and both CLIs print
+mixed-constellation branch; `--signal B1` and `--signal B3` run;
+`--telecommand_port`, `--monitor_port` and `--pvt_monitor_port` run and
+serve their sockets; every other conf, and every flag of a feature not
+ported yet, is refused with its ROADMAP.md item; the block registries agree; and both CLIs print
 the same lines on a short capture.  The slow case runs both CLIs to fixes
 on a 24 s capture."""
 
 import dataclasses
 import json
 import pathlib
+import socket
 
 import numpy as np
 import pytest
@@ -53,6 +55,7 @@ MULTI_GROUP = ["glonass_l1_gps_l1_ibyte.conf", "hybrid_ishort.conf",
                "multisource_hybrid_ishort.conf"]
 UNPORTED = [c for c in CONFS if c not in PORTED]
 RX = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
+FS_FLAGS = 2.046e6
 
 
 def test_corpus_split():
@@ -231,13 +234,105 @@ def test_unported_conf_refused_with_roadmap_item(name, capsys):
 
 @pytest.mark.parametrize("flag,value", [
     ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
-    ("--supl", "localhost"), ("--telecommand_port", "2101"),
-    ("--monitor_port", "1234"), ("--pvt_monitor_port", "1111")])
+    ("--supl", "localhost")])
 def test_unported_flag_refused(flag, value, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
     assert e.value.code == 2
     assert "ROADMAP.md §1 item" in capsys.readouterr().err
+
+
+def _free_port(kind):
+    s = socket.socket(socket.AF_INET, kind)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("flag", ["--telecommand_port", "--monitor_port",
+                                  "--pvt_monitor_port"])
+def test_monitor_and_telecommand_flags_run(flag, tmp_path, capsys,
+                                           monkeypatch):
+    """Each flag on a 0.1 s ishort capture of one GPS satellite (random
+    items would track nothing for a monitor to send): the CLI exits 0 and
+    the other side sees the traffic.  --telecommand_port: a client gets
+    the receiver's status over TCP while the receiver runs.
+    --monitor_port: Gnss_Synchro records of the tracked PRN over UDP.
+    --pvt_monitor_port: the receiver's PVT sink aims at the port and sends
+    one datagram a fix; 0.1 s has no fix, so none arrives
+    (tests/test_torch_streaming.py's slow case counts them on 24 s)."""
+    import threading
+
+    from gnss_sdr_1_tpu_torch import runtime
+
+    cap = tmp_path / "cap.ishort"
+    _write_ishort(cap, [3], FS_FLAGS, 0.1, 345606.1)
+    built = []
+    served = threading.Event()
+
+    class Recorded(runtime.Receiver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+        def process(self, samples):
+            if flag == "--telecommand_port":
+                assert served.wait(10.0), "no telecommand client served"
+            return super().process(samples)
+
+    monkeypatch.setattr(runtime, "Receiver", Recorded)
+    kind = (socket.SOCK_STREAM if flag == "--telecommand_port"
+            else socket.SOCK_DGRAM)
+    port = _free_port(kind)
+    sock = None
+    replies = []
+    if kind == socket.SOCK_DGRAM:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.bind(("127.0.0.1", port))
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 22)
+    else:
+        def client():
+            for _ in range(1000):
+                try:
+                    with socket.create_connection(("127.0.0.1", port),
+                                                  timeout=5) as s:
+                        f = s.makefile("rw")
+                        f.write("status\n")
+                        f.flush()
+                        replies.append(f.readline().strip())
+                        served.set()
+                        return
+                except OSError:
+                    served.wait(0.01)
+
+        threading.Thread(target=client, daemon=True).start()
+    lines = _run(tcli, ["--signal_file", str(cap), "--item_type", "ishort",
+                        "--fs", str(FS_FLAGS), "--channels", "1",
+                        "--device", "cpu", "--out_dir",
+                        str(tmp_path / "out"), flag, str(port)], capsys)
+    assert any(ln.startswith("Processed in ") for ln in lines)
+    assert lines[-1] == "No position fix obtained."
+    (rx,) = built
+    if flag == "--telecommand_port":
+        assert lines[1] == f"Telecommand listening on port {port}"
+        assert replies and replies[0].startswith("channels ")
+        return
+    sock.setblocking(False)
+    recs = []
+    while True:
+        try:
+            recs += sock.recv(1 << 20).decode().splitlines()
+        except BlockingIOError:
+            break
+    sock.close()
+    if flag == "--monitor_port":
+        assert rx.monitor._addr == ("127.0.0.1", port)
+        assert recs and all(json.loads(r)["prn"] == 3 for r in recs)
+    else:
+        assert rx.monitor is None
+        assert rx.pvt_monitor._addr == ("127.0.0.1", port)
+        assert len(recs) == len(rx.solutions) == 0
 
 
 @pytest.mark.parametrize("signal,fs", [("B1", 5.0e6), ("B3", 12.5e6)])

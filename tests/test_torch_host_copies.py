@@ -666,3 +666,39 @@ def test_beidou_cgcs2000_orbit_identical():
             wgs = dataclasses.replace(et, system="G")
             assert np.linalg.norm(
                 teph.satellite_position_velocity(wgs, t)[0] - pt) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The LabSat and network sources, the monitor records and sinks, the
+# telecommand server and the dump files
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rel", ["io/labsat.py", "io/network.py",
+                                 "runtime/monitor.py",
+                                 "runtime/telecommand.py",
+                                 "runtime/dumps.py"])
+def test_io_and_runtime_host_modules_are_copies(rel):
+    """The LabSat and network sources, the Gnss_Synchro records and UDP
+    sinks, the telecommand server and the dump writers are the JAX
+    package's modules, byte for byte (network.py's one relative import,
+    `.formats`, is the port's own copy), and each imports only the
+    standard library, numpy and, for the optional .mat export, scipy."""
+    path = ROOT / "gnss_sdr_1_tpu_torch" / rel
+    assert path.read_text() == (ROOT / "gnss_sdr_1_tpu" / rel).read_text()
+    assert path in _port_sources()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+            if node.level:
+                assert names == ["formats"], f"{rel}: .{names[0]}"
+                continue
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in (
+                "__future__", "dataclasses", "json", "numpy", "os",
+                "pathlib", "scipy", "socket", "struct", "threading"), \
+                f"{rel}: {name}"

@@ -64,8 +64,14 @@ def test_receiver_refuses_unported_options():
     ReceiverConfig(signal_id="1B", acq_strategy="cccwsr")
     with pytest.raises(ValueError, match="Galileo E5a strategy"):
         Receiver(ReceiverConfig(acq_strategy="caf"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ReceiverConfig(enable_monitor=True)
+    # ported: the monitor taps (JAX's fields and defaults)
+    cfg = ReceiverConfig(enable_monitor=True, enable_pvt_monitor=True)
+    assert (cfg.monitor_host, cfg.monitor_port, cfg.monitor_decimation,
+            cfg.pvt_monitor_port) == ("127.0.0.1", 1234, 50, 1111)
+    rx = Receiver(cfg, device="cpu")
+    assert rx.monitor is not None and rx.pvt_monitor is not None
+    rx.monitor.close()
+    rx.pvt_monitor.close()
 
 
 def test_same_assignments_and_acquisition(short_run):
