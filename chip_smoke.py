@@ -13,10 +13,10 @@ Phases (one line each, with times):
   1. the card (nvidia-smi name and power limit) and the kernel build (one
      nvcc for each library and stage build, started together: the
      tracking library, the KF library, the gather walk's, which holds the
-     one-epoch multicorrelator too, and the KF and gather stage builds),
-     with ptxas' registers, stack frame and spills of every kernel
-     instance (the chain's instances may use no local memory, the KF and
-     gather kernels' may spill nothing);
+     one-epoch multicorrelator too, and the KF, gather and multicorrelator
+     stage builds), with ptxas' registers, stack frame and spills of every
+     kernel instance (the chain's instances may use no local memory, the
+     KF, gather and multicorrelator kernels' may spill nothing);
   2. both CUDA kernels against their plain torch versions on the card, at
      the main path's shapes (E=16, LW=68, NW=4136, C=12, K=3), on random
      inputs and on the inputs of a real chunk taken mid-track: the chunk
@@ -82,8 +82,18 @@ Phases (one line each, with times):
      gather_block.cu): the exchange of m, the correlation, the reduction
      and the closure of an epoch on CTA 0 (the closure's state-only part
      beside them), in order, and the
-     serial floor of a 40 ms block; then multicorrelate_cuda against
-     multicorrelate at K = 3 and 5, timed at the TCP connector's C = 1;
+     serial floor of a 40 ms block; then the one-epoch multicorrelator
+     (multicorrelate_cuda, a cluster of CTAs a channel) against the plain
+     multicorrelate on the CPU on real windows at K = 3 and 5 and in its
+     four instances (K 3 and 5, orders 2 and 3) at C = 1, 12 and 20, with
+     n_valid < N and a 1e5-rad phase, the per-channel arguments by value
+     and by pointer bit for bit alike, the order-3 instance at a zero
+     rate bit for bit the order-2 one, from an odd first sample bit for
+     bit; timed at C = 1, K = 3 at 4,094 and 2,046 samples (the kernel's
+     device time by its name, any other kernel and copy a call, the host
+     time a call, an empty kernel of the same geometry), and through the
+     MC_STAGES build (a third nvcc of gather_block.cu): the spans of a
+     CTA and thread 0's cycles a sample with parts of the body left out;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -193,7 +203,13 @@ Phases (one line each, with times):
      through the CLI at phase 6's bars (run after phase 8);
  27. the TCP connector (track/tcp_connector.py) on
      tests/test_tcp_connector.py's scenario, its correlation on the card
-     (one multicorrelate launch per epoch), at that test's bars;
+     (one multicorrelate launch per epoch), at that test's bars; an
+     epoch's wall split by the tracker's stamps (the correlator call, the
+     readback, the JSON write and flush, the wait for the reply, the NCO;
+     mean and p90); 300 epochs held to the same tracker on the CPU; 50
+     epochs profiled: no host-to-device copy and no kernel but the
+     multicorrelator; the 1000 epochs again with the controller in a
+     Python process of its own (the same rows; its wall and split);
  28. the streaming receiver (Receiver.process_stream) on phase 6's ishort
      file as raw int16 I/Q in 0.1 s blocks, 1 s segments, the PVT monitor
      on a localhost UDP socket: >= 60 fixes at a median 3D error < 5 m,
@@ -456,6 +472,16 @@ GATHER_CHECKS = (
 # float32 operations per correlated sample of the gather walk: as the KF's
 # with K code indices and K complex accumulations
 GATHER_OPS_PER_SAMPLE = {3: 39, 5: 49}
+# phase 2c: the channel counts of the one-epoch multicorrelator's instance
+# grid (one, the GPS receiver's 12, 20)
+MC_CHECK_C = (1, 12, 20)
+# launches of one input through each build, held bit for bit alike
+MC_REPEATS = 20
+# phase 27: the epochs held to the same tracker on the CPU, and the epochs
+# profiled for the copies and kernels an epoch makes
+TCP_FS = 2.046e6
+TCP_CPU_EPOCHS = 300
+TCP_PROFILE_EPOCHS = 50
 
 
 def log(msg: str) -> None:
@@ -676,14 +702,45 @@ def main() -> None:
         log(f"    gather_block instance {r['instance']} vs plain on the CPU: "
             f"max |diff| {r['err']:.3e}, int rows exact, "
             f"{r['valid_epochs']} valid epochs")
+    mc_ptx = {k: v for k, v in ptxas.items()
+              if k.startswith("multicorrelate")}
     for r in mc_rows:
-        timed = (f", {r['ms']:.5f} ms/launch device ({r['ms_host']:.5f} "
-                 f"from the host), plain {r['plain_ms']:.3f} ms, bound "
-                 f"{r['bound_ms']:.2e} ms ({r['bound_by']})"
-                 if "ms" in r else "")
         log(f"[2c] multicorrelate_cuda vs plain on the CPU, {r['what']} "
-            f"(K={r['K']}, C={r['C']}, N={r['N']}): max |diff| "
-            f"{r['max_abs_err']:.3e} of {r['scale']:.3e}" + timed)
+            f"(K={r['K']}, C={r['C']}, N={r['N']}, n_valid {r['n_valid']}"
+            f"{', order ' + str(r['order']) if 'order' in r else ''}; "
+            f"clusters of {r['G']} CTAs of {mc.MC_THREADS} threads, "
+            f"{r['slice']} samples each): max |diff| {r['max_abs_err']:.3e} "
+            f"of {r['scale']:.3e}, by value == by pointer"
+            + (", order 3 at a zero rate == order 2"
+               if r.get("order3_at_zero_rate_equal") else ""))
+        if "ms" in r:
+            for shape, t in (("4,094", r), ("2,046", r["tcp_shape"])):
+                log(f"    C=1, K=3, {shape} samples, Python numbers by value: "
+                    f"kernel {t['kernel'].split('(')[0]} {t['ms']:.5f} ms "
+                    f"device (profiler, by name), {t['events_ms']:.5f} ms a "
+                    f"call back to back (CUDA events), {t['host_us']:.2f} us "
+                    f"of host a call; other kernels {t['other_kernels']}, "
+                    f"copies {t['copies']}; the empty kernel of the same "
+                    f"geometry {t['empty_ms']:.5f} ms device "
+                    f"({t['empty_host_us']:.2f} us of host); plain "
+                    f"{t['plain_ms']:.3f} ms; bound {t['bound_ms']:.2e} ms "
+                    f"({t['bound_by']})")
+            st = r["stages"]
+            sp = st["split"]
+            log(f"    MC_STAGES build, {st['G']} CTAs ({st['ms']:.5f} ms, "
+                f"{sp['mhz']:.0f} cycles per us), cycles per CTA: "
+                + ", ".join(f"{k} {v:.0f}" for k, v in sp["cycles"].items())
+                + f" (in order: {sp['ordered']}); thread 0 "
+                f"{sp['samples_thread0']:.2f} samples at "
+                f"{sp['cycles_per_sample']:.0f} cycles each; one CTA for the "
+                f"channel, cycles a sample: "
+                + ", ".join(f"{k} {v['cycles_per_sample']:.0f}"
+                            for k, v in st["probes"].items())
+                + f" ({st['probes']['full']['samples_thread0']:.0f} "
+                f"samples a thread)")
+    log("    ptxas multicorrelate: " + ", ".join(
+        f"{k} {v['registers']} registers, {v['spill_stores']}/"
+        f"{v['spill_loads']} B spilled" for k, v in mc_ptx.items()))
     log(f"    | {time.perf_counter() - t0:.1f} s")
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
@@ -983,12 +1040,37 @@ def main() -> None:
     # ---- 27. the TCP connector on the card ----
     t0 = time.perf_counter()
     tcp = phase_tcp(dev, mc)
+    sp = tcp["split"]
     log(f"[27] TCP connector, correlation on the card: {tcp['epochs']} "
         f"epochs, multicorrelate launches {tcp['launches_multicorrelate']} "
         f"== epochs, tail Doppler error {tcp['tail_doppler_err_hz']:+.3f} "
         f"Hz, tail/head prompt {tcp['prompt_tail_over_head']:.3f}, "
         f"{tcp['ms_per_epoch']:.3f} ms of wall per epoch (TCP round trip "
-        f"included) | {time.perf_counter() - t0:.1f} s")
+        f"included); an epoch's wall, mean / p90 ms: "
+        + ", ".join(f"{k} {v['mean_ms']:.4f} / {v['p90_ms']:.4f}"
+                    for k, v in sp.items())
+        + f"; with the controller in a process of its own (as deployed) "
+        f"{tcp['external_ms_per_epoch']:.3f} ms an epoch, the same rows: "
+        + ", ".join(f"{k} {v['mean_ms']:.4f} / {v['p90_ms']:.4f}"
+                    for k, v in tcp["external_split"].items())
+        + f"; the first {tcp['cpu_epochs']} rows as on the CPU (the same "
+        f"starts, Doppler within {tcp['cpu_doppler_diff_hz']:.2e} Hz, "
+        f"prompts within {tcp['cpu_prompt_diff']:.2e} of "
+        f"{tcp['cpu_prompt_scale']:.3e}); {tcp['profile_epochs']} epochs "
+        f"profiled: kernels {tcp['profile_kernels']}, copies "
+        f"{tcp['profile_copies']} | {time.perf_counter() - t0:.1f} s")
+    # the launch counter holds one launch an epoch; the profiler loses some
+    # of its events (PERF.md section 7), so the trace is read only for
+    # what must not be there
+    h2d = {k: v for k, v in tcp["profile_copies"].items() if "HtoD" in k}
+    extra = {k: v for k, v in tcp["profile_kernels"].items()
+             if "multicorrelate_kernel" not in k}
+    if h2d or extra or not any("multicorrelate_kernel" in k
+                               for k in tcp["profile_kernels"]):
+        raise AssertionError(f"TCP connector: the profiled epochs copied "
+                             f"{h2d} to the card and launched {extra} beside "
+                             f"the multicorrelator "
+                             f"({tcp['profile_kernels']})")
 
     # ---- 28. the streaming receiver on raw blocks ----
     t0 = time.perf_counter()
@@ -1155,7 +1237,14 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in mc_rows),
         "ms": mc_t["ms"], "plain_ms": mc_t["plain_ms"],
         "bound_ms": mc_t["bound_ms"], "bound_by": mc_t["bound_by"],
-        "library_ms": None, "shapes_checked": len(mc_rows),
+        "library_ms": None, "host_us": mc_t["host_us"],
+        "empty_ms": mc_t["empty_ms"],
+        **{f"tcp_{k}": mc_t["tcp_shape"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "host_us", "empty_ms")},
+        "cluster": mc_t["G"], "cycles_per_sample": {
+            k: v["cycles_per_sample"]
+            for k, v in mc_t["stages"]["probes"].items()},
+        "shapes_checked": len(mc_rows),
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
@@ -1214,8 +1303,8 @@ def build_report() -> dict:
         if name.startswith("track_chain") and (
                 r["stack"] or r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"track_chain uses local memory: {r}")
-        if name.startswith(("kf_block", "gather_block")) and (
-                r["spill_stores"] or r["spill_loads"]):
+        if name.startswith(("kf_block", "gather_block", "multicorrelate")) \
+                and (r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"{name} spills: {r}")
     return ptxas
 
@@ -1531,9 +1620,9 @@ def _time_cuda(fn, n):
     return a.elapsed_time(b) / n
 
 
-def _device_ms(fn, n):
-    """Device time per call: the kernels' durations in a profiler trace of
-    n calls, summed, over n.  Raises when the trace holds no kernel."""
+def _trace(fn, n):
+    """Every event of a torch.profiler trace of n calls of fn (after one
+    call outside it), the calls synchronised at the end."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1543,10 +1632,47 @@ def _device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e["dur"] for e in _kernel_events(prof))
-    if not us > 0:
-        raise NoKernelEvent("the profiler trace holds no kernel event")
-    return us / n * 1e-3
+    return _trace_events(prof)
+
+
+def _device_ms(fn, n, tries=3):
+    """Device time per call: the kernels' durations in a profiler trace of
+    n calls, summed, over n.  A trace without a kernel event (the profiler
+    loses them now and then, PERF.md section 7) is taken again, `tries`
+    times in all, then NoKernelEvent."""
+    for _ in range(tries):
+        us = sum(e["dur"] for e in _trace(fn, n)
+                 if e.get("cat") == "kernel")
+        if us > 0:
+            return us / n * 1e-3
+    raise NoKernelEvent(f"{tries} profiler traces hold no kernel event")
+
+
+def _event_ms(fn, n, name, tries=3):
+    """The mean device time of the kernels whose name holds `name` in a
+    profiler trace of n calls of fn, over the events the trace holds (the
+    profiler loses some now and then, PERF.md section 7), and the trace's
+    events; a trace without such an event is taken again, `tries` times
+    in all, then NoKernelEvent."""
+    for _ in range(tries):
+        events = _trace(fn, n)
+        durs = [e["dur"] for e in events
+                if e.get("cat") == "kernel" and name in e["name"]]
+        if durs:
+            return sum(durs) / len(durs) * 1e-3, events
+    raise NoKernelEvent(f"{tries} profiler traces hold no kernel event of "
+                        f"{name}")
+
+
+def _by_name(events, n, cat="kernel"):
+    """{name: (device ms per call, events per call)} of the trace events of
+    category `cat` over n calls."""
+    out = {}
+    for e in events:
+        if e.get("cat") == cat:
+            ms, k = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (ms + e["dur"] / n * 1e-3, k + 1)
+    return {k: (ms, cnt / n) for k, (ms, cnt) in out.items()}
 
 
 class NoKernelEvent(AssertionError):
@@ -2557,13 +2683,174 @@ def _gather_segment(dev, gb, tc, eng, case):
             "serial_floor_ms": split["serial_floor_ms"]}
 
 
+def _mc_bound(K, n, L):
+    """The one-epoch multicorrelator's least time for n samples: bytes (the
+    samples and the code row read, the taps written) against operations
+    (GATHER_OPS_PER_SAMPLE a sample)."""
+    n_bytes = n * 8 + L * 4 + K * 8
+    tb = n_bytes / PEAK_BYTES_S * 1e3
+    to = GATHER_OPS_PER_SAMPLE[K] * n / PEAK_F32_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def _host_us(fn, n=300):
+    """Host time per call of n back-to-back calls (the launches queue; the
+    card is drained after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _mc_grid_case(g, K, C, order):
+    """A synthetic epoch of C channels for the instance grid: K = 3 at the
+    2c shape (4,094 samples, the 1,023-chip code), K = 5 at E1's 4 ms at
+    4.092 Msps (16,368 samples, 4,092 chips: clusters of 16 CTAs); every
+    n_valid short of N, channel 0's phase near 1e5 rad, the rate 3e-9
+    rad/sample^2 at order 3 and 0 at order 2."""
+    N, L = (4094, 1023) if K == 3 else (16368, 4092)
+    x = torch.complex(torch.randn(C, N, generator=g),
+                      torch.randn(C, N, generator=g)) * 30.0
+    codes = torch.where(torch.rand(C, L, generator=g) < 0.5, -1.0, 1.0)
+    shifts = torch.tensor((-0.5, 0.0, 0.5) if K == 3
+                          else (-1.0, -0.5, 0.0, 0.5, 1.0))
+    step = (L / N) * (1 + 1e-6 * (2 * torch.rand(C, generator=g) - 1))
+    rem = torch.rand(C, generator=g) * 1.2 - 0.3
+    cp = torch.rand(C, generator=g) * 6.2
+    cp[0] += 1e5
+    cs = (2 * torch.rand(C, generator=g) - 1) * 5e-3
+    cr = torch.full((C,), 3e-9 if order == 3 else 0.0)
+    nv = N - torch.randint(1, 60, (C,), generator=g, dtype=torch.int32)
+    return x, codes, shifts, (step, rem, cp, cs, cr, nv)
+
+
+def _mc_check_one(dev, mc, what, x, codes, shifts, args):
+    """multicorrelate_cuda with the per-channel arguments as tensors on the
+    card (by pointer) and as host arrays (by value; C <= MC_MAX_C) against
+    the plain multicorrelate on the CPU within 1e-4 of max|corr|, the two
+    transports bit for bit; returns (the row, the card's taps, the card's
+    inputs)."""
+    want = mc.multicorrelate(x, codes, shifts, *args[:5], n_valid=args[5])
+    xd, cd = x.to(dev), codes.to(dev)
+    on_card = [a.to(dev) for a in args]
+    before = mc.launches
+    got = mc.correlate(xd, cd, shifts, *on_card)
+    by_value = mc.multicorrelate_cuda(xd, cd, shifts,
+                                      *(a.numpy() for a in args))
+    torch.cuda.synchronize()
+    if mc.launches != before + 2:
+        raise AssertionError("correlate did not launch the kernel")
+    if not torch.equal(got, by_value):
+        raise AssertionError(f"multicorrelate {what}: the taps by value "
+                             f"differ from the taps by pointer")
+    d = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    if not d <= 1e-4 * scale:
+        raise AssertionError(f"multicorrelate {what}: |diff| {d:.3e} > "
+                             f"1e-4 x {scale:.3e}")
+    C, N = x.shape
+    G, S = mc.mc_geometry(N)
+    return ({"what": what, "K": len(shifts), "C": C, "N": N,
+             "n_valid": [int(v) for v in args[5][:3]], "G": G, "slice": S,
+             "max_abs_err": d, "scale": scale}, got, (xd, cd, on_card))
+
+
+def _mc_timed(dev, mc, x, code, shifts, args):
+    """One channel's launch (Python numbers by value) timed: the host time
+    per call and CUDA events per call (before any profiling), the kernel's
+    device time by its name (the mean over the trace's events), any other
+    kernel or copy in the trace, the empty kernel of the same geometry
+    (its device time and host time), the plain version on the card, the
+    bound."""
+    def call():
+        mc.multicorrelate_cuda(x, code, shifts, *args)
+
+    def empty():
+        mc.multicorrelate_empty(x, code, shifts, args[5])
+
+    n = 200
+    # the host times first: a profiler run before them slows the host
+    host = {"host_us": _host_us(call), "events_ms": _time_cuda(call, n),
+            "empty_host_us": _host_us(empty)}
+    ms, events = _event_ms(call, n, "multicorrelate_kernel")
+    kernels = _by_name(events, n)
+    others = {k: v for k, v in kernels.items()
+              if "multicorrelate_kernel" not in k}
+    nv = x.shape[-1] if args[5] is None else int(args[5])
+    return {"ms": ms,
+            "kernel": next(k for k in kernels if k not in others),
+            "other_kernels": others,
+            "copies": _by_name(events, n, "gpu_memcpy"), **host,
+            "empty_ms": _event_ms(empty, n, "mc_empty_kernel")[0],
+            "plain_ms": _time_cuda(
+                lambda: mc.multicorrelate(x, code, shifts, *args[:5],
+                                          n_valid=args[5]), 10),
+            "library_ms": None,
+            **_mc_bound(len(shifts), nv, code.shape[-1])}
+
+
+def _mc_stages(dev, mc, x, code, shifts, args):
+    """The MC_STAGES build at one channel's shape: the timeline of a launch
+    in the wrapper's geometry (the spans of each CTA in cycles: the copy's
+    issue, the code packing, the wait for the copy, the correlation, the
+    CTA's and the cluster's reductions), and thread 0's cycles a sample
+    with one CTA for the channel (16 samples a thread at 4,094) under each
+    probe (nothing left out, the sine and cosine, the code indices, both,
+    the double-precision range reduction)."""
+    G, _ = mc.mc_geometry(x.shape[-1])
+
+    def run(geometry=None, probe=0):
+        return mc.multicorrelate_stages(x, code, shifts, *args,
+                                        geometry=geometry, probe=probe)
+
+    outs = [run()[0] for _ in range(MC_REPEATS)]
+    wants = [mc.multicorrelate_cuda(x, code, shifts, *args)
+             for _ in range(MC_REPEATS)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, outs[0]) for o in outs) \
+            or not all(torch.equal(w, wants[0]) for w in wants):
+        raise AssertionError("a launch's taps differ from the same "
+                             "launch's before")
+    d = float((outs[0] - wants[0]).abs().max())
+    if not d <= 1e-4 * float(wants[0].abs().max()):
+        raise AssertionError(f"the MC_STAGES build's taps differ by {d:.3e}")
+    out, tl = run()
+    ms = _event_ms(run, 50, "multicorrelate_kernel")[0]
+    split = mc.stage_split(tl.cpu().numpy(), ms)
+    one = (1, x.shape[-1])
+    probes = {}
+    for name, mask in (("full", 0), ("no_sincos", mc.PROBE_SINCOS),
+                       ("no_taps", mc.PROBE_TAPS),
+                       ("neither", mc.PROBE_SINCOS | mc.PROBE_TAPS),
+                       ("f32_reduction", mc.PROBE_F32)):
+        run(one, mask)
+        _, tl1 = run(one, mask)
+        torch.cuda.synchronize()
+        r = mc.stage_split(tl1.cpu().numpy())
+        probes[name] = {"cycles_per_sample": r["cycles_per_sample"],
+                        "samples_thread0": r["samples_thread0"],
+                        "correlation_cycles": r["cycles"]["correlation"]}
+    return {"G": G, "ms": ms, "split": split, "probes": probes,
+            "repeats": MC_REPEATS, "stage_vs_plain_build_diff": d}
+
+
 def _mc_checks(dev, mc, cases):
-    """multicorrelate_cuda against the plain multicorrelate on the CPU on
-    one epoch of each case's channels (their first windows, K = 3 at the
-    GPS shape, 5 at the E1B shape) and of its first channel alone (C = 1,
-    the TCP connector's call), within 1e-4 of max|corr|; timed at C = 1,
-    K = 3 (device ms per launch, the plain version on the card, the bound:
-    bytes of the samples and code row against 39 operations a sample)."""
+    """The one-epoch multicorrelator on the card: multicorrelate_cuda
+    against the plain multicorrelate on the CPU within 1e-4 of max|corr|
+    on one epoch of each real case's channels (their first windows, K = 3
+    at the GPS shape, 5 at the E1B shape) and of its first channel alone
+    (C = 1, the TCP connector's call), and on the four instances (K 3 and
+    5, orders 2 and 3) at C = 1, 12 and 20 (_mc_grid_case), each by
+    pointer and by value, bit for bit alike; the order-3 instance at a zero
+    rate (a rate tensor on the card) bit for bit the order-2 instance (the
+    rate 0.0 by value); then timed at C = 1, K = 3 (_mc_timed) at the GPS
+    window (4,094 samples) and at phase 27's call (2,046), and through the
+    MC_STAGES build (_mc_stages)."""
     from gnss_sdr_1_tpu_torch.ops import gather_block as gb
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
@@ -2575,37 +2862,53 @@ def _mc_checks(dev, mc, cases):
         shifts = torch.tensor(spec.shifts)
         n_valid = ist[tc.I_CURLEN]
         for C in (spec.C, 1):
-            args = (segs[:C].contiguous(), codes[:C].contiguous(), shifts,
-                    step[:C], rem[:C], cp[:C], cs[:C], 0.0, n_valid[:C])
-            want = mc.multicorrelate(*args)
-            card = [a.to(dev) if torch.is_tensor(a) else a for a in args]
-            before = mc.launches
-            got = mc.correlate(*card)
-            torch.cuda.synchronize()
-            if mc.launches != before + 1:
-                raise AssertionError("correlate did not launch the kernel")
-            d = float((got.cpu() - want).abs().max())
-            scale = float(want.abs().max())
-            if not d <= 1e-4 * scale:
-                raise AssertionError(f"multicorrelate {what} C={C}: |diff| "
-                                     f"{d:.3e} > 1e-4 x {scale:.3e}")
-            r = {"what": what, "K": spec.K, "C": C, "N": spec.n_max,
-                 "max_abs_err": d, "scale": scale}
+            args = (step[:C], rem[:C], cp[:C], cs[:C], torch.zeros(C),
+                    n_valid[:C])
+            r, _, card = _mc_check_one(dev, mc, what, segs[:C].contiguous(),
+                                       codes[:C].contiguous(), shifts, args)
             if what == "GPS" and C == 1:
-                r["ms"] = _device_ms(lambda: mc.multicorrelate_cuda(*card),
-                                     50)
-                r["ms_host"] = _time_cuda(
-                    lambda: mc.multicorrelate_cuda(*card), 50)
-                r["plain_ms"] = _time_cuda(
-                    lambda: mc.multicorrelate(*card), 10)
-                n = int(n_valid[0])
-                n_bytes = n * 8 + codes.shape[1] * 4 + spec.K * 8
-                n_ops = GATHER_OPS_PER_SAMPLE[spec.K] * n
-                tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
-                r.update(bound_ms=max(tb, to),
-                         bound_by="bytes" if tb >= to else "operations",
-                         library_ms=None)
+                # the TCP connector's call: Python numbers, the taps' offsets
+                # a tuple
+                xd, cd, on_card = card
+                host = tuple(float(a[0]) for a in args[:5]) + (
+                    int(args[5][0]),)
+                taps = tuple(float(v) for v in shifts)
+                r.update(_mc_timed(dev, mc, xd[0], cd[0], taps, host))
+                r["stages"] = _mc_stages(dev, mc, xd[0], cd[0], taps, host)
+                # phase 27's epoch: 2,046 samples of the same window
+                r["tcp_shape"] = _mc_timed(dev, mc, xd[0, :2046], cd[0],
+                                           taps, host[:5] + (None,))
             rows.append(r)
+    g = torch.Generator().manual_seed(13)
+    for K in (3, 5):
+        for order in (2, 3):
+            for C in MC_CHECK_C:
+                x, codes, shifts, args = _mc_grid_case(g, K, C, order)
+                r, got, (xd, cd, on_card) = _mc_check_one(
+                    dev, mc, f"instance K={K} order {order}", x, codes,
+                    shifts, args)
+                r["order"] = order
+                if C == 1:
+                    # the samples from an odd sample: the copy's head
+                    pad = torch.zeros(1, dtype=xd.dtype, device=dev)
+                    odd = mc.multicorrelate_cuda(
+                        torch.cat([pad, xd[0]])[1:], cd[0], shifts,
+                        *on_card)
+                    torch.cuda.synchronize()
+                    if not torch.equal(odd, got[0]):
+                        raise AssertionError(f"multicorrelate K={K}: the "
+                                             f"taps from an odd start differ")
+                if order == 2:
+                    rate = torch.zeros(C, device=dev)
+                    o3 = mc.multicorrelate_cuda(xd, cd, shifts, *on_card[:4],
+                                                rate, on_card[5])
+                    torch.cuda.synchronize()
+                    if not torch.equal(o3, got):
+                        raise AssertionError(
+                            f"multicorrelate K={K} C={C}: the order-3 "
+                            f"instance at a zero rate is not order 2's")
+                    r["order3_at_zero_rate_equal"] = True
+                rows.append(r)
     return rows
 
 
@@ -3127,14 +3430,13 @@ def phase_cli_if(dev, cc, tc, scen, capture):
     return _cli_launches(cc, tc, rep, counter, "CLI IF")
 
 
-def _kernel_events(prof):
-    """The device-kernel events of a finished torch.profiler run."""
+def _trace_events(prof):
+    """Every event of a finished torch.profiler run."""
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         data = json.loads(path.read_text())
-    events = data["traceEvents"] if isinstance(data, dict) else data
-    return [e for e in events if e.get("cat") == "kernel"]
+    return data["traceEvents"] if isinstance(data, dict) else data
 
 
 @contextlib.contextmanager
@@ -3525,38 +3827,123 @@ def phase_cli_gather(gb, scen, capture):
     return rep
 
 
+# the controller as an external process runs it: tests/test_tcp_
+# connector.py's LoopClosureServer in a Python process of its own, its port
+# on the first line of its output; it ends when the tracker hangs up
+TCP_SERVER_PROCESS = (
+    "import sys; sys.path.insert(0, sys.argv[1]); "
+    "from gnss_sdr_1_tpu_torch.track.tcp_connector import "
+    "LoopClosureServer; "
+    "s = LoopClosureServer(pll_bw_hz=20.0, dll_bw_hz=2.0, "
+    "seed_doppler_hz=800.0); print(s.port, flush=True); s._thread.join()")
+
+
+@contextlib.contextmanager
+def _tcp_controller(external):
+    """The port of tests/test_tcp_connector.py's controller: a thread of
+    this process, or (`external`) a process of its own, stopped on exit."""
+    if not external:
+        from gnss_sdr_1_tpu_torch.track.tcp_connector import (
+            LoopClosureServer)
+
+        srv = LoopClosureServer(pll_bw_hz=20.0, dll_bw_hz=2.0,
+                                seed_doppler_hz=800.0)
+        try:
+            yield srv.port
+        finally:
+            srv.close()
+        return
+    proc = subprocess.Popen([sys.executable, "-c", TCP_SERVER_PROCESS,
+                             str(ROOT)], stdout=subprocess.PIPE, text=True)
+    try:
+        yield int(proc.stdout.readline())
+    finally:
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _tcp_run(x, fs, n_epochs, device=None, stamps=None, profiled=False,
+             external=False):
+    """tests/test_tcp_connector.py's tracker (PRN 3, the controller seeded
+    20 Hz off) over `x`, the controller a thread or (`external`) a process:
+    (rows, wall seconds, the trace events of the epochs where `profiled`:
+    the tracker is built outside the profiler, so its code upload is not
+    in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.track.tcp_connector import (
+        TcpConnectorTracking, TcpTrackConfig)
+
+    with _tcp_controller(external) as port:
+        trk = TcpConnectorTracking(
+            TcpTrackConfig(fs, 1023, 1.023e6, 1575.42e6), gps_l1ca_code(3),
+            "127.0.0.1", port, device=device)
+        try:
+            if device is None and trk.device.type != "cuda":
+                raise AssertionError("the TCP connector did not default to "
+                                     "the card")
+            trk.seed(257.3 / 1.023e6 * fs, 800.0)
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if profiled else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                rows = trk.track(x, n_epochs, stamps)
+                wall = time.perf_counter() - t0
+                if trk.device.type == "cuda":
+                    torch.cuda.synchronize()
+        finally:
+            trk.close()
+    return rows, wall, _trace_events(prof) if profiled else None
+
+
+def _epoch_split(stamps):
+    """Mean and p90 in ms of each part of an epoch of the TCP connector
+    from track()'s stamps (tcp_connector.EPOCH_STAMPS): the correlator
+    call on the host, the readback, the JSON write and flush, the wait for
+    the reply, the NCO (its epoch parameters and its stepping)."""
+    t = np.asarray(stamps, np.float64) * 1e3
+    parts = {"correlate": t[:, 2] - t[:, 1], "readback": t[:, 3] - t[:, 2],
+             "json_write": t[:, 4] - t[:, 3], "reply": t[:, 5] - t[:, 4],
+             "nco": (t[:, 1] - t[:, 0]) + (t[:, 6] - t[:, 5]),
+             "epoch": t[:, 6] - t[:, 0]}
+    return {k: {"mean_ms": float(v.mean()),
+                "p90_ms": float(np.percentile(v, 90))}
+            for k, v in parts.items()}
+
+
 def phase_tcp(dev, mc):
     """Phase 27: tests/test_tcp_connector.py's scenario (PRN 3 at 820 Hz,
     50 dB-Hz, 1.2 s at 2.046 Msps, the controller seeded 20 Hz off) with
     the tracker's correlation on the card: one multicorrelate_cuda launch
     per epoch, and that test's bars (>= 900 epochs, the tail Doppler within
-    3 Hz of the truth, the tail prompt above 0.7 of the head's)."""
+    3 Hz of the truth, the tail prompt above 0.7 of the head's); each
+    epoch's wall split by the tracker's stamps; the first TCP_CPU_EPOCHS
+    rows held to the same tracker on the CPU at
+    tests/test_torch_tcp_connector.py::test_rows_match_the_jax_tracker's
+    bars (the same starts, Doppler within 1e-2 Hz, prompts within 1e-4 of
+    their scale); TCP_PROFILE_EPOCHS epochs profiled, the capture already
+    on the card: the kernels and copies they make (the check that they
+    make no host-to-device copy and launch nothing but the multicorrelator
+    is the caller's); then the 1000 epochs again with the controller in a
+    process of its own, as an external loop runs (the same rows, launches
+    == epochs, the wall and its split: in this process the controller's
+    thread shares the interpreter lock with the tracker)."""
     from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
     from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
     from gnss_sdr_1_tpu_torch.siggen import SatParams, generate_baseband
-    from gnss_sdr_1_tpu_torch.track.tcp_connector import (
-        LoopClosureServer, TcpConnectorTracking, TcpTrackConfig)
 
-    fs, true_dop = 2.046e6, 820.0
+    fs, true_dop = TCP_FS, 820.0
     x = generate_baseband(
         GPS_L1_CA, [SatParams(prn=3, doppler_hz=true_dop, delay_chips=257.3,
                               cn0_dbhz=50.0)],
         {3: gps_l1ca_code(3)}, fs, 1.2, noise=True, seed=2)
-    srv = LoopClosureServer(pll_bw_hz=20.0, dll_bw_hz=2.0,
-                            seed_doppler_hz=800.0)
-    trk = TcpConnectorTracking(TcpTrackConfig(fs, 1023, 1.023e6, 1575.42e6),
-                               gps_l1ca_code(3), "127.0.0.1", srv.port)
-    if trk.device.type != "cuda":
-        raise AssertionError("the TCP connector did not default to the card")
-    trk.seed(257.3 / 1.023e6 * fs, 800.0)
+    stamps = []
     mc.launches = 0
-    try:
-        t0 = time.perf_counter()
-        rows = trk.track(x, 1000)
-        wall = time.perf_counter() - t0
-    finally:
-        trk.close()
-        srv.close()
+    rows, wall, _ = _tcp_run(x, fs, 1000, stamps=stamps)
     launches = mc.launches
     tail = np.array([r["doppler_hz"] for r in rows[-100:]])
     p_tail = np.array([abs(r["prompt"]) for r in rows[-100:]])
@@ -3568,10 +3955,48 @@ def phase_tcp(dev, mc):
                              f"{launches} launches, tail Doppler "
                              f"{tail.mean():.2f} Hz, prompt tail/head "
                              f"{p_tail.mean() / p_head.mean():.3f}")
+    cpu, _, _ = _tcp_run(x, fs, TCP_CPU_EPOCHS, device="cpu")
+    card = rows[:TCP_CPU_EPOCHS]
+    pc = np.array([r["prompt"] for r in cpu])
+    pg = np.array([r["prompt"] for r in card])
+    dop = float(np.abs(np.subtract([r["doppler_hz"] for r in card],
+                                   [r["doppler_hz"] for r in cpu])).max())
+    prompt = float(np.abs(pg - pc).max())
+    scale = float(np.abs(pc).max())
+    if not (len(cpu) == len(card) == TCP_CPU_EPOCHS
+            and [r["start"] for r in card] == [r["start"] for r in cpu]
+            and dop <= 1e-2 and prompt <= 1e-4 * scale):
+        raise AssertionError(f"TCP connector: the card's rows part from the "
+                             f"CPU's (Doppler {dop:.2e} Hz, prompt "
+                             f"{prompt:.2e} of {scale:.3e})")
+    x_dev = torch.as_tensor(x, device=dev)
+    torch.cuda.synchronize()
+    for _ in range(3):         # the profiler loses events now and then
+        _, _, events = _tcp_run(x_dev, fs, TCP_PROFILE_EPOCHS, profiled=True)
+        if any(e.get("cat") == "kernel" and "multicorrelate_kernel" in
+               e["name"] for e in events):
+            break
+    ext_stamps = []
+    mc.launches = 0
+    ext, ext_wall, _ = _tcp_run(x, fs, 1000, stamps=ext_stamps, external=True)
+    if not (mc.launches == len(ext) == len(rows)
+            and [r["start"] for r in ext] == [r["start"] for r in rows]):
+        raise AssertionError(f"TCP connector, the controller in a process "
+                             f"of its own: {len(ext)} epochs, {mc.launches} "
+                             f"launches, the rows part from the thread's")
     return {"epochs": len(rows), "launches_multicorrelate": launches,
+            "external_ms_per_epoch": ext_wall / len(ext) * 1e3,
+            "external_split": _epoch_split(ext_stamps),
             "tail_doppler_err_hz": float(tail.mean() - true_dop),
             "prompt_tail_over_head": float(p_tail.mean() / p_head.mean()),
-            "wall_s": wall, "ms_per_epoch": wall / len(rows) * 1e3}
+            "wall_s": wall, "ms_per_epoch": wall / len(rows) * 1e3,
+            "split": _epoch_split(stamps),
+            "cpu_epochs": len(cpu), "cpu_doppler_diff_hz": dop,
+            "cpu_prompt_diff": prompt, "cpu_prompt_scale": scale,
+            "profile_epochs": TCP_PROFILE_EPOCHS,
+            "profile_kernels": _by_name(events, TCP_PROFILE_EPOCHS),
+            "profile_copies": _by_name(events, TCP_PROFILE_EPOCHS,
+                                       "gpu_memcpy")}
 
 
 # ---------------------------------------------------------------------------

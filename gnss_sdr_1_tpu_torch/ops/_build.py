@@ -18,7 +18,9 @@ gather DLL/PLL walk a third, `gather_block` (`gather_library()`:
 `loop_close.cuh` and the TCP connector's one-epoch multicorrelator,
 `multicorrelate.cuh`).  `kf_stage_library()` and `gather_stage_library()`
 build `kf_block.cu` and `gather_block.cu` once more with `-DKF_BLOCK_STAGES`
-and `-DGATHER_BLOCK_STAGES` (each kernel's stage clocks); nothing on the
+and `-DGATHER_BLOCK_STAGES` (each kernel's stage clocks), and
+`mc_stage_library()` builds `gather_block.cu` with `-DMC_STAGES` (the
+one-epoch multicorrelator's stage clocks and probes); nothing on the
 receiver's path loads them.  `build_all()` runs one nvcc per library and
 stage variant, all at once.
 
@@ -109,8 +111,10 @@ KF_LIBRARY = "kf_block"
 GATHER_LIBRARY = "gather_block"
 KF_STAGES = ("KF_BLOCK_STAGES",)
 GATHER_STAGES = ("GATHER_BLOCK_STAGES",)
+MC_STAGES = ("MC_STAGES",)
 # the stage-clock variants build_all() builds beside the libraries
-STAGE_VARIANTS = ((KF_LIBRARY, KF_STAGES), (GATHER_LIBRARY, GATHER_STAGES))
+STAGE_VARIANTS = ((KF_LIBRARY, KF_STAGES), (GATHER_LIBRARY, GATHER_STAGES),
+                  (GATHER_LIBRARY, MC_STAGES))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: pointers and the stream as c_void_p
 # (ctypes would cut a Python int to 32 bits), counts as c_int; each returns
@@ -143,8 +147,11 @@ _ENTRIES = {
         "gather_block_launch": [_P] * 14,
         # taps, dynamic shared memory
         "gather_block_max_cluster": [_I, _I],
-        # x, codes, step, rem, cp, cs, cr, n_valid, out, params, stream
-        "multicorrelate_launch": [_P] * 11,
+        # x, codes, out, stages, params (the per-channel arguments by
+        # value or by pointer), stream
+        "multicorrelate_launch": [_P] * 6,
+        # params, stream: an empty kernel in the multicorrelator's geometry
+        "multicorrelate_empty_launch": [_P] * 2,
     },
 }
 
@@ -195,3 +202,9 @@ def kf_stage_library() -> ctypes.CDLL:
 def gather_stage_library() -> ctypes.CDLL:
     """The gather walk's library built with the kernel's stage clocks."""
     return _load(GATHER_LIBRARY, GATHER_STAGES)
+
+
+def mc_stage_library() -> ctypes.CDLL:
+    """The gather walk's library built with the one-epoch multicorrelator's
+    stage clocks and probes."""
+    return _load(GATHER_LIBRARY, MC_STAGES)

@@ -33,6 +33,7 @@ import dataclasses
 import json
 import socket
 import threading
+import time
 
 import numpy as np
 import torch
@@ -41,6 +42,11 @@ from .. import resolve_device
 from ..ops.multicorrelator import correlate
 from .loop_filter import (fll_pll_apply, fll_pll_coefficients, fll_pll_init,
                           iir_apply, iir_coefficients, iir_init)
+
+
+# what each of track()'s per-epoch stamps marks
+EPOCH_STAMPS = ("start", "params", "correlate", "readback", "sent", "reply",
+                "stepped")
 
 
 @dataclasses.dataclass
@@ -80,17 +86,25 @@ class TcpConnectorTracking:
         self.rem_code_phase_samples = float(delay_samples) - self.start
         self.carrier_doppler_hz = float(doppler_hz)
 
-    def track(self, samples: np.ndarray, n_epochs: int):
-        """Track `n_epochs` code periods; returns per-epoch dict rows."""
+    def track(self, samples, n_epochs: int, stamps: list | None = None):
+        """Track `n_epochs` code periods of `samples` (complex, numpy or a
+        tensor; copied to the tracker's device once); returns per-epoch
+        dict rows.  `stamps`, where given, gets one tuple of
+        time.perf_counter() readings an epoch (EPOCH_STAMPS: its start, the
+        NCO's epoch parameters ready, the correlator call returned, the
+        taps read back, the JSON line written and flushed, the reply
+        parsed, the NCO stepped)."""
         cfg = self.cfg
         fs = cfg.fs_hz
         d = cfg.early_late_space_chips
-        shifts = torch.tensor([-d, 0.0, d], dtype=torch.float32)
-        x = torch.as_tensor(np.asarray(samples, dtype=np.complex64),
+        shifts = (-d, 0.0, d)
+        x = torch.as_tensor(samples, dtype=torch.complex64,
                             device=self.device)
         f32 = np.float32
+        clock = time.perf_counter
         out = []
         for _ in range(n_epochs):
+            t0 = clock()
             code_freq = cfg.chip_rate_chips_s * (
                 1.0 + self.carrier_doppler_hz / cfg.carrier_freq_hz) \
                 + self.code_freq_delta
@@ -102,10 +116,14 @@ class TcpConnectorTracking:
             step = code_freq / fs
             rem_chips = -self.rem_code_phase_samples * step
             carr_step = 2.0 * np.pi * self.carrier_doppler_hz / fs
-            z = correlate(x[self.start:self.start + n_len], self.code,
-                          shifts, float(f32(step)), float(f32(rem_chips)),
-                          float(f32(self.rem_carr_phase_rad)),
-                          float(f32(carr_step))).cpu().numpy()
+            t_par = clock()
+            taps = correlate(x[self.start:self.start + n_len], self.code,
+                             shifts, float(f32(step)), float(f32(rem_chips)),
+                             float(f32(self.rem_carr_phase_rad)),
+                             float(f32(carr_step)))
+            t_corr = clock()
+            z = taps.cpu().numpy()
+            t_read = clock()
             t_int = n_len / fs
             # ---- loop closure over TCP (the external process) ----
             self._rf.write(json.dumps({
@@ -113,10 +131,12 @@ class TcpConnectorTracking:
                 "corr": [[float(c.real), float(c.imag)] for c in z],
             }) + "\n")
             self._rf.flush()
+            t_sent = clock()
             reply = json.loads(self._rf.readline())
             self.carrier_doppler_hz = float(reply["carrier_doppler_hz"])
             self.code_freq_delta = float(
                 reply["code_freq_delta_chips_s"])
+            t_reply = clock()
             # ---- NCO stepping (A.6) ----
             self.rem_code_phase_samples = k_blk - n_len
             self.rem_carr_phase_rad = float(np.mod(
@@ -127,6 +147,9 @@ class TcpConnectorTracking:
             out.append({"epoch": self.epoch, "start": self.start,
                         "prompt": complex(z[1]),
                         "doppler_hz": self.carrier_doppler_hz})
+            if stamps is not None:
+                stamps.append((t0, t_par, t_corr, t_read, t_sent, t_reply,
+                               clock()))
         return out
 
     def close(self) -> None:

@@ -173,3 +173,52 @@ def test_checkpoint_resume_continues_run_full_size(tmp_path):
     d = np.linalg.norm(np.mean([s.rx_ecef_m for s in sols[-10:]], axis=0)
                        - np.mean([s.rx_ecef_m for s in sols3[-10:]], axis=0))
     assert d < 1.0, f"resumed vs uninterrupted final fix differs by {d:.2f} m"
+
+
+@pytest.mark.slow
+def test_resumed_fix_count_matches_jax(tmp_path):
+    """A resumed receiver's fixes against the JAX package's (its chunked
+    `mxu` path, as the port's default), on the verify recipe's capture
+    (six satellites, 24 s at 2.046 Msps), uninterrupted and checkpointed
+    at 12 s: the same fix counts and first-fix times in both packages, and
+    in both the resumed run's count differs from the uninterrupted one's.
+    The resume restarts `process()`'s segment grid at the split, so the
+    fourth ephemeris is first seen at another segment's end and the
+    512-point observables history then reaches back to another epoch
+    (ROADMAP.md §3, chip_smoke.py [30]'s 132 fixes against [5]'s 159)."""
+    from gnss_sdr_1_tpu.runtime import Receiver as JaxReceiver
+    from gnss_sdr_1_tpu.runtime import ReceiverConfig as JaxConfig
+
+    fs, dur, prns = 2.046e6, 24.0, (1, 2, 3, 4, 5, 6)
+    scen = build_scenario(RX, list(prns), t0_tow=345601.25, duration_s=dur,
+                          cn0_dbhz=47.0, subframe_cycle=(1, 2, 3))
+    x = cached_capture(
+        f"syspos_{fs:.0f}_{dur:.0f}",
+        lambda: generate_baseband(GPS_L1_CA, scen.sats,
+                                  {p: gps_l1ca_code(p) for p in prns}, fs,
+                                  dur, noise=True))
+    split = int(fs * 12.0)
+
+    def runs(make, resume):
+        full = make().process(x)
+        rx1 = make()
+        rx1.process(x[:split])
+        consumed = rx1._abs_base
+        ck = str(tmp_path / "receiver.ckpt")
+        rx1.checkpoint(ck)
+        resumed = resume(ck).process(x[consumed:])
+        return [(len(s), s[0].rx_time_tow_s) for s in (list(full),
+                                                        list(resumed))]
+
+    port = runs(lambda: Receiver(ReceiverConfig(fs_hz=fs, n_channels=6,
+                                                prn_search=prns),
+                                 device="cpu"),
+                lambda ck: Receiver.resume_from(ck, device="cpu"))
+    jax_ = runs(lambda: JaxReceiver(JaxConfig(fs_hz=fs, n_channels=6,
+                                              prn_search=prns,
+                                              correlator="mxu")),
+                JaxReceiver.resume_from)
+    for (n_t, t_t), (n_j, t_j) in zip(port, jax_):
+        assert n_t == n_j
+        assert abs(t_t - t_j) < 1e-3
+    assert port[0][0] != port[1][0]

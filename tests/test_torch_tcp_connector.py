@@ -32,12 +32,14 @@ def capture():
         {3: gps_l1ca_code(3)}, FS, 1.2, noise=True, seed=2)
 
 
-def _track(mod_trk, mod_srv, cfg_cls, x, n_epochs=1000, **kw):
+def _track(mod_trk, mod_srv, cfg_cls, x, n_epochs=1000, stamps=None, **kw):
     srv = mod_srv(pll_bw_hz=20.0, dll_bw_hz=2.0, seed_doppler_hz=800.0)
     trk = mod_trk(cfg_cls(FS, 1023, 1.023e6, 1575.42e6), gps_l1ca_code(3),
                   "127.0.0.1", srv.port, **kw)
     trk.seed(257.3 / 1.023e6 * FS, 800.0)
     try:
+        if stamps is not None:
+            return trk.track(x, n_epochs, stamps)
         return trk.track(x, n_epochs)
     finally:
         trk.close()
@@ -55,6 +57,25 @@ def test_tcp_connector_closes_the_loop_externally(capture):
     p_tail = np.array([abs(r["prompt"]) for r in rows[-100:]])
     p_head = np.array([abs(r["prompt"]) for r in rows[:50]])
     assert p_tail.mean() > 0.7 * p_head.mean()
+
+
+def test_epoch_stamps_split_every_epoch(capture):
+    """track() stamps each epoch's parts in order (tcp_connector.
+    EPOCH_STAMPS) and takes the capture as a tensor as well, with the same
+    rows."""
+    import torch
+
+    from gnss_sdr_1_tpu_torch.track.tcp_connector import EPOCH_STAMPS
+
+    stamps = []
+    rows = _track(TcpConnectorTracking, LoopClosureServer, TcpTrackConfig,
+                  capture, 40, device="cpu", stamps=stamps)
+    t = np.asarray(stamps)
+    assert t.shape == (40, len(EPOCH_STAMPS))
+    assert (np.diff(t, axis=1) >= 0).all() and (t[1:, 0] >= t[:-1, -1]).all()
+    again = _track(TcpConnectorTracking, LoopClosureServer, TcpTrackConfig,
+                   torch.as_tensor(capture), 40, device="cpu")
+    assert again == rows
 
 
 def test_tracker_needs_a_card_unless_asked_for_the_cpu():
