@@ -231,9 +231,31 @@ Phases (one line each, with times):
  30. phase 5's receiver over the first 12 s of phase 5's capture,
      checkpoint, resume_from on the card (and on the CPU: the same tracking
      state), the rest of the capture: >= 30 fixes, the mean of the last 10
-     within 1 m of phase 5's.
+     within 1 m of phase 5's;
+ 31. A-GNSS: phase 5's scenario made at 2.046 Msps and written as ishort,
+     conf/gps_l1_supl_assisted.conf (12 channels) through the CLI with
+     --supl from a SuplServer on 127.0.0.1 (the scenario's ephemerides, a
+     reference location 1 km off, the capture's TOW), cold, and with
+     --assist on a save_assistance JSON: the assisted runs assign the cold
+     run's satellites, each acquisition Doppler within a Doppler step of
+     the cold run's, fixes no fewer than the cold run's less 2 %, median
+     3D error < 5 m; both programs' Doppler bins and ms a call on the same
+     samples; then a hot start (Receiver.load_ephemerides of the cold
+     run's brdc.rnx read back by read_rinex_nav) that fixes first;
+ 32. conf/gps_l1_ishort.conf with PVT.positioning_mode=PPP_Static on
+     phase 6's file to 25 s (--max_s; ~610 epochs of observables), with
+     broadcast orbits and with PVT.sp3_file (an SP3
+     of the scenario's orbits, sp3_from_broadcast and write_sp3): a valid
+     PPP line each, solve_ppp_batch's wall, epochs, arcs, sigma0 and the
+     3D error;
+ 33. a base 500 m from the rover under the same orbits (30 s at
+     4.092 Msps, made on the card) through the CLI, whose
+     observables.rtcm (MT1005 + MSM7) feeds the rover's CLI on phase 6's
+     file to 25 s with --base_obs, PVT.positioning_mode=DGNSS (the batch
+     solver) and Kinematic (the EKF): a valid baseline each, its length against
+     the truth, fixed or float, the ratio and the wall.
 Then one JSON line describing every kernel (the chunked kernels'
-launches summed over phases 5-7, 10-21 and 28-30, the KF kernel's over
+launches summed over phases 5-7, 10-21 and 28-33, the KF kernel's over
 phases 8 and 22, the gather walk's over 23-26 and 28, the multicorrelator's
 over 27, each read just after its run), the nvidia-smi line, and
 last
@@ -482,6 +504,31 @@ MC_REPEATS = 20
 TCP_FS = 2.046e6
 TCP_CPU_EPOCHS = 300
 TCP_PROFILE_EPOCHS = 50
+# phase 31: phase 5's scenario at conf/gps_l1_supl_assisted.conf's rate on
+# one channel a satellite (the conf's 8 would leave 4 of the 12 to the
+# order of each grid's statistics), the assistance's reference location
+# 1 km east of the truth, the fixes the assisted runs may lose against the
+# cold run's, and the acquisition calls timed on each grid
+FS_AGNSS = 2.046e6
+AGNSS_CHANNELS = 12
+AGNSS_REF_OFFSET_M = 1000.0
+AGNSS_FIX_SHARE = 0.02
+AGNSS_ACQ_CALLS = 20
+MIN_FIXES_AGNSS = MIN_FIXES
+# phases 32-33: the rover's CLI runs stop PPP_RTK_S into phase 6's file.
+# Its ephemerides are complete ~23 s in, and the first solve then reaches
+# back over ~10 s of observables history, so 25 s give ~610 epochs of
+# observables at 50 Hz where 30 s give ~860: the batch PPP took 12.0-13.4 s
+# a run on the host over 860 and 5.3-7.1 s over 609 beside an NVIDIA H100
+# 80GB HBM3 at 700.00 W, the two baselines ~10 s together over 860.
+# Their fix bar: ~110-120 fixes at 10 Hz from ~13 s, halved.  The base
+# 400 m east and 300 m north of the rover (500 m), on noise of its own,
+# the whole 30 s
+PPP_RTK_S = 25.0
+MIN_FIXES_PPP_RTK = 60
+RTK_BASE_EAST_M = 400.0
+RTK_BASE_NORTH_M = 300.0
+RTK_BASE_SEED = 99
 
 
 def log(msg: str) -> None:
@@ -1134,6 +1181,71 @@ def main() -> None:
         f"{c30['launches_track_chain']} == chunks {c30['chunks']} | "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- 31. A-GNSS: SUPL, --assist and the hot start ----
+    t0 = time.perf_counter()
+    a31 = phase_agnss(dev, cc, tc)
+    g31 = a31["grids"]
+    for name, how in (("supl", "--supl"), ("cold", "cold"),
+                      ("assist", "--assist")):
+        r = a31[name]
+        log(f"[31] CLI, conf/gps_l1_supl_assisted.conf at "
+            f"{FS_AGNSS / 1e6:g} Msps, {AGNSS_CHANNELS} channels, {how}: "
+            f"{r['summary']}, predicted visible "
+            f"{'-' if r['visible'] is None else r['visible']}, "
+            f"{len(r['acq'])} satellites assigned, first fix "
+            f"{r['first_fix_s']:.2f} s"
+            + (f", acquisition Doppler within {r['max_doppler_off_hz']:g} Hz "
+               f"of the cold run's" if name != "cold" else ""))
+    log(f"[31] acquisition grids on the same samples, ms a call over "
+        f"{AGNSS_ACQ_CALLS} calls (CUDA events, uploads and readback "
+        f"included; the kernels' device time from the profiler): "
+        + "; ".join(f"{k} {g['bins']} Doppler bins x {g['prns']} PRNs, "
+                    f"F={g['fft_size']}, {g['ms_per_call']:.4f} ms, device "
+                    f"{g['device_ms_per_call']:.4f} ms"
+                    for k, g in g31.items()))
+    h31 = a31["hot"]
+    log(f"[31] hot start from the cold run's brdc.rnx "
+        f"({h31['ephemerides']} ephemerides, Receiver.load_ephemerides): "
+        f"fixes {h31['fixes']}, median 3D error {h31['median_3d_m']:.2f} m, "
+        f"first fix {h31['first_fix_s']:.2f} s (cold "
+        f"{a31['cold']['first_fix_s']:.2f} s), RTF {h31['rtf']:.2f}, "
+        f"launches chunk_corr {h31['launches_chunk_corr']} track_chain "
+        f"{h31['launches_track_chain']} == chunks {h31['chunks']} | "
+        f"{time.perf_counter() - t0:.1f} s (capture made in "
+        f"{a31['gen_s']:.2f} s, written in {a31['write_s']:.1f} s)")
+
+    # ---- 32. PPP on the card's observables ----
+    t0 = time.perf_counter()
+    p32 = phase_ppp(cc, tc, scen, files[0])
+    for name, r in p32.items():
+        log(f"[32] CLI, conf/gps_l1_ishort.conf, PPP_Static, {name} "
+            f"orbits, on phase 6's file to {PPP_RTK_S:g} s: {r['summary']}; "
+            f"solve_ppp_batch "
+            f"{r['ppp_wall_s']:.3f} s, {r['epochs']} epochs, {r['arcs']} "
+            f"arcs, sigma0 {r['sigma0_m']:.3f} m, ztd_wet "
+            f"{r['ztd_wet_m']:.3f} m, 3D error {r['err_3d_m']:.3f} m")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+
+    # ---- 33. RTK through --base_obs ----
+    t0 = time.perf_counter()
+    r33 = phase_rtk(dev, cc, tc, scen, files[0])
+    log(f"[33] base CLI, {r33['truth_m']:.1f} m from the rover, 12 sats x "
+        f"{E2E_S:g} s at {FS / 1e6:g} Msps: {r33['base']['summary']}; "
+        f"{r33['base_epochs']} MSM epochs, its MT1005 position "
+        f"{r33['base_ecef_err_m']:.2f} m from the truth")
+    for mode in ("DGNSS", "Kinematic"):
+        r = r33[mode]
+        log(f"[33] rover CLI, PVT.positioning_mode={mode}, --base_obs, "
+            f"phase 6's file to {PPP_RTK_S:g} s: "
+            f"{r['summary']}; {'fixed' if r['fixed'] else 'float'}, ratio "
+            f"{r['ratio']:.2f}, {r['epochs']} epochs, baseline "
+            f"{r['baseline_m']:.3f} m ({r['baseline_err_m']:+.3f} m against "
+            f"the truth), rover {r['rover_err_3d_m']:.3f} m from its truth, "
+            f"{'solve_baseline' if mode == 'DGNSS' else 'solve_baseline_ekf'}"
+            f" {r['rtk_wall_s']:.3f} s")
+    log(f"    | {time.perf_counter() - t0:.1f} s (base capture made in "
+        f"{r33['gen_s']:.2f} s)")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
@@ -1142,7 +1254,9 @@ def main() -> None:
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
              *bds.values(), *cli20.values(), s28["ishort"],
-             s28["2bits_cpx"], r29, c30)
+             s28["2bits_cpx"], r29, c30, a31["supl"], a31["cold"],
+             a31["assist"], a31["hot"], *p32.values(), r33["base"],
+             r33["DGNSS"], r33["Kinematic"])
     src = "gnss_sdr_1_tpu_torch/csrc/"
     shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
@@ -1258,6 +1372,7 @@ def main() -> None:
               "multicorrelate": mc_rows, "gather_e2e": g23,
               "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
               "stream": s28, "rtl_tcp": r29, "checkpoint": c30,
+              "agnss": a31, "ppp": p32, "rtk": r33,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -3796,25 +3911,11 @@ def phase_gather_system(dev, gb, name):
 
 def phase_cli_gather(gb, scen, capture):
     """Phase 26: conf/gps_l1_ishort.conf with Tracking_1C.correlator=gather
-    added, over phase 6's capture: the conf's Direct_Resampler set to the
-    capture's 4.092 Msps in and 2.046 Msps out, 12 channels, the rest as
-    written (PVT every 20 ms), through the CLI on the card at phase 6's
-    bars."""
-    items = {}
-    for ln in (ROOT / "conf" / "gps_l1_ishort.conf").read_text().splitlines():
-        ln = ln.split(";")[0].strip()
-        if "=" in ln and not ln.startswith("["):
-            k, v = ln.split("=", 1)
-            items[k.strip()] = v.strip()
-    items.update({
-        "SignalSource.filename": str(capture),
-        "SignalSource.sampling_frequency": f"{FS:.0f}",
-        "Resampler.sample_freq_in": f"{FS:.0f}",
-        "Resampler.sample_freq_out": f"{FS / 2:.0f}",
-        "GNSS-SDR.internal_fs_sps": f"{FS / 2:.0f}",
-        "Channels_1C.count": "12", "Tracking_1C.correlator": "gather"})
-    path = CACHE / "cli_gather.conf"
-    path.write_text("".join(f"{k}={v}\n" for k, v in items.items()))
+    added, over phase 6's capture (_ishort_conf: 4.092 Msps resampled to
+    2.046 Msps, 12 channels, the rest as written, PVT every 20 ms), through
+    the CLI on the card at phase 6's bars."""
+    path = _ishort_conf("cli_gather.conf", capture,
+                        Tracking_1C__correlator="gather")
     with _gather_counting(gb) as c:
         rep = _run_cli(["-c", str(path)], scen, CACHE / "cli_gather",
                        MIN_FIXES, "CLI gather")
@@ -4787,7 +4888,8 @@ def _cells():
                                                 GLONASS_L1_CA, GPS_L1_CA,
                                                 GPS_L2C)
     from gnss_sdr_1_tpu_torch.pvt.geodesy import llh_to_ecef
-    from gnss_sdr_1_tpu_torch.siggen.scenario import build_scenario
+    from gnss_sdr_1_tpu_torch.siggen.scenario import (_auto_place,
+                                                      build_scenario)
 
     rx = llh_to_ecef(np.radians(41.275), np.radians(1.988), 80.0)
     rx_glo = llh_to_ecef(np.radians(55.75), np.radians(37.62), 180.0)
@@ -4857,6 +4959,17 @@ def _cells():
         FS_SYS, SYS_E1_S)
     scen, spec, codes = _bds_scenario("B1", SYS_B1_PRNS, SYS_B1_S)
     cells["sys B1"] = (scen, spec, scen.sats, codes, FS_SYS, SYS_B1_S)
+    # phases 31 and 33: phase 5's scenario at 2.046 Msps, and a base
+    # receiver 500 m away under the same orbits (the rover's placement)
+    cells["agnss"] = cell(gps(range(1, 13), E2E_S), GPS_L1_CA, "1C",
+                          FS_AGNSS, E2E_S)
+    toe = np.floor(t0 / 7200.0) * 7200.0
+    raans, anoms = _auto_place(rx, list(range(1, 13)), toe, t0)
+    cells["base"] = cell(build_scenario(
+        _offset_from(rx, RTK_BASE_EAST_M, RTK_BASE_NORTH_M),
+        list(range(1, 13)), t0_tow=t0, duration_s=E2E_S, cn0_dbhz=47.0,
+        subframe_cycle=(1, 2, 3), raans=raans, anomalies=anoms),
+        GPS_L1_CA, "1C", FS, E2E_S)
     return cells
 
 
@@ -5566,6 +5679,314 @@ def phase_cli_multi(dev, cc, tc, x_mix):
             + (" (no median bar)" if max_med is None else "")
             + f" | capture {gen_s:.2f} s + file {write_s - gen_s:.1f} s")
     path.unlink(missing_ok=True)
+    return reps
+
+
+# ---------------------------------------------------------------------------
+# phases 31-33: A-GNSS, PPP and RTK
+# ---------------------------------------------------------------------------
+
+
+def _write_ishort(x, path):
+    """A capture as interleaved int16 I/Q at ISHORT_SCALE, in slices."""
+    step = 1 << 22
+    with open(path, "wb") as f:
+        for a in range(0, len(x), step):
+            y = x[a:a + step]
+            iq = np.empty(2 * len(y), dtype=np.int16)
+            iq[0::2] = np.clip(np.round(y.real * ISHORT_SCALE), -32767, 32767)
+            iq[1::2] = np.clip(np.round(y.imag * ISHORT_SCALE), -32767, 32767)
+            iq.tofile(f)
+    return path
+
+
+def _offset_from(ecef, east_m, north_m):
+    """`ecef` moved east_m east and north_m north on the local tangent
+    plane."""
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import ecef_to_llh
+
+    lat, lon, _ = ecef_to_llh(ecef)
+    east = np.array([-np.sin(lon), np.cos(lon), 0.0])
+    north = np.array([-np.sin(lat) * np.cos(lon), -np.sin(lat) * np.sin(lon),
+                      np.cos(lat)])
+    return np.asarray(ecef, np.float64) + east_m * east + north_m * north
+
+
+def _first_fix_s(rx, scen):
+    return (rx.solutions[0].rx_time_tow_s - scen.t0_tow
+            if rx.solutions else float("nan"))
+
+
+def _agnss_cli(cc, tc, scen, argv, out, what, assisted):
+    """One run of conf/gps_l1_supl_assisted.conf through the CLI on the
+    card, counted; its Receiver, and the visible count it printed."""
+    rxs = []
+    with _counting(cc, tc) as counter:
+        rep = _run_cli(argv, scen, out, MIN_FIXES_AGNSS, what,
+                       receivers=rxs)
+    rep = _cli_launches(cc, tc, rep, counter, what)
+    (rx,) = rxs
+    vis = [ln for ln in rep["lines"] if "satellites predicted visible" in ln]
+    if assisted and (len(vis) != 1 or rx._assist_acq is None):
+        raise AssertionError(f"{what}: no assisted program ({vis})")
+    rep.update(rx=rx, first_fix_s=_first_fix_s(rx, scen),
+               visible=(int(vis[0].split(": ")[1].split()[0]) if vis
+                        else None),
+               acq={p: list(v) for p, v in rx._acq_info.items()})
+    return rep
+
+
+def _acq_ms(acq, head, n=AGNSS_ACQ_CALLS):
+    """ms a call of acq.acquire on the head of the capture: from CUDA events
+    around n calls (each call's uploads and readback included), and the
+    sum of its kernels' device time from a profiler trace of n calls."""
+    def call():
+        return acq.acquire(head)
+
+    return _time_cuda(call, n), _device_ms(call, n)
+
+
+def phase_agnss(dev, cc, tc):
+    """Phase 31: conf/gps_l1_supl_assisted.conf over phase 5's scenario made
+    at the conf's 2.046 Msps: with --supl from a SuplServer on 127.0.0.1, cold,
+    and with --assist; then a hot start from the cold run's brdc.rnx."""
+    from gnss_sdr_1_tpu_torch.pvt.geodesy import ecef_to_llh
+    from gnss_sdr_1_tpu_torch.pvt.rinex_reader import read_rinex_nav
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+    from gnss_sdr_1_tpu_torch.runtime.assistance import save_assistance
+    from gnss_sdr_1_tpu_torch.runtime.config import (FileConfiguration,
+                                                     to_receiver_config)
+    from gnss_sdr_1_tpu_torch.runtime.supl import SuplAssist, SuplServer
+
+    scen = _cells()["agnss"][0]
+    x, gen_s = card_capture(dev, ["agnss"], 1234)
+    t0 = time.perf_counter()
+    path = _write_ishort(x, CACHE / f"agnss_{FS_AGNSS:.0f}.ishort")
+    write_s = time.perf_counter() - t0
+    conf = ROOT / "conf" / "gps_l1_supl_assisted.conf"
+    lat, lon, h = ecef_to_llh(_offset_from(scen.rx_ecef, AGNSS_REF_OFFSET_M,
+                                           0.0))
+    ref_llh = (float(np.degrees(lat)), float(np.degrees(lon)), float(h))
+    week = next(iter(scen.ephemerides.values())).week
+    argv = ["-c", str(conf), "--signal_file", str(path), "--channels",
+            str(AGNSS_CHANNELS)]
+    srv = SuplServer(SuplAssist(
+        ref_time_week=week, ref_time_tow_s=scen.t0_tow,
+        ref_lat_deg=ref_llh[0], ref_lon_deg=ref_llh[1], ref_alt_m=ref_llh[2],
+        has_ref_location=True, ephemerides=dict(scen.ephemerides)),
+        host="127.0.0.1", port=0)
+    try:
+        supl = _agnss_cli(cc, tc, scen, argv + [
+            "--supl", f"127.0.0.1:{srv.port}"], CACHE / "agnss_supl",
+            "A-GNSS SUPL", True)
+    finally:
+        srv.close()
+    cold = _agnss_cli(cc, tc, scen, argv, CACHE / "agnss_cold", "A-GNSS cold",
+                      False)
+    jpath = CACHE / "agnss.json"
+    save_assistance(str(jpath), scen.ephemerides, ref_llh=ref_llh,
+                    ref_tow_s=scen.t0_tow)
+    assist = _agnss_cli(cc, tc, scen, argv + ["--assist", str(jpath)],
+                        CACHE / "agnss_assist", "A-GNSS --assist", True)
+    step = supl["rx"].cfg.doppler_step_hz
+    for name, run in (("SUPL", supl), ("--assist", assist)):
+        if set(run["acq"]) != set(cold["acq"]):
+            raise AssertionError(f"A-GNSS {name}: assigned "
+                                 f"{sorted(run['acq'])}, cold "
+                                 f"{sorted(cold['acq'])}")
+        off = {p: abs(run["acq"][p][1] - cold["acq"][p][1])
+               for p in cold["acq"]}
+        if max(off.values()) > step:
+            raise AssertionError(f"A-GNSS {name}: acquisition Doppler off "
+                                 f"the cold run's by {off} Hz")
+        run["max_doppler_off_hz"] = max(off.values())
+        if run["fixes"] < (1.0 - AGNSS_FIX_SHARE) * cold["fixes"]:
+            raise AssertionError(f"A-GNSS {name}: {run['fixes']} fixes, cold "
+                                 f"{cold['fixes']}")
+    # both programs on the same samples, timed on the card
+    rx = supl["rx"]
+    head = x[:rx.acq.cfg.fft_size * max(1, rx.cfg.acq_dwells)]
+    grids = {"cold": (rx.acq, _acq_ms(rx.acq, head)),
+             "assisted": (rx._assist_acq, _acq_ms(rx._assist_acq, head))}
+    # the hot start: the cold run's broadcast ephemerides from its RINEX nav
+    ephs = read_rinex_nav(str(CACHE / "agnss_cold" / "brdc.rnx"))
+    rcfg = to_receiver_config(FileConfiguration(str(conf)))
+    hot = Receiver(type(rcfg)(**{**rcfg.__dict__,
+                                 "n_channels": AGNSS_CHANNELS}), device=dev)
+    hot.load_ephemerides(ephs)
+    hot.preload(x)
+    with _counting(cc, tc) as counter:
+        t0 = time.perf_counter()
+        sols = hot.process(x)
+        wall = time.perf_counter() - t0
+    _check_launches(cc, tc, counter["chunks"], "A-GNSS hot start")
+    hot_rep = {**_errors_3d([s.rx_ecef_m for s in sols], scen,
+                            "A-GNSS hot start", MIN_FIXES_AGNSS),
+               "first_fix_s": _first_fix_s(hot, scen), "rtf": E2E_S / wall,
+               "wall_s": wall, "ephemerides": len(ephs),
+               "launches_chunk_corr": cc.launches,
+               "launches_track_chain": tc.launches,
+               "chunks": counter["chunks"]}
+    if not hot_rep["first_fix_s"] < cold["first_fix_s"]:
+        raise AssertionError(f"A-GNSS hot start: first fix at "
+                             f"{hot_rep['first_fix_s']:.2f} s, cold "
+                             f"{cold['first_fix_s']:.2f} s")
+    for run in (supl, cold, assist):
+        del run["rx"]
+    del x
+    return {"supl": supl, "cold": cold, "assist": assist, "hot": hot_rep,
+            "grids": {k: {"bins": a.cfg.num_doppler_bins,
+                          "prns": len(a.prns), "fft_size": a.cfg.fft_size,
+                          "ms_per_call": ms, "device_ms_per_call": dev_ms}
+                      for k, (a, (ms, dev_ms)) in grids.items()},
+            "gen_s": gen_s, "write_s": write_s}
+
+
+def _ishort_conf(name, capture, **extra):
+    """conf/gps_l1_ishort.conf over phase 6's capture: its Direct_Resampler
+    set to the capture's 4.092 Msps in and 2.046 Msps out, 12 channels, the
+    rest as written; `extra` adds or overrides keys (dots written as
+    '__')."""
+    items = {}
+    for ln in (ROOT / "conf" / "gps_l1_ishort.conf").read_text().splitlines():
+        ln = ln.split(";")[0].strip()
+        if "=" in ln and not ln.startswith("["):
+            k, v = ln.split("=", 1)
+            items[k.strip()] = v.strip()
+    items.update({
+        "SignalSource.filename": str(capture),
+        "SignalSource.sampling_frequency": f"{FS:.0f}",
+        "Resampler.sample_freq_in": f"{FS:.0f}",
+        "Resampler.sample_freq_out": f"{FS / 2:.0f}",
+        "GNSS-SDR.internal_fs_sps": f"{FS / 2:.0f}",
+        "Channels_1C.count": "12"})
+    items.update({k.replace("__", "."): str(v) for k, v in extra.items()})
+    path = CACHE / name
+    path.write_text("".join(f"{k}={v}\n" for k, v in items.items()))
+    return path
+
+
+@contextlib.contextmanager
+def _recorded(owner, name, calls):
+    """Wrap owner.name so that each call appends (result, wall seconds) to
+    `calls`."""
+    fn = getattr(owner, name)
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        calls.append((out, time.perf_counter() - t))
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def phase_ppp(cc, tc, scen, capture):
+    """Phase 32: conf/gps_l1_ishort.conf with PVT.positioning_mode=
+    PPP_Static on the first PPP_RTK_S of phase 6's file, with broadcast
+    orbits and with an SP3 made from the scenario's ephemerides
+    (sp3_from_broadcast, write_sp3)."""
+    from gnss_sdr_1_tpu_torch.pvt.precise import sp3_from_broadcast, write_sp3
+    from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver
+
+    sp3 = CACHE / "ppp.sp3"
+    write_sp3(sp3, sp3_from_broadcast(
+        scen.ephemerides, scen.t0_tow - 900.0, scen.t0_tow + E2E_S + 900.0,
+        step_s=300.0, week=next(iter(scen.ephemerides.values())).week))
+    reps = {}
+    for name, extra in (("broadcast", {}), ("sp3", {"PVT__sp3_file": sp3})):
+        what = f"PPP {name}"
+        conf = _ishort_conf(f"ppp_{name}.conf", capture,
+                            PVT__positioning_mode="PPP_Static", **extra)
+        with _counting(cc, tc) as counter, \
+                _recorded(Receiver, "solve_ppp_batch", []) as calls:
+            rep = _run_cli(["-c", str(conf), "--max_s", f"{PPP_RTK_S:g}"],
+                           scen, CACHE / f"ppp_{name}", MIN_FIXES_PPP_RTK,
+                           what)
+        rep = _cli_launches(cc, tc, rep, counter, what)
+        (sol, wall), = calls
+        line = [ln for ln in rep["lines"] if ln.startswith("PPP (")]
+        if not sol.valid or len(line) != 1:
+            raise AssertionError(f"{what}: no valid PPP solution ({line})")
+        rep.update(ppp_wall_s=wall, epochs=sol.n_epochs, arcs=sol.n_arcs,
+                   sigma0_m=sol.sigma0_m, ztd_wet_m=sol.ztd_wet_m,
+                   err_3d_m=float(np.linalg.norm(sol.rx_ecef_m
+                                                 - scen.rx_ecef)),
+                   ppp_line=line[0])
+        reps[name] = rep
+    return reps
+
+
+def phase_rtk(dev, cc, tc, scen, capture):
+    """Phase 33: a base 500 m from the rover over the same satellites (30 s
+    at 4.092 Msps, made on the card) through the CLI, which writes its
+    observables.rtcm; then the rover's CLI on the first PPP_RTK_S of phase
+    6's file with --base_obs on it, PVT.positioning_mode=DGNSS (the batch
+    solver) and Kinematic (the EKF)."""
+    from gnss_sdr_1_tpu_torch.pvt import rtk, rtk_ekf
+    from gnss_sdr_1_tpu_torch.pvt.rtcm import read_base_observables
+
+    base_scen = _cells()["base"][0]
+    if base_scen.ephemerides != scen.ephemerides:
+        raise AssertionError("RTK: the base's ephemerides are not the "
+                             "rover's")
+    truth_m = float(np.linalg.norm(base_scen.rx_ecef - scen.rx_ecef))
+    xb, gen_s = card_capture(dev, ["base"], RTK_BASE_SEED)
+    base_path = _write_ishort(xb, CACHE / "rtk_base.ishort")
+    del xb
+    what = "RTK base"
+    with _counting(cc, tc) as counter:
+        base = _run_cli(["--signal_file", str(base_path), "--item_type",
+                         "ishort", "--fs", f"{FS:.0f}", "--channels", "12"],
+                        base_scen, CACHE / "rtk_base", MIN_FIXES, what)
+    base = _cli_launches(cc, tc, base, counter, what)
+    base_path.unlink(missing_ok=True)
+    rtcm = CACHE / "rtk_base" / "observables.rtcm"
+    base_ecef, base_epochs = read_base_observables(rtcm.read_bytes())
+    reps = {"base": base}
+    for mode, owner, fn in (("DGNSS", rtk, "solve_baseline"),
+                            ("Kinematic", rtk_ekf, "solve_baseline_ekf")):
+        what = f"RTK {mode}"
+        conf = _write_conf(f"rtk_{mode}.conf", capture,
+                           "GPS_L1_CA_DLL_PLL_Tracking",
+                           PVT__positioning_mode=mode)
+        with _counting(cc, tc) as counter, \
+                _recorded(owner, fn, []) as calls:
+            rep = _run_cli(["-c", str(conf), "--base_obs", str(rtcm),
+                            "--max_s", f"{PPP_RTK_S:g}"], scen,
+                           CACHE / f"rtk_{mode}", MIN_FIXES_PPP_RTK, what)
+        rep = _cli_launches(cc, tc, rep, counter, what)
+        (sol, wall), = calls
+        if mode == "DGNSS":
+            valid, fixed, ratio = sol.valid, sol.fixed, sol.ratio
+            pos = sol.rover_ecef_m
+            n_ep = sol.n_epochs
+        else:
+            valid = bool(sol)
+            last = sol[-1] if sol else None
+            fixed = bool(last and last.fixed)
+            ratio = last.ratio if last else float("nan")
+            pos = (last.rover_fixed_ecef_m if fixed
+                   else last.rover_float_ecef_m) if last else None
+            n_ep = len(sol)
+        line = [ln for ln in rep["lines"] if ln.startswith("RTK ")]
+        if not valid or len(line) != 1:
+            raise AssertionError(f"{what}: no valid baseline ({line})")
+        length = float(np.linalg.norm(pos - base_ecef))
+        rep.update(valid=valid, fixed=fixed, ratio=float(ratio),
+                   epochs=n_ep, rtk_wall_s=wall, baseline_m=length,
+                   baseline_err_m=length - truth_m,
+                   rover_err_3d_m=float(np.linalg.norm(pos - scen.rx_ecef)),
+                   rtk_line=line[0])
+        reps[mode] = rep
+    reps.update(truth_m=truth_m, base_epochs=len(base_epochs),
+                base_ecef_err_m=float(np.linalg.norm(
+                    base_ecef - base_scen.rx_ecef)), gen_s=gen_s)
     return reps
 
 

@@ -46,14 +46,12 @@ class PvtSolution:
 
 
 def sat_pos_vel(eph, t: float) -> tuple[np.ndarray, np.ndarray]:
-    """Ephemeris-type dispatch: Keplerian broadcast (GPS, BeiDou on
-    CGCS2000 constants, and Galileo through telemetry.inav.to_keplerian)
-    vs GLONASS state-vector + RK4
-    (rtklib ephpos geph branch, rtklib_ephemeris.cc geph2pos).  Precise
-    products are not ported yet."""
+    """Ephemeris-type dispatch: precise products (SP3, pvt.precise) vs
+    Keplerian broadcast (GPS/Galileo/BeiDou) vs GLONASS state-vector + RK4
+    (rtklib ephpos geph/peph branches, rtklib_ephemeris.cc geph2pos /
+    rtklib_preceph.cc peph2pos)."""
     if hasattr(eph, "position_velocity"):
-        raise NotImplementedError(
-            "precise ephemerides are not ported yet")
+        return eph.position_velocity(t)
     if hasattr(eph, "tb_s"):
         from .glonass_orbits import glonass_satpos
 
@@ -63,8 +61,7 @@ def sat_pos_vel(eph, t: float) -> tuple[np.ndarray, np.ndarray]:
 
 def sat_clock(eph, t: float) -> float:
     if hasattr(eph, "clock"):
-        raise NotImplementedError(
-            "precise ephemerides are not ported yet")
+        return eph.clock(t)
     if hasattr(eph, "tb_s"):
         from .glonass_orbits import glonass_clock_correction
 

@@ -11,18 +11,21 @@ signal_conditioner.cc + factory wiring gnss_block_factory.cc:234-252).
 
 This port carries GPS L1 C/A ('1C'), L2CM ('2S') and L5 ('L5'), Galileo
 E1B ('1B') and E5a ('5X'), GLONASS L1/L2 C/A ('1G'/'2G') and BeiDou
-B1I/B3I ('B1'/'B3') channel groups with PCPS, Tong, QuickSync, CCCWSR,
-fine-Doppler, 8 ms or (on E5a) CAF acquisition, DLL/PLL (VEML on E1B;
+B1I/B3I ('B1'/'B3') channel groups with PCPS, Tong, assisted PCPS,
+QuickSync, CCCWSR, fine-Doppler, 8 ms or (on E5a) CAF acquisition,
+DLL/PLL (VEML on E1B;
 `Tracking_XX.correlator` picks the chunked or the gather correlator) or
 KF tracking (the receiver builds it on every signal; the conf key
 GPS_L1_CA_KF_Tracking names it on GPS L1 C/A only, as in the JAX
-package), single-point PVT and the monitor taps (GNSS-SDR.enable_monitor,
-Monitor.*, PVT.enable_monitor); a conf with several groups maps to one ReceiverConfig
-per group (`to_receiver_configs`, run by runtime.multi_receiver).
-`to_receiver_config` refuses everything else with NotImplementedError naming
-the ROADMAP.md item that ports it, so no conf maps quietly to an engine
-other than the one it names.  As in the JAX package, no conf key maps to
-`fdma_k`: a conf's GLONASS group runs every slot at k = 0.
+package), every PVT.positioning_mode (Single, DGNSS/Static/Kinematic
+with base observables, PPP_Static/PPP_Kinematic) and the monitor taps
+(GNSS-SDR.enable_monitor, Monitor.*, PVT.enable_monitor); a conf with
+several groups maps to one ReceiverConfig per group
+(`to_receiver_configs`, run by runtime.multi_receiver).
+`to_receiver_config` refuses a signal or block neither package carries with
+NotImplementedError, so no conf maps quietly to an engine other than the
+one it names.  As in the JAX package, no conf key maps to `fdma_k`: a
+conf's GLONASS group runs every slot at k = 0.
 """
 
 from __future__ import annotations
@@ -31,20 +34,17 @@ import dataclasses
 
 from .receiver import _DECODERS, ReceiverConfig
 
-# ROADMAP.md §1, "What later slices port": the item that ports each part a
-# conf or a CLI flag may ask for
+# ROADMAP.md §1: why a part a conf or a CLI flag may ask for is refused
 ROADMAP_ITEMS = {
-    "ppp_rtk": "ROADMAP.md §1 item 3 (PPP, RTK and --base_obs)",
-    "assistance": "ROADMAP.md §1 item 4 (SUPL and assistance)",
     "signals": "ROADMAP.md §1 (no item: the port runs every signal, "
                "acquisition strategy and tracking block of the JAX package, "
                "and the JAX package has no such one either)",
 }
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
+def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: {ROADMAP_ITEMS[item]}")
+        f"{what} is not ported yet: {ROADMAP_ITEMS['signals']}")
 
 
 class InMemoryConfiguration:
@@ -225,8 +225,8 @@ def to_receiver_config(conf: InMemoryConfiguration,
     `implementation=` names are routed through runtime.factory: an unknown
     name raises KeyError (the reference factory logs 'Block ... not found'
     and aborts the flowgraph), a hardware block raises ValueError, and a
-    strategy, signal or positioning mode this port does not carry raises
-    NotImplementedError naming its ROADMAP.md item."""
+    signal or tracking strategy this port does not carry raises
+    NotImplementedError naming its ROADMAP.md entry."""
     from . import factory
 
     groups = conf_signal_groups(conf)
@@ -234,7 +234,7 @@ def to_receiver_config(conf: InMemoryConfiguration,
         signal_id = groups[0]
     for sid in groups:
         if sid not in PORTED_SIGNALS:
-            raise not_ported(f"signal '{sid}'", "signals")
+            raise not_ported(f"signal '{sid}'")
     fs = conf.property("GNSS-SDR.internal_fs_sps",
                        conf.property("GNSS-SDR.internal_fs_hz", 4_000_000.0))
     sig = f"_{signal_id}"
@@ -247,10 +247,6 @@ def to_receiver_config(conf: InMemoryConfiguration,
                 f"acquisition '{acq_impl}' needs hardware this build does "
                 f"not drive ({info.note})")
         acq_strategy = info.strategy or "pcps"
-        if acq_strategy == "assisted":
-            raise not_ported(
-                f"acquisition '{acq_impl}' (strategy '{acq_strategy}')",
-                "assistance")
     trk_impl = str(conf.property(f"Tracking{sig}.implementation", ""))
     track_engine = "dll_pll"
     if trk_impl:
@@ -271,15 +267,11 @@ def to_receiver_config(conf: InMemoryConfiguration,
                 "tcp_connector, not inside the batched Receiver")
         if tinfo.strategy not in ("dll_pll", "veml", "kf"):
             raise not_ported(
-                f"tracking '{trk_impl}' (strategy '{tinfo.strategy}')",
-                "signals")
+                f"tracking '{trk_impl}' (strategy '{tinfo.strategy}')")
         # VEML is the DLL/PLL engine at 5 taps (the receiver picks the
         # taps by signal)
         track_engine = "kf" if tinfo.strategy == "kf" else "dll_pll"
     positioning_mode = str(conf.property("PVT.positioning_mode", "Single"))
-    if positioning_mode != "Single":
-        raise not_ported(f"PVT.positioning_mode={positioning_mode}",
-                         "ppp_rtk")
     n_channels = int(conf.property(f"Channels{sig}.count",
                                    conf.property("Channels.count", 8)))
     # per-channel satellite pinning (ChannelN.satellite, read by the

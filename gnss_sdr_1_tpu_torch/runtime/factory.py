@@ -18,10 +18,10 @@ it (the same kind, signal, strategy and status):
               'hardware' = requires an RF front-end / external device this
                            build does not drive (raises on use)
 
-`STRATEGY_IMPL` points only at the strategies this port carries (the
-acquisition strategies but `assisted`, and `dll_pll`, `veml`, `kf`
-tracking); runtime.config.to_receiver_config refuses the others with the
-ROADMAP.md item that ports them.  `resolve(name)` returns the
+`STRATEGY_IMPL` points every acquisition and tracking strategy of the JAX
+package's registry at this port's implementation (`assisted` at
+runtime.assistance.predict_visible, whose predictions narrow the PCPS
+grid in Receiver.set_assistance).  `resolve(name)` returns the
 descriptor; unknown names raise (the reference factory logs "Block ... not
 found" and returns nullptr, gnss_block_factory.cc:2290-2300).
 """
@@ -195,6 +195,8 @@ REGISTRY: dict[str, BlockInfo] = {b.name: b for b in _BLOCKS}
 STRATEGY_IMPL: dict[tuple[str, str], tuple[str, str]] = {
     ("acquisition", "pcps"): ("gnss_sdr_1_tpu_torch.acquire.pcps",
                               "PcpsAcquisition"),
+    ("acquisition", "assisted"): ("gnss_sdr_1_tpu_torch.runtime.assistance",
+                                  "predict_visible"),
     ("acquisition", "tong"): ("gnss_sdr_1_tpu_torch.acquire.pcps",
                               "PcpsAcquisition"),      # .acquire_tong
     ("acquisition", "quicksync"): ("gnss_sdr_1_tpu_torch.acquire.variants",

@@ -36,9 +36,11 @@ each segment's readback overlapping the next segment's launch;
 `checkpoint` / `resume_from` carry a run across processes and devices;
 the monitor taps stream Gnss_Synchro records and PVT fixes over UDP, and
 the telecommand interface (runtime.telecommand) drives `status`,
-`standby`, `reset` and the cold/warm/hot starts.  Assistance is not
-ported yet: ReceiverConfig refuses it, naming the ROADMAP.md item that
-ports it.
+`standby`, `reset` and the cold/warm/hot starts.  A-GNSS
+(`set_assistance`) builds a second, narrowed PCPS program on the
+receiver's device with each visible satellite's predicted Doppler folded
+into its replica; `load_ephemerides` hot-starts PVT; `solve_ppp_batch`
+runs PPP over the accumulated observables.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ class ReceiverConfig:
     tong_max: int = 10
     # acquisition strategy from the conf implementation= name, routed
     # through runtime.factory (gnss_block_factory.cc:1552-1709):
-    # pcps | tong | quicksync | cccwsr | fine_doppler | 8ms | caf
+    # pcps | tong | assisted | quicksync | cccwsr | fine_doppler | 8ms | caf
     acq_strategy: str = "pcps"
     # QuickSync folding factor (Acquisition_XX.folding_factor)
     acq_folding_factor: int = 2
@@ -150,6 +152,10 @@ class ReceiverConfig:
     carrier_smoothing_epochs: int = 25
     raim: bool = True
     raim_sigma_m: float = 2.5
+    # PVT.positioning_mode (pvt_conf): Single is the built-in chain;
+    # DGNSS/Static/Kinematic engage pvt.rtk.solve_baseline when base-station
+    # observables are supplied (CLI --base_obs); PPP_Static/PPP_Kinematic
+    # run solve_ppp_batch after process()
     positioning_mode: str = "Single"
     # monitoring taps (GNSS-SDR.enable_monitor + Monitor.* props;
     # gnss_flowgraph.cc:680 monitor wiring, gnss_synchro_monitor decimation)
@@ -169,18 +175,13 @@ class ReceiverConfig:
     def __post_init__(self) -> None:
         from .config import not_ported
 
-        # what each unported value waits for (runtime.config.ROADMAP_ITEMS)
-        refused = {
-            "signal_id": (self.signal_id, tuple(_DECODERS), "signals"),
-            "acq_strategy": (self.acq_strategy, _ACQ_STRATEGIES,
-                             "assistance" if self.acq_strategy == "assisted"
-                             else "signals"),
-            "positioning_mode": (self.positioning_mode, ("Single",),
-                                 "ppp_rtk"),
-        }
-        for name, (got, only, item) in refused.items():
+        # a signal or strategy neither package carries
+        # (runtime.config.ROADMAP_ITEMS)
+        for name, got, only in (
+                ("signal_id", self.signal_id, tuple(_DECODERS)),
+                ("acq_strategy", self.acq_strategy, _ACQ_STRATEGIES)):
             if got not in only:
-                raise not_ported(f"{name}={got!r}", item)
+                raise not_ported(f"{name}={got!r}")
         if self.track_engine not in ("dll_pll", "kf"):
             raise NotImplementedError(
                 f"track_engine={self.track_engine!r} is not ported yet "
@@ -193,9 +194,9 @@ class ReceiverConfig:
 
 
 # acquisition strategies this package carries ('caf' is the E5a strategy;
-# 'assisted' needs the assistance sources)
-_ACQ_STRATEGIES = ("pcps", "tong", "quicksync", "cccwsr", "fine_doppler",
-                   "8ms", "caf")
+# 'assisted' runs PCPS, narrowed once set_assistance has predictions)
+_ACQ_STRATEGIES = ("pcps", "tong", "assisted", "quicksync", "cccwsr",
+                   "fine_doppler", "8ms", "caf")
 
 
 class Receiver:
@@ -252,6 +253,12 @@ class Receiver:
             num_doppler_bins_step2=cfg.num_doppler_bins_step2,
         )
         fs_code_rate = (virtual_rate, spec.code_length_chips * spc_code)
+        self._acq_cfg = acq_cfg
+        self._fs_code_rate = fs_code_rate
+        # A-GNSS: the predictions and the narrowed program (set_assistance)
+        self._assist = None
+        self._assist_acq = None
+        self.assist_ephemerides: dict = {}
         self.acq = PcpsAcquisition(acq_cfg, self._codes,
                                    fs_code_rate=fs_code_rate,
                                    freq_offsets_by_prn=self._fdma_offsets,
@@ -424,29 +431,92 @@ class Receiver:
 
     # ---------------- channel lifecycle ----------------
 
+    def set_assistance(self, ephemerides: dict, rx_ecef, tow_s: float,
+                       window_hz: float = 600.0) -> int:
+        """A-GNSS: predicted per-satellite Doppler windows gate acquisition
+        (control_thread.cc:566 assist_GNSS -> pcps_assisted_acquisition):
+        a peak outside [pred - window, pred + window] is rejected as a
+        sideband/false alarm, and satellites predicted below the horizon
+        are skipped entirely.  Returns the number of visible predictions."""
+        from .assistance import predict_visible
+
+        self._assist = predict_visible(
+            ephemerides, np.asarray(rx_ecef, dtype=np.float64), tow_s,
+            carrier_freq_hz=self.cfg.spec.carrier_freq_hz)
+        self._assist_window_hz = float(window_hz)
+        # NARROWED search grid (pcps_assisted_acquisition_cc.cc:188
+        # get_assistance -> d_doppler_min/max, applied BEFORE the search):
+        # each visible PRN's predicted Doppler folds into its stored
+        # replica (the FDMA slot-offset mechanism), so one batched
+        # [+-window] grid searches every satellite's own band — the FFT
+        # count drops by doppler_max/window vs the cold grid.  The program
+        # lives on the receiver's device, as the cold one does
+        vis = sorted(p for p in self._assist if p in self._codes)
+        if vis and self.acq_strategy in ("pcps", "assisted"):
+            # predicted offsets are generally a non-integer number of
+            # carrier cycles per window: the two-period bit_transition
+            # window keeps every kept lag wrap-free (same cure as the
+            # FDMA slot offsets, see __init__)
+            narrow = dataclasses.replace(
+                self._acq_cfg,
+                doppler_max_hz=max(window_hz,
+                                   2.0 * self._acq_cfg.doppler_step_hz),
+                bit_transition_flag=True)
+            self._assist_acq = PcpsAcquisition(
+                narrow, {p: self._codes[p] for p in vis},
+                fs_code_rate=self._fs_code_rate,
+                freq_offsets_by_prn={
+                    p: self._fdma_offsets.get(p, 0.0)
+                    + self._assist[p]["doppler_hz"] for p in vis},
+                device=self.device)
+        return len(self._assist)
+
     def _acquire_and_assign(self, samples_abs_offset: int,
                             samples: np.ndarray) -> None:
         """Run acquisition on idle PRNs, assign positives to idle channels
-        (gnss_flowgraph.cc apply_action satellite recycling analogue)."""
+        (gnss_flowgraph.cc apply_action satellite recycling analogue).
+        With assistance set, the narrowed program runs (Tong always runs
+        the cold one) and the cold grid's peaks are gated by the
+        predictions."""
         idle_channels = [c for c, p in enumerate(self.channel_prn)
                          if p is None]
         if not idle_channels:
             return
         assigned: list[tuple[int, int]] = []
+        assist = self._assist
+        acq_prog = (self._assist_acq if self._assist_acq is not None
+                    else self.acq)
         if self._acq_tong:
             res = self.acq.acquire_tong(
                 samples, tong_init=self.cfg.tong_init,
                 tong_max=self.cfg.tong_max, samplestamp=samples_abs_offset)
+            acq_prog = self.acq
         else:
-            res = self.acq.acquire(samples, samplestamp=samples_abs_offset)
+            res = acq_prog.acquire(samples, samplestamp=samples_abs_offset)
+        assisted_grid = acq_prog is self._assist_acq
         tracked = {p for p in self.channel_prn if p is not None}
         pins = self.cfg.channel_satellites
         order = np.argsort(-res.test_stat)
         dops = np.array(res.doppler_hz, dtype=np.float64)
+        if assisted_grid:
+            # the assisted grid reports the residual against the predicted
+            # Doppler, in its own (visible-only) PRN order
+            dops = dops + np.array(
+                [assist[p]["doppler_hz"] for p in acq_prog.prns])
         for k in order:
-            prn = self.acq.prns[k]
+            prn = acq_prog.prns[k]
             if not res.positive[k] or prn in tracked:
                 continue
+            if assist is not None and not assisted_grid:
+                pred = assist.get(prn)
+                if pred is None:
+                    continue          # predicted below the horizon
+                if abs(dops[k] - pred["doppler_hz"]) > \
+                        self._assist_window_hz:
+                    log.info("PRN %d acq doppler %.0f outside assisted "
+                             "window around %.0f — rejected", prn,
+                             dops[k], pred["doppler_hz"])
+                    continue
             if not idle_channels:
                 break
             # pinned channels only accept their satellite, and get it
@@ -935,11 +1005,18 @@ class Receiver:
 
     # ---------------- observables + PVT ----------------
 
+    def load_ephemerides(self, ephemerides: dict) -> None:
+        """Hot start: pre-load broadcast ephemerides (A-GNSS XML /
+        telecommand hotstart, control_thread.cc:566 assist_GNSS) so PVT can
+        fix as soon as telemetry TOW-syncs, without waiting the ~18-30 s
+        subframe collection."""
+        self.assist_ephemerides = dict(ephemerides)
+
     def _eph_for(self, prn: int):
         dec = self.decoders.get(prn)
         if dec is not None and dec.ephemeris_complete:
             return dec.ephemeris
-        return None
+        return self.assist_ephemerides.get(prn)
 
     def _observables_and_pvt(self) -> None:
         cfg = self.cfg
@@ -1008,6 +1085,45 @@ class Receiver:
                     if self.pvt_monitor is not None:
                         self.pvt_monitor.send_pvt(sol)
             self._next_obs_sample += tick
+
+    def solve_ppp_batch(self, sp3=None):
+        """PPP over the accumulated observable epochs, selected by
+        PVT.positioning_mode=PPP_Static/PPP_Kinematic (the reference's
+        rtklib_ppp.cc pppos() chain behind rtklib_solver.cc:491) —
+        run after process() when the mode asks for it.
+
+        `sp3`: optional precise products (pvt.precise.Sp3Product or a path
+        to an SP3 file, conf key PVT.sp3_file) — switches the orbit/clock
+        source to interpolated precise values (rtklib EPHOPT_PREC)."""
+        from ..pvt.ppp import PppConfig, PppObs, solve_ppp
+
+        if isinstance(sp3, str):
+            from ..pvt.precise import read_sp3
+
+            sp3 = read_sp3(sp3)
+
+        ephs = {p: d.ephemeris for p, d in self.decoders.items()
+                if d.ephemeris_complete}
+        iono = None
+        if self.cfg.iono_model == "broadcast":
+            for d in self.decoders.values():
+                di = getattr(d, "iono", None)
+                if di is not None and di.valid:
+                    iono = di
+                    break
+        epochs = [
+            (tow, {p: PppObs(pseudorange_m=o.pseudorange_m,
+                             carrier_phase_cycles=o.carrier_phase_cycles,
+                             cn0_dbhz=o.cn0_dbhz)
+                   for p, o in obs.items()})
+            for tow, obs in self.obs_epochs]
+        return solve_ppp(epochs, ephs, PppConfig(
+            mode=self.cfg.positioning_mode,
+            f1_hz=self.cfg.spec.carrier_freq_hz,
+            iono=iono,
+            trop_model=self.cfg.trop_model,
+            el_mask_deg=max(self.cfg.elevation_mask_deg, 7.0),
+            precise=sp3))
 
     def _scale_for(self, samples) -> float:
         """Unit-RMS ingest normalization (computed once): bounds prompt

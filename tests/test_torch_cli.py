@@ -1,16 +1,15 @@
 """The port's conf-file CLI and its configuration layer against the JAX
-package's: every conf in conf/ parses to the same items and frontend; the
-six GPS L1 C/A confs, the two Galileo E1 confs, the GPS L5 and L2C confs,
-the Galileo E5a (CAF) conf, the BeiDou B1I conf and the three multi-group
-confs (GPS L1 + Galileo E1 on one or two sources, GPS L1 + GLONASS L1)
-that need only what the port carries map to the same ReceiverConfig values
-and build a Receiver; the multi-group ones run through the
-mixed-constellation branch; `--signal B1` and `--signal B3` run;
+package's: every conf in conf/ parses to the same items and frontend; all
+sixteen map to the same ReceiverConfig values and build a Receiver (the
+seven GPS L1 C/A confs, SUPL-assisted among them, the two Galileo E1
+confs, the GPS L5 and L2C confs, the Galileo E5a (CAF) conf, the BeiDou
+B1I conf and the three multi-group confs, which run through the
+mixed-constellation branch); `--signal B1` and `--signal B3` run;
 `--telecommand_port`, `--monitor_port` and `--pvt_monitor_port` run and
-serve their sockets; every other conf, and every flag of a feature not
-ported yet, is refused with its ROADMAP.md item; the block registries agree; and both CLIs print
-the same lines on a short capture.  The slow case runs both CLIs to fixes
-on a 24 s capture."""
+serve their sockets; `--assist`, `--supl` and `--base_obs` print the JAX
+CLI's lines; the block registries agree; and both CLIs print the same
+lines on a short capture.  The slow case runs both CLIs to fixes on a
+24 s capture."""
 
 import dataclasses
 import json
@@ -48,7 +47,8 @@ PORTED = ["bds_b1i_ibyte.conf", "galileo_e1_gr_complex.conf",
           "galileo_e1_quicksync.conf", "galileo_e5a.conf",
           "glonass_l1_gps_l1_ibyte.conf", "gps_l1_if_xlating.conf",
           "gps_l1_ishort.conf", "gps_l1_kalman.conf", "gps_l1_nsr.conf",
-          "gps_l1_rtl_tcp.conf", "gps_l1_two_bit_packed.conf",
+          "gps_l1_rtl_tcp.conf", "gps_l1_supl_assisted.conf",
+          "gps_l1_two_bit_packed.conf",
           "gps_l2c_ibyte.conf", "gps_l5.conf", "hybrid_ishort.conf",
           "multisource_hybrid_ishort.conf"]
 MULTI_GROUP = ["glonass_l1_gps_l1_ibyte.conf", "hybrid_ishort.conf",
@@ -59,7 +59,7 @@ FS_FLAGS = 2.046e6
 
 
 def test_corpus_split():
-    assert len(CONFS) == 16 and UNPORTED == ["gps_l1_supl_assisted.conf"]
+    assert len(CONFS) == 16 and UNPORTED == []
     assert set(PORTED) <= set(CONFS)
 
 
@@ -164,13 +164,6 @@ def test_galileo_tong_and_folding_keys_map(tmp_path):
     assert rx.acq.fold == 4
 
 
-@pytest.mark.parametrize("name,item", [
-    ("gps_l1_supl_assisted.conf", "item 4")])
-def test_unported_conf_names_its_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        trc(TConf(str(CONF_DIR / name)))
-
-
 @pytest.mark.parametrize("name", PORTED)
 def test_ported_conf_runs_through_cli(name, tmp_path, capsys):
     """The port's CLI runs each ported conf end to end on the CPU over
@@ -219,27 +212,6 @@ def _mixed_line(name):
     return (f"Mixed-constellation run: "
             f"{'+'.join(c.signal_id for c in cfgs)} "
             f"({'/'.join(str(c.n_channels) for c in cfgs)} channels)")
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_conf_refused_with_roadmap_item(name, capsys):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item"):
-        trc(TConf(str(CONF_DIR / name)))
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["-c", str(CONF_DIR / name), "--device", "cpu",
-                   "--signal_file", str(CONF_DIR / name)])
-    assert e.value.code == 2
-    assert "ROADMAP.md §1 item" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("flag,value", [
-    ("--base_obs", "base.rtcm"), ("--assist", "a.json"),
-    ("--supl", "localhost")])
-def test_unported_flag_refused(flag, value, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["--signal_file", "x.dat", "--device", "cpu", flag, value])
-    assert e.value.code == 2
-    assert "ROADMAP.md §1 item" in capsys.readouterr().err
 
 
 def _free_port(kind):
@@ -335,6 +307,138 @@ def test_monitor_and_telecommand_flags_run(flag, tmp_path, capsys,
         assert len(recs) == len(rx.solutions) == 0
 
 
+def _flag_inputs(pkg, flag, tmp_path, monkeypatch):
+    """The argument of `flag` for one package's CLI, made with that
+    package's own modules: an assistance JSON (save_assistance) or a SUPL
+    server on 127.0.0.1, port 0, with the capture's ephemerides, a
+    reference location 1 km from the truth and the capture's TOW; or an
+    RTCM file of base epochs (MT1005 + MSM7, the package's own encoder)
+    with the rover's observables and ephemerides put on the receiver
+    after its run (a 0.3 s capture decodes no ephemeris); or, for PPP, a
+    conf with PVT.positioning_mode=PPP_Static (and an SP3 file the
+    package's sp3_from_broadcast and write_sp3 made), the static
+    receiver's observables put on it alike.  Returns the CLI arguments
+    and a cleanup."""
+    import importlib
+    import types
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    rx_llh = (41.275, 1.988, 80.0)
+    east = np.array([-np.sin(np.radians(1.988)), np.cos(np.radians(1.988)),
+                     0.0])
+    ref = mod("pvt.geodesy").ecef_to_llh(RX + 1000.0 * east)
+    ref_llh = (float(np.degrees(ref[0])), float(np.degrees(ref[1])),
+               float(ref[2]))
+    if flag in ("--assist", "--supl"):
+        scen = mod("siggen.scenario").build_scenario(
+            RX, [3, 8], t0_tow=345606.1, duration_s=0.3, cn0_dbhz=47.0,
+            subframe_cycle=(1, 2, 3))
+        if flag == "--assist":
+            path = tmp_path / f"{pkg}.json"
+            mod("runtime.assistance").save_assistance(
+                str(path), scen.ephemerides, ref_llh=ref_llh,
+                ref_tow_s=345606.1)
+            return [flag, str(path)], lambda: None
+        supl = mod("runtime.supl")
+        srv = supl.SuplServer(supl.SuplAssist(
+            ref_time_week=2204, ref_time_tow_s=345606.1,
+            ref_lat_deg=ref_llh[0], ref_lon_deg=ref_llh[1],
+            ref_alt_m=ref_llh[2], has_ref_location=True,
+            ephemerides=scen.ephemerides), port=0)
+        return [flag, f"127.0.0.1:{srv.port}"], srv.close
+    if flag == "--supl_dead":
+        return ["--supl", "127.0.0.1:1"], lambda: None
+    from test_torch_precise_ppp_rtk import (T0, geometry, make_obs, modules,
+                                            synthetic_baseline)
+
+    runtime = mod("runtime")
+
+    class WithObs(runtime.Receiver):
+        def process(self, samples):
+            sols = super().process(samples)
+            self.obs_epochs = rover_epochs
+            self.decoders = {p: types.SimpleNamespace(
+                ephemeris=e, ephemeris_complete=True, iono=None)
+                for p, e in ephs.items()}
+            return sols
+
+    monkeypatch.setattr(runtime, "Receiver", WithObs)
+    if flag.startswith("ppp"):
+        M = modules(pkg)
+        rx, prns, ephs = geometry(M)
+        towt = T0 + np.arange(0, 240, 2.0)
+        rover_epochs = make_obs(M, np.tile(rx, (len(towt), 1)), towt, prns,
+                                ephs, dual=False)
+        lines = ["PVT.positioning_mode=PPP_Static"]
+        if flag == "ppp_sp3":
+            sp3 = tmp_path / f"{pkg}.sp3"
+            M.precise.write_sp3(sp3, M.precise.sp3_from_broadcast(
+                ephs, T0 - 1800, T0 + 2100, step_s=300.0, week=2204))
+            lines.append(f"PVT.sp3_file={sp3}")
+        conf = tmp_path / f"{pkg}_{flag}.conf"
+        conf.write_text("\n".join(lines) + "\n")
+        return ["-c", str(conf)], lambda: None
+    base, _rover, ephs, be, rover_epochs, lam = synthetic_baseline(
+        modules(pkg), [30.0, -12.0, 5.0], n_epochs=12)
+    rtcm = mod("pvt.rtcm")
+    frames = [rtcm.encode_mt1005(1234, base, gps=True)]
+    for tow, obs in be:
+        frames.append(rtcm.encode_msm("GPS", 7, 1234, int(round(tow * 1e3)), [
+            rtcm.MsmObs(sat=p, signal="1C", pseudorange_m=o.pseudorange_m,
+                        phase_range_m=-o.carrier_phase_cycles * lam,
+                        wavelength_m=lam) for p, o in obs.items()]))
+    path = tmp_path / f"{pkg}.rtcm"
+    path.write_bytes(b"".join(frames))
+    return [flag, str(path)], lambda: None
+
+
+@pytest.mark.parametrize("flag,prefix", [
+    ("--assist", "A-GNSS: "), ("--supl", "SUPL"),
+    ("--supl_dead", "SUPL: assistance request failed"),
+    ("--base_obs", "RTK EKF: "), ("ppp", "PPP (PPP_Static): "),
+    ("ppp_sp3", "PPP (PPP_Static): ")],
+    ids=["assist", "supl", "supl_dead", "base_obs", "ppp", "ppp_sp3"])
+def test_assistance_and_base_flags_print_jax_lines(flag, prefix, tmp_path,
+                                                   capsys, monkeypatch):
+    """--assist, --supl and --base_obs on a 0.3 s two-satellite capture:
+    each CLI gets its argument from its own package's modules, and the
+    port prints the JAX CLI's lines for it (`A-GNSS: N satellites
+    predicted visible`; `SUPL: N ephemerides, M acq-assist entries
+    received` and `SUPL A-GNSS: ...`, or `SUPL: assistance request
+    failed` when no server answers; the baseline EKF's `RTK EKF: ...`
+    line), before `Processed in` for the assistance and after it for the
+    baseline; and PPP_Static's `PPP (PPP_Static): ...` line after it, with
+    broadcast orbits and with PVT.sp3_file."""
+    cap = tmp_path / "cap.ishort"
+    _write_ishort(cap, [3, 8], FS_FLAGS, 0.3, 345606.1)
+    common = ["--signal_file", str(cap), "--item_type", "ishort", "--fs",
+              str(FS_FLAGS), "--channels", "2"]
+    out = {}
+    for pkg, cli, extra in (("gnss_sdr_1_tpu", jcli, ["--platform", "cpu"]),
+                            ("gnss_sdr_1_tpu_torch", tcli,
+                             ["--device", "cpu"])):
+        args, close = _flag_inputs(pkg, flag, tmp_path, monkeypatch)
+        try:
+            out[pkg] = _run(cli, common + extra + [
+                "--out_dir", str(tmp_path / pkg)] + args, capsys)
+        finally:
+            close()
+    lj, lt = out["gnss_sdr_1_tpu"], out["gnss_sdr_1_tpu_torch"]
+    mine = [ln for ln in lt if ln.startswith(prefix)]
+    assert mine and mine == [ln for ln in lj if ln.startswith(prefix)]
+    done = next(i for i, ln in enumerate(lt) if ln.startswith("Processed in"))
+    first = lt.index(mine[0])
+    assert (first > done) == (flag in ("--base_obs", "ppp", "ppp_sp3"))
+    if flag == "--supl":
+        assert mine[0] == "SUPL: 2 ephemerides, 0 acq-assist entries received"
+        assert mine[1].startswith("SUPL A-GNSS: ")
+    if flag in ("--assist", "--supl"):
+        assert mine[-1].endswith(" 2 satellites predicted visible")
+    assert lt[-1] == lj[-1] == "No position fix obtained."
+
+
 @pytest.mark.parametrize("signal,fs", [("B1", 5.0e6), ("B3", 12.5e6)])
 def test_beidou_signal_flag_runs(signal, fs, tmp_path, capsys):
     """`--signal B1` and `--signal B3` run the BeiDou receiver end to end
@@ -373,9 +477,8 @@ def test_registries_match():
             bj.kind, bj.signal, bj.strategy, bj.status), name
     with pytest.raises(KeyError):
         tfactory.resolve("No_Such_Block")
-    # every strategy of the JAX package's but assisted acquisition (item 4)
-    assert set(tfactory.STRATEGY_IMPL) == set(jfactory.STRATEGY_IMPL) - {
-        ("acquisition", "assisted")}
+    # every strategy of the JAX package's, assisted acquisition included
+    assert set(tfactory.STRATEGY_IMPL) == set(jfactory.STRATEGY_IMPL)
     for kind, strategy in tfactory.STRATEGY_IMPL:
         assert tfactory.strategy_impl(kind, strategy).__module__.startswith(
             "gnss_sdr_1_tpu_torch.")

@@ -329,8 +329,12 @@ def test_caf_and_unported_refused():
             rx.cfg.spec.code_rate_chips_s * spc)
         assert rx.trk.cfg.early_late_space_chips == \
             rx.cfg.early_late_space_chips * spc
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ReceiverConfig(signal_id="1B", acq_strategy="assisted")
+    # assisted acquisition is ported: the config builds, and a strategy
+    # neither package has is refused as the signals item
+    assert ReceiverConfig(signal_id="1B",
+                          acq_strategy="assisted").acq_strategy == "assisted"
+    with pytest.raises(NotImplementedError, match="no item"):
+        ReceiverConfig(signal_id="1B", acq_strategy="no_such_strategy")
     assert "JAX package has no such one" in ROADMAP_ITEMS["signals"]
     assert "acquisition" not in ROADMAP_ITEMS
     with pytest.raises(ValueError, match="Galileo E1"):

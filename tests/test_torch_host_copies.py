@@ -702,3 +702,44 @@ def test_io_and_runtime_host_modules_are_copies(rel):
                 "__future__", "dataclasses", "json", "numpy", "os",
                 "pathlib", "scipy", "socket", "struct", "threading"), \
                 f"{rel}: {name}"
+
+
+# ---------------------------------------------------------------------------
+# SUPL/A-GNSS, precise products, PPP, RTK and SBAS
+# ---------------------------------------------------------------------------
+
+_LATE_MODULES = ["runtime/assistance.py", "runtime/supl.py",
+                 "runtime/rrlp.py", "pvt/rinex_reader.py", "pvt/precise.py",
+                 "pvt/ionex.py", "pvt/tides.py", "pvt/ppp.py", "pvt/rtk.py",
+                 "pvt/rtk_ekf.py", "telemetry/sbas.py", "pvt/solver.py",
+                 "pvt/__init__.py"]
+
+
+@pytest.mark.parametrize("rel", _LATE_MODULES)
+def test_assistance_ppp_rtk_sbas_modules_are_copies(rel):
+    """The assistance store, SUPL and RRLP, the RINEX nav reader, precise
+    products, IONEX, tides, PPP, RTK and its EKF, SBAS, the solver with its
+    precise-ephemeris dispatch and the pvt package's exports are the JAX
+    package's modules, byte for byte; every import in them is relative (so
+    it reaches the port's own modules: lnav, ephemeris, geodesy,
+    atmosphere, the solver, rtcm, inav's bit helpers, the native Viterbi
+    and CRC) or of the standard library and numpy, and none names JAX or
+    the JAX package (test_port_imports_no_jax walks every file; this
+    names them)."""
+    path = ROOT / "gnss_sdr_1_tpu_torch" / rel
+    assert path.read_text() == (ROOT / "gnss_sdr_1_tpu" / rel).read_text()
+    assert path in _port_sources()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] in (
+                "__future__", "dataclasses", "datetime", "json", "numpy",
+                "pathlib", "socket", "struct", "threading"), \
+                f"{rel}: {name}"
