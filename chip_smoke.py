@@ -253,10 +253,26 @@ Phases (one line each, with times):
      observables.rtcm (MT1005 + MSM7) feeds the rover's CLI on phase 6's
      file to 25 s with --base_obs, PVT.positioning_mode=DGNSS (the batch
      solver) and Kinematic (the EKF): a valid baseline each, its length against
-     the truth, fixed or float, the ratio and the wall.
+     the truth, fixed or float, the ratio and the wall;
+ 34. the channel-sharded receiver (gnss_sdr_1_tpu_torch.parallel) over a
+     mesh of every visible device when there are two or more, else over 2
+     and 4 logical shards of cuda:0, each on its own stream (the line says
+     which): phase 4's engine (12 channels, 15 s, chunked) by
+     track_capture and track_capture_symbols, and 10 s of phase 5's
+     capture on the gather walk, each equal to the unsharded engine on the
+     same card (np.array_equal on every output row and the final state),
+     each shard's kernel launches == its chunks (chunked) or its segments
+     (gather);
+     the PCPS grid of 32 PRNs with its PRN rows sharded, equal to the
+     unsharded grid; phase 7's IF conditioner over time blocks joined by
+     the halo exchange, equal to one device's; a profile of one
+     sharded 1 s segment holding no peer copy and no NCCL kernel between
+     its first launch and its last harvest; and the channel-samples per
+     second of the chunked engine at 1, 2 and 4 shards of 12 channels
+     each (3 s spans), the weak-scaling efficiency against one shard.
 Then one JSON line describing every kernel (the chunked kernels'
-launches summed over phases 5-7, 10-21 and 28-33, the KF kernel's over
-phases 8 and 22, the gather walk's over 23-26 and 28, the multicorrelator's
+launches summed over phases 5-7, 10-21 and 28-34, the KF kernel's over
+phases 8 and 22, the gather walk's over 23-26, 28 and 34, the multicorrelator's
 over 27, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
@@ -270,6 +286,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -817,7 +834,6 @@ def main() -> None:
     # ---- 4. engine ----
     t0 = time.perf_counter()
     eng = phase_engine(dev, cc, tc, sats, x_eng)
-    del x_eng
     log(f"[4] engine: 12 ch x {eng['signal_s']:.1f} s, RTF "
         f"{eng['rtf']:.2f} ({eng['wall_s']:.3f} s), valid "
         f"{eng['n_valid']}/{eng['expected']:.0f} epochs, launches "
@@ -1171,7 +1187,6 @@ def main() -> None:
     # ---- 30. checkpoint on the card, resume, the rest ----
     t0 = time.perf_counter()
     c30 = phase_checkpoint(dev, cc, tc, scen, x_e2e, e2e)
-    del x_e2e
     log(f"[30] checkpoint at {c30['split_s']:.2f} s ({c30['ckpt_bytes']} B, "
         f"written in {c30['ckpt_s']:.3f} s, resumed on the card in "
         f"{c30['resume_s']:.3f} s, and on the CPU with the same tracking "
@@ -1246,6 +1261,44 @@ def main() -> None:
     log(f"    | {time.perf_counter() - t0:.1f} s (base capture made in "
         f"{r33['gen_s']:.2f} s)")
 
+    # ---- 34. the channel-sharded receiver over a mesh ----
+    t0 = time.perf_counter()
+    s34 = phase_sharded(dev, cc, tc, gb, x_eng, scen, x_e2e, files[1])
+    del x_eng, x_e2e
+    log(f"[34] mesh: {s34['mesh']}")
+    for r in s34["runs"]:
+        log(f"[34] {r['what']}, {r['shards']} shards: equal to the "
+            f"unsharded run (every output row, final state), "
+            f"{r['valid']} valid epochs, launches per shard "
+            f"{r['launches_per_shard']} == {r['unit']} {r['units_per_shard']}"
+            f", {r['wall_s']:.3f} s (unsharded {r['unsharded_wall_s']:.3f} s)")
+    a34 = s34["acquisition"]
+    log(f"[34] acquisition, {a34['prns']} PRNs x {a34['bins']} Doppler bins, "
+        f"F={a34['fft_size']}, {a34['dwells']} dwells, PRN rows over "
+        + ", ".join(f"{n} shards {ms:.3f} ms" for n, ms in a34["ms"].items())
+        + f" (unsharded {a34['unsharded_ms']:.3f} ms, host wall a call): "
+        f"equal to the unsharded AcqResult, {a34['positive']} positive")
+    c34 = s34["conditioner"]
+    log(f"[34] conditioner (phase 7's: {c34['taps']} taps, IF "
+        f"{IF_HZ / 1e3:g} kHz, decimation 2) over {c34['seconds']:g} s in "
+        + ", ".join(f"{n} time blocks {ms:.2f} ms" for n, ms in
+                    c34["ms"].items())
+        + f" (one device {c34['one_ms']:.2f} ms, host wall a call), halo "
+        f"{c34['halo']} samples: equal to one device's {c34['samples_out']} "
+        f"samples")
+    p34 = s34["profile"]
+    log(f"[34] profile of one sharded {p34['seconds']:g} s segment "
+        f"({p34['shards']} shards, chunked): {p34['kernels']} kernel "
+        f"events, {p34['peer_copies']} peer copies, {p34['nccl']} NCCL "
+        f"kernels, memcpy kinds {p34['memcpy']}")
+    w34 = s34["scaling"]
+    log(f"[34] weak scaling, 12 channels a shard, chunked, "
+        f"{w34['span_s']:g} s spans, {w34['kind']}: "
+        + ", ".join(f"{n} shards {r['rate']:.4e} channel-samples/s "
+                    f"(wall {r['wall_s']:.4f} s, efficiency "
+                    f"{r['efficiency']:.3f})" for n, r in w34["rates"].items())
+        + f" | {time.perf_counter() - t0:.1f} s")
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
@@ -1256,7 +1309,7 @@ def main() -> None:
              *bds.values(), *cli20.values(), s28["ishort"],
              s28["2bits_cpx"], r29, c30, a31["supl"], a31["cold"],
              a31["assist"], a31["hot"], *p32.values(), r33["base"],
-             r33["DGNSS"], r33["Kinematic"])
+             r33["DGNSS"], r33["Kinematic"], *s34["chunked_runs"])
     src = "gnss_sdr_1_tpu_torch/csrc/"
     shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
@@ -1319,7 +1372,7 @@ def main() -> None:
         "replaces": "gnss_sdr_1_tpu/track/engine.py:786",
         "launches": sum(p["launches_gather_block"]
                         for p in (g23, cli26, *sys_runs.values(),
-                                  s28["gather"])),
+                                  s28["gather"], *s34["gather_runs"])),
         "max_abs_err": max(r["max_abs_err"] for r in g_rows),
         "corr_raw_max_abs_err": max(r["corr_raw"] for r in g_rows),
         "ms": g_t["GPS"]["ms"], "plain_ms": g_t["GPS"]["plain_ms"],
@@ -1372,7 +1425,7 @@ def main() -> None:
               "multicorrelate": mc_rows, "gather_e2e": g23,
               "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
               "stream": s28, "rtl_tcp": r29, "checkpoint": c30,
-              "agnss": a31, "ppp": p32, "rtk": r33,
+              "agnss": a31, "ppp": p32, "rtk": r33, "sharded": s34,
               "total_s": time.perf_counter() - t_all}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke_report.json").write_text(
@@ -5988,6 +6041,344 @@ def phase_rtk(dev, cc, tc, scen, capture):
                 base_ecef_err_m=float(np.linalg.norm(
                     base_ecef - base_scen.rx_ecef)), gen_s=gen_s)
     return reps
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the channel-sharded receiver over a mesh
+# ---------------------------------------------------------------------------
+
+# logical shards of cuda:0 when the machine holds one card; the gather run's
+# span of phase 5's capture; the conditioner's span of phase 7's file; the
+# profiled segment; the weak-scaling spans and channels a shard
+SHARD_COUNTS = (2, 4)
+SHARD_GATHER_S = 10.0
+SHARD_COND_S = 2.0
+SHARD_PROFILE_S = 1.0
+SHARD_SCALING_S = 3.0
+SHARD_CHANNELS = 12
+
+
+def _shard_meshes():
+    """(what the [34] line says, the device lists of the meshes): every
+    visible device when there are two or more (as many as split 12
+    channels), else 2 and 4 logical shards of cuda:0."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        k = max(d for d in range(2, n + 1) if SHARD_CHANNELS % d == 0)
+        return (f"{k} of {n} devices, one shard each",
+                [[f"cuda:{i}" for i in range(k)]])
+    return ("one device: 2 and 4 logical shards of cuda:0, each on its own "
+            "stream", [["cuda:0"] * k for k in SHARD_COUNTS])
+
+
+@contextlib.contextmanager
+def _engine_launches(cc, tc, gb):
+    """The kernel launches of every TrackingEngine capture call inside the
+    block by engine (the counters' change across the call), beside the
+    chunks (chunked) or segments (gather) each call runs, counted apart
+    from the counters; the counters are set to 0 first."""
+    from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
+
+    rec = {}
+    run = TrackingEngine._run_capture
+
+    def counted(self, samples, state, limit, n_epochs):
+        before = (cc.launches, tc.launches, gb.launches)
+        out = run(self, samples, state, limit, n_epochs)
+        r = rec.setdefault(id(self), {"units": 0, "chunk_corr": 0,
+                                      "track_chain": 0, "gather_block": 0})
+        r["units"] += (1 if self.correlator == "gather"
+                       else -(-n_epochs // self.chain_spec.E))
+        for k, b, a in zip(("chunk_corr", "track_chain", "gather_block"),
+                           before, (cc.launches, tc.launches, gb.launches)):
+            r[k] += a - b
+        return out
+
+    TrackingEngine._run_capture = counted
+    cc.launches = tc.launches = gb.launches = 0
+    try:
+        yield rec
+    finally:
+        TrackingEngine._run_capture = run
+
+
+def _shard_launches(sen, rec, what):
+    """Each shard's launches against its chunks or segments: (launches a
+    shard, units a shard, the run's launches by kernel)."""
+    gather = sen.correlator == "gather"
+    kernels = ("gather_block",) if gather else ("chunk_corr", "track_chain")
+    per, units = [], []
+    for j, e in enumerate(sen.engines):
+        r = rec.get(id(e))
+        if r is None or not r["units"] > 0:
+            raise AssertionError(f"{what}: shard {j} ran no capture call")
+        for k in kernels:
+            if r[k] != r["units"]:
+                raise AssertionError(f"{what}: shard {j} launched {k} "
+                                     f"{r[k]} times for {r['units']} "
+                                     f"{'segments' if gather else 'chunks'}")
+        other = {"chunk_corr", "track_chain", "gather_block"} - set(kernels)
+        if any(r[k] for k in other):
+            raise AssertionError(f"{what}: shard {j} launched {r}")
+        per.append(r[kernels[0]])
+        units.append(r["units"])
+    total = {f"launches_{k}": sum(rec[id(e)][k] for e in sen.engines)
+             for k in ("chunk_corr", "track_chain", "gather_block")}
+    return per, units, total
+
+
+def _same_rows(got, want, what):
+    """Every field of two TrackOutputs / SymbolOutputs equal, row for
+    row."""
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the unsharded "
+                                 f"run")
+
+
+def _same_state(sharded, want, what):
+    from gnss_sdr_1_tpu_torch.parallel import gather_channel_tree
+    from gnss_sdr_1_tpu_torch.track.engine import state_to_numpy
+
+    a = state_to_numpy(gather_channel_tree(sharded))
+    for k, v in state_to_numpy(want).items():
+        for x, y in zip(a[k] if isinstance(v, tuple) else (a[k],),
+                        v if isinstance(v, tuple) else (v,)):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what}: final state {k} differs from "
+                                     f"the unsharded run")
+
+
+def _sharded_run(cc, tc, gb, eng, st, x, devices, span, what, symbols=False):
+    """The unsharded engine and its sharded twin over `devices` on the
+    same samples and state: every row and the final state equal, each
+    shard's launches == its chunks / segments; the sharded run's record."""
+    from gnss_sdr_1_tpu_torch.parallel import (ChannelShardedEngine,
+                                               channel_mesh, replicate,
+                                               shard_channel_tree)
+
+    mesh = channel_mesh(devices=devices)
+    sen = ChannelShardedEngine(eng.cfg, eng._codes_np, mesh=mesh)
+    xd = torch.as_tensor(x, device=eng.device)
+    xs = replicate(xd, mesh)
+    sst = shard_channel_tree(st, mesh)
+    sym_off = np.full(eng.cfg.n_channels, 20, dtype=np.int32)
+
+    def call(e, samples, state):
+        if symbols:
+            return e.track_capture_symbols(samples, state, span, sym_off, 20)
+        return e.track_capture(samples, state, span)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st1, o1 = call(eng, xd, st)
+    t1 = time.perf_counter() - t0
+    with _engine_launches(cc, tc, gb) as rec:
+        t0 = time.perf_counter()
+        st2, o2 = call(sen, xs, sst)
+        t2 = time.perf_counter() - t0
+    _same_rows(o2, o1, what)
+    _same_state(st2, st1, what)
+    per, units, total = _shard_launches(sen, rec, what)
+    valid = int((o1.n_valid if symbols else o1.valid).sum())
+    return {"what": what, "shards": len(devices), "valid": valid,
+            "launches_per_shard": per, "units_per_shard": units,
+            "unit": "segments" if sen.correlator == "gather" else "chunks",
+            "wall_s": t2, "unsharded_wall_s": t1, **total}
+
+
+def _shard_acquisition(dev, x, meshes):
+    from gnss_sdr_1_tpu_torch.acquire import AcqConfig, PcpsAcquisition
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.parallel import (ChannelShardedAcquisition,
+                                               channel_mesh)
+
+    cfg = AcqConfig(fs_hz=FS, samples_per_code=4092, samples_per_chip=4,
+                    doppler_max_hz=5000.0, doppler_step_hz=250.0,
+                    max_dwells=2, make_two_steps=False)
+    codes = {p: gps_l1ca_code(p) for p in range(1, 33)}
+    head = x[: cfg.fft_size * cfg.max_dwells]
+    one = PcpsAcquisition(cfg, codes, fs_code_rate=(1.023e6, 1023),
+                          device=dev)
+    want = one.acquire(head)
+    ms = {}
+    for devices in meshes:
+        sh = ChannelShardedAcquisition(
+            cfg, codes, mesh=channel_mesh(devices=devices),
+            fs_code_rate=(1.023e6, 1023))
+        got = sh.acquire(head)
+        for name in ("positive", "delay_samples", "doppler_hz", "test_stat"):
+            if not np.array_equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"sharded acquisition over {devices}: "
+                                     f"{name} differs from the unsharded "
+                                     f"grid")
+        ms[len(devices)] = _wall_ms(lambda: sh.acquire(head))
+    return {"prns": 32, "bins": cfg.num_doppler_bins,
+            "fft_size": cfg.fft_size, "dwells": cfg.max_dwells, "ms": ms,
+            "unsharded_ms": _wall_ms(lambda: one.acquire(head)),
+            "positive": int(want.positive.sum())}
+
+
+def _wall_ms(fn, n=5):
+    """Host wall per call over n calls after one (each call ends in its
+    readback)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _shard_conditioner(dev, if_file, meshes):
+    from gnss_sdr_1_tpu_torch.condition import (Conditioner,
+                                                design_lowpass_fir)
+    from gnss_sdr_1_tpu_torch.io import FileSignalSource
+    from gnss_sdr_1_tpu_torch.parallel import (freq_xlating_fir_time_sharded,
+                                               time_mesh)
+
+    head = FileSignalSource(str(if_file), item_type="ishort",
+                            sampling_frequency=FS).read(
+                                0, int(FS * SHARD_COND_S))
+    # phase 7's FrontEnd: 65 taps, decimation 2 to FS_IF
+    taps = design_lowpass_fir(65, 0.45 * min(FS / 2, FS_IF), FS)
+    args = (taps, FS, IF_HZ, 2)
+
+    def one():
+        return Conditioner(*args, device=dev).process(head, flush=True)
+
+    want = one()
+    ms = {}
+    for devices in meshes:
+        mesh = time_mesh(devices=devices)
+        got = freq_xlating_fir_time_sharded(head, *args, mesh=mesh)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"time-sharded conditioner over {devices} "
+                                 f"differs from one device's")
+        ms[len(devices)] = _wall_ms(
+            lambda: freq_xlating_fir_time_sharded(head, *args, mesh=mesh))
+    return {"taps": len(taps), "seconds": SHARD_COND_S, "ms": ms,
+            "one_ms": _wall_ms(one), "halo": len(taps) - 1,
+            "samples_out": int(want.shape[0])}
+
+
+def _shard_profile(dev, sats, x, devices):
+    """A profiler trace of one sharded 1 s segment (launch to harvest) of
+    the chunked engine: its kernels, peer copies and NCCL kernels."""
+    from gnss_sdr_1_tpu_torch.parallel import (ChannelShardedEngine,
+                                               channel_mesh, replicate)
+
+    eng = _engine(dev)
+    mesh = channel_mesh(devices=devices)
+    sen = ChannelShardedEngine(eng.cfg, eng._codes_np, mesh=mesh)
+    st = _activate_all(sen, sats)
+    span = int(FS * SHARD_PROFILE_S)
+    xs = replicate(x[: span + eng.cfg.epoch_samples_max], mesh)
+    for _ in range(3):
+        events = _trace(lambda: sen.track_capture(xs, st, span), 1)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    else:
+        raise NoKernelEvent("3 profiler traces of a sharded segment hold no "
+                            "kernel event")
+    peer = [e for e in events if "ptop" in e.get("name", "").lower()]
+    nccl = [e for e in kernels if "nccl" in e["name"].lower()]
+    if peer or nccl:
+        raise AssertionError(f"a sharded segment moved data between devices: "
+                             f"{len(peer)} peer copies, {len(nccl)} NCCL "
+                             f"kernels")
+    memcpy = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            memcpy[e["name"]] = memcpy.get(e["name"], 0) + 1
+    return {"seconds": SHARD_PROFILE_S, "shards": len(devices),
+            "kernels": len(kernels), "peer_copies": len(peer),
+            "nccl": len(nccl), "memcpy": memcpy}
+
+
+def _shard_scaling(dev, sats, x):
+    """Channel-samples a second of the chunked engine's track_capture at 1,
+    2 and 4 shards of SHARD_CHANNELS channels each (real devices where the
+    machine holds as many, else logical shards of cuda:0), the best of
+    three timed calls after one, and the efficiency against one shard."""
+    from gnss_sdr_1_tpu_torch.parallel import (ChannelShardedEngine,
+                                               channel_mesh, replicate)
+
+    base = _engine(dev)
+    span = int(FS * SHARD_SCALING_S)
+    real = torch.cuda.device_count()
+    rates = {}
+    for n in (1, 2, 4):
+        devices = ([f"cuda:{i}" for i in range(n)] if real >= n
+                   else ["cuda:0"] * n)
+        mesh = channel_mesh(devices=devices)
+        C = SHARD_CHANNELS * n
+        sen = ChannelShardedEngine(
+            dataclasses.replace(base.cfg, n_channels=C),
+            base._codes_np, mesh=mesh)
+        st = sen.init_state()
+        rate = base.cfg.chip_rate_chips_s * base.cfg.code_samples_per_chip
+        for ch in range(C):
+            s = sats[ch % len(sats)]
+            st = sen.activate_channel(st, ch, ch % len(sats),
+                                      s.delay_chips / rate * FS,
+                                      s.doppler_hz, 0, 0)
+        xs = replicate(x[: span + base.cfg.epoch_samples_max], mesh)
+        sen.track_capture(xs, st, span)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, out = sen.track_capture(xs, st, span)
+            walls.append(time.perf_counter() - t0)
+        if not out.valid.sum() > 0.85 * C * SHARD_SCALING_S * 1e3:
+            raise AssertionError(f"scaling run at {n} shards: "
+                                 f"{int(out.valid.sum())} valid epochs")
+        rates[n] = {"wall_s": min(walls), "rate": C * span / min(walls)}
+    for n, r in rates.items():
+        r["efficiency"] = r["rate"] / n / rates[1]["rate"]
+    return {"span_s": SHARD_SCALING_S,
+            "kind": ("real devices" if real >= 4 else
+                     "logical shards of cuda:0 beyond the machine's "
+                     f"{real} device(s)"), "rates": rates}
+
+
+def phase_sharded(dev, cc, tc, gb, x_eng, scen, x_e2e, if_file):
+    """Phase 34: the channel-sharded engine, acquisition and conditioner
+    over the meshes of _shard_meshes, each held to the unsharded run on
+    the same card; a profile of a sharded segment; weak scaling.  `x_eng`
+    is phase 4's capture (its satellites are the engine cell's), `scen`
+    and `x_e2e` phase 5's, `if_file` phase 7's."""
+    what, meshes = _shard_meshes()
+    sats = _cells()["engine"][2]
+    runs = []
+    eng = _engine(dev)
+    st = _activate_all(eng, sats)
+    span = len(x_eng) - eng.cfg.epoch_samples_max
+    geng = _engine(dev, correlator="gather")
+    gst = _activate_all(geng, scen.sats)
+    gspan = int(FS * SHARD_GATHER_S)
+    gx = x_e2e[: gspan + geng.cfg.epoch_samples_max]
+    for devices in meshes:
+        runs.append(_sharded_run(
+            cc, tc, gb, eng, st, x_eng, devices, span,
+            f"engine (phase 4), chunked, track_capture, {ENGINE_S:g} s"))
+        runs.append(_sharded_run(
+            cc, tc, gb, eng, st, x_eng, devices, span,
+            f"engine (phase 4), chunked, track_capture_symbols, "
+            f"{ENGINE_S:g} s", symbols=True))
+        runs.append(_sharded_run(
+            cc, tc, gb, geng, gst, gx, devices, gspan,
+            f"phase 5's capture, gather, track_capture, "
+            f"{SHARD_GATHER_S:g} s"))
+    return {
+        "mesh": what, "runs": runs,
+        "chunked_runs": [r for r in runs if r["unit"] == "chunks"],
+        "gather_runs": [r for r in runs if r["unit"] == "segments"],
+        "acquisition": _shard_acquisition(dev, x_eng, meshes),
+        "conditioner": _shard_conditioner(dev, if_file, meshes),
+        "profile": _shard_profile(dev, sats, x_eng, meshes[-1]),
+        "scaling": _shard_scaling(dev, sats, x_eng)}
 
 
 if __name__ == "__main__":

@@ -249,6 +249,14 @@ class PcpsAcquisition:
     def acquire(self, samples: np.ndarray, samplestamp: int = 0) -> AcqResult:
         """Acquire all PRNs from `samples` (>= max_dwells * coherent window,
         complex64 at fs)."""
+        # one transfer for the result rows
+        return self.result(self.search(samples).cpu().numpy(), samplestamp)
+
+    def search(self, samples: np.ndarray) -> torch.Tensor:
+        """The grid search of `acquire` without its readback: the result
+        rows [4, C] on the device (CFAR and peak-ratio statistics, delay,
+        and the fine Doppler in Hz with two steps, else the Doppler bin
+        index), for `result`."""
         cfg = self.cfg
         eff = cfg.effective_size
         C = len(self.prns)
@@ -261,26 +269,28 @@ class PcpsAcquisition:
                                     grid, eff, cfg.samples_per_code,
                                     cfg.samples_per_chip)
         stat_cfar, stat_ratio, delay, d_idx, _ = stats
-        if cfg.make_two_steps:
-            centre = torch.as_tensor(self._doppler_bins, dtype=_F32,
-                                     device=self.device)[d_idx]
-            grid2 = torch.zeros((C, cfg.num_doppler_bins_step2, eff),
-                                dtype=_F32, device=self.device)
-            for blk in blocks:
-                grid2, (delay, doppler_t) = pcps_step2(
-                    blk, self._code_fft_conj, centre, grid2,
-                    cfg.doppler_step2_hz, eff, cfg.samples_per_code,
-                    cfg.num_doppler_bins_step2, cfg.fs_hz)
-            # one transfer for the result rows
-            packed = torch.stack([stat_cfar, stat_ratio, delay,
-                                  doppler_t]).cpu().numpy()
-            stat_cfar, stat_ratio, delay, doppler = packed
+        if not cfg.make_two_steps:
+            return torch.stack([stat_cfar, stat_ratio, delay,
+                                d_idx.to(_F32)])
+        centre = torch.as_tensor(self._doppler_bins, dtype=_F32,
+                                 device=self.device)[d_idx]
+        grid2 = torch.zeros((C, cfg.num_doppler_bins_step2, eff),
+                            dtype=_F32, device=self.device)
+        for blk in blocks:
+            grid2, (delay, doppler_t) = pcps_step2(
+                blk, self._code_fft_conj, centre, grid2,
+                cfg.doppler_step2_hz, eff, cfg.samples_per_code,
+                cfg.num_doppler_bins_step2, cfg.fs_hz)
+        return torch.stack([stat_cfar, stat_ratio, delay, doppler_t])
+
+    def result(self, rows: np.ndarray, samplestamp: int = 0) -> AcqResult:
+        """The AcqResult of `search`'s rows on the host."""
+        stat_cfar, stat_ratio, delay, dop = rows
+        if self.cfg.make_two_steps:
+            doppler = dop
         else:
-            packed = torch.stack([stat_cfar, stat_ratio, delay,
-                                  d_idx.to(_F32)]).cpu().numpy()
-            stat_cfar, stat_ratio, delay, didx_f = packed
-            doppler = self._doppler_bins[didx_f.astype(np.int64)]
-        test_stat = stat_cfar if cfg.use_cfar else stat_ratio
+            doppler = self._doppler_bins[dop.astype(np.int64)]
+        test_stat = stat_cfar if self.cfg.use_cfar else stat_ratio
         return AcqResult(
             positive=np.asarray(test_stat) > self._threshold,
             delay_samples=np.asarray(delay, dtype=np.float64),

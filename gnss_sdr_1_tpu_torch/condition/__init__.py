@@ -15,10 +15,11 @@ from .filters import (
     Conditioner,
     design_lowpass_fir,
     direct_resample,
+    freq_xlating_fir,
     steering_weights,
 )
 
 __all__ = [
     "Beamformer", "Conditioner", "design_lowpass_fir", "direct_resample",
-    "steering_weights",
+    "freq_xlating_fir", "steering_weights",
 ]

@@ -109,9 +109,28 @@ class Conditioner:
         # sits after the zero history) is mixed with phase 0.
         self._phase = -self._step * (self.n_taps - 1)
 
+    def start_at(self, history, n_blocks: int) -> None:
+        """Continue the stream as if `n_blocks` whole blocks had been
+        processed already, `history` being their last n_taps - 1 samples:
+        the overlap-save history and the mixer phase `process` would hold
+        there (the phase stepped block by block, as `process` steps it)."""
+        hist = to_device(history, self.device)
+        if hist.shape != self._hist.shape:
+            raise ValueError(f"history must hold {self.n_taps - 1} samples, "
+                             f"got {tuple(hist.shape)}")
+        phase = -self._step * (self.n_taps - 1)
+        for _ in range(int(n_blocks)):
+            phase = float((phase + self._step * self.block) % (2.0 * np.pi))
+        self._hist, self._phase = hist, phase
+
     def process(self, x, flush: bool = False) -> np.ndarray:
         """Feed samples (numpy or a tensor); returns the conditioned output
         at fs/decim as complex64 numpy."""
+        return self.process_tensor(x, flush).cpu().numpy()
+
+    def process_tensor(self, x, flush: bool = False) -> torch.Tensor:
+        """`process` without the readback: the output stays on the
+        device."""
         x = to_device(x, self.device)
         outs = []
         pos = 0
@@ -134,8 +153,18 @@ class Conditioner:
             )
             pos += len(chunk)
         if outs:
-            return torch.cat(outs).cpu().numpy()
-        return np.empty(0, dtype=np.complex64)
+            return torch.cat(outs)
+        return torch.empty(0, dtype=torch.complex64, device=self.device)
+
+
+def freq_xlating_fir(x, taps: np.ndarray, fs_hz: float,
+                     if_freq_hz: float = 0.0, decim: int = 1,
+                     device=None) -> np.ndarray:
+    """One-shot frequency-translating FIR + decimation: one Conditioner
+    over the whole input, its last block flushed.  `device`: None runs on
+    the card (and raises without one); the CPU only when asked for."""
+    cond = Conditioner(taps, fs_hz, if_freq_hz, decim, device=device)
+    return cond.process(x, flush=True)
 
 
 # ------------------------------------------------------------- beamformer --

@@ -342,12 +342,16 @@ static int mc_check(const McParams& p) {
 }
 
 // The dynamic shared memory ceiling and the non-portable cluster size of
-// `kernel`, once.
-static cudaError_t mc_configure(const void* kernel, bool* done) {
-    if (*done) return cudaSuccess;
-    const cudaError_t err =
-        cluster_set_attributes(kernel, CLUSTER_SMEM_MAX, MC_MAX_CLUSTER);
-    *done = err == cudaSuccess;
+// `kernel` on the current device, once a device (`done`: a bit a device;
+// the attributes are the current device's own).
+static cudaError_t mc_configure(const void* kernel, unsigned* done) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (*done & bit) return cudaSuccess;
+    err = cluster_set_attributes(kernel, CLUSTER_SMEM_MAX, MC_MAX_CLUSTER);
+    if (err == cudaSuccess) *done |= bit;
     return err;
 }
 
@@ -369,7 +373,7 @@ static cudaLaunchConfig_t mc_config(const McParams& p,
 extern "C" int multicorrelate_launch(const void* x, const void* codes,
                                      void* out, void* stages,
                                      const McParams* params, void* stream) {
-    static bool configured[4];
+    static unsigned configured[4];
     const McParams& p = *params;
     const int bad = mc_check(p);
     if (bad != 0) return bad;
@@ -393,7 +397,7 @@ extern "C" int multicorrelate_launch(const void* x, const void* codes,
 // The empty kernel in the geometry `params` gives the multicorrelator.
 extern "C" int multicorrelate_empty_launch(const McParams* params,
                                            void* stream) {
-    static bool configured;
+    static unsigned configured;
     const McParams& p = *params;
     const int bad = mc_check(p);
     if (bad != 0) return bad;

@@ -69,19 +69,41 @@ def multicorrelate(
     cp, cs, cr = (_as_f32(v, dev)[..., None] for v in
                   (carr_phase_rad, carr_step_rad, carr_rate_rad))
     phase = torch.addcmul(torch.addcmul(cp, cs, n), 0.5 * cr * n, n)
-    wiped = samples * torch.complex(torch.cos(phase), -torch.sin(phase))
+    # (re + j im) (cos - j sin) in real products: the CPU's complex multiply
+    # rounds its vectorised body and its scalar tail differently, so a
+    # sample's bits would depend on where the call's tail falls
+    c, s = torch.cos(phase), torch.sin(phase)
+    wr = samples.real * c + samples.imag * s
+    wi = samples.imag * c - samples.real * s
     if n_valid is not None:
-        wiped = torch.where(n < _as_f32(n_valid, dev)[..., None], wiped,
-                            torch.zeros((), dtype=wiped.dtype, device=dev))
+        keep = n < _as_f32(n_valid, dev)[..., None]
+        zero = torch.zeros((), dtype=_F32, device=dev)
+        wr, wi = torch.where(keep, wr, zero), torch.where(keep, wi, zero)
     shifts = _as_f32(shifts_chips, dev)
     idx = _code_indices(n, _as_f32(code_phase_step, dev), shifts,
                         _as_f32(rem_code_phase, dev), code.shape[-1])
     lead = idx.shape[:-2]
     codes = torch.gather(code.expand(lead + code.shape[-1:])[..., None, :]
                          .expand(idx.shape[:-1] + code.shape[-1:]), -1, idx)
-    re = (codes @ wiped.real[..., None])[..., 0]
-    im = (codes @ wiped.imag[..., None])[..., 0]
+    # each channel's taps summed on their own, so a channel's bits do not
+    # depend on how many channels share the call (a batched matmul takes
+    # another path for one channel than for several)
+    re = (codes * wr[..., None, :]).sum(-1)
+    im = (codes * wi[..., None, :]).sum(-1)
     return torch.complex(re, im)
+
+
+def multicorrelate_batch(
+    samples, code, shifts_chips, code_phase_step, rem_code_phase,
+    carr_phase_rad, carr_step_rad, carr_rate_rad, n_valid,
+):
+    """Channel-batched multicorrelator: leading axis C on samples, code and
+    all scalar loop parameters; shared tap shifts (`multicorrelate`
+    batches every leading axis)."""
+    return multicorrelate(
+        samples, code, shifts_chips, code_phase_step, rem_code_phase,
+        carr_phase_rad, carr_step_rad, carr_rate_rad, n_valid,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -235,3 +235,9 @@ def resolve(name: str) -> BlockInfo:
         raise KeyError(f"Block implementation '{name}' not in registry "
                        f"({len(REGISTRY)} known names)")
     return info
+
+
+def names(kind: str | None = None) -> list[str]:
+    """Every registered `implementation=` name, or those of one kind
+    ('source', 'acquisition', 'tracking', 'telemetry', ...)."""
+    return [b.name for b in _BLOCKS if kind is None or b.kind == kind]

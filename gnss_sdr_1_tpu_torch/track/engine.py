@@ -671,7 +671,13 @@ class TrackingEngine:
         rows = torch.arange(P, device=dev)[:, None]
         src = torch.remainder(rows - (N - b0)[None, :], P)         # [P, C]
         rolled = torch.gather(fields, 0, src[..., None].expand(P, C, 3))
-        sums = rolled.reshape(S, N, C, 3).sum(dim=1)               # [S, C, 3]
+        # the slot sums epoch by epoch, in order: a channel's sums do not
+        # depend on how many channels share the call (a reduction kernel's
+        # order does, on the CPU and on the card)
+        slots = rolled.reshape(S, N, C, 3)
+        sums = slots[:, 0]
+        for k in range(1, N):
+            sums = sums + slots[:, k]                              # [S, C, 3]
         mi = sums[..., 0] * (1.0 / N)
         mq = sums[..., 1] * (1.0 / N)
         vcount = sums[..., 2].to(_I32)

@@ -533,6 +533,35 @@ def test_port_imports_no_jax():
     assert (ROOT / "gnss_sdr_1_tpu_torch") in tdata._NPZ.resolve().parents
 
 
+def _jax_imports(path):
+    """`module:line name` of every import of jax or the JAX package in a
+    source file."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "gnss_sdr_1_tpu")]
+    return bad
+
+
+def test_parallel_package_is_guarded():
+    """The port's parallel/ package (meshes, the channel-sharded engine and
+    acquisition, the time-sharded conditioner, torch.distributed) is among
+    the sources the guard above reads, and imports neither jax nor the
+    JAX package, nor does its GPU test file."""
+    par = ROOT / "gnss_sdr_1_tpu_torch" / "parallel"
+    files = [p for p in _port_sources() if par in p.parents]
+    assert {p.name for p in files} == {"__init__.py", "sharding.py",
+                                       "sharded.py"}
+    files.append(ROOT / "tests" / "test_torch_parallel_gpu.py")
+    assert [b for p in files for b in _jax_imports(p)] == []
+
+
 # ---------------------------------------------------------------------------
 # GPS L2C and GLONASS: constants, codes, orbits, the adapters, the scenario
 # ---------------------------------------------------------------------------
