@@ -575,7 +575,6 @@ def main() -> None:
     from gnss_sdr_1_tpu_torch.ops import gather_block as gb
     from gnss_sdr_1_tpu_torch.ops import kf_block as kb
     from gnss_sdr_1_tpu_torch.ops import multicorrelator as mc
-    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.ops import track_chain as tc
 
     if torch.backends.cuda.matmul.allow_tf32 or \
@@ -957,7 +956,7 @@ def main() -> None:
         log(f"    {sig} capture made on the card ({len(prns)} sats x {dur:g} "
             f"s at {fs / 1e6:g} Msps) | {gen_s:.2f} s")
         t0 = time.perf_counter()
-        r = phase_sec(dev, cc, tc, tcap, scen_s, x_s, sig)
+        r = phase_sec(dev, cc, tc, scen_s, x_s, sig)
         sec_runs[sig] = r
         log(f"[{12 if sig == 'L5' else 13}] {sig} receiver e2e "
             f"({r['strategy']}): {len(prns)} sats x {dur:g} s, RTF "
@@ -978,7 +977,7 @@ def main() -> None:
     scen_glo = _cells()["1G"][0]
     x_glo, gen_s = card_capture(dev, ["1G"], 106)
     t0 = time.perf_counter()
-    glo = phase_glonass(dev, cc, tc, tcap, scen_glo, x_glo)
+    glo = phase_glonass(dev, cc, tc, scen_glo, x_glo)
     del x_glo
     ls = glo["long_segments"]
     log(f"[15] GLONASS L1 receiver e2e (FDMA k {sorted(GLO_KS.values())}): "
@@ -1044,7 +1043,7 @@ def main() -> None:
         fs, dur, prns = _BDS_CELLS[sig]
         x_b, gen_s = card_capture(dev, [sig], seed)
         t0 = time.perf_counter()
-        r = phase_bds(dev, cc, tc, tcap, _cells()[sig][0], x_b, sig)
+        r = phase_bds(dev, cc, tc, _cells()[sig][0], x_b, sig)
         bds[sig] = r
         log(f"[{19 if sig == 'B1' else 21}] BeiDou {sig}I receiver e2e: "
             f"{len(prns)} D1 sats x {dur:g} s at {fs / 1e6:g} Msps, RTF "
@@ -3220,24 +3219,30 @@ def phase_acquisition(dev, sats, x):
 
 @contextlib.contextmanager
 def _counting(cc, tc):
-    """Set both kernels' launch counters (and the capture entry's count per
-    chain instance) to 0 and count the chunks that every TrackingEngine
-    capture call runs inside the block (ceil(n_epochs / E) per call),
-    independently of the counters, and the calls (capture segments); for
-    an engine with a secondary code, also the chunks of calls that start
-    with the wipe on in a channel, and the chunks of calls that start with
-    an active channel on a non-zero FDMA carrier bias."""
-    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
+    """Set both kernels' launch counters to 0 and count the chunks that
+    every TrackingEngine capture call runs inside the block (ceil(n_epochs
+    / E) per call), independently of the counters, and the calls (capture
+    segments); the chunked calls' chunks per chain template instance,
+    keyed (K, PLL order, secondary-code data flag, secondary-code length),
+    under "instances"; for an engine with a secondary code, also the
+    chunks of calls that start with the wipe on in a channel, and the
+    chunks of calls that start with an active channel on a non-zero FDMA
+    carrier bias."""
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
     counter = {"chunks": 0, "sec_chunks": 0, "offset_chunks": 0,
-               "calls": 0}
+               "calls": 0, "instances": {}}
     run = TrackingEngine._run_capture
 
     def counted(self, samples, state, limit, n_epochs):
         chunks = -(-n_epochs // self.chain_spec.E)
         counter["chunks"] += chunks
         counter["calls"] += 1
+        if self.correlator == "chunked":
+            s = self.chain_spec
+            key = (s.K, s.order, s.sec_data, s.sec_len)
+            inst = counter["instances"]
+            inst[key] = inst.get(key, 0) + chunks
         if self.chain_spec.sec_len > 1 and bool(state.sec_on.any()):
             counter["sec_chunks"] += chunks
         if bool(((state.carr_offset_hz != 0) & state.active).any()):
@@ -3246,7 +3251,6 @@ def _counting(cc, tc):
 
     TrackingEngine._run_capture = counted
     cc.launches = tc.launches = 0
-    tcap.launches_by_instance.clear()
     try:
         yield counter
     finally:
@@ -5072,7 +5076,7 @@ def _eph_check(rx, scen, what, pages):
     return errs
 
 
-def phase_sec(dev, cc, tc, tcap, scen, x, signal):
+def phase_sec(dev, cc, tc, scen, x, signal):
     """Phase 12 (L5) / 13 (E5a with the CAF): the receiver over the
     preloaded capture, each kernel's launches == chunks, every chain launch
     on the secondary-code instance, and chunks run with the wipe on."""
@@ -5089,7 +5093,7 @@ def phase_sec(dev, cc, tc, tcap, scen, x, signal):
     _check_launches(cc, tc, chunks, what)
     spec = rx.trk.chain_spec
     key = (spec.K, spec.order, spec.sec_data, spec.sec_len)
-    inst = dict(tcap.launches_by_instance)
+    inst = dict(counter["instances"])
     if spec.sec_len != rx._sec_period or inst != {key: chunks}:
         raise AssertionError(f"{what}: chain instances {inst} for {chunks} "
                              f"chunks of sec_len {spec.sec_len}")
@@ -5212,7 +5216,7 @@ def _bds_bars(ephs, ecef, scen, what, system="C"):
     return rep
 
 
-def phase_bds(dev, cc, tc, tcap, scen, x, signal):
+def phase_bds(dev, cc, tc, scen, x, signal):
     """Phase 19 (B1I) / 21 (B3I): the receiver over the preloaded capture
     at tests/test_system_beidou.py's bars, each kernel's launches ==
     chunks, every chain launch on the NH20 instance, chunks run with the
@@ -5230,7 +5234,7 @@ def phase_bds(dev, cc, tc, tcap, scen, x, signal):
     _check_launches(cc, tc, chunks, what)
     spec = rx.trk.chain_spec
     key = (spec.K, spec.order, spec.sec_data, spec.sec_len)
-    inst = dict(tcap.launches_by_instance)
+    inst = dict(counter["instances"])
     if spec.sec_len != 20 or not spec.sec_data or inst != {key: chunks}:
         raise AssertionError(f"{what}: chain instances {inst} for {chunks} "
                              f"chunks of sec_len {spec.sec_len}")
@@ -5331,7 +5335,7 @@ def _glonass_config(**kw):
         acq_dwells=3, pll_bw_hz=25.0, dll_bw_hz=2.0), **kw})
 
 
-def phase_glonass(dev, cc, tc, tcap, scen, x):
+def phase_glonass(dev, cc, tc, scen, x):
     """Phase 15: the GLONASS L1 receiver over the preloaded capture, at
     tests/test_system_glonass.py's bars; each kernel's launches == chunks,
     all on the <3,3,false,false> instance, chunks run with a non-zero FDMA
@@ -5350,7 +5354,7 @@ def phase_glonass(dev, cc, tc, tcap, scen, x):
     chunks = counter["chunks"]
     _check_launches(cc, tc, chunks, what)
     spec = rx.trk.chain_spec
-    inst = dict(tcap.launches_by_instance)
+    inst = dict(counter["instances"])
     if inst != {(3, spec.order, False, 1): chunks}:
         raise AssertionError(f"{what}: chain instances {inst}")
     if not counter["offset_chunks"] > 0:
@@ -5395,7 +5399,6 @@ def _group_counting(cc, tc):
     """Per-group launch and chunk counts of a MultiReceiver run: wraps
     Receiver.process so that each group's run is counted on its own (the
     counters of `_counting` read just before and just after it)."""
-    from gnss_sdr_1_tpu_torch.ops import track_capture as tcap
     from gnss_sdr_1_tpu_torch.runtime.receiver import Receiver
 
     groups, proc = [], Receiver.process
@@ -5404,14 +5407,14 @@ def _group_counting(cc, tc):
     def ctx(counter):
         def counted(self, samples):
             before = (cc.launches, tc.launches, counter["chunks"],
-                      dict(tcap.launches_by_instance))
+                      dict(counter["instances"]))
             t0 = time.perf_counter()
             try:
                 return proc(self, samples)
             finally:
                 inst = {"<" + ",".join(str(int(v)) for v in k) + ">":
                         n - before[3].get(k, 0)
-                        for k, n in tcap.launches_by_instance.items()
+                        for k, n in counter["instances"].items()
                         if n - before[3].get(k, 0)}
                 groups.append({
                     "signal": self.cfg.signal_id,

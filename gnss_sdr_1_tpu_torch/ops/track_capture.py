@@ -28,13 +28,6 @@ import torch
 from . import chunk_corr as cc
 from . import track_chain as tc
 
-# chain launches per kernel template instance, keyed (K, PLL order,
-# secondary-code data flag, secondary-code length), counted where the
-# capture entry enqueues them (the secondary-code instances run on GPS L5
-# and Galileo E5a)
-launches_by_instance: dict[tuple[int, int, bool, int], int] = {}
-
-
 def _outputs(chain_spec: tc.ChainSpec, n_chunks: int, dev):
     cap, C, K = n_chunks * chain_spec.E, chain_spec.C, chain_spec.K
     return (torch.empty((cap, tc.N_OROWS, C), dtype=torch.float32,
@@ -103,9 +96,6 @@ def track_capture_cuda(chain_spec: tc.ChainSpec, corr_spec: cc.CorrSpec,
         raise RuntimeError(f"track_capture launch failed: CUDA error {err}")
     cc.launches += n_chunks
     tc.launches += n_chunks
-    key = (chain_spec.K, chain_spec.order, chain_spec.sec_data,
-           chain_spec.sec_len)
-    launches_by_instance[key] = launches_by_instance.get(key, 0) + n_chunks
     last = (n_chunks - 1) % 2
     return out_f, out_i, out_corr, fst_ab[last], ist_ab[last]
 

@@ -77,6 +77,7 @@ from ..track import TrackConfig, TrackingEngine, TrackOutputs
 from ..track.engine import (state_from_numpy, state_to_numpy,
                             tracking_correlator)
 from ..track.kf import KfTrackConfig, KfTrackingEngine
+from ..utils import spans
 from .monitor import GnssSynchro, UdpSink
 from .stream import STREAM_FORMATS, PinnedStaging, unpack_raw
 
@@ -471,6 +472,7 @@ class Receiver:
                 device=self.device)
         return len(self._assist)
 
+    @spans.traced("receiver.acquire")
     def _acquire_and_assign(self, samples_abs_offset: int,
                             samples: np.ndarray) -> None:
         """Run acquisition on idle PRNs, assign positives to idle channels
@@ -592,6 +594,7 @@ class Receiver:
         self.watchdog_trips += 1
         return True
 
+    @spans.traced("receiver.harvest")
     def _harvest(self, outs, block_offset_abs: int, decim: int = 1,
                  owners=None) -> None:
         """Stream tracking epochs into telemetry decoders + histories.
@@ -800,6 +803,7 @@ class Receiver:
             dec.push(vals, sts)
         self._sym_carry[prn] = [0.0, 0, carry[2], None]
 
+    @spans.traced("receiver.harvest")
     def _harvest_symbols(self, souts, block_offset_abs: int,
                          sym_off) -> None:
         """Harvest a SymbolOutputs segment.
@@ -1018,6 +1022,7 @@ class Receiver:
             return dec.ephemeris
         return self.assist_ephemerides.get(prn)
 
+    @spans.traced("receiver.observables_pvt")
     def _observables_and_pvt(self) -> None:
         cfg = self.cfg
         tick = int(round(cfg.fs_hz * cfg.obs_interval_ms * 1e-3))
@@ -1185,49 +1190,52 @@ class Receiver:
         while self._pos + base + nmax <= total:
             if self._standby:
                 break
-            need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
-            if self._pos + need <= total:
-                # acquisition and activation run in call-relative sample
-                # coordinates (the tracking segment frame)
-                self._acquire_and_assign(
-                    self._pos, samples[self._pos:self._pos + need])
-            # keep segments short through pull-in (an idle channel with
-            # satellites still acquirable, or an active channel without bit
-            # sync) so satellites (re)acquire at the reference's channel-FSM
-            # latency; steady state gets the full segment
-            seg_now = seg_blocks
-            idle_wants_acq = any(p is None for p in self.channel_prn) \
-                and self._empty_acq_streak < 5
-            if idle_wants_acq or not self._pull_in_done():
-                seg_now = min(seg_blocks, 25)
-            n_blocks = min(seg_now, (total - self._pos - nmax) // base)
-            if n_blocks < 1:
-                break
-            span = n_blocks * base
-            sdev = self._samples_dev
-            if sdev is not None and sdev.shape[0] >= self._pos + span + nmax:
-                seg_dev = sdev[self._pos:self._pos + span + nmax]
-            else:
-                seg_dev = to_device(
-                    samples[self._pos:self._pos + span + nmax], self.device) \
-                    * self._segment_scale(samples)
-            sym_off = self._symbol_offsets()
-            if self.trk_kind == "kf":
-                self.state, outs = self._kf_track_segment(seg_dev, span)
-                self._harvest(outs, abs_base + self._pos)
-            elif sym_off is not None:
-                self.state, souts = self.trk.track_capture_symbols(
-                    seg_dev, self.state, span, sym_off, self._sec_period)
-                self._harvest_symbols(souts, abs_base + self._pos, sym_off)
-            else:
-                self.state, outs = self.trk.track_capture(
-                    seg_dev, self.state, span)
-                self._harvest(outs, abs_base + self._pos,
-                              decim=self.trk.capture_decim)
-            self._maybe_extend()
-            self._observables_and_pvt()
-            self._pos += span
-            self._blocks_done += n_blocks
+            with spans.span("receiver.segment"):
+                need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
+                if self._pos + need <= total:
+                    # acquisition and activation run in call-relative sample
+                    # coordinates (the tracking segment frame)
+                    self._acquire_and_assign(
+                        self._pos, samples[self._pos:self._pos + need])
+                # keep segments short through pull-in (an idle channel
+                # with satellites still acquirable, or an active channel
+                # without bit sync) so satellites (re)acquire at the
+                # reference's channel-FSM latency; steady state gets the
+                # full segment
+                seg_now = seg_blocks
+                idle_wants_acq = any(p is None for p in self.channel_prn) \
+                    and self._empty_acq_streak < 5
+                if idle_wants_acq or not self._pull_in_done():
+                    seg_now = min(seg_blocks, 25)
+                n_blocks = min(seg_now, (total - self._pos - nmax) // base)
+                if n_blocks < 1:
+                    break
+                span = n_blocks * base
+                sdev = self._samples_dev
+                end = self._pos + span + nmax
+                if sdev is not None and sdev.shape[0] >= end:
+                    seg_dev = sdev[self._pos:end]
+                else:
+                    seg_dev = to_device(samples[self._pos:end], self.device) \
+                        * self._segment_scale(samples)
+                sym_off = self._symbol_offsets()
+                if self.trk_kind == "kf":
+                    self.state, outs = self._kf_track_segment(seg_dev, span)
+                    self._harvest(outs, abs_base + self._pos)
+                elif sym_off is not None:
+                    self.state, souts = self.trk.track_capture_symbols(
+                        seg_dev, self.state, span, sym_off, self._sec_period)
+                    self._harvest_symbols(souts, abs_base + self._pos,
+                                          sym_off)
+                else:
+                    self.state, outs = self.trk.track_capture(
+                        seg_dev, self.state, span)
+                    self._harvest(outs, abs_base + self._pos,
+                                  decim=self.trk.capture_decim)
+                self._maybe_extend()
+                self._observables_and_pvt()
+                self._pos += span
+                self._blocks_done += n_blocks
         self._abs_base = abs_base + self._pos
         return self.solutions
 
@@ -1290,40 +1298,41 @@ class Receiver:
             buf_parts.append(chunk)
             buf_len += len(chunk) * spi // ipc
             while buf_len >= need_samps and not self._standby:
-                buf = np.concatenate(buf_parts) if len(buf_parts) > 1 \
-                    else buf_parts[0]
-                # acquisition on the segment head (idle channels only)
-                if reacq_countdown <= 0:
-                    need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
-                    if buf_len >= need:
-                        head = buf[: n_items(need)]
-                        xc = convert_to_complex64(head, fmt)[:need] \
-                            if fmt is not None else head
-                        self._pos = consumed
-                        self._acquire_and_assign(consumed, xc)
-                    reacq_countdown = max(1, cfg.reacq_interval_blocks
-                                          // max(1, span // base))
-                reacq_countdown -= 1
-                seg = buf[: n_items(need_samps)]
-                if fmt is not None:
-                    if self._ingest_scale is None:
-                        self._scale_for(convert_to_complex64(
-                            buf[: n_items(min(buf_len, 1 << 18))], fmt))
-                    seg_dev = unpack_raw(staging.upload(seg), fmt.name,
-                                         self._ingest_scale)[:need_samps]
-                else:
-                    scale = np.float32(self._scale_for(seg))
-                    seg_dev = staging.upload(
-                        np.asarray(seg, np.complex64)) * scale
-                owners = [(p, self.decoders.get(p))
-                          for p in self.channel_prn]
-                self.state, readback = self.trk.launch_capture(
-                    seg_dev, self.state, span)
-                pending.append((readback, consumed, owners))
-                buf_parts = [buf[span * ipc // spi:]]
-                buf_len -= span
-                consumed += span
-                self._blocks_done += span // base
+                with spans.span("receiver.segment"):
+                    buf = np.concatenate(buf_parts) if len(buf_parts) > 1 \
+                        else buf_parts[0]
+                    # acquisition on the segment head (idle channels only)
+                    if reacq_countdown <= 0:
+                        need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
+                        if buf_len >= need:
+                            head = buf[: n_items(need)]
+                            xc = convert_to_complex64(head, fmt)[:need] \
+                                if fmt is not None else head
+                            self._pos = consumed
+                            self._acquire_and_assign(consumed, xc)
+                        reacq_countdown = max(1, cfg.reacq_interval_blocks
+                                              // max(1, span // base))
+                    reacq_countdown -= 1
+                    seg = buf[: n_items(need_samps)]
+                    if fmt is not None:
+                        if self._ingest_scale is None:
+                            self._scale_for(convert_to_complex64(
+                                buf[: n_items(min(buf_len, 1 << 18))], fmt))
+                        seg_dev = unpack_raw(staging.upload(seg), fmt.name,
+                                             self._ingest_scale)[:need_samps]
+                    else:
+                        scale = np.float32(self._scale_for(seg))
+                        seg_dev = staging.upload(
+                            np.asarray(seg, np.complex64)) * scale
+                    owners = [(p, self.decoders.get(p))
+                              for p in self.channel_prn]
+                    self.state, readback = self.trk.launch_capture(
+                        seg_dev, self.state, span)
+                    pending.append((readback, consumed, owners))
+                    buf_parts = [buf[span * ipc // spi:]]
+                    buf_len -= span
+                    consumed += span
+                    self._blocks_done += span // base
                 # harvest the previous segment while this one computes
                 if len(pending) > 1:
                     self._harvest_segment(*pending.pop(0), abs_base)
@@ -1336,12 +1345,14 @@ class Receiver:
     def _harvest_segment(self, readback, seg_start: int, owners,
                          abs_base: int) -> None:
         """process_stream's harvest of one launched segment: wait for its
-        readback only, then the host stages."""
-        outs = self.trk.harvest_capture(readback)
-        self._harvest(outs, abs_base + seg_start,
-                      decim=self.trk.capture_decim, owners=owners)
-        self._maybe_extend()
-        self._observables_and_pvt()
+        readback only, then the host stages, in the span segment of its
+        launch."""
+        with spans.span("receiver.segment", readback.segment):
+            outs = self.trk.harvest_capture(readback)
+            self._harvest(outs, abs_base + seg_start,
+                          decim=self.trk.capture_decim, owners=owners)
+            self._maybe_extend()
+            self._observables_and_pvt()
 
     # ---------------- checkpoint / resume ----------------
 

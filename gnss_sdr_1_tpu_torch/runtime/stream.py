@@ -12,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import spans
+
 # the raw formats process_stream accepts: interleaved I/Q integers and the
 # nibble-packed 2-bit I/Q of LabSat/NSR-class front ends
 STREAM_FORMATS = ("ishort", "ibyte", "cshort", "cbyte", "2bits_cpx")
 
 
+@spans.traced("stream.unpack")
 def unpack_raw(raw: torch.Tensor, fmt: str, scale: float) -> torch.Tensor:
     """Raw items -> complex64 samples times `scale`, on raw's device.
 
@@ -57,24 +60,33 @@ class PinnedStaging:
         self._next = 0
 
     def upload(self, seg: np.ndarray) -> torch.Tensor:
-        seg = np.ascontiguousarray(seg)
-        dtype = torch.from_numpy(np.empty(0, seg.dtype)).dtype
-        if self.device.type != "cuda":
-            return torch.from_numpy(np.require(seg, requirements="W"))
-        k, self._next = self._next, self._next ^ 1
-        if self._events[k] is not None:
-            self._events[k].synchronize()
-        n = seg.nbytes
-        buf = self._bufs[k]
-        if buf is None or buf.numel() < n:
-            buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-            if not buf.is_pinned():
-                raise RuntimeError("the staging buffer could not be pinned")
-            self._bufs[k] = buf
-        buf[:n].numpy()[:] = seg.reshape(-1).view(np.uint8)
-        dev = torch.empty(n, dtype=torch.uint8, device=self.device)
-        dev.copy_(buf[:n], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self._events[k] = ev
-        return dev.view(dtype)
+        with spans.span("stream.upload") as sp:
+            seg = np.ascontiguousarray(seg)
+            dtype = torch.from_numpy(np.empty(0, seg.dtype)).dtype
+            if self.device.type != "cuda":
+                return torch.from_numpy(np.require(seg, requirements="W"))
+            k, self._next = self._next, self._next ^ 1
+            if self._events[k] is not None:
+                with spans.wait("stream.upload.wait") as w:
+                    if w:
+                        w.count("ready", int(self._events[k].query()))
+                    self._events[k].synchronize()
+            n = seg.nbytes
+            buf = self._bufs[k]
+            if buf is None or buf.numel() < n:
+                buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+                if not buf.is_pinned():
+                    raise RuntimeError(
+                        "the staging buffer could not be pinned")
+                sp.count("pinned_allocs")
+                self._bufs[k] = buf
+            with spans.span("stream.upload.stage") as st:
+                st.count("bytes", n)
+                buf[:n].numpy()[:] = seg.reshape(-1).view(np.uint8)
+            with spans.span("stream.upload.copy"):
+                dev = torch.empty(n, dtype=torch.uint8, device=self.device)
+                dev.copy_(buf[:n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            self._events[k] = ev
+            return dev.view(dtype)

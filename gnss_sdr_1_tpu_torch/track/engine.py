@@ -56,6 +56,7 @@ from ..ops import chunk_corr as cc
 from ..ops import gather_block as gb
 from ..ops import track_capture as tcap
 from ..ops import track_chain as tc
+from ..utils import spans
 from .config import TrackConfig
 from .loop_filter import fll_pll_coefficients, iir_coefficients
 
@@ -118,12 +119,14 @@ class CaptureReadback(NamedTuple):
     """A launched capture segment's per-epoch rows on their way to the
     host (launch_capture -> harvest_capture).  On the card: pinned host
     tensors that a non_blocking copy fills, and the event recorded after
-    that copy; on the CPU the rows themselves and no event."""
+    that copy; on the CPU the rows themselves and no event.  `segment` is
+    the launch's span segment (utils.spans), which its harvest joins."""
 
     out_f: torch.Tensor             # f32 [n, 7, C]
     out_i: torch.Tensor             # i32 [n, 2, C]
     correlators: torch.Tensor       # complex64 [n, C, K]
     event: torch.cuda.Event | None
+    segment: int | None = None
 
 
 class SymbolOutputs(NamedTuple):
@@ -142,6 +145,24 @@ class SymbolOutputs(NamedTuple):
     vcount: np.ndarray       # i32 valid epochs in the slot (<= sym_n)
     n_valid: np.ndarray      # i32 [C] total valid epochs this segment
     active: np.ndarray       # bool [C] channel still tracking at the end
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; from the card a blocking read, a wait span."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    with spans.wait("engine.symbols.read"):
+        return t.cpu().numpy()
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on `dev`; to the card a copy from pageable memory,
+    which waits for the stream, i.e. for all the work enqueued before it:
+    a wait span."""
+    if dev.type != "cuda":
+        return torch.as_tensor(a, device=dev)
+    with spans.wait("engine.symbols.offsets"):
+        return torch.as_tensor(a, device=dev)
 
 
 def _set(t: torch.Tensor, ch: int, value) -> torch.Tensor:
@@ -568,21 +589,24 @@ class TrackingEngine:
             raise ValueError(f"capture lies on {samples.device}, engine on "
                              f"{self.device}")
         samples = samples.to(torch.complex64).contiguous()
-        fst, ist = self._pack_rows(state, limit)
+        with spans.span("engine.pack_rows"):
+            fst, ist = self._pack_rows(state, limit)
         slot = state.prn_slot.to(_I32).contiguous()
         sec_rows = self._sec[slot.long()].T.contiguous()
         if self.correlator == "gather":
-            out_f, out_i, out_corr, fst, ist = gb.gather_block(
-                self.gather_spec, samples,
-                self._codes[slot.long()].contiguous(), sec_rows, fst, ist,
-                n_epochs)
+            codes = self._codes[slot.long()].contiguous()
+            with spans.span("engine.enqueue"):
+                out_f, out_i, out_corr, fst, ist = gb.gather_block(
+                    self.gather_spec, samples, codes, sec_rows, fst, ist,
+                    n_epochs)
         else:
             E = self._chunk_epochs
             n_chunks = (n_epochs + E - 1) // E
-            out_f, out_i, out_corr, fst, ist = tcap.track_capture(
-                self.chain_spec, self.corr_spec, n_chunks,
-                self._pad_for_chunks(samples), self._rows, slot, sec_rows,
-                fst, ist)
+            samples = self._pad_for_chunks(samples)
+            with spans.span("engine.enqueue"):
+                out_f, out_i, out_corr, fst, ist = tcap.track_capture(
+                    self.chain_spec, self.corr_spec, n_chunks, samples,
+                    self._rows, slot, sec_rows, fst, ist)
         return self._unpack_rows(state, fst, ist), out_f, out_i, out_corr
 
     # ---------------- output reductions ----------------
@@ -601,25 +625,29 @@ class TrackingEngine:
     def n_symbol_slots(n_epochs_cap: int, sym_n: int) -> int:
         return n_epochs_cap // sym_n + 2
 
-    def _read_back(self, out_f, out_i, out_corr) -> CaptureReadback:
+    def _read_back(self, out_f, out_i, out_corr,
+                   segment: int | None = None) -> CaptureReadback:
         """Queue the per-epoch rows' copy to the host: on the card into
         pinned host tensors with non_blocking=True, then an event; nothing
         waits here.  On the CPU the rows stay as they are."""
-        K = self.cfg.n_taps
-        corr = torch.complex(out_corr[:, :K], out_corr[:, K:]).permute(
-            0, 2, 1)                                                 # [cap,C,K]
-        if out_f.device.type != "cuda":
-            return CaptureReadback(out_f, out_i, corr, None)
-        host = []
-        for t in (out_f, out_i, corr):
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            if not h.is_pinned():
-                raise RuntimeError("the readback buffer could not be pinned")
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        event = torch.cuda.Event()
-        event.record()
-        return CaptureReadback(*host, event)
+        with spans.span("engine.read_back") as sp:
+            K = self.cfg.n_taps
+            corr = torch.complex(out_corr[:, :K], out_corr[:, K:]).permute(
+                0, 2, 1)                                         # [cap,C,K]
+            if out_f.device.type != "cuda":
+                return CaptureReadback(out_f, out_i, corr, None, segment)
+            host = []
+            for t in (out_f, out_i, corr):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                if not h.is_pinned():
+                    raise RuntimeError(
+                        "the readback buffer could not be pinned")
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            sp.count("pinned_allocs", len(host))
+            event = torch.cuda.Event()
+            event.record()
+            return CaptureReadback(*host, event, segment)
 
     def harvest_capture(self, rb: CaptureReadback,
                         decim: int | None = None) -> TrackOutputs:
@@ -630,82 +658,84 @@ class TrackingEngine:
         between (D = `decim`, capture_decim by default; 1 keeps every
         row)."""
         D = self.capture_decim if decim is None else decim
-        if rb.event is not None:
-            rb.event.synchronize()
-        f = rb.out_f.numpy()
-        i = rb.out_i.numpy()
-        d = np.repeat(f[D - 1::D], D, axis=0)
-        return TrackOutputs(
-            valid=f[:, tc.O_VALID] > 0.5,
-            start=i[:, 0],
-            cur_len=i[:, 1],
-            correlators=rb.correlators.numpy(),
-            carrier_doppler_hz=d[:, tc.O_DOPPLER],
-            code_freq_delta=d[:, tc.O_DELTA],
-            rem_code_phase_samples=f[:, tc.O_REM_CODE],
-            rem_carr_phase_rad=d[:, tc.O_REM_CARR],
-            cn0_dbhz=d[:, tc.O_CN0],
-            active=f[:, tc.O_ACTIVE] > 0.5,
-        )
+        with spans.span("engine.harvest_capture", rb.segment):
+            if rb.event is not None:
+                with spans.wait("engine.harvest.wait") as w:
+                    if w:
+                        w.count("ready", int(rb.event.query()))
+                    rb.event.synchronize()
+            f = rb.out_f.numpy()
+            i = rb.out_i.numpy()
+            d = np.repeat(f[D - 1::D], D, axis=0)
+            return TrackOutputs(
+                valid=f[:, tc.O_VALID] > 0.5,
+                start=i[:, 0],
+                cur_len=i[:, 1],
+                correlators=rb.correlators.numpy(),
+                carrier_doppler_hz=d[:, tc.O_DOPPLER],
+                code_freq_delta=d[:, tc.O_DELTA],
+                rem_code_phase_samples=f[:, tc.O_REM_CODE],
+                rem_carr_phase_rad=d[:, tc.O_REM_CARR],
+                cn0_dbhz=d[:, tc.O_CN0],
+                active=f[:, tc.O_ACTIVE] > 0.5,
+            )
 
     def _symbol_outputs(self, out_f, out_i, out_corr, entering_rem, sym_off,
                         N: int) -> SymbolOutputs:
         """Reduce per-epoch rows onto each channel's symbol grid on the
         device: slot 0 = the partial head [0, b0); slot s >= 1 covers
         [b0 + (s-1)N, b0 + sN).  Prompt means and valid counts are slot
-        sums; the loop-state rows are the picks entering each slot."""
-        dev = out_f.device
-        cap, _, C = out_f.shape
-        S = self.n_symbol_slots(cap, N)
-        p = self.cfg.prompt_index
-        K = self.cfg.n_taps
-        v = out_f[:, tc.O_VALID]                                   # [cap, C]
-        fields = torch.stack([out_corr[:, p] * v, out_corr[:, K + p] * v, v],
-                             dim=-1)                               # [cap,C,3]
-        P = S * N
-        fields = torch.cat([fields, torch.zeros(
-            (P - cap, C, 3), dtype=_F32, device=dev)])
-        # per-channel roll forward by N - b0 puts epoch b0 at row N, so an
-        # [S, N] reshape sums each slot
-        b0 = torch.as_tensor(np.asarray(sym_off, np.int64), device=dev)
-        rows = torch.arange(P, device=dev)[:, None]
-        src = torch.remainder(rows - (N - b0)[None, :], P)         # [P, C]
-        rolled = torch.gather(fields, 0, src[..., None].expand(P, C, 3))
-        # the slot sums epoch by epoch, in order: a channel's sums do not
-        # depend on how many channels share the call (a reduction kernel's
-        # order does, on the CPU and on the card)
-        slots = rolled.reshape(S, N, C, 3)
-        sums = slots[:, 0]
-        for k in range(1, N):
-            sums = sums + slots[:, k]                              # [S, C, 3]
-        mi = sums[..., 0] * (1.0 / N)
-        mq = sums[..., 1] * (1.0 / N)
-        vcount = sums[..., 2].to(_I32)
-        sl = torch.arange(S, device=dev)[:, None]
-        e_s = torch.clamp(b0[None, :] - N + sl * N, 0, cap - 1)    # [S, C]
-        em1 = torch.clamp(e_s - 1, 0, cap - 1)
-        rem = out_f[:, tc.O_REM_CODE]
-        prev = torch.cat([entering_rem[None], rem[:-1]])
-        # pre-floor code-phase fraction (receiver._harvest wrap note)
-        fracs = rem - torch.round(rem - prev)
-        nv = v.sum(dim=0).to(torch.int64)                          # [C]
-        last = torch.clamp(nv - 1, 0, cap - 1)
-        active_last = out_f[:, tc.O_ACTIVE].gather(0, last[None])[0] > 0.5
-
-        def take(a, idx):
-            return torch.gather(a, 0, idx).cpu().numpy()
-
-        return SymbolOutputs(
-            start=take(out_i[:, 0], e_s),
-            mean_i=mi.cpu().numpy(), mean_q=mq.cpu().numpy(),
-            frac=take(fracs, em1),
-            rem_carr_phase_rad=take(out_f[:, tc.O_REM_CARR], em1),
-            carrier_doppler_hz=take(out_f[:, tc.O_DOPPLER], em1),
-            cn0_dbhz=take(out_f[:, tc.O_CN0], em1),
-            code_freq_delta=take(out_f[:, tc.O_DELTA], em1),
-            vcount=vcount.cpu().numpy(),
-            n_valid=nv.to(_I32).cpu().numpy(),
-            active=active_last.cpu().numpy())
+        sums; the loop-state rows are the picks entering each slot.  Every
+        field is enqueued first, then read to the host one by one."""
+        with spans.span("engine.symbols.reduce"):
+            dev = out_f.device
+            cap, _, C = out_f.shape
+            S = self.n_symbol_slots(cap, N)
+            p = self.cfg.prompt_index
+            K = self.cfg.n_taps
+            v = out_f[:, tc.O_VALID]                               # [cap, C]
+            fields = torch.stack([out_corr[:, p] * v, out_corr[:, K + p] * v,
+                                  v], dim=-1)                      # [cap,C,3]
+            P = S * N
+            fields = torch.cat([fields, torch.zeros(
+                (P - cap, C, 3), dtype=_F32, device=dev)])
+            # per-channel roll forward by N - b0 puts epoch b0 at row N, so
+            # an [S, N] reshape sums each slot
+            b0 = _to_device(np.asarray(sym_off, np.int64), dev)
+            rows = torch.arange(P, device=dev)[:, None]
+            src = torch.remainder(rows - (N - b0)[None, :], P)     # [P, C]
+            rolled = torch.gather(fields, 0, src[..., None].expand(P, C, 3))
+            # the slot sums epoch by epoch, in order: a channel's sums do
+            # not depend on how many channels share the call (a reduction
+            # kernel's order does, on the CPU and on the card)
+            slots = rolled.reshape(S, N, C, 3)
+            sums = slots[:, 0]
+            for k in range(1, N):
+                sums = sums + slots[:, k]                          # [S, C, 3]
+            sl = torch.arange(S, device=dev)[:, None]
+            e_s = torch.clamp(b0[None, :] - N + sl * N, 0, cap - 1)  # [S, C]
+            em1 = torch.clamp(e_s - 1, 0, cap - 1)
+            rem = out_f[:, tc.O_REM_CODE]
+            prev = torch.cat([entering_rem[None], rem[:-1]])
+            # pre-floor code-phase fraction (receiver._harvest wrap note)
+            fracs = rem - torch.round(rem - prev)
+            nv = v.sum(dim=0).to(torch.int64)                      # [C]
+            last = torch.clamp(nv - 1, 0, cap - 1)
+            on_dev = dict(
+                start=torch.gather(out_i[:, 0], 0, e_s),
+                mean_i=sums[..., 0] * (1.0 / N),
+                mean_q=sums[..., 1] * (1.0 / N),
+                frac=torch.gather(fracs, 0, em1),
+                rem_carr_phase_rad=torch.gather(out_f[:, tc.O_REM_CARR], 0,
+                                                em1),
+                carrier_doppler_hz=torch.gather(out_f[:, tc.O_DOPPLER], 0,
+                                                em1),
+                cn0_dbhz=torch.gather(out_f[:, tc.O_CN0], 0, em1),
+                code_freq_delta=torch.gather(out_f[:, tc.O_DELTA], 0, em1),
+                vcount=sums[..., 2].to(_I32),
+                n_valid=nv.to(_I32),
+                active=out_f[:, tc.O_ACTIVE].gather(0, last[None])[0] > 0.5)
+        return SymbolOutputs(**{f: _to_host(t) for f, t in on_dev.items()})
 
     # ---------------- host API ----------------
 
@@ -755,11 +785,12 @@ class TrackingEngine:
         rebase the state and queue the rows' copy to the host, without
         waiting for any of it.  Returns (state rebased by span,
         CaptureReadback for harvest_capture)."""
-        n_epochs = self._check_capture(samples, span)
-        st, out_f, out_i, out_corr = self._run_capture(samples, state, span,
-                                                       n_epochs)
-        return self.rebase(st, span), self._read_back(out_f, out_i,
-                                                      out_corr)
+        with spans.span("engine.launch_capture") as sp:
+            n_epochs = self._check_capture(samples, span)
+            st, out_f, out_i, out_corr = self._run_capture(
+                samples, state, span, n_epochs)
+            return self.rebase(st, span), self._read_back(
+                out_f, out_i, out_corr, sp.segment)
 
     def track_capture_symbols(self, samples, state: TrackState, span: int,
                               sym_off, sym_n: int):
@@ -767,9 +798,10 @@ class TrackingEngine:
         [C] gives each channel's next symbol boundary as an epoch index in
         [1, sym_n] (host bit sync supplies it).  Returns (state rebased by
         span, SymbolOutputs)."""
-        n_epochs = self._check_capture(samples, span)
-        entering_rem = state.rem_code_phase_samples
-        st, out_f, out_i, out_corr = self._run_capture(samples, state, span,
-                                                       n_epochs)
-        return self.rebase(st, span), self._symbol_outputs(
-            out_f, out_i, out_corr, entering_rem, sym_off, int(sym_n))
+        with spans.span("engine.track_capture_symbols"):
+            n_epochs = self._check_capture(samples, span)
+            entering_rem = state.rem_code_phase_samples
+            st, out_f, out_i, out_corr = self._run_capture(
+                samples, state, span, n_epochs)
+            return self.rebase(st, span), self._symbol_outputs(
+                out_f, out_i, out_corr, entering_rem, sym_off, int(sym_n))
