@@ -94,6 +94,18 @@ Phases (one line each, with times):
      time a call, an empty kernel of the same geometry), and through the
      MC_STAGES build (a third nvcc of gather_block.cu): the spans of a
      CTA and thread 0's cycles a sample with parts of the body left out;
+ 2d. the symbol-grid kernel (symbol_slots) against symbol_slots_plain on
+     the card, bit for bit (the floats as int32, so zeros' signs count),
+     through both walks' libraries, one launch a call: the GPS receiver's
+     1 s segment (cap 1,008, C=8, N=20; cap 1,004, C=12), a cap not a
+     multiple of N with channels that drop, never track or track one
+     epoch, and the E1B receiver's (cap 252, N=1, K=5, C=4 and 8); timed
+     at the GPS and E1B C=4 shapes (device time by name, CUDA events
+     back to back, the plain version, the bytes bound); and, in every
+     counted run of the phases below (each receiver, phase 4's engine,
+     phase 34's shards), its launches == the symbol-grid calls on the
+     card, the first call of each shape held bit for bit to the plain
+     version on the same rows;
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -273,7 +285,8 @@ Phases (one line each, with times):
 Then one JSON line describing every kernel (the chunked kernels'
 launches summed over phases 5-7, 10-21 and 28-34, the KF kernel's over
 phases 8 and 22, the gather walk's over 23-26, 28 and 34, the multicorrelator's
-over 27, each read just after its run), the nvidia-smi line, and
+over 27, the symbol grid's over every counted run, each read just after
+its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -808,6 +821,20 @@ def main() -> None:
     if not cr["ms"] <= cr["library_ms"]:
         raise AssertionError(f"chunk_corr {cr['ms']:.5f} ms is slower than "
                              f"the torch.bmm pair {cr['library_ms']:.5f} ms")
+    t0 = time.perf_counter()
+    sym_rows = phase_symbol_kernel(dev)
+    for r in sym_rows:
+        timed = (f"; kernel {r['ms']:.5f} ms/launch device (profiler, by "
+                 f"name), {r['events_ms']:.5f} ms a call back to back (CUDA "
+                 f"events), plain {r['plain_ms']:.3f} ms (CUDA events), "
+                 f"bound {r['bound_ms']:.2e} ms ({r['bound_by']})"
+                 if "ms" in r else "")
+        log(f"[2d] symbol_slots vs symbol_slots_plain on the card, "
+            f"{r['what']} (cap {r['cap']}, C={r['C']}, N={r['N']}, "
+            f"S={r['S']}, K={r['K']}, {r['drops']} channels dropping): "
+            f"bit for bit through both libraries, one launch a call"
+            + timed)
+    log(f"    | {time.perf_counter() - t0:.1f} s")
 
     # ---- the generator on the card, held to numpy on every capture ----
     t0 = time.perf_counter()
@@ -1298,11 +1325,24 @@ def main() -> None:
                     f"{r['efficiency']:.3f})" for n, r in w34["rates"].items())
         + f" | {time.perf_counter() - t0:.1f} s")
 
+    if not SYMBOLS["launches"] > 0 or 20 not in {
+            sh["shape"][2] for sh in SYMBOLS["shapes"]}:
+        raise AssertionError(f"symbol_slots on the main path: "
+                             f"{SYMBOLS['launches']} launches, shapes "
+                             f"{[sh['shape'] for sh in SYMBOLS['shapes']]}")
+    log(f"    symbol_slots over the main path's runs: {SYMBOLS['launches']} "
+        f"launches == {SYMBOLS['calls']} symbol-grid calls on the card in "
+        f"{SYMBOLS['runs']} runs; the first call of each of "
+        f"{len(SYMBOLS['shapes'])} shapes (cap, C, N, K) bit for bit "
+        f"symbol_slots_plain on its rows: "
+        + ", ".join(str(sh["shape"]) for sh in SYMBOLS["shapes"]))
+
     # launches of each kernel over every path that runs it, each counted
     # with the counters set to 0 just before the run and read just after
     kf_t = {r["what"]: r for r in kf_rows if "ms" in r}
     g_t = {r["what"]: r for r in g_rows if "ms" in r}
     mc_t = next(r for r in mc_rows if "ms" in r)
+    sym_t = {r["what"]: r for r in sym_rows if "ms" in r}
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
              *bds.values(), *cli20.values(), s28["ishort"],
@@ -1411,6 +1451,21 @@ def main() -> None:
             k: v["cycles_per_sample"]
             for k, v in mc_t["stages"]["probes"].items()},
         "shapes_checked": len(mc_rows),
+    }, {
+        "name": "symbol_slots", "route": "cuda",
+        "source": src + "symbol_slots.cuh",
+        "replaces": "gnss_sdr_1_tpu/track/engine.py:1318",
+        "launches": SYMBOLS["launches"], "engine_calls": SYMBOLS["calls"],
+        "runs": SYMBOLS["runs"], "max_abs_err": 0.0,
+        "ms": sym_t["GPS C=8"]["ms"],
+        "events_ms": sym_t["GPS C=8"]["events_ms"],
+        "plain_ms": sym_t["GPS C=8"]["plain_ms"],
+        "bound_ms": sym_t["GPS C=8"]["bound_ms"],
+        "bound_by": sym_t["GPS C=8"]["bound_by"], "library_ms": None,
+        **{f"e1b_{k}": sym_t["E1B C=4"][k]
+           for k in ("ms", "events_ms", "plain_ms", "bound_ms")},
+        "shapes_checked": len(sym_rows),
+        "main_path_shapes": [list(r["shape"]) for r in SYMBOLS["shapes"]],
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
@@ -1421,7 +1476,8 @@ def main() -> None:
               "cli_multi": cli18, "beidou": bds, "cli_beidou": cli20,
               "kf_kernel": kf_rows, "cli_kalman": cli8k, "e1_kf": e1kf,
               "gather_kernel": g_rows, "gather_instances": g_inst,
-              "multicorrelate": mc_rows, "gather_e2e": g23,
+              "multicorrelate": mc_rows, "symbol_kernel": sym_rows,
+              "symbols_main_path": SYMBOLS, "gather_e2e": g23,
               "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
               "stream": s28, "rtl_tcp": r29, "checkpoint": c30,
               "agnss": a31, "ppp": p32, "rtk": r33, "sharded": s34,
@@ -1445,15 +1501,18 @@ _KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
                  "17chunk_corr_kernel": "chunk_corr",
                  "15kf_block_kernel": "kf_block",
                  "19gather_block_kernel": "gather_block",
-                 "21multicorrelate_kernel": "multicorrelate"}
+                 "21multicorrelate_kernel": "multicorrelate",
+                 "19symbol_slots_kernel": "symbol_slots"}
 
 
 def build_report() -> dict:
     """Build every library (one nvcc each, started together, even where a
     build of the same sources exists: the report needs ptxas) and check
     what ptxas reports: every kernel is there (16 chain, 2 correlator, 4
-    KF, 16 gather and 4 multicorrelator instances); the chain's instances
-    use no local memory, the KF's and the gather walk's spill nothing."""
+    KF, 16 gather and 4 multicorrelator instances, and the symbol-grid
+    kernel: built into both walks' libraries under one name, one entry of
+    the report); the chain's instances use no local memory,
+    the KF's, the gather walk's and the symbol grid's spill nothing."""
     from gnss_sdr_1_tpu_torch.ops import _build
 
     _build.build_all(force=True)
@@ -1462,7 +1521,7 @@ def build_report() -> dict:
     ptxas = ptxas_report("\n".join(_build.BUILD_LOG[lib]["ptxas"]
                                    for lib in _build._ENTRIES))
     want = {"track_chain": 16, "chunk_corr": 2, "kf_block": 4,
-            "gather_block": 16, "multicorrelate": 4}
+            "gather_block": 16, "multicorrelate": 4, "symbol_slots": 1}
     got = {k: sum(n.split("<")[0] == k for n in ptxas) for k in want}
     if any(got[k] < n for k, n in want.items()):
         raise AssertionError(f"ptxas report lacks a kernel: {got}")
@@ -1470,7 +1529,8 @@ def build_report() -> dict:
         if name.startswith("track_chain") and (
                 r["stack"] or r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"track_chain uses local memory: {r}")
-        if name.startswith(("kf_block", "gather_block", "multicorrelate")) \
+        if name.startswith(("kf_block", "gather_block", "multicorrelate",
+                            "symbol_slots")) \
                 and (r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"{name} spills: {r}")
     return ptxas
@@ -3141,6 +3201,112 @@ def phase_gather_kernel(dev, gb, mc):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the symbol-grid reduction
+# ---------------------------------------------------------------------------
+
+# (what, cap, C, N, K, prompt, {channel: first invalid epoch}): the GPS
+# receiver's 1 s segment at 8 and 12 channels, a cap not a multiple of N
+# with channels that drop, never track or track one epoch, and the E1B
+# receiver's 1 s segment at 4 and 8 channels (N = 1, K = 5 VEML taps)
+SYMBOL_CASES = (("GPS C=8", 1008, 8, 20, 3, 1, {}),
+                ("GPS C=12", 1004, 12, 20, 3, 1, {}),
+                ("GPS drops", 1006, 12, 20, 3, 1, {2: 500, 5: 0, 7: 1}),
+                ("E1B C=4", 252, 4, 1, 5, 2, {1: 100, 3: 0}),
+                ("E1B C=8", 252, 8, 1, 5, 2, {}))
+
+
+def _symbol_rows(dev, cap, C, K, drops, g):
+    """Per-epoch rows as a walk leaves them, random where the reduction
+    reads (negative correlators on invalid epochs, so -0.0 products
+    occur; rem_code on a quarter-sample grid in half the channels, so its
+    steps hold exact halves), on the card; the channels' entering
+    rem_code."""
+    from gnss_sdr_1_tpu_torch.ops import track_chain as tc
+
+    f32 = torch.float32
+    out_f = torch.randn((cap, tc.N_OROWS, C), generator=g) * 100
+    valid = torch.ones((cap, C))
+    active = torch.ones((cap, C))
+    for c, e in drops.items():
+        valid[e:, c] = 0.0
+        active[max(e - 1, 0):, c] = 0.0
+    out_f[:, tc.O_VALID] = valid
+    out_f[:, tc.O_ACTIVE] = active
+    rem = torch.rand((cap, C), generator=g) * 6 - 3
+    grid = torch.randint(-12, 12, (cap, C), generator=g).to(f32) * 0.25
+    rem[:, ::2] = grid[:, ::2]
+    out_f[:, tc.O_REM_CODE] = rem
+    out_i = torch.randint(-(1 << 20), 1 << 20, (cap, 2, C), generator=g,
+                          dtype=torch.int32)
+    out_corr = torch.randn((cap, 2 * K, C), generator=g) * 1000
+    entering = torch.randint(-8, 8, (C,), generator=g).to(f32) * 0.25
+    return [t.to(dev) for t in (out_f, out_i, out_corr, entering)]
+
+
+def _symbol_bits_equal(got: dict, want: dict, what):
+    """Every field of the kernel's SymbolOutputs bit for bit the plain
+    version's (floats as int32, so zeros' signs count)."""
+    for f, w in want.items():
+        a, b = np.asarray(got[f]), w.cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a.view(np.int32) if a.dtype == np.float32 else a,
+                b.view(np.int32) if b.dtype == np.float32 else b):
+            raise AssertionError(f"symbol_slots {what}: {f} differs from "
+                                 f"symbol_slots_plain")
+
+
+def _symbol_bound(cap, C, S):
+    """Bytes once at the card's HBM rate: the prompt I, Q and valid flag
+    of every epoch, each slot's picks (start, rem_code and the one before,
+    rem_carr, Doppler, C/N0, delta), the active flags and entering
+    rem_code read; the packed buffer written."""
+    words = 3 * cap * C + 7 * S * C + 2 * C + 9 * S * C + 2 * C
+    return 4 * words / PEAK_BYTES_S * 1e3
+
+
+def phase_symbol_kernel(dev):
+    """Phase 2d: the symbol-grid kernel against symbol_slots_plain on the
+    card, bit for bit, at SYMBOL_CASES through both walks' libraries, one
+    launch a call, the channels' offsets spread over 1..N; timed at the
+    GPS and E1B receivers' shapes (device time by name from the profiler,
+    back-to-back calls by CUDA events, the plain version as the engine
+    ran it before the kernel: its offsets' upload and sync included)."""
+    from gnss_sdr_1_tpu_torch.ops import _build
+    from gnss_sdr_1_tpu_torch.ops import symbol_slots as ss
+
+    g = torch.Generator(device="cpu").manual_seed(19)
+    rows = []
+    for what, cap, C, N, K, prompt, drops in SYMBOL_CASES:
+        t = _symbol_rows(dev, cap, C, K, drops, g)
+        off = (np.arange(C) * 7 + 3) % N + 1
+        want = ss.symbol_slots_plain(*t, off, N, prompt)
+        S = ss.n_slots(cap, N)
+        for lib in (_build.library(), _build.gather_library()):
+            before = ss.launches
+            buf = ss.symbol_slots_cuda(*t, off, N, prompt, lib)
+            if ss.launches != before + 1:
+                raise AssertionError(f"symbol_slots {what}: "
+                                     f"{ss.launches - before} launches")
+            _symbol_bits_equal(ss.unpack(buf.cpu().numpy(), S, C), want,
+                               what)
+        r = {"what": what, "cap": cap, "C": C, "N": N, "S": S, "K": K,
+             "drops": len(drops), "bound_ms": _symbol_bound(cap, C, S),
+             "bound_by": "bytes"}
+        if what in ("GPS C=8", "E1B C=4"):
+            lib = _build.library()
+
+            def call():
+                ss.symbol_slots_cuda(*t, off, N, prompt, lib)
+
+            r["ms"], _ = _event_ms(call, 50, "symbol_slots")
+            r["events_ms"] = _time_cuda(call, 500)
+            r["plain_ms"] = _time_cuda(
+                lambda: ss.symbol_slots_plain(*t, off, N, prompt), 20)
+        rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: acquisition and the tracking engine (bench scenario)
 # ---------------------------------------------------------------------------
 
@@ -3217,6 +3383,67 @@ def phase_acquisition(dev, sats, x):
             "cpu_max_stat_rel": float(rel.max()), "per_prn": found}
 
 
+# symbol_slots over the main-path runs: launches, engine calls on the
+# card, runs counted, and the shapes held to the plain version
+SYMBOLS = {"launches": 0, "calls": 0, "runs": 0, "shapes": [], "depth": 0}
+
+
+@contextlib.contextmanager
+def _symbol_counting():
+    """The symbol-grid kernel over the runs inside the block: its launch
+    counter set to 0 first, TrackingEngine._symbol_outputs calls with
+    rows on the card counted apart from it (one launch each), and the
+    first call of every (cap, C, N, K) shape held bit for bit to
+    symbol_slots_plain on the same rows once the run is over (a clone of
+    its rows is kept).  Nested blocks count in the outermost only.  The
+    run's launches, calls and shapes go into SYMBOLS."""
+    from gnss_sdr_1_tpu_torch.ops import symbol_slots as ss
+    from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
+
+    if SYMBOLS["depth"]:
+        SYMBOLS["depth"] += 1
+        try:
+            yield
+        finally:
+            SYMBOLS["depth"] -= 1
+        return
+    run = TrackingEngine._symbol_outputs
+    seen = {s["shape"] for s in SYMBOLS["shapes"]}
+    kept, calls = [], [0]
+
+    def counted(self, out_f, out_i, out_corr, entering_rem, sym_off, N):
+        out = run(self, out_f, out_i, out_corr, entering_rem, sym_off, N)
+        if out_f.device.type == "cuda":
+            calls[0] += 1
+            shape = (out_f.shape[0], out_f.shape[2], int(N),
+                     out_corr.shape[1] // 2)
+            if shape not in seen:
+                seen.add(shape)
+                kept.append((shape, [t.clone() for t in (
+                    out_f, out_i, out_corr, entering_rem)],
+                    np.array(sym_off), self.cfg.prompt_index, out))
+        return out
+
+    TrackingEngine._symbol_outputs = counted
+    ss.launches = 0
+    SYMBOLS["depth"] = 1
+    try:
+        yield
+    finally:
+        TrackingEngine._symbol_outputs = run
+        SYMBOLS["depth"] = 0
+    if ss.launches != calls[0]:
+        raise AssertionError(f"{ss.launches} symbol_slots launches for "
+                             f"{calls[0]} symbol-grid calls on the card")
+    for shape, t, off, prompt, out in kept:
+        _symbol_bits_equal(out._asdict(), ss.symbol_slots_plain(
+            *t, off, shape[2], prompt), f"main path {shape}")
+        SYMBOLS["shapes"].append({"shape": shape})
+    SYMBOLS["launches"] += ss.launches
+    SYMBOLS["calls"] += calls[0]
+    SYMBOLS["runs"] += 1
+
+
 @contextlib.contextmanager
 def _counting(cc, tc):
     """Set both kernels' launch counters to 0 and count the chunks that
@@ -3227,7 +3454,7 @@ def _counting(cc, tc):
     under "instances"; for an engine with a secondary code, also the
     chunks of calls that start with the wipe on in a channel, and the
     chunks of calls that start with an active channel on a non-zero FDMA
-    carrier bias."""
+    carrier bias; the symbol-grid kernel by _symbol_counting."""
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
     counter = {"chunks": 0, "sec_chunks": 0, "offset_chunks": 0,
@@ -3252,7 +3479,8 @@ def _counting(cc, tc):
     TrackingEngine._run_capture = counted
     cc.launches = tc.launches = 0
     try:
-        yield counter
+        with _symbol_counting():
+            yield counter
     finally:
         TrackingEngine._run_capture = run
 
@@ -3838,7 +4066,7 @@ def _gather_counting(gb):
     engine calls (TrackingEngine._run_capture on a 'gather' engine) and the
     epochs they walk, independently of the counter; CUDA events around
     every gather_block launch give its device time (summed once the run is
-    over)."""
+    over); the symbol-grid kernel by _symbol_counting."""
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
     counter = {"calls": 0, "epochs": 0, "chunked_calls": 0}
@@ -3867,7 +4095,8 @@ def _gather_counting(gb):
     gb.gather_block_cuda = timed
     gb.launches = 0
     try:
-        yield counter
+        with _symbol_counting():
+            yield counter
     finally:
         TrackingEngine._run_capture = run
         gb.gather_block_cuda = launch
@@ -6079,7 +6308,8 @@ def _engine_launches(cc, tc, gb):
     """The kernel launches of every TrackingEngine capture call inside the
     block by engine (the counters' change across the call), beside the
     chunks (chunked) or segments (gather) each call runs, counted apart
-    from the counters; the counters are set to 0 first."""
+    from the counters; the counters are set to 0 first; the symbol-grid
+    kernel by _symbol_counting."""
     from gnss_sdr_1_tpu_torch.track.engine import TrackingEngine
 
     rec = {}
@@ -6100,7 +6330,8 @@ def _engine_launches(cc, tc, gb):
     TrackingEngine._run_capture = counted
     cc.launches = tc.launches = gb.launches = 0
     try:
-        yield rec
+        with _symbol_counting():
+            yield rec
     finally:
         TrackingEngine._run_capture = run
 

@@ -83,6 +83,7 @@
 #include "gather_corr.cuh"
 #include "loop_close.cuh"
 #include "multicorrelate.cuh"
+#include "symbol_slots.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -437,4 +438,14 @@ extern "C" int gather_block_launch(const void* x, const void* codes,
         lp, p);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
+}
+
+// The symbol-grid reduction of the rows a walk left (symbol_slots.cuh),
+// queued behind it on `stream`.
+extern "C" int symbol_slots_launch(const void* out_f, const void* out_i,
+                                   const void* out_corr,
+                                   const void* entering_rem, void* out,
+                                   const SymParams* params, void* stream) {
+    return symbol_slots_enqueue(out_f, out_i, out_corr, entering_rem, out,
+                                params, stream);
 }

@@ -42,6 +42,7 @@
 #include "chunk_corr.cuh"
 #include "loop_close.cuh"
 #include "rows.cuh"
+#include "symbol_slots.cuh"
 
 // sin and cos of x: n = rint(x * 2/pi), r = x - n pi/2 in double
 // (fdlibm's 33-bit pi/2 head, exact products for |x| < 2^20 pi/2), then the
@@ -310,4 +311,14 @@ extern "C" int track_capture_launch(
         if (err != cudaSuccess) return (int)err;
     }
     return 0;
+}
+
+// The symbol-grid reduction of the rows a capture left (symbol_slots.cuh),
+// queued behind its last chain launch on `stream`.
+extern "C" int symbol_slots_launch(const void* out_f, const void* out_i,
+                                   const void* out_corr,
+                                   const void* entering_rem, void* out,
+                                   const SymParams* params, void* stream) {
+    return symbol_slots_enqueue(out_f, out_i, out_corr, entering_rem, out,
+                                params, stream);
 }

@@ -16,7 +16,10 @@ enqueues both for every chunk.  The KF block walk is a second, `kf_block`
 gather DLL/PLL walk a third, `gather_block` (`gather_library()`:
 `gather_block.cu` with `gather_corr.cuh`, `cluster_walk.cuh`,
 `loop_close.cuh` and the TCP connector's one-epoch multicorrelator,
-`multicorrelate.cuh`).  `kf_stage_library()` and `gather_stage_library()`
+`multicorrelate.cuh`).  Both walks' libraries carry the symbol-grid
+reduction (`symbol_slots.cuh`), each with its own entry, so either
+correlator reaches it from the library it already loads.
+`kf_stage_library()` and `gather_stage_library()`
 build `kf_block.cu` and `gather_block.cu` once more with `-DKF_BLOCK_STAGES`
 and `-DGATHER_BLOCK_STAGES` (each kernel's stage clocks), and
 `mc_stage_library()` builds `gather_block.cu` with `-DMC_STAGES` (the
@@ -133,6 +136,8 @@ _ENTRIES = {
         # ist_a, fst_b, ist_b, zr, zi, s_reg, step0, out_f, out_i, out_corr,
         # corr params, chain params, stream
         "track_capture_launch": [_I, _P, _I] + [_P] * 19,
+        # out_f, out_i, out_corr, entering_rem, out, params, stream
+        "symbol_slots_launch": [_P] * 7,
     },
     KF_LIBRARY: {
         # x, codes, n_slots, fst, ist, out_f, out_i, fst_out, ist_out,
@@ -152,6 +157,8 @@ _ENTRIES = {
         "multicorrelate_launch": [_P] * 6,
         # params, stream: an empty kernel in the multicorrelator's geometry
         "multicorrelate_empty_launch": [_P] * 2,
+        # out_f, out_i, out_corr, entering_rem, out, params, stream
+        "symbol_slots_launch": [_P] * 7,
     },
 }
 

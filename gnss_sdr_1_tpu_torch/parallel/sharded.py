@@ -314,8 +314,8 @@ class ChannelShardedEngine:
                                           entering_rem), rows, active_in)
 
         res = self._shards.launch(one, xs, list(state))
-        # each reduction's readback waits for its shard's stream, the rows'
-        # host copies queued on it before included
+        # each reduction's readback waits for the event after it on its
+        # shard's stream, the rows' host copies queued there before included
         syms = self._shards.each(
             lambda j, r, off: self.engines[j]._symbol_outputs(
                 *r[1], off, int(sym_n)), res, list(offs))

@@ -52,8 +52,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import _build
 from ..ops import chunk_corr as cc
 from ..ops import gather_block as gb
+from ..ops import symbol_slots as ss
 from ..ops import track_capture as tcap
 from ..ops import track_chain as tc
 from ..utils import spans
@@ -145,24 +147,6 @@ class SymbolOutputs(NamedTuple):
     vcount: np.ndarray       # i32 valid epochs in the slot (<= sym_n)
     n_valid: np.ndarray      # i32 [C] total valid epochs this segment
     active: np.ndarray       # bool [C] channel still tracking at the end
-
-
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy; from the card a blocking read, a wait span."""
-    if t.device.type != "cuda":
-        return t.numpy()
-    with spans.wait("engine.symbols.read"):
-        return t.cpu().numpy()
-
-
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host array on `dev`; to the card a copy from pageable memory,
-    which waits for the stream, i.e. for all the work enqueued before it:
-    a wait span."""
-    if dev.type != "cuda":
-        return torch.as_tensor(a, device=dev)
-    with spans.wait("engine.symbols.offsets"):
-        return torch.as_tensor(a, device=dev)
 
 
 def _set(t: torch.Tensor, ch: int, value) -> torch.Tensor:
@@ -332,6 +316,7 @@ class TrackingEngine:
                 self._codes_np.astype(np.float32), device=dev)
             self._win = cfg.epoch_samples_max + self._t0_int + 66
         self._fll_epochs = int(round(cfg.pull_in_time_s / cfg.code_period_s))
+        self._sym_pinned: torch.Tensor | None = None
         w, n = self._fllpll, self._fllpll_n
         self.chain_spec = tc.ChainSpec(
             E=E, LW=LW, K=cfg.n_taps, C=cfg.n_channels,
@@ -621,10 +606,6 @@ class TrackingEngine:
             d //= 2
         return d
 
-    @staticmethod
-    def n_symbol_slots(n_epochs_cap: int, sym_n: int) -> int:
-        return n_epochs_cap // sym_n + 2
-
     def _read_back(self, out_f, out_i, out_corr,
                    segment: int | None = None) -> CaptureReadback:
         """Queue the per-epoch rows' copy to the host: on the card into
@@ -682,60 +663,50 @@ class TrackingEngine:
 
     def _symbol_outputs(self, out_f, out_i, out_corr, entering_rem, sym_off,
                         N: int) -> SymbolOutputs:
-        """Reduce per-epoch rows onto each channel's symbol grid on the
-        device: slot 0 = the partial head [0, b0); slot s >= 1 covers
-        [b0 + (s-1)N, b0 + sN).  Prompt means and valid counts are slot
-        sums; the loop-state rows are the picks entering each slot.  Every
-        field is enqueued first, then read to the host one by one."""
-        with spans.span("engine.symbols.reduce"):
-            dev = out_f.device
-            cap, _, C = out_f.shape
-            S = self.n_symbol_slots(cap, N)
-            p = self.cfg.prompt_index
-            K = self.cfg.n_taps
-            v = out_f[:, tc.O_VALID]                               # [cap, C]
-            fields = torch.stack([out_corr[:, p] * v, out_corr[:, K + p] * v,
-                                  v], dim=-1)                      # [cap,C,3]
-            P = S * N
-            fields = torch.cat([fields, torch.zeros(
-                (P - cap, C, 3), dtype=_F32, device=dev)])
-            # per-channel roll forward by N - b0 puts epoch b0 at row N, so
-            # an [S, N] reshape sums each slot
-            b0 = _to_device(np.asarray(sym_off, np.int64), dev)
-            rows = torch.arange(P, device=dev)[:, None]
-            src = torch.remainder(rows - (N - b0)[None, :], P)     # [P, C]
-            rolled = torch.gather(fields, 0, src[..., None].expand(P, C, 3))
-            # the slot sums epoch by epoch, in order: a channel's sums do
-            # not depend on how many channels share the call (a reduction
-            # kernel's order does, on the CPU and on the card)
-            slots = rolled.reshape(S, N, C, 3)
-            sums = slots[:, 0]
-            for k in range(1, N):
-                sums = sums + slots[:, k]                          # [S, C, 3]
-            sl = torch.arange(S, device=dev)[:, None]
-            e_s = torch.clamp(b0[None, :] - N + sl * N, 0, cap - 1)  # [S, C]
-            em1 = torch.clamp(e_s - 1, 0, cap - 1)
-            rem = out_f[:, tc.O_REM_CODE]
-            prev = torch.cat([entering_rem[None], rem[:-1]])
-            # pre-floor code-phase fraction (receiver._harvest wrap note)
-            fracs = rem - torch.round(rem - prev)
-            nv = v.sum(dim=0).to(torch.int64)                      # [C]
-            last = torch.clamp(nv - 1, 0, cap - 1)
-            on_dev = dict(
-                start=torch.gather(out_i[:, 0], 0, e_s),
-                mean_i=sums[..., 0] * (1.0 / N),
-                mean_q=sums[..., 1] * (1.0 / N),
-                frac=torch.gather(fracs, 0, em1),
-                rem_carr_phase_rad=torch.gather(out_f[:, tc.O_REM_CARR], 0,
-                                                em1),
-                carrier_doppler_hz=torch.gather(out_f[:, tc.O_DOPPLER], 0,
-                                                em1),
-                cn0_dbhz=torch.gather(out_f[:, tc.O_CN0], 0, em1),
-                code_freq_delta=torch.gather(out_f[:, tc.O_DELTA], 0, em1),
-                vcount=sums[..., 2].to(_I32),
-                n_valid=nv.to(_I32),
-                active=out_f[:, tc.O_ACTIVE].gather(0, last[None])[0] > 0.5)
-        return SymbolOutputs(**{f: _to_host(t) for f, t in on_dev.items()})
+        """Reduce per-epoch rows onto each channel's symbol grid
+        (ops.symbol_slots): slot 0 = the partial head [0, b0); slot s >= 1
+        covers [b0 + (s-1)N, b0 + sN).  Prompt means and valid counts are
+        slot sums; the loop-state rows are the picks entering each slot.
+        On the card one kernel queued behind the walk writes every field
+        into one buffer, one copy brings it into the engine's pinned host
+        buffer, and one wait on the event after that copy; on the CPU the
+        plain reduction."""
+        if out_f.device.type != "cuda":
+            with spans.span("engine.symbols.reduce"):
+                fields = ss.symbol_slots_plain(out_f, out_i, out_corr,
+                                               entering_rem, sym_off, N,
+                                               self.cfg.prompt_index)
+            return SymbolOutputs(**{f: t.numpy() for f, t in fields.items()})
+        cap, _, C = out_f.shape
+        with spans.span("engine.symbols.reduce") as sp:
+            # the library the walk loaded: both carry the kernel
+            lib = (_build.gather_library() if self.correlator == "gather"
+                   else _build.library())
+            buf = ss.symbol_slots_cuda(out_f, out_i, out_corr, entering_rem,
+                                       sym_off, N, self.cfg.prompt_index, lib)
+            host = self._symbol_host(buf.numel(), sp)
+            host.copy_(buf, non_blocking=True)
+            # on the current stream of the rows' own card: a sharded
+            # engine's rows copied to the host there before are covered
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(buf.device))
+        with spans.wait("engine.symbols.read"):
+            event.synchronize()
+        return SymbolOutputs(**ss.unpack(host.numpy(), ss.n_slots(cap, N), C))
+
+    def _symbol_host(self, n: int, sp) -> torch.Tensor:
+        """The first n words of the engine's pinned buffer for the symbol
+        grid, allocated (a `pinned_allocs` count on `sp`) only where the
+        one it holds is shorter; every call waits for its copy before it
+        returns, so the next may reuse it."""
+        if self._sym_pinned is None or self._sym_pinned.numel() < n:
+            h = torch.empty((n,), dtype=_I32, pin_memory=True)
+            if not h.is_pinned():
+                raise RuntimeError("the symbol-grid buffer could not be "
+                                   "pinned")
+            self._sym_pinned = h
+            sp.count("pinned_allocs", 1)
+        return self._sym_pinned[:n]
 
     # ---------------- host API ----------------
 

@@ -1,7 +1,9 @@
 """The channel-sharded engine on the card (no JAX here: the GPU machine
 runs this file with `--noconftest -m gpu`): four logical shards of cuda:0,
 each on its own stream, equal row for row to the unsharded engine on the
-card, on both correlators; the sharded acquisition grid likewise."""
+card, on both correlators, their per-epoch rows and their symbol grids
+(each shard's reduction kernel and its one read on its own stream); the
+sharded acquisition grid likewise."""
 
 import numpy as np
 import pytest
@@ -69,6 +71,34 @@ def test_logical_gpu_shards_equal_unsharded(capture, correlator):
         for u, w in zip(a[k] if isinstance(v, tuple) else (a[k],),
                         v if isinstance(v, tuple) else (v,)):
             np.testing.assert_array_equal(u, w, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("correlator", ["chunked", "gather"])
+def test_logical_gpu_shards_symbols_equal_unsharded(capture, correlator):
+    from gnss_sdr_1_tpu_torch.ops import symbol_slots as ss
+
+    sats, codes, x = capture
+    cfg = TrackConfig(fs_hz=FS, code_length_chips=1023,
+                      chip_rate_chips_s=1.023e6, carrier_freq_hz=1575.42e6,
+                      n_channels=N_CH, correlator=correlator)
+    eng = TrackingEngine(cfg, codes, device="cuda:0")
+    sen = ChannelShardedEngine(cfg, codes,
+                               mesh=channel_mesh(devices=["cuda:0"] * 4))
+    st, sst = eng.init_state(), sen.init_state()
+    for ch, s in enumerate(sats):
+        args = (ch, ch, s.delay_chips / 1.023e6 * FS, s.doppler_hz, 0, 0)
+        st = eng.activate_channel(st, *args)
+        sst = sen.activate_channel(sst, *args)
+    span = len(x) - cfg.epoch_samples_max
+    xd = torch.from_numpy(x).to("cuda:0")
+    sym_off = np.arange(N_CH) * 3 % 20 + 1
+    before = ss.launches
+    _, s1 = eng.track_capture_symbols(xd, st, span, sym_off, 20)
+    _, s2 = sen.track_capture_symbols(xd, sst, span, sym_off, 20)
+    assert ss.launches == before + 1 + 4
+    assert s1.n_valid.sum() > 0.9 * 199 * N_CH
+    _same(s2, s1)
 
 
 @pytest.mark.gpu

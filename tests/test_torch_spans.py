@@ -4,9 +4,9 @@ nothing allocated while off; recording under torch.profiler and inside
 `spans.recording()`; the ring's bound; `dump`'s Chrome-trace JSON; the
 names that the engine, the stream ingest and the receiver emit on the CPU
 path, in order.  On the card (`gpu`): a span around a kernel maps onto the
-profiler's clock within 50 µs, a GPS symbol segment makes 12 wait spans
-(the symbol offsets' upload and 11 reads), an E1B stream segment 2 and 3
-pinned allocations."""
+profiler's clock within 50 µs, a GPS symbol segment makes one wait span
+(the symbol grid's one read) and no pinned allocation once the engine's
+buffer exists, an E1B stream segment 2 waits and 3 pinned allocations."""
 
 import collections
 import json
@@ -331,7 +331,7 @@ def _per_segment(recs):
 
 
 @pytest.mark.gpu
-def test_gps_symbol_segment_makes_twelve_waits():
+def test_gps_symbol_segment_makes_one_wait():
     dev = _card()
     fs = 2.0e6
     x = torch.from_numpy(generate_baseband(
@@ -347,8 +347,7 @@ def test_gps_symbol_segment_makes_twelve_waits():
                                               np.array([5, 9]), 20)
     for seg in _per_segment(spans.records()):
         waits = [s.name for s in seg if s.wait]
-        assert waits == ["engine.symbols.offsets"] + [
-            "engine.symbols.read"] * 11
+        assert waits == ["engine.symbols.read"]
         assert sum(s.counts.get("pinned_allocs", 0) for s in seg) == 0
 
 
