@@ -106,6 +106,13 @@ Phases (one line each, with times):
      phase 34's shards), its launches == the symbol-grid calls on the
      card, the first call of each shape held bit for bit to the plain
      version on the same rows;
+ 2e. the stream front end's kernel (xlate_fir: decode, frequency-
+     translating FIR, decimation, rotation, scale in one launch) against
+     xlate_fir_plain on the CPU at the NSR cell's segment (20.5 M real
+     2-bit samples, 65 taps, D = 8, the conf's IF) and the GPS ishort
+     cell's (Direct_Resampler 2:1), as two segments of a stream ~10 h in,
+     the seam bit for bit one launch's; timed (device time by name, CUDA
+     events back to back, the plain version on the card, the bound);
   3. batched PCPS acquisition of 12 PRNs (detections, FFTs/s), held to the
      same acquisition run on the CPU;
   4. the tracking engine: 12 channels over a 15 s capture at 4.092 Msps
@@ -281,12 +288,23 @@ Phases (one line each, with times):
      sharded 1 s segment holding no peer copy and no NCCL kernel between
      its first launch and its last harvest; and the channel-samples per
      second of the chunked engine at 1, 2 and 4 shards of 12 channels
-     each (3 s spans), the weak-scaling efficiency against one shard.
+     each (3 s spans), the weak-scaling efficiency against one shard;
+ 35. process_stream through the conf's front end, each receiver built
+     from its conf as written: conf/gps_l1_nsr.conf on phase 5's
+     satellites made at 20.48 Msps as NSR's real 2-bit IF (the conf's
+     Freq_Xlating_Fir_Filter, 65 taps, D = 8), conf/gps_l1_ishort.conf on
+     them at 4 Msps as ishort (Direct_Resampler 2:1), 8 s each at 50
+     dB-Hz;
+     xlate_fir launches == segments and the chunked kernels' == chunks,
+     the counters set to 0 just before each run; the first segment's
+     conditioned samples held to xlate_fir_plain (ishort bit for bit, NSR
+     within 2 float32 ulps, its bit-for-bit share reported); every
+     assigned channel on a visible satellite, at least 4 bit-synced.
 Then one JSON line describing every kernel (the chunked kernels'
-launches summed over phases 5-7, 10-21 and 28-34, the KF kernel's over
+launches summed over phases 5-7, 10-21 and 28-35, the KF kernel's over
 phases 8 and 22, the gather walk's over 23-26, 28 and 34, the multicorrelator's
-over 27, the symbol grid's over every counted run, each read just after
-its run), the nvidia-smi line, and
+over 27, the symbol grid's over every counted run, the stream front end's
+over 35, each read just after its run), the nvidia-smi line, and
 last
 {"ok": true, "device": {...}}.  Any failed check raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits non-zero at
@@ -835,6 +853,19 @@ def main() -> None:
             f"bit for bit through both libraries, one launch a call"
             + timed)
     log(f"    | {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xf_rows = phase_xlate_kernel(dev)
+    for r in xf_rows:
+        log(f"[2e] xlate_fir vs xlate_fir_plain on the card, {r['what']} "
+            f"({r['fmt']}, {r['outputs']} outputs, {r['taps']} taps, D="
+            f"{r['decim']}): max |diff| {r['err']:.3e} of RMS {r['rms']:.3e} "
+            f"({r['bits_equal']:.4f} of the outputs bit for bit), the seam "
+            f"of two segments bit for bit one launch's, one launch a "
+            f"segment; kernel {r['ms']:.5f} ms/launch device (profiler, by "
+            f"name), {r['events_ms']:.5f} ms a call back to back (CUDA "
+            f"events), plain {r['plain_ms']:.3f} ms (CUDA events), bound "
+            f"{r['bound_ms']:.2e} ms ({r['bound_by']})")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
 
     # ---- the generator on the card, held to numpy on every capture ----
     t0 = time.perf_counter()
@@ -1325,6 +1356,25 @@ def main() -> None:
                     f"{r['efficiency']:.3f})" for n, r in w34["rates"].items())
         + f" | {time.perf_counter() - t0:.1f} s")
 
+    # ---- 35. process_stream through the conf's front end ----
+    t0 = time.perf_counter()
+    s35 = phase_stream_front_end(dev, cc, tc, scen)
+    for fmt, r in s35.items():
+        log(f"[35] process_stream, conf/{r['conf']} as written, raw {fmt} at "
+            f"{r['source_fs_hz'] / 1e6:g} Msps through its front end ("
+            f"{r['taps']} taps, D={r['decim']}): {r['signal_s']:.2f} s of "
+            f"signal, RTF {r['rtf']:.2f} ({r['wall_s']:.2f} s), channels "
+            f"{r['channels']}, bit-synced {r['bit_synced']}, xlate_fir "
+            f"launches "
+            f"{r['launches_xlate_fir']} == segments {r['segments']}, "
+            f"launches chunk_corr {r['launches_chunk_corr']} track_chain "
+            f"{r['launches_track_chain']} == chunks {r['chunks']}; the first "
+            f"segment against xlate_fir_plain: max |diff| "
+            f"{r['first_max_abs_diff']:.3e} of RMS {r['first_rms']:.3e}, "
+            f"{r['first_bits_equal']:.6f} of the outputs bit for bit "
+            f"(capture made on the card in {r['gen_s']:.2f} s)")
+    log(f"    | {time.perf_counter() - t0:.1f} s")
+
     if not SYMBOLS["launches"] > 0 or 20 not in {
             sh["shape"][2] for sh in SYMBOLS["shapes"]}:
         raise AssertionError(f"symbol_slots on the main path: "
@@ -1343,12 +1393,14 @@ def main() -> None:
     g_t = {r["what"]: r for r in g_rows if "ms" in r}
     mc_t = next(r for r in mc_rows if "ms" in r)
     sym_t = {r["what"]: r for r in sym_rows if "ms" in r}
+    xf_t = {r["what"]: r for r in xf_rows}
     paths = (e2e, cli6, cli7, e1, *cli11.values(), *sec_runs.values(),
              *cli14.values(), glo, mix, dual, *cli18.values(),
              *bds.values(), *cli20.values(), s28["ishort"],
              s28["2bits_cpx"], r29, c30, a31["supl"], a31["cold"],
              a31["assist"], a31["hot"], *p32.values(), r33["base"],
-             r33["DGNSS"], r33["Kinematic"], *s34["chunked_runs"])
+             r33["DGNSS"], r33["Kinematic"], *s34["chunked_runs"],
+             *s35.values())
     src = "gnss_sdr_1_tpu_torch/csrc/"
     shapes = {**k_rep["sec"], "1G": k_rep["glo"], "2S": k_rep["l2c"]}
     kernels = [{
@@ -1466,6 +1518,25 @@ def main() -> None:
            for k in ("ms", "events_ms", "plain_ms", "bound_ms")},
         "shapes_checked": len(sym_rows),
         "main_path_shapes": [list(r["shape"]) for r in SYMBOLS["shapes"]],
+    }, {
+        "name": "xlate_fir", "route": "cuda",
+        "source": src + "xlate_fir.cu",
+        "replaces": "gnss_sdr_1_tpu/condition/filters.py:92 (the whole "
+                    "capture's Conditioner; no TPU kernel, no stream "
+                    "front end)",
+        "launches": sum(r["launches_xlate_fir"] for r in s35.values()),
+        "segments": sum(r["segments"] for r in s35.values()),
+        "max_abs_err": max(r["err"] for r in xf_rows),
+        "ms": xf_t["NSR cell"]["ms"],
+        "events_ms": xf_t["NSR cell"]["events_ms"],
+        "plain_ms": xf_t["NSR cell"]["plain_ms"],
+        "bound_ms": xf_t["NSR cell"]["bound_ms"],
+        "bound_by": xf_t["NSR cell"]["bound_by"], "library_ms": None,
+        **{f"ishort_{k}": xf_t["GPS ishort cell"][k]
+           for k in ("ms", "events_ms", "plain_ms", "bound_ms")},
+        "shapes_checked": len(xf_rows),
+        "main_path_bits_equal": {f: r["first_bits_equal"]
+                                 for f, r in s35.items()},
     }]
     report = {"card": smi, "build_s": build_s, "ptxas": ptxas,
               "kernels": k_rep, "acquisition": acq, "engine": eng,
@@ -1477,6 +1548,7 @@ def main() -> None:
               "kf_kernel": kf_rows, "cli_kalman": cli8k, "e1_kf": e1kf,
               "gather_kernel": g_rows, "gather_instances": g_inst,
               "multicorrelate": mc_rows, "symbol_kernel": sym_rows,
+              "xlate_kernel": xf_rows, "stream_front_end": s35,
               "symbols_main_path": SYMBOLS, "gather_e2e": g23,
               "gather_system": sys_runs, "cli_gather": cli26, "tcp": tcp,
               "stream": s28, "rtl_tcp": r29, "checkpoint": c30,
@@ -1502,7 +1574,8 @@ _KERNEL_NAMES = {"18track_chain_kernel": "track_chain",
                  "15kf_block_kernel": "kf_block",
                  "19gather_block_kernel": "gather_block",
                  "21multicorrelate_kernel": "multicorrelate",
-                 "19symbol_slots_kernel": "symbol_slots"}
+                 "19symbol_slots_kernel": "symbol_slots",
+                 "16xlate_fir_kernel": "xlate_fir"}
 
 
 def build_report() -> dict:
@@ -1511,8 +1584,10 @@ def build_report() -> dict:
     what ptxas reports: every kernel is there (16 chain, 2 correlator, 4
     KF, 16 gather and 4 multicorrelator instances, and the symbol-grid
     kernel: built into both walks' libraries under one name, one entry of
-    the report); the chain's instances use no local memory,
-    the KF's, the gather walk's and the symbol grid's spill nothing."""
+    the report; 12 instances of the stream front end's, four input formats
+    by three tile sizes); the chain's instances use no local memory,
+    the KF's, the gather walk's, the symbol grid's and the front end's
+    spill nothing."""
     from gnss_sdr_1_tpu_torch.ops import _build
 
     _build.build_all(force=True)
@@ -1521,7 +1596,8 @@ def build_report() -> dict:
     ptxas = ptxas_report("\n".join(_build.BUILD_LOG[lib]["ptxas"]
                                    for lib in _build._ENTRIES))
     want = {"track_chain": 16, "chunk_corr": 2, "kf_block": 4,
-            "gather_block": 16, "multicorrelate": 4, "symbol_slots": 1}
+            "gather_block": 16, "multicorrelate": 4, "symbol_slots": 1,
+            "xlate_fir": 12}
     got = {k: sum(n.split("<")[0] == k for n in ptxas) for k in want}
     if any(got[k] < n for k, n in want.items()):
         raise AssertionError(f"ptxas report lacks a kernel: {got}")
@@ -1530,7 +1606,7 @@ def build_report() -> dict:
                 r["stack"] or r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"track_chain uses local memory: {r}")
         if name.startswith(("kf_block", "gather_block", "multicorrelate",
-                            "symbol_slots")) \
+                            "symbol_slots", "xlate_fir")) \
                 and (r["spill_stores"] or r["spill_loads"]):
             raise AssertionError(f"{name} spills: {r}")
     return ptxas
@@ -3304,6 +3380,247 @@ def phase_symbol_kernel(dev):
                 lambda: ss.symbol_slots_plain(*t, off, N, prompt), 20)
         rows.append(r)
     return rows
+
+
+# the stream front end's kernel cases: the NSR cell's segment (1 s at 2.56
+# Msps and the epoch tail, 65 taps, D = 8, a real 2-bit IF) and the GPS
+# ishort cell's (1 s at 2 Msps and the tail, one tap, D = 2)
+XLATE_CASES = (("NSR cell", "nsr", 20.48e6, 5499998.47412109, 8,
+                2_560_000, 2_562_562),
+               ("GPS ishort cell", "ishort", 4.0e6, 0.0, 2, 2_000_000,
+                2_002_002))
+
+
+def phase_xlate_kernel(dev):
+    """Phase 2e: the stream front end's kernel against xlate_fir_plain on
+    the CPU at the cells' segment shapes, as two segments of a stream
+    from an absolute output ~10 h in (within 2 float32 ulps of each
+    output's magnitude: the cosine and sine may round to the other
+    float32; the sums are the same operations), the second segment bit
+    for bit the same outputs of one launch over both; timed (device time
+    by name from the profiler, back-to-back calls by CUDA events, the
+    plain version on the card) beside the bound of
+    benchmark/gnssbench/roofline_front_end.py's count."""
+    from gnss_sdr_1_tpu_torch.ops import xlate_fir as xf
+    from gnss_sdr_1_tpu_torch.runtime.config import FrontEnd
+    from gnss_sdr_1_tpu_torch.runtime.stream import StreamFrontEnd
+
+    rows = []
+    rng = np.random.default_rng(23)
+    cpu = torch.device("cpu")
+    for what, fmt, fs, if_hz, decim, span, n_out in XLATE_CASES:
+        fe = FrontEnd(fs, fs / decim, if_hz,
+                      "Freq_Xlating_Fir_Filter" if if_hz else "Pass_Through",
+                      "Direct_Resampler")
+        n_src = (span + n_out) * decim
+        raw = (rng.integers(0, 256, n_src // 4, dtype=np.uint8)
+               if fmt == "nsr" else
+               rng.integers(-3000, 3000, 2 * n_src).astype(np.int16))
+        outs = {}
+        for where in (dev, cpu):
+            sfe = StreamFrontEnd(fe, fmt, where)
+            sfe.next_out = 92_160_000_000
+            segs = []
+            for k in range(2):
+                a = sfe.items(k * span * decim)
+                b = sfe.items((k * span + n_out) * decim)
+                before = xf.launches
+                segs.append(sfe.condition(torch.from_numpy(raw[a:b]).to(
+                    where), n_out, span, 0.61).cpu().numpy())
+                if xf.launches != before + (where == dev):
+                    raise AssertionError(f"xlate_fir {what}: "
+                                         f"{xf.launches - before} launches")
+            outs[where.type] = segs
+        one = StreamFrontEnd(fe, fmt, dev)
+        one.next_out = 92_160_000_000
+        whole = one.condition(torch.from_numpy(raw).to(dev), span + n_out,
+                              span + n_out, 0.61).cpu().numpy()
+        errs, equal = [], 0
+        for g, w in zip(outs["cuda"], outs["cpu"]):
+            rms = float(np.sqrt(np.mean(np.abs(w) ** 2)))
+            tol = 2 * np.spacing(np.abs(w).astype(np.float32)) + 1e-7 * rms
+            if not np.all(np.abs(g - w) <= tol):
+                raise AssertionError(f"xlate_fir {what}: max |diff| "
+                                     f"{np.abs(g - w).max():.3e}")
+            errs.append(float(np.abs(g - w).max()))
+            equal += int((g.view(np.uint64) == w.view(np.uint64)).sum())
+        if not np.array_equal(outs["cuda"][1].view(np.uint32),
+                              whole[span:].view(np.uint32)):
+            raise AssertionError(f"xlate_fir {what}: the seam differs")
+        raw_dev = torch.from_numpy(raw[:sfe.items(n_out * decim)]).to(dev)
+        sfe = StreamFrontEnd(fe, fmt, dev)
+
+        def call():
+            sfe.reset()
+            sfe.condition(raw_dev, n_out, span, 0.61)
+
+        def plain():
+            xf.xlate_fir_plain(None, raw_dev, fmt, sfe.taps, decim,
+                               sfe.n_hist, n_out, 0, sfe.dphase, 0.61)
+
+        ms, _ = _event_ms(call, 20, "xlate_fir_kernel")
+        bound, by = _xlate_bound(fmt, n_out, sfe.n_taps, raw_dev)
+        rows.append({"what": what, "fmt": fmt, "outputs": n_out,
+                     "taps": sfe.n_taps, "decim": decim,
+                     "err": max(errs), "rms": rms,
+                     "bits_equal": equal / (2 * n_out), "ms": ms,
+                     "events_ms": _time_cuda(call, 100),
+                     "plain_ms": _time_cuda(plain, 3),
+                     "bound_ms": bound * 1e3, "bound_by": by})
+    return rows
+
+
+def _xlate_bound(fmt, n_out, taps, raw_dev):
+    """The least time of a segment's conditioning (the count of
+    benchmark/gnssbench/roofline_front_end.py)."""
+    per_tap = 4 if fmt == "nsr" else 8
+    ops = n_out * (taps * per_tap + 24)
+    nbytes = raw_dev.numel() * raw_dev.element_size() + n_out * 8 + taps * 8
+    t_ops, t_bytes = ops / PEAK_F32_S, nbytes / PEAK_BYTES_S
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# phase 35: process_stream through the conf's front end (conf, raw format,
+# source rate, the seconds streamed); phase 5's satellites at STREAM_FE_CN0
+# (the confs pull channels in from acquisition, and a channel that loses
+# lock in its first second is acquired again a segment later: at least
+# STREAM_FE_MIN_SYNCED channels end bit-synced)
+STREAM_FE_RUNS = (("gps_l1_nsr.conf", "nsr", 20.48e6, 8.0),
+                  ("gps_l1_ishort.conf", "ishort", 4.0e6, 8.0))
+STREAM_FE_CN0 = 50.0
+STREAM_FE_MIN_SYNCED = 4
+
+
+def _nsr_items(x, if_hz, fs):
+    """Complex baseband on the card mixed up to the IF, its real part
+    quantised to NSR's 2-bit code (thresholds 0 and +-1 noise sigma of the
+    real part) and packed four a byte, the least significant pair first
+    (io/formats.py's nsr), on the host."""
+    n = torch.arange(x.shape[0], dtype=torch.float64, device=x.device)
+    ang = 2.0 * np.pi * torch.remainder(n * (if_hz / fs), 1.0)
+    real = x.real.double() * torch.cos(ang) - x.imag.double() * torch.sin(ang)
+    q = torch.clamp(torch.floor(real / np.sqrt(0.5)), -2, 1)
+    q = (q.to(torch.int32) & 3).reshape(-1, 4)
+    return (q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4)
+            | (q[:, 3] << 6)).to(torch.uint8).cpu().numpy()
+
+
+def phase_stream_front_end(dev, cc, tc, scen):
+    """Phase 35: Receiver.process_stream through the conf's front end on
+    the card, each receiver built from its conf as written
+    (to_receiver_config): conf/gps_l1_nsr.conf on phase 5's satellites
+    generated at 20.48 Msps, mixed up to the conf's IF, quantised to NSR's
+    real 2-bit code and packed; conf/gps_l1_ishort.conf on them at 4 Msps
+    as ishort (its Direct_Resampler 2:1).  The launch counters set to 0
+    just before each run: xlate_fir launches == segments, chunk_corr and
+    track_chain launches == chunks.  The first segment's conditioned
+    samples held to xlate_fir_plain on the CPU over the same raw items: the
+    ishort conf's bit for bit (one tap of 1.0, no rotation); the NSR
+    conf's within 2 float32 ulps of each output's magnitude (the same sums
+    in the same order, the rotation's cosine and sine from the kernel's
+    float64 sincospi against numpy's cos(pi a), which round to the other
+    float32 now and then), its share of outputs bit for bit reported.
+    Every assigned channel on a satellite of the scenario, at least
+    STREAM_FE_MIN_SYNCED of them bit-synced; the front end's history kept
+    on the receiver at the stream's end."""
+    import dataclasses
+
+    from gnss_sdr_1_tpu_torch.codes import gps_l1ca_code
+    from gnss_sdr_1_tpu_torch.constants import GPS_L1_CA
+    from gnss_sdr_1_tpu_torch.ops import xlate_fir as xf
+    from gnss_sdr_1_tpu_torch.runtime import Receiver
+    from gnss_sdr_1_tpu_torch.runtime.config import (FileConfiguration,
+                                                     to_receiver_config)
+
+    sats = [dataclasses.replace(s, cn0_dbhz=STREAM_FE_CN0)
+            for s in scen.sats]
+    codes = {s.prn: gps_l1ca_code(s.prn) for s in sats}
+    visible = {s.prn for s in sats}
+    out = {}
+    for conf, fmt, fs, dur in STREAM_FE_RUNS:
+        what = f"stream {conf}"
+        rc = to_receiver_config(FileConfiguration(str(ROOT / "conf" / conf)))
+        t0 = time.perf_counter()
+        x = generate_on_card(GPS_L1_CA, sats, codes, fs, dur, dev, seed=35)
+        if fmt == "nsr":
+            items = _nsr_items(x, rc.front_end.if_freq_hz, fs)
+        else:
+            iq = torch.stack([x.real, x.imag], dim=1) * ISHORT_SCALE
+            items = torch.clamp(torch.round(iq), -32767, 32767).to(
+                torch.int16).reshape(-1).cpu().numpy()
+        del x
+        gen_s = time.perf_counter() - t0
+        rx = Receiver(rc, device=dev)
+        first = {}
+        cond = rx._conditioned_segment
+
+        def rec(front, staging, seg_items, n_out, span):
+            y = cond(front, staging, seg_items, n_out, span)
+            if not first:
+                first.update(items=np.array(seg_items), n_out=n_out,
+                             y=y.cpu().numpy(), phase0=xf.fixed_phase(
+                                 front.next_out - span, front.dphase),
+                             front=front)
+            return y
+
+        rx._conditioned_segment = rec
+        per_block = int(fs * STREAM_BLOCK_S) * (2 if fmt == "ishort" else 1) \
+            // (4 if fmt == "nsr" else 1)
+        with _counting(cc, tc) as counter:
+            xf.launches = 0
+            t0 = time.perf_counter()
+            rx.process_stream(_blocks(items, per_block),
+                              segment_s=STREAM_SEGMENT_S, raw_format=fmt)
+            wall = time.perf_counter() - t0
+            launches = xf.launches
+        _check_launches(cc, tc, counter["chunks"], what)
+        if launches != counter["calls"] or not launches > 0:
+            raise AssertionError(f"{what}: {launches} xlate_fir launches for "
+                                 f"{counter['calls']} segments")
+        # the first segment against the plain version on the CPU
+        fr = first["front"]
+        want = xf.xlate_fir_plain(None, torch.from_numpy(first["items"]), fmt,
+                                  fr.taps.cpu(), fr.decim, fr.n_hist,
+                                  first["n_out"], first["phase0"], fr.dphase,
+                                  1.0)
+        torch.view_as_real(want).mul_(float(np.float32(rx._ingest_scale)))
+        w, g = want.numpy(), first["y"]
+        rms = float(np.sqrt(np.mean(np.abs(w) ** 2)))
+        bits = float((g.view(np.uint64) == w.view(np.uint64)).mean())
+        if fmt == "ishort" and bits != 1.0:
+            raise AssertionError(f"{what}: the first segment is not "
+                                 f"xlate_fir_plain's bit for bit ({bits})")
+        tol = 2 * np.spacing(np.abs(w).astype(np.float32)) + 1e-7 * rms
+        if not np.all(np.abs(g - w) <= tol):
+            raise AssertionError(f"{what}: the first segment differs from "
+                                 f"xlate_fir_plain by "
+                                 f"{np.abs(g - w).max():.3e}")
+        prns = list(rx.channel_prn)
+        if not {p for p in prns if p is not None} <= visible:
+            raise AssertionError(f"{what}: channels {prns}, visible "
+                                 f"{sorted(visible)}")
+        synced = [p for p in prns if p is not None
+                  and rx.decoders[p].bit_offset is not None]
+        if len(synced) < STREAM_FE_MIN_SYNCED:
+            raise AssertionError(f"{what}: bit-synced {synced} of channels "
+                                 f"{prns}")
+        if rx._front_hist[:2] != (fmt, rx._abs_base):
+            raise AssertionError(f"{what}: the front end's history is not "
+                                 f"kept at the stream's end")
+        signal_s = rx._abs_base / rc.fs_hz
+        out[fmt] = {"conf": conf, "source_fs_hz": fs, "decim": fr.decim,
+                    "taps": fr.n_taps, "signal_s": signal_s, "wall_s": wall,
+                    "rtf": signal_s / wall, "gen_s": gen_s,
+                    "segments": counter["calls"],
+                    "launches_xlate_fir": launches,
+                    "launches_chunk_corr": cc.launches,
+                    "launches_track_chain": tc.launches,
+                    "chunks": counter["chunks"], "channels": prns,
+                    "bit_synced": synced,
+                    "first_max_abs_diff": float(np.abs(g - w).max()),
+                    "first_rms": rms, "first_bits_equal": bits}
+        del rx, items
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ gather DLL/PLL walk a third, `gather_block` (`gather_library()`:
 `loop_close.cuh` and the TCP connector's one-epoch multicorrelator,
 `multicorrelate.cuh`).  Both walks' libraries carry the symbol-grid
 reduction (`symbol_slots.cuh`), each with its own entry, so either
-correlator reaches it from the library it already loads.
+correlator reaches it from the library it already loads.  A stream's
+front end is a fourth, `xlate_fir` (`xlate_library()`: `xlate_fir.cu`).
 `kf_stage_library()` and `gather_stage_library()`
 build `kf_block.cu` and `gather_block.cu` once more with `-DKF_BLOCK_STAGES`
 and `-DGATHER_BLOCK_STAGES` (each kernel's stage clocks), and
@@ -112,6 +113,7 @@ def build(name: str, defines: tuple = (), force: bool = False) -> pathlib.Path:
 LIBRARY = "track_chain"
 KF_LIBRARY = "kf_block"
 GATHER_LIBRARY = "gather_block"
+XLATE_LIBRARY = "xlate_fir"
 KF_STAGES = ("KF_BLOCK_STAGES",)
 GATHER_STAGES = ("GATHER_BLOCK_STAGES",)
 MC_STAGES = ("MC_STAGES",)
@@ -160,6 +162,10 @@ _ENTRIES = {
         # out_f, out_i, out_corr, entering_rem, out, params, stream
         "symbol_slots_launch": [_P] * 7,
     },
+    XLATE_LIBRARY: {
+        # hist, seg, taps, out, params, stream
+        "xlate_fir_launch": [_P] * 6,
+    },
 }
 
 
@@ -199,6 +205,11 @@ def gather_library() -> ctypes.CDLL:
     """The gather DLL/PLL walk's library (with the one-epoch
     multicorrelator)."""
     return _load(GATHER_LIBRARY)
+
+
+def xlate_library() -> ctypes.CDLL:
+    """The stream front end's library."""
+    return _load(XLATE_LIBRARY)
 
 
 def kf_stage_library() -> ctypes.CDLL:

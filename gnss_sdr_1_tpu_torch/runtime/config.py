@@ -131,6 +131,27 @@ class FrontEnd:
     resampler_impl: str = "Pass_Through"
     n_taps: int = 65
 
+    def filter_design(self):
+        """(taps float32, decimation) of the conf's input filter, or None
+        where the chain runs none: an IF or a Fir_Filter /
+        Freq_Xlating_Fir_Filter implementation filters, a Hamming-windowed
+        sinc of `n_taps` at 0.45 of the lower of its output and the
+        internal rate, decimating by the source-to-internal ratio where
+        that is a whole number."""
+        from ..condition.filters import design_lowpass_fir
+
+        fs_in, fs_out = self.source_fs_hz, self.internal_fs_hz
+        needs_filter = (self.if_freq_hz != 0.0
+                        or self.filter_impl in ("Fir_Filter",
+                                                "Freq_Xlating_Fir_Filter"))
+        if not needs_filter:
+            return None
+        ratio = fs_in / fs_out
+        decim = int(round(ratio)) if abs(
+            ratio - round(ratio)) < 1e-9 and ratio >= 1.0 else 1
+        cutoff = 0.45 * min(fs_in / max(decim, 1), fs_out)
+        return design_lowpass_fir(self.n_taps, cutoff, fs_in), decim
+
     def process(self, x, device=None):
         """Condition a capture: the mixer and FIR run on `device` (None:
         the card, raising without one; the CPU only when asked for), the
@@ -138,19 +159,12 @@ class FrontEnd:
         import numpy as np
 
         from ..condition.filters import (
-            Conditioner, design_lowpass_fir, direct_resample,
-            fractional_resample)
+            Conditioner, direct_resample, fractional_resample)
 
         fs_in, fs_out = self.source_fs_hz, self.internal_fs_hz
-        needs_filter = (self.if_freq_hz != 0.0
-                        or self.filter_impl in ("Fir_Filter",
-                                                "Freq_Xlating_Fir_Filter"))
-        if needs_filter:
-            ratio = fs_in / fs_out
-            decim = int(round(ratio)) if abs(
-                ratio - round(ratio)) < 1e-9 and ratio >= 1.0 else 1
-            cutoff = 0.45 * min(fs_in / max(decim, 1), fs_out)
-            taps = design_lowpass_fir(self.n_taps, cutoff, fs_in)
+        design = self.filter_design()
+        if design is not None:
+            taps, decim = design
             cond = Conditioner(taps, fs_in, self.if_freq_hz, decim,
                                device=device)
             x = cond.process(x, flush=True)
@@ -164,6 +178,37 @@ class FrontEnd:
             else:
                 x = direct_resample(x, fs_in, fs_out)
         return x
+
+    def stream_plan(self):
+        """The chain as one frequency-translating decimating FIR for the
+        stream path (runtime.stream.StreamFrontEnd): (taps float32, total
+        decimation, IF Hz), or None for Pass_Through.  The input filter's
+        decimation and a Direct_Resampler's whole-number ratio after it
+        compose (the resampler then keeps every r-th filtered sample, as
+        `process` does); a taps-less chain filters with the one tap 1.0.
+        Raises ValueError for a chain the stream path cannot run so: a
+        rate ratio that is not a whole number, or an interpolating
+        resampler."""
+        import numpy as np
+
+        design = self.filter_design()
+        taps, decim = design if design is not None else (
+            np.ones(1, np.float32), 1)
+        fs_mid = self.source_fs_hz / decim
+        ratio = fs_mid / self.internal_fs_hz
+        if abs(fs_mid - self.internal_fs_hz) > 1e-6:
+            if self.resampler_impl in ("Fractional_Resampler",
+                                       "Mmse_Resampler") or ratio < 1.0 \
+                    or abs(ratio - round(ratio)) > 1e-9:
+                raise ValueError(
+                    f"the stream path conditions whole-number rate ratios "
+                    f"with the Direct_Resampler: {self.source_fs_hz:.0f} -> "
+                    f"{self.internal_fs_hz:.0f} Hz through "
+                    f"{self.resampler_impl}")
+            decim *= int(round(ratio))
+        elif design is None:
+            return None
+        return taps, decim, self.if_freq_hz
 
     @property
     def is_passthrough(self) -> bool:
@@ -272,6 +317,11 @@ def to_receiver_config(conf: InMemoryConfiguration,
         # taps by signal)
         track_engine = "kf" if tinfo.strategy == "kf" else "dll_pll"
     positioning_mode = str(conf.property("PVT.positioning_mode", "Single"))
+    try:
+        front_end = build_frontend(conf)
+    except ValueError:
+        # a multi-antenna InputFilter: no single-stream chain to run
+        front_end = None
     n_channels = int(conf.property(f"Channels{sig}.count",
                                    conf.property("Channels.count", 8)))
     # per-channel satellite pinning (ChannelN.satellite, read by the
@@ -333,6 +383,9 @@ def to_receiver_config(conf: InMemoryConfiguration,
                                              50)),
         enable_pvt_monitor=bool(conf.property("PVT.enable_monitor", False)),
         pvt_monitor_port=int(conf.property("PVT.monitor_udp_port", 1111)),
+        # the SignalConditioner chain, which process_stream runs on the
+        # source's raw items
+        front_end=front_end,
     )
 
 

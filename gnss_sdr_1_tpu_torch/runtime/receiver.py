@@ -79,7 +79,8 @@ from ..track.engine import (state_from_numpy, state_to_numpy,
 from ..track.kf import KfTrackConfig, KfTrackingEngine
 from ..utils import spans
 from .monitor import GnssSynchro, UdpSink
-from .stream import STREAM_FORMATS, PinnedStaging, unpack_raw
+from .stream import (STREAM_FORMATS, PinnedStaging, StreamFrontEnd,
+                     unpack_raw)
 
 log = logging.getLogger("gnss_sdr_1_tpu_torch.receiver")
 
@@ -172,6 +173,12 @@ class ReceiverConfig:
     # symbol-grid capture reduction once every active channel is bit-synced
     # ('auto'); 'off' keeps the decimated per-epoch outputs
     symbol_readback: str = "auto"
+    # the conf's SignalConditioner chain (runtime.config.FrontEnd, from
+    # build_frontend): process_stream conditions the source's raw items
+    # with it on the card (runtime.stream.StreamFrontEnd); process() takes
+    # samples already at fs_hz (the CLI conditions them first with
+    # FrontEnd.process).  None: the stream is at fs_hz (Pass_Through)
+    front_end: object = None
 
     def __post_init__(self) -> None:
         from .config import not_ported
@@ -371,6 +378,11 @@ class Receiver:
         self._acq_info: dict[int, tuple] = {}
         self._samples_dev = None
         self._ingest_scale = None
+        # process_stream's front end where its last call left it: (raw
+        # format, absolute output index, the raw items of the FIR's history
+        # before that output), so that a stream continued by another call
+        # (or after a resume) filters across the seam as one call would
+        self._front_hist = None
         # symbol-readback carry: prn -> [sum_of_means, pending_epochs,
         # phase_in_symbol, start_of_first_pending] (see _harvest_symbols)
         self._sym_carry: dict[int, list] = {}
@@ -1265,7 +1277,21 @@ class Receiver:
         previous occupant's rows in k, which the JAX package hands to the
         new decoder (or takes for a lost lock and releases the new
         assignment).  The final partial segment is dropped (a live stream
-        has no end of capture to flush).  The DLL/PLL engine only."""
+        has no end of capture to flush).  The DLL/PLL engine only.
+
+        With a conf's front end (`ReceiverConfig.front_end` that is not
+        Pass_Through) the blocks carry the source's raw items at its own
+        rate (nsr: NSR's real 2-bit IF samples, or ishort/ibyte/cshort/
+        cbyte, or complex64): each segment stages the (span + nmax) D
+        source samples of its outputs and a StreamFrontEnd conditions them
+        on the card in one launch (its history and mixer phase carried
+        from the segment before, and from the call before where this call
+        continues its stream: the mixer's phase at the absolute sample,
+        the history where the last call's stream ended at this call's
+        start, zeros otherwise); acquisition takes the conditioned head
+        at the internal rate, and the ingest scale is taken from the first
+        segment's conditioned samples, as process() takes it from the
+        conditioned capture."""
         if self.trk_kind != "dll_pll":
             raise ValueError("process_stream supports the DLL/PLL engine")
         cfg = self.cfg
@@ -1277,19 +1303,26 @@ class Receiver:
         if fmt is not None and fmt.name not in STREAM_FORMATS:
             raise ValueError(
                 "raw streaming supports interleaved I/Q integer formats "
-                "(ishort/ibyte/cshort/cbyte) and 2bits_cpx")
+                "(ishort/ibyte/cshort/cbyte), 2bits_cpx and nsr")
         ipc = fmt.items_per_sample if fmt is not None else 1
         spi = fmt.samples_per_item if fmt is not None else 1
+        front = self._stream_front_end(raw_format)
+        if front is not None:
+            fh = self._front_hist
+            front.seek(abs_base, fh[2] if fh is not None and
+                       fh[:2] == (raw_format, abs_base) else None)
+        # source samples an output takes
+        R = front.decim if front is not None else 1
 
         def n_items(n_samples: int) -> int:
             return (n_samples * ipc + spi - 1) // spi
 
-        if (span * ipc) % spi:
+        if (span * R * ipc) % spi:
             raise ValueError("segment span must align to whole raw items")
         need_samps = span + nmax
         staging = PinnedStaging(self.device)
         buf_parts: list[np.ndarray] = []
-        buf_len = 0                     # samples buffered
+        buf_len = 0                     # source samples buffered
         consumed = 0                    # samples launched (stream-relative)
         pending: list[tuple] = []
         reacq_countdown = 0
@@ -1297,14 +1330,24 @@ class Receiver:
             chunk = np.asarray(chunk)
             buf_parts.append(chunk)
             buf_len += len(chunk) * spi // ipc
-            while buf_len >= need_samps and not self._standby:
+            while buf_len >= need_samps * R and not self._standby:
                 with spans.span("receiver.segment"):
                     buf = np.concatenate(buf_parts) if len(buf_parts) > 1 \
                         else buf_parts[0]
+                    if front is not None:
+                        seg_dev = self._conditioned_segment(
+                            front, staging, buf[: n_items(need_samps * R)],
+                            need_samps, span)
                     # acquisition on the segment head (idle channels only)
                     if reacq_countdown <= 0:
                         need = self.acq.cfg.fft_size * max(1, cfg.acq_dwells)
-                        if buf_len >= need:
+                        if front is not None:
+                            if need <= need_samps and None in \
+                                    self.channel_prn:
+                                self._pos = consumed
+                                self._acquire_and_assign(
+                                    consumed, seg_dev[:need].cpu().numpy())
+                        elif buf_len >= need:
                             head = buf[: n_items(need)]
                             xc = convert_to_complex64(head, fmt)[:need] \
                                 if fmt is not None else head
@@ -1313,24 +1356,26 @@ class Receiver:
                         reacq_countdown = max(1, cfg.reacq_interval_blocks
                                               // max(1, span // base))
                     reacq_countdown -= 1
-                    seg = buf[: n_items(need_samps)]
-                    if fmt is not None:
-                        if self._ingest_scale is None:
-                            self._scale_for(convert_to_complex64(
-                                buf[: n_items(min(buf_len, 1 << 18))], fmt))
-                        seg_dev = unpack_raw(staging.upload(seg), fmt.name,
-                                             self._ingest_scale)[:need_samps]
-                    else:
-                        scale = np.float32(self._scale_for(seg))
-                        seg_dev = staging.upload(
-                            np.asarray(seg, np.complex64)) * scale
+                    if front is None:
+                        seg = buf[: n_items(need_samps)]
+                        if fmt is not None:
+                            if self._ingest_scale is None:
+                                self._scale_for(convert_to_complex64(buf[
+                                    : n_items(min(buf_len, 1 << 18))], fmt))
+                            seg_dev = unpack_raw(
+                                staging.upload(seg), fmt.name,
+                                self._ingest_scale)[:need_samps]
+                        else:
+                            scale = np.float32(self._scale_for(seg))
+                            seg_dev = staging.upload(
+                                np.asarray(seg, np.complex64)) * scale
                     owners = [(p, self.decoders.get(p))
                               for p in self.channel_prn]
                     self.state, readback = self.trk.launch_capture(
                         seg_dev, self.state, span)
                     pending.append((readback, consumed, owners))
-                    buf_parts = [buf[span * ipc // spi:]]
-                    buf_len -= span
+                    buf_parts = [buf[span * R * ipc // spi:]]
+                    buf_len -= span * R
                     consumed += span
                     self._blocks_done += span // base
                 # harvest the previous segment while this one computes
@@ -1339,8 +1384,36 @@ class Receiver:
         while pending:
             self._harvest_segment(*pending.pop(0), abs_base)
         self._abs_base = abs_base + consumed
+        if front is not None:
+            self._front_hist = (raw_format, self._abs_base, front.history())
         self._pos = 0
         return self.solutions
+
+    def _stream_front_end(self, raw_format):
+        """process_stream's StreamFrontEnd for the config's front end, or
+        None where it passes the samples through (or there is none)."""
+        fe = self.cfg.front_end
+        if fe is None or fe.is_passthrough:
+            return None
+        if abs(fe.internal_fs_hz - self.cfg.fs_hz) > 1e-6:
+            raise ValueError(
+                f"the front end conditions to {fe.internal_fs_hz:.0f} Hz, "
+                f"the receiver tracks at {self.cfg.fs_hz:.0f} Hz")
+        return StreamFrontEnd(fe, raw_format, self.device)
+
+    def _conditioned_segment(self, front, staging, items, n_out: int,
+                             span: int):
+        """A segment's source items staged and conditioned on the card: its
+        n_out samples at the internal rate, at the ingest scale (taken
+        from the first segment's conditioned samples, which are then
+        scaled in place: the kernel's own product, bit for bit)."""
+        raw = staging.upload(items)
+        if self._ingest_scale is not None:
+            return front.condition(raw, n_out, span, self._ingest_scale)
+        y = front.condition(raw, n_out, span, 1.0)
+        self._scale_for(y[: 1 << 18].cpu().numpy())
+        torch.view_as_real(y).mul_(float(np.float32(self._ingest_scale)))
+        return y
 
     def _harvest_segment(self, readback, seg_start: int, owners,
                          abs_base: int) -> None:
@@ -1356,15 +1429,16 @@ class Receiver:
 
     # ---------------- checkpoint / resume ----------------
 
-    # the JAX package's _CKPT_FIELDS, and _empty_acq_streak (its segment
-    # gating state; the JAX package does not carry it across a resume)
+    # the JAX package's _CKPT_FIELDS, _empty_acq_streak (its segment
+    # gating state; the JAX package does not carry it across a resume) and
+    # _front_hist (the stream front end's history, which it lacks)
     _CKPT_FIELDS = (
         "channel_prn", "decoders", "histories", "sym_count", "last_rem",
         "last_frac", "carrier_phase_acc", "last_carr_rem", "rx_tow_s",
         "rx_tow_sample", "solutions", "obs_epochs", "_blocks_done",
         "_next_obs_sample", "_standby", "_abs_base", "_no_tow_syms",
         "_acq_info", "_ledger_prev_start", "_ingest_scale", "_smoother",
-        "_sym_carry", "_mode_host", "_empty_acq_streak",
+        "_sym_carry", "_mode_host", "_empty_acq_streak", "_front_hist",
     )
 
     def checkpoint(self, path: str) -> None:

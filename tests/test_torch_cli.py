@@ -77,10 +77,12 @@ def test_ported_conf_maps_like_jax(name):
     rj, rt = jrc(JConf(path)), trc(TConf(path))
     shared = ({f.name for f in dataclasses.fields(rt)}
               & {f.name for f in dataclasses.fields(rj)})
-    # every field but the port's own chunk length and the QuickSync
-    # folding factor it reads from the conf (the JAX receiver fixes it at 2)
+    # every field but the port's own chunk length, the QuickSync folding
+    # factor it reads from the conf (the JAX receiver fixes it at 2) and
+    # the front end its process_stream conditions with (build_frontend's)
     assert {f.name for f in dataclasses.fields(rt)} - shared == {
-        "chunk_epochs", "acq_folding_factor"}
+        "chunk_epochs", "acq_folding_factor", "front_end"}
+    assert rt.front_end == tbuild(TConf(path))
     for f in sorted(shared):
         assert getattr(rt, f) == getattr(rj, f), f
     rx = Receiver(rt, device="cpu")
